@@ -1,0 +1,633 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py                   # on a machine with a CUDA card
+    python3 chip_smoke.py --cpu-rehearsal   # plain versions, tiny sizes, no card
+
+Phases, one line or more each; any failure makes the run exit non-zero:
+
+0. the card's name and power limit; builds the CUDA kernels from
+   ``src/repro_torch/csrc`` and prints nvcc's ``-Xptxas -v`` report;
+1. e2afs sqrt/rsqrt kernel vs its plain version: bit-identical (NaN as NaN)
+   over every fp16 and bf16 pattern and the fp32 grid, plus the paper's
+   Table 2 example (0x785A -> 0 10110 1000100001);
+2. RMSNorm kernel vs plain version at the serving shapes, bf16 and fp32;
+3. decode-attention kernel vs plain version at the serving widths, bf16 and
+   fp32, float and int8 caches, wrap off and on, mixed per-row positions;
+4. the main paths, each with the launch counts set to 0 just before and read
+   just after: (a) qwen3-4b at full width serving batch 8 (prompt 512, 64
+   greedy tokens, cache 576) on the kernels, held against the same weights
+   and prompt on the plain versions; (b) the sqrt-unit entry point
+   ``get_unit("e2afs", kernel=True)`` on an activation-sized tensor, held
+   bit-identical to the plain version.  Then a
+   small float32 model on the card, kernels vs plain versions (identical
+   tokens), and ``serve.generate`` at smoke width;
+5. times each kernel, its plain version and a PyTorch yardstick call, both as
+   device time per call (torch.profiler) and with CUDA events around
+   back-to-back calls, beside the kernel's bound;
+6. times four full-width decode steps without and then under the profiler:
+   the device's idle share of the unprofiled step, top kernels.
+
+Before the last line it prints the card's name and power limit and one JSON
+line of kernels; the last line is ``{"ok": true, "device": {...}}``.  Without
+a card, or outside a checkout of the repository, it exits non-zero and
+prints no result.  It imports neither ``jax`` nor the JAX package.
+"""
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import subprocess
+import sys
+import time
+import traceback
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# NVIDIA H100 SXM data sheet (dense): HBM rate and peak rates by input type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+
+KERNELS = {
+    "e2afs_sqrt": ("src/repro_torch/csrc/e2afs_sqrt.cu",
+                   "src/repro/kernels/e2afs_sqrt/e2afs_sqrt.py:26"),
+    "e2afs_rsqrt": ("src/repro_torch/csrc/e2afs_sqrt.cu",
+                    "src/repro/kernels/e2afs_sqrt/e2afs_sqrt.py:26"),
+    "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/rmsnorm.py:32"),
+    "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
+                         "src/repro/kernels/attention/attention.py:62"),
+}
+
+
+def ulp_of(r):
+    """One unit in the last place of each element of r, in r's own dtype."""
+    import torch
+
+    man_bits = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23}[r.dtype]
+    _, e = torch.frexp(r.float())
+    return torch.ldexp(torch.ones_like(r, dtype=torch.float32), e - 1 - man_bits)
+
+
+class Smoke:
+    def __init__(self, rehearsal: bool):
+        import torch
+
+        self.torch = torch
+        self.rehearsal = rehearsal
+        self.dev = torch.device("cpu" if rehearsal else "cuda")
+        self.failed = []
+        self.rows = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep}
+                     for name, (src, rep) in KERNELS.items()}
+        self.card = "rehearsal on the CPU: no card"
+
+    # -- helpers -----------------------------------------------------------
+    def phase(self, name, fn):
+        t0 = time.perf_counter()
+        try:
+            fn()
+            print(f"[{name}] ok ({time.perf_counter() - t0:.1f} s)", flush=True)
+        except Exception:  # a failed phase fails the run; the next phases still report
+            traceback.print_exc()
+            print(f"[{name}] FAILED", flush=True)
+            self.failed.append(name)
+
+    def sync(self):
+        if self.dev.type == "cuda":
+            self.torch.cuda.synchronize()
+
+    def time_ms(self, fn, iters=30):
+        """Mean ms per call from CUDA events (None in a rehearsal)."""
+        if self.rehearsal:
+            fn()
+            return None
+        torch = self.torch
+        t_end = time.perf_counter() + 0.05  # warm-up: at least 3 calls and 50 ms
+        n = 0
+        while n < 3 or time.perf_counter() < t_end:
+            fn()
+            torch.cuda.synchronize()
+            n += 1
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) / iters
+
+    def profiled(self, fn, iters):
+        """Run fn iters times under torch.profiler; returns (host wall us,
+        [(device us, calls, kernel name)] sorted, largest first).  Only
+        device-side events: an operator's own entry repeats its kernels'."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        activities = [ProfilerActivity.CPU] + ([] if self.rehearsal else [ProfilerActivity.CUDA])
+        with profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            self.sync()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        rows = []
+        for e in prof.key_averages():
+            if e.device_type != DeviceType.CUDA:
+                continue
+            dev_us = getattr(e, "self_device_time_total", None)
+            if dev_us is None:
+                dev_us = getattr(e, "self_cuda_time_total", 0.0)
+            if dev_us > 0:
+                rows.append((dev_us, e.count, e.key))
+        rows.sort(reverse=True)
+        return wall_us, rows
+
+    def device_ms(self, fn, iters=20):
+        """Device time per call: the kernels' own time under torch.profiler,
+        summed, over iters calls (None in a rehearsal).  Unlike CUDA events
+        around back-to-back calls, it leaves out the host's launch gaps."""
+        if self.rehearsal:
+            return None
+        fn()
+        self.sync()
+        _, rows = self.profiled(fn, iters)
+        if not rows:
+            raise AssertionError("the profiler saw no device time")
+        return sum(r[0] for r in rows) / iters / 1e3
+
+    def gen(self, seed):
+        return self.torch.Generator(device=self.dev).manual_seed(seed)
+
+    # -- phase 0 -----------------------------------------------------------
+    def p0_build(self):
+        torch = self.torch
+        if not self.rehearsal:
+            smi = subprocess.run(
+                ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                capture_output=True, text=True, timeout=60)
+            self.card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else (
+                f"nvidia-smi failed: {smi.stderr.strip()}")
+            print(f"card: {self.card}")
+            print(f"torch.cuda.get_device_name(0): {torch.cuda.get_device_name(0)}")
+        print(f"python {sys.version.split()[0]}, torch {torch.__version__}, cuda {torch.version.cuda}")
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if self.rehearsal:
+            from repro_torch.kernels import _build
+
+            print(_build.constants_header())
+            return
+        from repro_torch.kernels import _build
+
+        report = _build.build()
+        print(report.log)
+        print(f"build: {report.seconds:.1f} s into {report.directory}")
+
+    # -- phase 1 -----------------------------------------------------------
+    def p1_e2afs(self):
+        torch = self.torch
+        from repro_torch.core.metrics import sampled_normal_values
+        from repro_torch.kernels.e2afs_sqrt import ops, ref
+
+        int_of = {torch.float16: torch.int16, torch.bfloat16: torch.int16,
+                  torch.float32: torch.int32}
+        inputs = {
+            "fp16": torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.float16),
+            "bf16": torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16),
+            "fp32 grid": sampled_normal_values(),
+        }
+        for label, x in inputs.items():
+            x = x.to(self.dev)
+            for fn, plain in ((ops.sqrt, ref.ref_sqrt), (ops.rsqrt, ref.ref_rsqrt)):
+                y, r = fn(x), plain(x)
+                self.sync()
+                ib = int_of[x.dtype]
+                same = (y.view(ib) == r.view(ib)) | (torch.isnan(y) & torch.isnan(r))
+                bad = int((~same).sum())
+                print(f"  e2afs {fn.__name__:5s} {label:9s} n={x.numel()}: {bad} differing patterns")
+                if bad:
+                    raise AssertionError(f"e2afs {fn.__name__} {label}: {bad} patterns differ")
+        x = torch.tensor([0x785A], dtype=torch.int16).view(torch.float16).to(self.dev)
+        bits = int(ops.sqrt(x).view(torch.int16).item()) & 0xFFFF
+        print(f"  Table 2: sqrt(0x785A) -> {bits >> 15} {bits >> 10 & 31:05b} {bits & 1023:010b}")
+        if bits != 0b0_10110_1000100001:
+            raise AssertionError(f"Table 2 example gives {bits:#06x}")
+        for name in ("e2afs_sqrt", "e2afs_rsqrt"):
+            self.rows[name]["max_abs_err"] = 0.0
+
+    # -- phase 2 -----------------------------------------------------------
+    def rms_inputs(self, rows, d, dtype, seed):
+        torch = self.torch
+        g = self.gen(seed)
+        x = torch.randn(rows, d, generator=g, device=self.dev).to(dtype)
+        s = (0.1 * torch.randn(d, generator=g, device=self.dev)).to(dtype)
+        return x, s
+
+    def p2_rmsnorm(self):
+        torch = self.torch
+        from repro_torch.kernels.rmsnorm import ops, ref
+
+        # every shape the serving path gives the kernel: decode ln (b, d),
+        # prefill ln (b * prompt, d), decode qk-norm (b * h, hd) and
+        # (b * kv, hd), prefill qk-norm (b * prompt * h, hd) and
+        # (b * prompt * kv, hd); and (b * 128, d)
+        b, s_len, h, kv = (2, 16, 4, 2) if self.rehearsal else (8, 512, 32, 8)
+        shapes = [(b, 2560), (b * 128, 2560), (b * s_len, 2560), (b * h, 128), (b * kv, 128),
+                  (b * s_len * kv, 128), (b * s_len * h, 128)]
+        worst = 0.0
+        for dtype in (torch.bfloat16, torch.float32):
+            for rows, d in shapes:
+                x, s = self.rms_inputs(rows, d, dtype, rows + d)
+                for label, scale in (("scale", s), ("zero scale", torch.zeros_like(s))):
+                    y, r = ops.rmsnorm(x, scale), ref.ref_rmsnorm(x, scale)
+                    self.sync()
+                    diff = (y.float() - r.float()).abs()
+                    err = float(diff.max())
+                    ulps = float((diff / ulp_of(r)).max())
+                    rel = float((diff / r.float().abs().clamp_min(1e-30)).max())
+                    print(f"  rmsnorm {str(dtype):14s} ({rows}, {d}) {label:10s}: max |diff| "
+                          f"{err:.3e}, {ulps:.2f} ulp, relative {rel:.2e}")
+                    # Only the order of the float32 sum differs.  float32:
+                    # within 1e-6 relative.  bf16: T(x * inv) within one ulp
+                    # (zero scale shows it bare); the (1 + scale) multiply
+                    # stretches that step and rounds again, so two ulps.
+                    limit = 1.0 if label == "zero scale" else 2.0
+                    if (ulps > limit) if dtype == torch.bfloat16 else (rel > 1e-6):
+                        raise AssertionError(f"rmsnorm {dtype} ({rows}, {d}) {label} out of "
+                                             f"tolerance")
+                    if dtype == torch.bfloat16 and label == "scale":
+                        worst = max(worst, err)
+        self.rows["rmsnorm"]["max_abs_err"] = worst
+
+    # -- phase 3 -----------------------------------------------------------
+    def attn_inputs(self, b, h, kv, hd, t, dtype, quant, seed, pos=None):
+        torch = self.torch
+        g = self.gen(seed)
+        q = torch.randn(b, h, hd, generator=g, device=self.dev).to(dtype)
+        if quant:
+            def ints():
+                return torch.randint(-127, 128, (b, t, kv, hd), generator=g, device=self.dev,
+                                     dtype=torch.int32).to(torch.int8)
+
+            k, v = ints(), ints()
+            ks = torch.rand(b, t, kv, generator=g, device=self.dev) * 0.02 + 1e-3
+            vs = torch.rand(b, t, kv, generator=g, device=self.dev) * 0.02 + 1e-3
+        else:
+            k = torch.randn(b, t, kv, hd, generator=g, device=self.dev).to(dtype)
+            v = torch.randn(b, t, kv, hd, generator=g, device=self.dev).to(dtype)
+            ks = vs = None
+        if pos is None:  # mixed rows: start, middle, last line, past the end
+            pos = torch.tensor([0, 3, t // 2, t - 2, t - 1, t, t + 100, 3 * t][:b],
+                               dtype=torch.int32, device=self.dev)
+        return q, k, v, pos, ks, vs
+
+    def p3_attention(self):
+        torch = self.torch
+        from repro_torch.kernels.attention import ops
+
+        b, h, kv, hd = (4, 8, 2, 32) if self.rehearsal else (8, 32, 8, 128)
+        lengths = (24, 64) if self.rehearsal else (576, 4096)
+        for dtype in (torch.bfloat16, torch.float32):
+            for t in lengths:
+                for quant in (False, True):
+                    for wrap in (False, True):
+                        args = self.attn_inputs(b, h, kv, hd, t, dtype, quant, t + quant)
+                        y = ops.decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                        r = ops.ref_decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                        self.sync()
+                        diff = (y.float() - r.float()).abs()
+                        err = float(diff.max())
+                        if dtype == torch.float32:
+                            ok = torch.allclose(y, r, atol=1e-5, rtol=1e-5)
+                            limit = "atol 1e-5, rtol 1e-5"
+                        else:
+                            # Only the order of the float32 sums differs and
+                            # bf16 rounds the weights and outputs after them:
+                            # within two bf16 ulps at each (slot, head) row's
+                            # largest output.  One cache line dropped or
+                            # doubled moves a row by several.
+                            row = r.float().abs().amax(dim=-1, keepdim=True).to(dtype)
+                            ulps = float((diff / ulp_of(row)).max())
+                            ok = ulps <= 2.0
+                            limit = f"{ulps:.2f} row ulps, limit 2"
+                        print(f"  decode_attention {str(dtype):14s} t={t:5d} int8={quant!s:5s} "
+                              f"wrap={wrap!s:5s}: max |diff| {err:.3e} ({limit}) "
+                              f"{'ok' if ok else 'FAIL'}")
+                        if not ok:
+                            raise AssertionError("decode attention disagrees with its plain version")
+                        if dtype == torch.bfloat16 and t == lengths[0] and not quant and not wrap:
+                            self.rows["decode_attention"]["max_abs_err"] = err
+
+    # -- phase 4 -----------------------------------------------------------
+    def p4_serve(self):
+        torch = self.torch
+        from repro_torch.configs import get_config, get_smoke_config
+        from repro_torch.kernels import dispatch
+        from repro_torch.models import lm
+
+        if self.rehearsal:
+            cfg = get_smoke_config("qwen3-4b", sqrt_unit="e2afs", decode_kernel="fused")
+            batch, prompt_len, gen_len = 2, 16, 4
+        else:
+            cfg = get_config("qwen3-4b", sqrt_unit="e2afs", decode_kernel="fused")
+            batch, prompt_len, gen_len = 8, 512, 64
+        cache_len = prompt_len + gen_len
+        print(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads {cfg.n_heads}/"
+              f"{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab {cfg.vocab} -> {cfg.padded_vocab}, "
+              f"{cfg.act_dtype}; batch {batch}, prompt {prompt_len}, {gen_len} new tokens, "
+              f"cache {cache_len}")
+        t0 = time.perf_counter()
+        model = lm.init(cfg, self.gen(0), device=self.dev)
+        self.sync()
+        print(f"  init: {lm.param_count(model) / 1e9:.3f} B parameters in "
+              f"{time.perf_counter() - t0:.1f} s")
+        prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=self.gen(1),
+                               device=self.dev)
+
+        def run(c, n):
+            cache = lm.init_cache(c, batch, cache_len, device=self.dev)
+            self.sync()
+            t_a = time.perf_counter()
+            logits, cache = lm.prefill(model, c, cache, prompt, last_logit_only=True)
+            self.sync()
+            t_b = time.perf_counter()
+            toks, _, _ = lm.generate_scan(model, c, cache, logits[:, -1:].argmax(-1),
+                                          prompt_len, n)
+            self.sync()
+            return logits, toks, t_b - t_a, time.perf_counter() - t_b
+
+        run(cfg, 2)  # warm-up: cuBLAS handles, allocator, kernel libraries loaded
+        if not self.rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launch_counts()
+        logits, toks, pf_s, dec_s = run(cfg, gen_len)  # the main path
+        counts = dispatch.launch_counts()
+        peak = torch.cuda.max_memory_allocated() if not self.rehearsal else None
+        print(f"  main path launches: {counts}")
+        want = {"rmsnorm": (4 * cfg.n_layers + 1) * (1 + gen_len),
+                "decode_attention": cfg.n_layers * gen_len}
+        self.rows["rmsnorm"]["launches"] = counts["rmsnorm"]
+        self.rows["decode_attention"]["launches"] = counts["decode_attention"]
+        print(f"  prefill {pf_s * 1e3:.1f} ms; decode {dec_s / gen_len * 1e3:.2f} ms/step, "
+              f"{batch * gen_len / dec_s:.1f} tok/s; peak memory "
+              f"{peak / 2**30 if peak is not None else float('nan'):.2f} GiB (host clock with "
+              f"synchronize; {self.card})")
+
+        prev = dispatch.set_backend("reference")
+        try:
+            ref_logits, ref_toks, rpf_s, rdec_s = run(cfg.replace(decode_kernel="reference"), gen_len)
+        finally:
+            dispatch.set_backend(prev)
+        print(f"  plain versions: prefill {rpf_s * 1e3:.1f} ms; decode "
+              f"{rdec_s / gen_len * 1e3:.2f} ms/step")
+        if not self.rehearsal and (counts["rmsnorm"] != want["rmsnorm"]
+                                   or counts["decode_attention"] != want["decode_attention"]):
+            raise AssertionError(f"launch counts {counts}, want {want}")
+        if not self.rehearsal and dispatch.launch_counts() != counts:
+            raise AssertionError("the plain-version run launched a kernel")
+        if tuple(logits.shape) != (batch, 1, cfg.vocab) or tuple(toks.shape) != (batch, gen_len):
+            raise AssertionError(f"shapes: logits {tuple(logits.shape)}, tokens {tuple(toks.shape)}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite first-step logits")
+        diff = float((logits.float() - ref_logits.float()).abs().max())
+        top = ref_logits.float().abs().max()
+        limit = 4 * float(ulp_of(top.reshape(1).to(ref_logits.dtype)))
+        agree = float((toks == ref_toks).float().mean())
+        first = [int((toks[:, i] == ref_toks[:, i]).sum()) for i in range(min(2, gen_len))]
+        print(f"  kernels vs plain versions: first-step logits max |diff| {diff:.4g} "
+              f"(limit {limit:.4g}: 4 {ref_logits.dtype} ulps at max |logit| {float(top):.4g}); "
+              f"first two generated tokens agree {first} of {batch}; greedy token agreement "
+              f"{agree:.3f} over {toks.numel()} tokens")
+        # Only sum orders differ in the norms and attention: the logits stay
+        # within a few ulps, and the prefill argmax and the first decode
+        # step's token agree in every slot.  Later tokens may part on near
+        # ties, which then compound.
+        if diff > limit:
+            raise AssertionError("full-width logits disagree with the plain versions")
+        if first != [batch] * len(first):
+            raise AssertionError(f"first generated tokens disagree: {first} of {batch}")
+        self.serving = (cfg, model, prompt, logits[:, -1:].argmax(-1), batch, prompt_len,
+                        cache_len)
+
+    def p4_unit(self):
+        torch = self.torch
+        from repro_torch.core import get_unit
+        from repro_torch.kernels import dispatch
+
+        shape = (2, 16, 64) if self.rehearsal else (8, 512, 2560)
+        x = torch.rand(shape, generator=self.gen(2), device=self.dev) * 4.0 + 1e-3
+        unit = get_unit("e2afs", kernel=True)
+        dispatch.reset_launch_counts()
+        y, z = unit.sqrt(x), unit.rsqrt(x)
+        self.sync()
+        counts = dispatch.launch_counts()
+        print(f"  unit path {tuple(shape)} float32 launches: {counts}")
+        for name in ("e2afs_sqrt", "e2afs_rsqrt"):
+            self.rows[name]["launches"] = counts[name]
+        if not self.rehearsal and (counts["e2afs_sqrt"] != 1 or counts["e2afs_rsqrt"] != 1):
+            raise AssertionError(f"unit path launches {counts}")
+        from repro_torch.kernels.e2afs_sqrt import ref
+
+        for label, out, plain in (("sqrt", y, ref.ref_sqrt(x)), ("rsqrt", z, ref.ref_rsqrt(x))):
+            same = (out.view(torch.int32) == plain.view(torch.int32)) | (
+                torch.isnan(out) & torch.isnan(plain))
+            bad = int((~same).sum())
+            print(f"  unit {label:5s} vs plain version at {tuple(shape)}: {bad} of {x.numel()} "
+                  f"differ; all finite: {bool(torch.isfinite(out).all())}")
+            if bad or not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"unit path {label} differs from its plain version")
+
+    def p4_small(self):
+        """A small float32 model on the card: kernels vs plain versions give
+        identical greedy tokens; then serve.generate at smoke width."""
+        torch = self.torch
+        from repro_torch.configs import get_smoke_config
+        from repro_torch.kernels import dispatch
+        from repro_torch.launch import serve
+        from repro_torch.models import lm
+
+        cfg = get_smoke_config("qwen3-4b", act_dtype="float32", sqrt_unit="e2afs",
+                               decode_kernel="fused")
+        model = lm.init(cfg, self.gen(3), device=self.dev)
+        prompt = torch.randint(0, cfg.vocab, (4, 12), generator=self.gen(4), device=self.dev)
+        outs = []
+        for backend, route in (("auto", "fused"), ("reference", "reference")):
+            prev = dispatch.set_backend(backend)
+            try:
+                c = cfg.replace(decode_kernel=route)
+                cache = lm.init_cache(c, 4, 28, device=self.dev)
+                logits, cache = lm.prefill(model, c, cache, prompt, last_logit_only=True)
+                toks, _, _ = lm.generate_scan(model, c, cache, logits[:, -1:].argmax(-1), 12, 16)
+                outs.append((logits, toks))
+            finally:
+                dispatch.set_backend(prev)
+        diff = float((outs[0][0] - outs[1][0]).abs().max())
+        same = bool(torch.equal(outs[0][1], outs[1][1]))
+        print(f"  smoke float32: logits max |diff| {diff:.3e} (atol 1e-4), tokens identical: {same}")
+        if diff > 1e-4 or not same:
+            raise AssertionError("small float32 model: kernels disagree with plain versions")
+        for mode in serve.MODES:
+            serve.generate("qwen3-4b", mode=mode, reps=1, device=self.dev)
+
+    # -- phase 6 -----------------------------------------------------------
+    def p6_profile(self):
+        """Four full-width decode steps (after the counted run), timed
+        without the profiler and then under it: the device's idle share of
+        the unprofiled step, and the top kernels."""
+        from repro_torch.models import lm
+
+        cfg, model, prompt, tok, batch, prompt_len, cache_len = self.serving
+        cache = lm.init_cache(cfg, batch, cache_len, device=self.dev)
+        _, cache = lm.prefill(model, cfg, cache, prompt, last_logit_only=True)
+        lm.decode_step(model, cfg, cache, tok, prompt_len)  # warm
+        self.sync()
+        steps = 4
+        pos = itertools.cycle(range(prompt_len + 1, cache_len))
+
+        def step():
+            lm.decode_step(model, cfg, cache, tok, next(pos))
+
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        self.sync()
+        plain_us = (time.perf_counter() - t0) * 1e6
+        wall_us, rows = self.profiled(step, steps)
+        busy = sum(r[0] for r in rows)
+        print(f"  {steps} decode steps: {plain_us / steps / 1e3:.3f} ms/step unprofiled, "
+              f"{wall_us / steps / 1e3:.3f} under the profiler; device busy "
+              f"{busy / steps / 1e3:.3f} ms/step; idle share {1 - busy / plain_us:.3f} of the "
+              f"unprofiled step ({1 - busy / wall_us:.3f} of the profiled one); {self.card}")
+        for dev_us, count, key in rows[:14]:
+            print(f"    {dev_us / steps / 1e3:9.4f} ms/step  {count / steps:7.1f} calls/step  "
+                  f"{key[:90]}")
+        if not self.rehearsal and busy <= 0:
+            raise AssertionError("the profiler saw no device time")
+
+    # -- phase 5 -----------------------------------------------------------
+    def p5_times(self):
+        torch = self.torch
+        F = torch.nn.functional
+        from repro_torch.kernels.attention import ops as attn_ops
+        from repro_torch.kernels.e2afs_sqrt import ops as e_ops
+        from repro_torch.kernels.e2afs_sqrt import ref as e_ref
+        from repro_torch.kernels.rmsnorm import ops as r_ops
+        from repro_torch.kernels.rmsnorm import ref as r_ref
+
+        def bound(nbytes, flops, dtype):
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+            return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+        def record(name, kern, plain, bound_pair, lib, shape_note):
+            """ms, plain_ms, library_ms: device time per call (profiler);
+            *events_ms: CUDA events around back-to-back calls, the host's
+            launch rate included."""
+            row = self.rows[name]
+            row.update(ms=self.device_ms(kern), plain_ms=self.device_ms(plain),
+                       bound_ms=bound_pair[0], bound_by=bound_pair[1],
+                       library_ms=self.device_ms(lib) if lib else None,
+                       events_ms=self.time_ms(kern), plain_events_ms=self.time_ms(plain),
+                       library_events_ms=self.time_ms(lib) if lib else None)
+            print(f"  {name:16s} {shape_note}: device ms per call: kernel {row['ms']}, plain "
+                  f"{row['plain_ms']}, library {row['library_ms']}; events ms per call: kernel "
+                  f"{row['events_ms']}, plain {row['plain_events_ms']}, library "
+                  f"{row['library_events_ms']}; bound {bound_pair[0]:.6f} ms ({bound_pair[1]})")
+
+        # e2afs: the unit path's shape, float32
+        shape = (2, 16, 64) if self.rehearsal else (8, 512, 2560)
+        x = torch.rand(shape, generator=self.gen(2), device=self.dev) * 4.0 + 1e-3
+        n = x.numel()
+        for name, kern, plain, lib in (("e2afs_sqrt", e_ops.sqrt, e_ref.ref_sqrt, torch.sqrt),
+                                       ("e2afs_rsqrt", e_ops.rsqrt, e_ref.ref_rsqrt, torch.rsqrt)):
+            record(name, lambda k=kern: k(x), lambda p=plain: p(x), bound(2 * n * 4, 0, "float32"),
+                   lambda f=lib: f(x), f"{tuple(shape)} float32")
+
+        # rmsnorm: the decode layer-norm shape, bf16
+        rows, d = (2, 2560) if self.rehearsal else (8, 2560)
+        xs, s = self.rms_inputs(rows, d, torch.bfloat16, 7)
+        weight = 1.0 + s
+        record("rmsnorm", lambda: r_ops.rmsnorm(xs, s), lambda: r_ref.ref_rmsnorm(xs, s),
+               bound((2 * rows * d + d) * 2, 4 * rows * d, "bfloat16"),
+               lambda: F.rms_norm(xs, (d,), weight=weight, eps=1e-6), f"({rows}, {d}) bfloat16")
+
+        # decode attention: one decode step's layer at the serving widths,
+        # every cache line live (the last step); enough copies of the cache
+        # to stream more than twice the 50 MB L2 between repeats
+        b, h, kv, hd, t = (2, 8, 2, 32, 24) if self.rehearsal else (8, 32, 8, 128, 576)
+        pos = torch.full((b,), t - 1, dtype=torch.int32, device=self.dev)
+        one = self.attn_inputs(b, h, kv, hd, t, torch.bfloat16, False, 11, pos=pos)
+        cache_bytes = 2 * one[1].numel() * 2
+        copies = 1 if self.rehearsal else max(1, -(-100_000_000 // cache_bytes))
+        sets = [one] + [self.attn_inputs(b, h, kv, hd, t, torch.bfloat16, False, 12 + i, pos=pos)
+                        for i in range(copies - 1)]
+        it = {"i": 0}
+
+        def rotating(fn):
+            def call():
+                a = sets[it["i"] % len(sets)]
+                it["i"] += 1
+                return fn(a)
+            return call
+
+        g = h // kv
+        mask = torch.ones(b, 1, 1, t, dtype=torch.bool, device=self.dev)
+
+        def sdpa(a):  # (b, h, 1, hd) against (b, kv, t, hd) views of the cache
+            return F.scaled_dot_product_attention(a[0][:, :, None], a[1].transpose(1, 2),
+                                                  a[2].transpose(1, 2), attn_mask=mask,
+                                                  enable_gqa=True)
+
+        nbytes = (b * h * hd * 2) * 2 + cache_bytes + b * 4
+        record("decode_attention",
+               rotating(lambda a: attn_ops.decode_attention(*a, scale=hd**-0.5)),
+               rotating(lambda a: attn_ops.ref_decode_attention(*a, scale=hd**-0.5)),
+               bound(nbytes, 4 * b * h * t * hd, "bfloat16"), rotating(sdpa),
+               f"b={b} h={h} kv={kv} hd={hd} t={t} bfloat16 (g={g}, {copies} cache copies)")
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cpu-rehearsal", action="store_true",
+                    help="run every phase on the CPU with the plain versions at tiny sizes; "
+                         "never prints the ok line")
+    args = ap.parse_args(argv)
+    if not (SRC / "repro_torch").is_dir():
+        print(f"error: {SRC / 'repro_torch'} is missing; run from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    import torch
+
+    if not args.cpu_rehearsal and not torch.cuda.is_available():
+        print("error: no CUDA device; this smoke run needs the card "
+              "(--cpu-rehearsal rehearses it on the CPU)", file=sys.stderr)
+        return 2
+    smoke = Smoke(args.cpu_rehearsal)
+    smoke.phase("0 build", smoke.p0_build)
+    smoke.phase("1 e2afs", smoke.p1_e2afs)
+    smoke.phase("2 rmsnorm", smoke.p2_rmsnorm)
+    smoke.phase("3 decode_attention", smoke.p3_attention)
+    smoke.phase("4a serve qwen3-4b", smoke.p4_serve)
+    smoke.phase("4b sqrt unit", smoke.p4_unit)
+    smoke.phase("4c small model + serve.generate", smoke.p4_small)
+    smoke.phase("5 times", smoke.p5_times)
+    smoke.phase("6 profile", smoke.p6_profile)
+    if smoke.failed:
+        print(f"FAILED phases: {smoke.failed}", file=sys.stderr)
+        return 1
+    print(smoke.card)
+    print(json.dumps({"kernels": list(smoke.rows.values())}))
+    if args.cpu_rehearsal:
+        print("rehearsal done (no result line without the card)")
+        return 0
+    print(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                             "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,84 @@
+"""SqrtUnit registry: every sqrt/rsqrt consumer takes a ``sqrt_unit`` name and
+resolves it here (torch port of ``repro.core.units`` for "exact" and
+"e2afs")::
+
+    unit = get_unit("e2afs")
+    y = unit.sqrt(x)                       # plain bit-level datapath
+    z = get_unit("e2afs", kernel=True).rsqrt(x)   # the e2afs_sqrt kernel
+
+The kernel route goes through the dispatch layer: the CUDA kernel for a
+CUDA tensor, the plain version for a CPU tensor.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core import e2afs, exact
+
+__all__ = ["SqrtUnit", "get_unit"]
+
+
+def _kernel_sqrt(x, **kw):
+    from repro_torch.kernels.e2afs_sqrt import ops  # lazy: kernels import core
+
+    return ops.sqrt(x, **kw)
+
+
+def _kernel_rsqrt(x, **kw):
+    from repro_torch.kernels.e2afs_sqrt import ops
+
+    return ops.rsqrt(x, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class SqrtUnit:
+    name: str
+    _sqrt: Callable
+    _rsqrt: Optional[Callable] = None  # native rsqrt datapath if available
+    description: str = ""
+    _kernel_sqrt: Optional[Callable] = None
+    _kernel_rsqrt: Optional[Callable] = None
+    kernel_default: bool = False  # route through the kernel unless overridden
+
+    def _use_kernel(self, kernel: Optional[bool]) -> bool:
+        use = self.kernel_default if kernel is None else kernel
+        if use and self._kernel_sqrt is None:
+            raise ValueError(f"unit {self.name!r} has no kernel route")
+        return use
+
+    def sqrt(self, x: torch.Tensor, *, kernel: Optional[bool] = None, **kw) -> torch.Tensor:
+        if self._use_kernel(kernel):
+            return self._kernel_sqrt(x, **kw)
+        return self._sqrt(x, **kw)
+
+    def rsqrt(self, x: torch.Tensor, *, kernel: Optional[bool] = None, **kw) -> torch.Tensor:
+        if self._use_kernel(kernel):
+            return self._kernel_rsqrt(x, **kw)
+        return self._rsqrt(x, **kw)
+
+
+_REGISTRY = {
+    "exact": SqrtUnit("exact", exact.exact_sqrt, exact.exact_rsqrt, "IEEE sqrt (reference)"),
+    "e2afs": SqrtUnit(
+        "e2afs",
+        e2afs.e2afs_sqrt,
+        e2afs.e2afs_rsqrt,
+        "paper's dual-level shift-add datapath",
+        _kernel_sqrt=_kernel_sqrt,
+        _kernel_rsqrt=_kernel_rsqrt,
+    ),
+}
+
+
+def get_unit(name: str, *, kernel: bool = False) -> SqrtUnit:
+    try:
+        unit = _REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown sqrt unit {name!r}; available: {sorted(_REGISTRY)}") from None
+    if kernel:
+        unit._use_kernel(True)  # validate the route exists
+        unit = dataclasses.replace(unit, kernel_default=True)
+    return unit

@@ -1,0 +1,151 @@
+// E2AFS / E2AFS-R integer datapath as __device__ functions, shared by every
+// kernel of repro_torch (the elementwise unit kernel inlines it, and so does
+// the fused RMSNorm kernel).
+//
+// Mirrors repro_torch/core/e2afs.py (itself bit-identical to
+// src/repro/core/e2afs.py) operation for operation:
+//  * fields are signed 32-bit ints, so the right shifts of a negative
+//    exponent offset r are arithmetic, as in the reference;
+//  * compose builds the sign|exp|man word in 32 bits and truncates it to the
+//    format's width (16 or 32 bits) before the bitcast, which reproduces the
+//    reference's int32 -> uint16/uint32 wrap at out-of-range exponents;
+//  * the Q-grid constants come from the generated e2afs_constants.h (Python's
+//    half-to-even round; C's roundf would give 179 for bf16's 178.5).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+
+#include "e2afs_constants.h"
+
+extern "C" const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+namespace e2afs {
+
+struct Fp16 {
+  using T = __half;
+  using Bits = unsigned short;
+  static constexpr int EXP = 5, MAN = 10;
+  static constexpr int C_EVEN = E2AFS_FP16_C_EVEN, C_ODD = E2AFS_FP16_C_ODD;
+  static constexpr int RS_00 = E2AFS_FP16_RS_00, RS_01 = E2AFS_FP16_RS_01;
+  static constexpr int RS_10 = E2AFS_FP16_RS_10, RS_11 = E2AFS_FP16_RS_11;
+  static constexpr Bits NAN_BITS = 0x7E00, INF_BITS = 0x7C00;
+};
+
+struct Bf16 {
+  using T = __nv_bfloat16;
+  using Bits = unsigned short;
+  static constexpr int EXP = 8, MAN = 7;
+  static constexpr int C_EVEN = E2AFS_BF16_C_EVEN, C_ODD = E2AFS_BF16_C_ODD;
+  static constexpr int RS_00 = E2AFS_BF16_RS_00, RS_01 = E2AFS_BF16_RS_01;
+  static constexpr int RS_10 = E2AFS_BF16_RS_10, RS_11 = E2AFS_BF16_RS_11;
+  static constexpr Bits NAN_BITS = 0x7FC0, INF_BITS = 0x7F80;
+};
+
+struct Fp32 {
+  using T = float;
+  using Bits = unsigned int;
+  static constexpr int EXP = 8, MAN = 23;
+  static constexpr int C_EVEN = E2AFS_FP32_C_EVEN, C_ODD = E2AFS_FP32_C_ODD;
+  static constexpr int RS_00 = E2AFS_FP32_RS_00, RS_01 = E2AFS_FP32_RS_01;
+  static constexpr int RS_10 = E2AFS_FP32_RS_10, RS_11 = E2AFS_FP32_RS_11;
+  static constexpr Bits NAN_BITS = 0x7FC00000u, INF_BITS = 0x7F800000u;
+};
+
+template <class F> __host__ __device__ constexpr int bias() { return (1 << (F::EXP - 1)) - 1; }
+template <class F> __host__ __device__ constexpr int exp_mask() { return (1 << F::EXP) - 1; }
+template <class F> __host__ __device__ constexpr int man_mask() { return (1 << F::MAN) - 1; }
+
+// E2AFS sqrt: biased exponent + mantissa -> output fields (normal inputs).
+template <class F>
+__device__ __forceinline__ void sqrt_fields(int exp, int man, int& exp_out, int& man_out) {
+  const int one = 1 << F::MAN;
+  const int r = exp - bias<F>();
+  const int odd = r & 1;
+  const int y_hi = man >> (F::MAN - 1);
+  exp_out = (odd == 1 ? (r - 1) >> 1 : r >> 1) + bias<F>();
+  const int even_res = one + (man >> 1) - (y_hi == 1 ? F::C_EVEN : 0);
+  const int man_adj = y_hi == 1 ? man + F::C_ODD : man;
+  const int t = one + (man_adj >> 2);
+  const int odd_res = t + (t >> 1);
+  int res = odd == 1 ? odd_res : even_res;
+  const int ovf = res >> (F::MAN + 1);
+  res = ovf == 1 ? res >> 1 : res;
+  exp_out += ovf;
+  man_out = res - one;
+}
+
+// E2AFS-R rsqrt: four-region shift-add PWL of the mantissa.
+template <class F>
+__device__ __forceinline__ void rsqrt_fields(int exp, int man, int& exp_out, int& man_out) {
+  const int one = 1 << F::MAN;
+  const int r = exp - bias<F>();
+  const int odd = r & 1;
+  const int y_hi = man >> (F::MAN - 1);
+  exp_out = (odd == 1 ? -((r + 1) >> 1) : -(r >> 1) - 1) + bias<F>();
+  int res;
+  if (odd == 1) {
+    res = y_hi == 1 ? F::RS_11 - (man >> 2) - (man >> 4) : F::RS_10 - (man >> 1) - (man >> 8);
+  } else {
+    res = y_hi == 1 ? F::RS_01 - (man >> 2) - (man >> 3) : F::RS_00 - (man >> 1) - (man >> 2);
+  }
+  const int under = res < one ? 1 : 0;
+  res = under == 1 ? res << 1 : res;
+  exp_out -= under;
+  man_out = (res - one) & man_mask<F>();
+}
+
+template <class F>
+__device__ __forceinline__ typename F::Bits compose(int sign, int exp, int man) {
+  const unsigned int word = (static_cast<unsigned int>(sign) << (F::EXP + F::MAN)) |
+                            (static_cast<unsigned int>(exp) << F::MAN) |
+                            static_cast<unsigned int>(man);
+  return static_cast<typename F::Bits>(word);  // wrap to the format's width
+}
+
+// Full unit with the IEEE specials of repro_torch/core/numerics.py
+// (apply_specials, ftz) and, for rsqrt, rsqrt(+-0 or positive subnormal) =
+// +inf and rsqrt(+inf) = 0.
+template <class F, bool RSQRT>
+__device__ __forceinline__ typename F::Bits unit_bits(typename F::Bits x) {
+  const int bits = static_cast<int>(x);
+  const int sign = (bits >> (F::EXP + F::MAN)) & 1;
+  const int exp = (bits >> F::MAN) & exp_mask<F>();
+  const int man = bits & man_mask<F>();
+  int exp_out, man_out;
+  if (RSQRT) {
+    rsqrt_fields<F>(exp, man, exp_out, man_out);
+  } else {
+    sqrt_fields<F>(exp, man, exp_out, man_out);
+  }
+  typename F::Bits out = compose<F>(0, exp_out, man_out);
+  const bool is_zero = exp == 0 && man == 0;
+  const bool is_sub = exp == 0 && man != 0;
+  const bool is_inf = exp == exp_mask<F>() && man == 0;
+  const bool is_nan = exp == exp_mask<F>() && man != 0;
+  const bool is_neg = sign == 1 && !is_zero;
+  if (is_sub || is_zero) out = 0;
+  if (is_inf) out = F::INF_BITS;
+  if (is_nan || is_neg) out = F::NAN_BITS;
+  if (RSQRT) {
+    if (is_zero || (exp == 0 && sign == 0)) out = F::INF_BITS;
+    if (is_inf && sign == 0) out = 0;
+  }
+  return out;
+}
+
+// E2AFS-R rsqrt of a positive finite float32, no specials (the in-register
+// datapath of the fused RMSNorm).
+__device__ __forceinline__ float rsqrt_f32(float x) {
+  const int bits = static_cast<int>(__float_as_uint(x));
+  const int exp = (bits >> Fp32::MAN) & exp_mask<Fp32>();
+  const int man = bits & man_mask<Fp32>();
+  int exp_out, man_out;
+  rsqrt_fields<Fp32>(exp, man, exp_out, man_out);
+  return __uint_as_float(compose<Fp32>(0, exp_out, man_out));
+}
+
+}  // namespace e2afs

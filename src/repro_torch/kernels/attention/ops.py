@@ -1,0 +1,85 @@
+"""Public wrapper: fused per-slot decode attention.
+
+A CUDA tensor goes to ``csrc/decode_attention.cu`` (one launch, counted),
+a CPU tensor to the plain version in :mod:`.ref`.  The kernel reads an int8
+cache as stored; no pre-cast copy of the cache is made.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import _build, dispatch
+from repro_torch.kernels.attention.ref import ref_decode_attention
+
+__all__ = ["decode_attention", "ref_decode_attention"]
+
+_DTYPE_CODE = {torch.bfloat16: 1, torch.float32: 2}
+_GROUPS = (1, 2, 4, 8)  # query heads per KV head that decode_attention.cu instantiates
+_ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (
+    ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+
+
+def _check(q, k, v, pos, k_scale, v_scale):
+    if q.dtype not in _DTYPE_CODE:
+        raise ValueError(f"decode attention takes bfloat16/float32 queries, got {q.dtype}")
+    if q.ndim != 3 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"expected q (b, h, hd) and k/v (b, t, kv, hd), got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    b, h, hd = q.shape
+    kb, _, kv, khd = k.shape
+    if kb != b or khd != hd or h % kv:
+        raise ValueError(f"shapes do not match: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if h // kv not in _GROUPS:
+        raise ValueError(f"the kernel serves {_GROUPS} query heads per KV head, got {h // kv}")
+    vec = 4 if k.dtype == torch.float32 else 8  # elements per vector load
+    lanes = hd // vec
+    if hd % vec or not 1 <= lanes <= 32 or lanes & (lanes - 1):
+        raise ValueError(f"head_dim {hd} must be {vec} x a power of two <= 32 "
+                         f"for a {k.dtype} cache")
+    quantized = k.dtype == torch.int8
+    if not quantized and (k.dtype != q.dtype or v.dtype != q.dtype):
+        raise ValueError(f"k/v must be int8 or {q.dtype}, got {k.dtype}, {v.dtype}")
+    if quantized != (k_scale is not None) or (k_scale is None) != (v_scale is None):
+        raise ValueError("int8 caches need k_scale and v_scale; float caches take none")
+    if quantized:
+        if v.dtype != torch.int8:
+            raise ValueError(f"v must be int8 like k, got {v.dtype}")
+        for s in (k_scale, v_scale):
+            if s.dtype != torch.float32 or s.shape != k.shape[:3] or not s.is_contiguous():
+                raise ValueError(f"scales must be contiguous float32 {tuple(k.shape[:3])}")
+    if pos.dtype != torch.int32 or tuple(pos.shape) != (b,) or not pos.is_contiguous():
+        raise ValueError(f"pos must be a contiguous ({b},) int32 tensor")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("decode attention needs contiguous q, k and v")
+    if k.data_ptr() % 16 or v.data_ptr() % 16:
+        raise ValueError("the K/V caches must start on a 16-byte boundary (vector loads)")
+    return quantized
+
+
+def decode_attention(q, k, v, pos, k_scale=None, v_scale=None, *, scale: float,
+                     wrap: bool = False) -> torch.Tensor:
+    """One fused decode-attention step.  q: (b, h, hd); k/v: (b, t, kv, hd)
+    cache in q's dtype, or int8 with float32 scales (b, t, kv); pos: (b,)
+    int32 per-row positions; ``wrap=True`` for ring caches.  Returns
+    (b, h, hd) in q's dtype."""
+    if not dispatch.use_kernel(q, k, v, pos, k_scale, v_scale):
+        return ref_decode_attention(q, k, v, pos, k_scale, v_scale, scale=scale, wrap=wrap)
+    quantized = _check(q, k, v, pos, k_scale, v_scale)
+    b, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    if b == 0:
+        return out
+    scratch = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    fn = _build.function("decode_attention", "decode_attention_launch", _ARGTYPES)
+    with torch.cuda.device(q.device):
+        fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
+           k_scale.data_ptr() if quantized else None,
+           v_scale.data_ptr() if quantized else None,
+           scratch.data_ptr(), out.data_ptr(), b, t, h, kv, hd, scale, int(wrap),
+           _DTYPE_CODE[q.dtype], int(quantized),
+           torch.cuda.current_stream(q.device).cuda_stream)
+    dispatch.count_launch("decode_attention")
+    return out

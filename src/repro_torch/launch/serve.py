@@ -1,0 +1,154 @@
+"""Serving driver: one-shot batched prefill + greedy decode (torch port of
+``repro.launch.serve``).
+
+The fast path (``mode="scan"``) runs :func:`lm.prefill` over the whole prompt
+and :func:`lm.generate_scan` for the decode, with the argmax on the device
+and no host synchronisation per token.  The per-token loop (``mode="loop"``)
+is the correctness baseline: it teacher-forces the prompt one decode step at
+a time and reads each argmax back to the host.
+
+Runs on the card unless ``device="cpu"``; the weights are random, drawn from
+a generator seeded with 0, and the prompt from one seeded with ``seed``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.device import resolve_device
+from repro_torch.models import lm
+
+__all__ = ["MODES", "decode_loop", "generate", "main", "prefill_loop"]
+
+MODES = ("scan", "loop")
+
+
+def prefill_loop(decode, params, cache, prompt):
+    """Baseline prefill: teacher-force the prompt one decode step at a time.
+    ``decode(params, cache, tokens, pos) -> (logits, cache)``.  Returns
+    (last logits, cache)."""
+    logits = None
+    for i in range(prompt.shape[1]):
+        logits, cache = decode(params, cache, prompt[:, i : i + 1], i)
+    return logits, cache
+
+
+def decode_loop(decode, params, cache, tok, start, gen_len):
+    """Baseline decode: a per-token loop with one host round-trip of the
+    argmax per generated token.  Returns (tokens (b, gen_len), cache)."""
+    out = []
+    for i in range(gen_len):
+        out.append(tok)
+        logits, cache = decode(params, cache, tok, start + i)
+        tok = torch.as_tensor(logits[:, -1:].argmax(dim=-1).cpu().numpy(), device=tok.device)
+    return torch.cat(out, dim=1), cache
+
+
+def _sync(device: torch.device):
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def generate(arch="qwen3-4b", *, batch=2, prompt_len=8, gen_len=16, sqrt_unit="e2afs",
+             quantized_kv=False, seed=0, mode="scan", reps=3, verbose=True, mesh=None,
+             rules=None, device=None):
+    """Prefill a random prompt and greedily decode ``gen_len`` tokens at the
+    smoke config of ``arch``.
+
+    One untimed pass warms up (builds and loads the kernels on the card);
+    then ``reps`` timed passes run, each on a fresh cache allocated before
+    the clock starts, and the best is kept.  Returns (tokens (b, prompt +
+    gen) as a CPU tensor, stats dict).  ``mesh``/``rules`` keep the
+    reference's signature; sharded serving is not ported yet, so they must
+    be None."""
+    if mesh is not None or rules is not None:
+        raise NotImplementedError("sharded serving (mesh=, rules=) is not ported yet")
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if prompt_len < 1:
+        raise ValueError(
+            f"prompt_len must be >= 1 (got {prompt_len}): prefill needs at "
+            f"least one prompt token to produce first-step logits"
+        )
+    dev = resolve_device(device)
+    cfg = get_smoke_config(arch, sqrt_unit=sqrt_unit)
+    model = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    prompt = torch.randint(0, cfg.vocab, (batch, prompt_len),
+                           generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+
+    def new_cache():
+        return lm.init_cache(cfg, batch, prompt_len + gen_len, quantized=quantized_kv, device=dev)
+
+    if mode == "loop":
+        def decode(m, c, t, pos):
+            return lm.decode_step(m, cfg, c, t, pos)
+
+        def run_once(cache):
+            t0 = time.perf_counter()
+            logits, cache = prefill_loop(decode, model, cache, prompt)
+            _sync(dev)
+            t_pf = time.perf_counter()
+            tok = logits[:, -1:].argmax(dim=-1)
+            gen, _ = decode_loop(decode, model, cache, tok, prompt_len, gen_len)
+            _sync(dev)
+            return gen, t_pf - t0, time.perf_counter() - t_pf
+    else:
+        def run_once(cache):
+            t0 = time.perf_counter()
+            logits, cache = lm.prefill(model, cfg, cache, prompt, last_logit_only=True)
+            _sync(dev)
+            t_pf = time.perf_counter()
+            tok = logits[:, -1:].argmax(dim=-1)
+            gen, _, _ = lm.generate_scan(model, cfg, cache, tok, prompt_len, gen_len)
+            _sync(dev)
+            return gen, t_pf - t0, time.perf_counter() - t_pf
+
+    run_once(new_cache())  # warmup
+    prefill_s, decode_s = float("inf"), float("inf")
+    for _ in range(max(1, reps)):
+        cache = new_cache()
+        _sync(dev)
+        gen, dt_pf, dt_dec = run_once(cache)
+        prefill_s = min(prefill_s, dt_pf)
+        decode_s = min(decode_s, dt_dec)
+    stats = {
+        "mode": mode,
+        "device": str(dev),
+        "prefill_ms": prefill_s * 1e3,
+        "decode_tok_s": gen_len * batch / decode_s,
+        "decode_ms_per_token": decode_s / gen_len * 1e3,
+    }
+    toks = torch.cat([prompt, gen], dim=1).cpu()
+    if verbose:
+        print(f"[serve] {arch} mode={mode} on {dev}: prefill({prompt_len} tok x{batch}) "
+              f"{stats['prefill_ms']:.1f} ms; decode {gen_len} tok x{batch} "
+              f"({stats['decode_tok_s']:.1f} tok/s, quantized_kv={quantized_kv})")
+    return toks, stats
+
+
+def main(argv=None):
+    """CLI wrapper over :func:`generate`:
+    ``python -m repro_torch.launch.serve [--arch qwen3-4b] [--device cpu] ...``"""
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-4b")
+    ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--prompt-len", type=int, default=8)
+    ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--sqrt-unit", default="e2afs")
+    ap.add_argument("--quantized-kv", action="store_true")
+    ap.add_argument("--mode", choices=MODES, default="scan",
+                    help="scan: batched prefill + device-side greedy decode; "
+                         "loop: per-token baseline")
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    args = ap.parse_args(argv)
+    toks, _ = generate(args.arch, batch=args.batch, prompt_len=args.prompt_len,
+                       gen_len=args.gen_len, sqrt_unit=args.sqrt_unit,
+                       quantized_kv=args.quantized_kv, mode=args.mode, device=args.device)
+    print(toks[:, :24])
+
+
+if __name__ == "__main__":
+    main()

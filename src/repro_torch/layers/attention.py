@@ -1,0 +1,300 @@
+"""Grouped-query attention with QK-norm (through the configured sqrt unit),
+RoPE, and a decode path over a float or int8 KV cache (torch port of the
+prefill/decode part of ``repro.layers.attention``).
+
+Shapes follow the reference's (batch, seq, heads, head_dim) convention.  The
+cache is a dict of tensors; with ``layer_idx`` each tensor carries a leading
+stacked-layers axis ``(L, b, t, kv, hd)``.  Unlike the functional reference,
+cache writes here happen IN PLACE on the given tensors (one token line per
+decode step, tokens [0, s) at prefill); the functions still return the
+cache dict so call sites read the same as the reference's.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.layers.norms import rmsnorm
+from repro_torch.layers.param import parameter
+from repro_torch.layers.rope import rope_tables, rotate
+
+__all__ = [
+    "Attention",
+    "attention_prefill",
+    "attention_decode",
+    "init_kv_cache",
+]
+
+NEG_INF = -2.0e38
+
+
+class Attention(nn.Module):
+    """wq (d, h, hd), wk/wv (d, kv, hd), wo (h, hd, d), and with qk-norm the
+    (hd,) scales q_norm/k_norm, as in the reference."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+        self.wq = parameter((d, h, hd), dtype, device)
+        self.wk = parameter((d, kv, hd), dtype, device)
+        self.wv = parameter((d, kv, hd), dtype, device)
+        self.wo = parameter((h, hd, d), dtype, device)
+        if cfg.qk_norm:
+            self.q_norm = parameter((hd,), dtype, device)
+            self.k_norm = parameter((hd,), dtype, device)
+
+
+def _qk_norm(scale, x, cfg):
+    return rmsnorm(scale, x, sqrt_unit=cfg.sqrt_unit, fused=cfg.sqrt_unit == "e2afs")
+
+
+def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one contiguous matmul."""
+    b, s, d = x.shape
+    return (x @ w.to(x.dtype).reshape(d, -1)).view(b, s, w.shape[1], w.shape[2])
+
+
+def _project_qkv(p: Attention, cfg, xq, xkv, q_positions, kv_positions, *, use_rope):
+    q = _project(xq, p.wq)
+    k = _project(xkv, p.wk)
+    v = _project(xkv, p.wv)
+    if cfg.qk_norm:
+        q = _qk_norm(p.q_norm, q, cfg)
+        k = _qk_norm(p.k_norm, k, cfg)
+    if use_rope:
+        q_tables = rope_tables(q_positions, q.shape[-1], theta=cfg.rope_theta)
+        kv_tables = q_tables if kv_positions is q_positions else rope_tables(
+            kv_positions, k.shape[-1], theta=cfg.rope_theta)
+        q = rotate(q, *q_tables)
+        k = rotate(k, *kv_tables)
+    return q, k, v
+
+
+def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd")."""
+    b, s, h, hd = out.shape
+    return out.reshape(b, s, h * hd) @ wo.to(out.dtype).reshape(h * hd, -1)
+
+
+def _mask(mode, q_pos, kv_pos, window):
+    """(q, kv) additive float32 mask from position vectors."""
+    d = q_pos[:, None] - kv_pos[None, :]
+    if mode == "causal":
+        ok = d >= 0
+    elif mode == "window":  # causal sliding window
+        ok = (d >= 0) & (d < window)
+    else:
+        raise ValueError(mode)
+    return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
+
+
+def _expand_kv(k, h):
+    """Broadcast kv heads up to h query heads (``jnp.repeat`` on axis 2)."""
+    g = h // k.shape[2]
+    return k if g == 1 else k.repeat_interleave(g, dim=2)
+
+
+def _softmax(x):
+    """jax.nn.softmax's order: exp(x - max) / sum."""
+    e = torch.exp(x - x.amax(dim=-1, keepdim=True))
+    return e / e.sum(dim=-1, keepdim=True)
+
+
+def _fold_masked_attention(q, k, v, mask, scale, k_scale, v_scale, out_dtype):
+    """The decode-contract scored-attention block, shared by
+    :func:`attention_decode` and :func:`attention_prefill`: float32 scores,
+    int8 cache scales FOLDED into scores / weights, additive float32 mask,
+    float32 softmax, weights cast to ``out_dtype`` before the V product.
+
+    q: (b, sq, h, hd); k/v: (b, t, kv, hd) in ``out_dtype``; mask: (sq, t),
+    or (b, sq, t) when validity is per batch row; scales: (b, t, kv) or None.
+    Returns (b, sq, h, hd).
+    """
+    h = q.shape[2]
+    g = h // k.shape[2]
+    scores = torch.einsum("bshk,bthk->bhst", q, _expand_kv(k, h)).float() * scale
+    if k_scale is not None:
+        ks = k_scale.transpose(1, 2).repeat_interleave(g, dim=1)  # (b, h, t)
+        scores = scores * ks[:, :, None, :]
+    scores = scores + (mask[None, None] if mask.ndim == 2 else mask[:, None])
+    w = _softmax(scores).to(out_dtype)
+    if v_scale is not None:
+        vs = v_scale.transpose(1, 2).repeat_interleave(g, dim=1)
+        w = w * vs[:, :, None, :].to(w.dtype)
+    return torch.einsum("bhst,bthk->bshk", w, _expand_kv(v, h))
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(cfg, batch, cache_len, dtype, *, quantized: bool = False, device=None,
+                  layers: Optional[int] = None):
+    """One layer's cache, or with ``layers=L`` the stacked (L, ...) cache.
+    quantized=True stores int8 K/V plus per (b, t, kv) float32 scales."""
+    lead = () if layers is None else (layers,)
+    shape = lead + (batch, cache_len, cfg.n_kv_heads, cfg.d_head)
+    if quantized:
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "k_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+            "v_scale": torch.zeros(shape[:-1], dtype=torch.float32, device=device),
+        }
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _quantize_kv(x):
+    """Per (…, head) absmax int8 quantisation over head_dim.  The rounded
+    values are clamped to int8's range, the saturating conversion of the
+    reference's ``astype(int8)``."""
+    scale = x.abs().amax(dim=-1) / 127.0 + 1e-8
+    q = torch.round(x / scale[..., None]).clamp(-128, 127).to(torch.int8)
+    return q, scale.to(torch.float32)
+
+
+def _plane(buf, layer_idx):
+    return buf if layer_idx is None else buf[layer_idx]
+
+
+def _write_line(buf, new, slot, layer_idx):
+    """Write one token line in place: ``slot`` an int (every row) or a (b,)
+    tensor (row ``i`` at ``slot[i]``)."""
+    plane = _plane(buf, layer_idx)
+    if isinstance(slot, int):
+        plane[:, slot] = new.to(buf.dtype)
+    else:
+        plane[torch.arange(new.shape[0], device=new.device), slot] = new.to(buf.dtype)
+
+
+def _prefill_write_entries(cache, entries, *, layer_idx, ring):
+    """Land per-buffer (b, s, ...) prompt tensors at tokens [0, s).  Only ring
+    buffers may be shorter than the prompt: there the last ``cache_len``
+    tokens survive, rolled so token ``pos`` sits at slot ``pos % cache_len``."""
+    cache_len = _plane(cache["k"], layer_idx).shape[1]
+    s = entries["k"].shape[1]
+    if s > cache_len:
+        if not ring:
+            raise ValueError(
+                f"prompt ({s} tokens) does not fit a non-ring cache of "
+                f"length {cache_len}; allocate >= prompt_len + gen_len slots"
+            )
+        shift = s % cache_len  # slot of the oldest surviving token
+        entries = {name: torch.roll(a[:, -cache_len:], shift, dims=1)
+                   for name, a in entries.items()}
+    for name, a in entries.items():
+        _plane(cache[name], layer_idx)[:, : a.shape[1]] = a.to(cache[name].dtype)
+    return cache
+
+
+def _quantized_entries(k_new, v_new):
+    kq, ks = _quantize_kv(k_new)
+    vq, vs = _quantize_kv(v_new)
+    return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+
+
+# ---------------------------------------------------------------------------
+# Prefill and decode
+# ---------------------------------------------------------------------------
+
+
+def attention_prefill(p: Attention, cfg, x, cache, positions, *, window: Optional[int] = None,
+                      layer_idx=None, q_chunk: int = 1024):
+    """Full-sequence causal (or sliding-window) attention over the prompt that
+    also writes tokens [0, s) of the KV cache.  x: (b, s, d); positions: (s,).
+    Attention runs over the in-flight K/V through the same scored-attention
+    block as :func:`attention_decode`.  Prompts longer than ``q_chunk`` (and a
+    multiple of it) process queries in chunks.  Returns (out, cache)."""
+    s = x.shape[1]
+    use_rope = cfg.pos == "rope"
+    q, k, v = _project_qkv(p, cfg, x, x, positions, positions, use_rope=use_rope)
+    ring = window is not None
+    k_scale = v_scale = None
+    if cache["k"].dtype == torch.int8:
+        # quantize ONCE: the written entries and the scoring K/V share it
+        entries = _quantized_entries(k, v)
+        _prefill_write_entries(cache, entries, layer_idx=layer_idx, ring=ring)
+        k, v = entries["k"].to(x.dtype), entries["v"].to(x.dtype)
+        k_scale, v_scale = entries["k_scale"], entries["v_scale"]
+    else:
+        _prefill_write_entries(cache, {"k": k, "v": v}, layer_idx=layer_idx, ring=ring)
+
+    scale = cfg.d_head**-0.5
+    mode = "window" if window else "causal"
+    if s <= q_chunk or s % q_chunk:
+        mask = _mask(mode, positions, positions, window)
+        out = _fold_masked_attention(q, k, v, mask, scale, k_scale, v_scale, x.dtype)
+    else:
+        chunks = []
+        for i in range(s // q_chunk):
+            sl = slice(i * q_chunk, (i + 1) * q_chunk)
+            m = _mask(mode, positions[sl], positions, window)
+            chunks.append(_fold_masked_attention(q[:, sl], k, v, m, scale, k_scale, v_scale,
+                                                 x.dtype))
+        out = torch.cat(chunks, dim=1)
+    return _out_proj(out, p.wo), cache
+
+
+def attention_decode(p: Attention, cfg, x, cache, pos, *, window: Optional[int] = None,
+                     layer_idx=None, kernel: Optional[str] = None):
+    """Single-token decode.  x: (b, 1, d); the cache holds ``cache_len`` slots
+    and is written in place.
+
+    ``pos`` is an int (lock-step batch, every row at one position; a 0-dim
+    tensor is read to the host) or a (b,) int tensor (each row its own
+    position: RoPE, the ring-buffer write index and the validity mask follow
+    per row).
+
+    ``kernel`` routes the scored-attention block (defaults to
+    ``cfg.decode_kernel``): "fused" runs the decode-attention kernel through
+    the dispatch layer (the CUDA kernel for CUDA tensors); None (the inline
+    path) and "reference" run its plain version.  Returns (out, cache).
+    """
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"attention_decode takes one token per row, got {s}")
+    cache_len = _plane(cache["k"], layer_idx).shape[1]
+    quantized = cache["k"].dtype == torch.int8
+    if isinstance(pos, torch.Tensor) and pos.ndim == 0:
+        pos = int(pos)
+    per_slot = isinstance(pos, torch.Tensor)
+
+    if per_slot:
+        pos = pos.to(device=x.device, dtype=torch.int32)
+        rope_pos = pos[:, None]
+        slot = (pos % cache_len).long()
+    else:
+        rope_pos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        slot = pos % cache_len
+    q, k_new, v_new = _project_qkv(p, cfg, x, x, rope_pos, rope_pos, use_rope=cfg.pos == "rope")
+
+    k_scale = v_scale = None
+    if quantized:
+        kq, ks = _quantize_kv(k_new[:, 0])
+        vq, vs = _quantize_kv(v_new[:, 0])
+        for name, new in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
+            _write_line(cache[name], new, slot, layer_idx)
+        k_scale = _plane(cache["k_scale"], layer_idx)  # (b, t, kv)
+        v_scale = _plane(cache["v_scale"], layer_idx)
+    else:
+        _write_line(cache["k"], k_new[:, 0], slot, layer_idx)
+        _write_line(cache["v"], v_new[:, 0], slot, layer_idx)
+    k = _plane(cache["k"], layer_idx)
+    v = _plane(cache["v"], layer_idx)
+
+    from repro_torch.kernels.attention import ops as attn_kernel
+
+    kernel = kernel if kernel is not None else cfg.decode_kernel
+    if kernel not in (None, "fused", "reference"):
+        raise ValueError(f"unknown decode kernel {kernel!r}; expected 'fused' or 'reference'")
+    # None (inline) and "reference" are the same plain block: the per-row
+    # validity mask from pos fed to _fold_masked_attention
+    fn = attn_kernel.decode_attention if kernel == "fused" else attn_kernel.ref_decode_attention
+    pos_b = pos if per_slot else torch.full((b,), pos, dtype=torch.int32, device=x.device)
+    out = fn(q[:, 0], k, v, pos_b, k_scale, v_scale, scale=cfg.d_head**-0.5,
+             wrap=bool(window))[:, None]
+    return _out_proj(out, p.wo), cache

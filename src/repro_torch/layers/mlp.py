@@ -1,0 +1,37 @@
+"""Dense MLP blocks: SwiGLU (llama-family default) and GELU (whisper)."""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.layers.param import parameter
+
+__all__ = ["MLP", "mlp_apply"]
+
+
+class MLP(nn.Module):
+    """Weights in the reference's layout: wi_* (d, f), wo (f, d); the GELU
+    variant also has biases bi (f,) and bo (d,)."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        d, f = cfg.d_model, cfg.d_ff
+        if cfg.mlp_act == "swiglu":
+            self.wi_gate = parameter((d, f), dtype, device)
+            self.wi_up = parameter((d, f), dtype, device)
+        else:
+            self.wi_up = parameter((d, f), dtype, device)
+            self.bi = parameter((f,), dtype, device)
+            self.bo = parameter((d,), dtype, device)
+        self.wo = parameter((f, d), dtype, device)
+
+
+def mlp_apply(p: MLP, cfg, x: torch.Tensor) -> torch.Tensor:
+    dt = x.dtype
+    if cfg.mlp_act == "swiglu":
+        g = x @ p.wi_gate.to(dt)
+        u = x @ p.wi_up.to(dt)
+        return (torch.nn.functional.silu(g) * u) @ p.wo.to(dt)
+    h = x @ p.wi_up.to(dt) + p.bi.to(dt)
+    h = torch.nn.functional.gelu(h, approximate="tanh")  # jax.nn.gelu's default
+    return h @ p.wo.to(dt) + p.bo.to(dt)

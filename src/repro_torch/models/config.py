@@ -1,0 +1,130 @@
+"""Architecture configuration (the port's own copy of
+``repro.models.config``, with the same fields).
+
+:meth:`ModelConfig.validate` also rejects what the port does not run yet:
+mixture-of-experts, SSM and RG-LRU blocks, encoder-decoder models, vision
+tokens, non-RoPE positions, LayerNorm, the accuracy-SLO ladder and fault
+injection.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+__all__ = ["ModelConfig", "MoESpec", "SSMSpec", "RGLRUSpec", "EncoderSpec"]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoESpec:
+    n_experts: int
+    top_k: int
+    d_ff_expert: int
+    capacity_factor: float = 1.25
+
+
+@dataclasses.dataclass(frozen=True)
+class SSMSpec:
+    d_inner: int
+    d_state: int
+    head_dim: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class RGLRUSpec:
+    d_rnn: int
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderSpec:
+    n_layers: int
+    n_ctx: int
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    kind: str = "decoder"  # "decoder" | "encdec"
+    # per-layer block types, cycled over n_layers:
+    #   "global" (causal full attn) | "window" (sliding) | "ssd" | "rglru"
+    block_pattern: Tuple[str, ...] = ("global",)
+    window: Optional[int] = None
+    moe: Optional[MoESpec] = None
+    ssm: Optional[SSMSpec] = None
+    rglru: Optional[RGLRUSpec] = None
+    qk_norm: bool = False
+    norm: str = "rmsnorm"  # "rmsnorm" | "layernorm"
+    mlp_act: str = "swiglu"  # "swiglu" | "gelu"
+    pos: str = "rope"  # "rope" | "sinusoidal" | "none"
+    rope_theta: float = 10000.0
+    encoder: Optional[EncoderSpec] = None
+    vision_tokens: int = 0
+    tie_embeddings: bool = False
+    act_dtype: str = "bfloat16"
+    scores_dtype: str = "float32"
+    sqrt_unit: str = "exact"
+    sqrt_faults: Optional[Any] = None
+    sqrt_ladder: Optional[Tuple[str, ...]] = None
+    remat: str = "block"  # "none" | "block" | "minimal"
+    # decode-attention route: None = inline PyTorch path; "fused" = the CUDA
+    # decode-attention kernel via the dispatch layer; "reference" = its plain
+    # version
+    decode_kernel: Optional[str] = None
+
+    @property
+    def padded_vocab(self) -> int:
+        """Embedding tables pad the vocab to a 256 multiple; decode slices
+        back to the true vocab."""
+        return ((self.vocab + 255) // 256) * 256
+
+    @property
+    def blocks(self) -> Tuple[str, ...]:
+        pat = self.block_pattern
+        return tuple(pat[i % len(pat)] for i in range(self.n_layers))
+
+    @property
+    def uniform(self) -> bool:
+        return len(set(self.blocks)) == 1
+
+    def replace(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)
+
+    def validate(self):
+        if self.d_model <= 0 or self.n_layers <= 0:
+            raise ValueError("d_model and n_layers must be positive")
+        if self.n_heads % self.n_kv_heads:
+            raise ValueError(f"n_heads {self.n_heads} not a multiple of "
+                             f"n_kv_heads {self.n_kv_heads}")
+        if "window" in self.blocks and not self.window:
+            raise ValueError("window blocks need cfg.window")
+        if self.decode_kernel not in (None, "fused", "reference"):
+            raise ValueError(f"unknown decode kernel {self.decode_kernel!r}; "
+                             f"expected None, 'fused' or 'reference'")
+        if self.sqrt_unit not in ("exact", "e2afs"):
+            raise ValueError(f"the port has sqrt units 'exact' and 'e2afs', "
+                             f"got {self.sqrt_unit!r}")
+        if self.act_dtype not in ("bfloat16", "float32"):
+            raise ValueError(f"the port runs bfloat16 or float32 activations, "
+                             f"got {self.act_dtype!r}")
+        unsupported = {
+            "mixture-of-experts layers": self.moe is not None,
+            "SSM blocks": self.ssm is not None or "ssd" in self.blocks,
+            "RG-LRU blocks": self.rglru is not None or "rglru" in self.blocks,
+            "encoder-decoder models": self.kind != "decoder" or self.encoder is not None,
+            "vision tokens": self.vision_tokens != 0,
+            "positions other than RoPE": self.pos != "rope",
+            "LayerNorm": self.norm != "rmsnorm",
+            "the accuracy-SLO ladder": self.sqrt_ladder is not None,
+            "fault injection": self.sqrt_faults is not None,
+            "mixed block patterns": not self.uniform,
+        }
+        found = [what for what, bad in unsupported.items() if bad]
+        if found:
+            raise ValueError(f"{self.name}: the torch port does not run {', '.join(found)} yet")
+        return self

@@ -1,0 +1,185 @@
+"""Dense decoder LM: init, prefill, decode step and greedy decode (torch port
+of the uniform dense-decoder part of ``repro.models.lm``).
+
+Entry points:
+    init(cfg, generator, device)                 -> LM
+    init_cache(cfg, batch, cache_len, device=)   -> cache dict
+    decode_step(model, cfg, cache, tokens, pos)  -> (logits, cache)
+    prefill(model, cfg, cache, tokens)           -> (logits, cache)
+    generate_scan(model, cfg, cache, tok, start_pos, gen_len)
+                                                 -> (tokens, next_tok, cache)
+
+The cache is a dict of stacked ``(L, b, t, kv, hd)`` tensors that prefill
+and decode update IN PLACE (the reference is functional and returns a new
+cache; here the returned dict is the one passed in).
+
+Every norm goes through ``layers.norms.rmsnorm``: with ``sqrt_unit="e2afs"``
+on its fused route (the RMSNorm kernel on CUDA, its plain version on the
+CPU; the reference's unfused call computes the same function), with
+"exact" through ``torch.rsqrt``.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from repro_torch.device import resolve_device
+from repro_torch.layers import attention as attn
+from repro_torch.layers.mlp import MLP, mlp_apply
+from repro_torch.layers.norms import rmsnorm
+from repro_torch.layers.param import parameter, truncated_normal
+from repro_torch.models.config import ModelConfig
+
+__all__ = ["LM", "init", "init_cache", "decode_step", "prefill", "generate_scan",
+           "param_count"]
+
+
+def act_dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.act_dtype)
+
+
+def _norm(scale, x, cfg):
+    return rmsnorm(scale, x, sqrt_unit=cfg.sqrt_unit, fused=cfg.sqrt_unit == "e2afs")
+
+
+class Block(nn.Module):
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        self.ln1 = parameter((cfg.d_model,), dtype, device)
+        self.attn = attn.Attention(cfg, dtype=dtype, device=device)
+        self.ln2 = parameter((cfg.d_model,), dtype, device)
+        self.mlp = MLP(cfg, dtype=dtype, device=device)
+
+
+class LM(nn.Module):
+    """Parameters in the reference's layout, stored once in the activation
+    dtype: embed (vp, d), unembed (d, vp), ln_f (d,), and one Block per
+    layer (the reference stacks them on a leading L axis)."""
+
+    def __init__(self, cfg: ModelConfig, *, device):
+        super().__init__()
+        cfg.validate()
+        dtype = act_dtype(cfg)
+        vp, d = cfg.padded_vocab, cfg.d_model
+        self.embed = parameter((vp, d), dtype, device)
+        if not cfg.tie_embeddings:
+            self.unembed = parameter((d, vp), dtype, device)
+        self.ln_f = parameter((d,), dtype, device)
+        self.layers = nn.ModuleList(Block(cfg, dtype=dtype, device=device)
+                                    for _ in range(cfg.n_layers))
+
+    def unembed_matrix(self) -> torch.Tensor:
+        return self.embed.T if not hasattr(self, "unembed") else self.unembed
+
+
+# norm scales are zero-initialised (applied as 1 + scale); every other weight
+# is a fan-in truncated normal with the reference's scale
+_ZERO_INIT = ("ln1", "ln2", "ln_f", "q_norm", "k_norm")
+
+
+@torch.no_grad()
+def init(cfg: ModelConfig, generator: torch.Generator = None, *, device=None) -> LM:
+    """A model with random weights drawn from ``generator`` on ``device``
+    (the card unless ``device="cpu"``).  The generator must live on that
+    device; None seeds a fresh one with 0."""
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    model = LM(cfg, device=dev)
+    for name, p in model.named_parameters():
+        if name.rsplit(".", 1)[-1] in _ZERO_INIT:
+            p.zero_()
+        else:
+            scale = float(cfg.d_model) ** 0.5 if name == "embed" else 1.0
+            p.copy_(truncated_normal(generator, tuple(p.shape), p.dtype, scale, device=dev))
+    return model
+
+
+def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, quantized: bool = False,
+               device=None) -> dict:
+    """Zeroed stacked cache ``(L, batch, cache_len, kv, hd)`` (int8 plus
+    float32 scales when ``quantized``) on ``device`` (the card unless
+    ``device="cpu"``)."""
+    dev = resolve_device(device)
+    return attn.init_kv_cache(cfg, batch, cache_len, act_dtype(cfg), quantized=quantized,
+                              device=dev, layers=cfg.n_layers)
+
+
+def _window(cfg, block):
+    return cfg.window if block == "window" else None
+
+
+def _logits(model: LM, cfg, x):
+    x = _norm(model.ln_f, x, cfg)
+    logits = x @ model.unembed_matrix().to(x.dtype)
+    return logits[..., : cfg.vocab]
+
+
+@torch.no_grad()
+def decode_step(model: LM, cfg: ModelConfig, cache: dict, tokens: torch.Tensor, pos):
+    """One decode forward (a single token per batch row) over the cache.
+
+    tokens: (b, 1) integer; pos: the position of this token, an int
+    (lock-step batch) or a (b,) tensor (one position per row).  Writes one
+    token line per layer into ``cache`` in place.  Returns
+    (logits (b, 1, vocab), cache).
+    """
+    x = model.embed[tokens]
+    for i, (layer, block) in enumerate(zip(model.layers, cfg.blocks)):
+        h = _norm(layer.ln1, x, cfg)
+        h, _ = attn.attention_decode(layer.attn, cfg, h, cache, pos,
+                                     window=_window(cfg, block), layer_idx=i)
+        x = x + h
+        x = x + mlp_apply(layer.mlp, cfg, _norm(layer.ln2, x, cfg))
+    return _logits(model, cfg, x), cache
+
+
+@torch.no_grad()
+def prefill(model: LM, cfg: ModelConfig, cache: dict, tokens: torch.Tensor, *,
+            last_logit_only: bool = False):
+    """One-shot batched prefill over the prompt, writing positions [0, s) of
+    every layer's cache in place.  tokens: (b, s) with s >= 1 into a fresh
+    cache.  Returns (logits (b, s, vocab), cache); ``last_logit_only`` keeps
+    only the last position's row, (b, 1, vocab)."""
+    s = tokens.shape[1]
+    if s < 1:
+        raise ValueError(f"prefill needs at least one prompt token, got tokens shape "
+                         f"{tuple(tokens.shape)}")
+    x = model.embed[tokens]
+    positions = torch.arange(s, device=tokens.device)
+    for i, (layer, block) in enumerate(zip(model.layers, cfg.blocks)):
+        h = _norm(layer.ln1, x, cfg)
+        h, _ = attn.attention_prefill(layer.attn, cfg, h, cache, positions,
+                                      window=_window(cfg, block), layer_idx=i)
+        x = x + h
+        x = x + mlp_apply(layer.mlp, cfg, _norm(layer.ln2, x, cfg))
+    if last_logit_only:
+        x = x[:, -1:].contiguous()  # the norm kernel takes contiguous rows
+    return _logits(model, cfg, x), cache
+
+
+@torch.no_grad()
+def generate_scan(model: LM, cfg: ModelConfig, cache: dict, tok: torch.Tensor, start_pos: int,
+                  gen_len: int):
+    """Greedy decode of ``gen_len`` steps: a Python loop over
+    :func:`decode_step` with the argmax on the device and no host
+    synchronisation per token.
+
+    tok: (b, 1), the first token to feed (usually the prefill argmax);
+    start_pos: its position, an int.  Returns (tokens (b, gen_len), next_tok
+    (b, 1), cache) with tokens[:, 0] == tok, as the reference: each emitted
+    token is the one fed at that step, and ``next_tok`` is the argmax after
+    the last step.
+    """
+    start_pos = int(start_pos)
+    out = []
+    for i in range(gen_len):
+        out.append(tok[:, 0])
+        logits, cache = decode_step(model, cfg, cache, tok, start_pos + i)
+        tok = logits[:, -1:].argmax(dim=-1).to(tok.dtype)
+    toks = torch.stack(out, dim=1) if out else tok.new_zeros((tok.shape[0], 0))
+    return toks, tok, cache
+
+
+def param_count(model: nn.Module) -> int:
+    return sum(p.numel() for p in model.parameters())

@@ -1,0 +1,164 @@
+"""The torch port's CUDA kernels on the card, each against its plain version.
+
+Every test here is marked ``gpu`` and skips without a CUDA device (decided
+in the ``cuda_device`` fixture, never at import).  The file imports no JAX,
+so it also runs on a machine that has only PyTorch:
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerances: e2afs bit-identical; RMSNorm float32 within 1e-6 relative, bf16
+``T(x * inv)`` within one ulp (zero scale) and the scaled output within two
+(the ``1 + scale`` multiply stretches a one-ulp step, then rounds); decode
+attention float32 atol 1e-5, bf16 within two ulps at each (slot, head) row's
+largest output.  Only the order of float32 sums differs between a kernel and
+its plain version.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.metrics import sampled_normal_values
+from repro_torch.kernels import dispatch
+from repro_torch.kernels.attention import ops as attn_ops
+from repro_torch.kernels.e2afs_sqrt import ops as e2afs_ops
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+from repro_torch.kernels.rmsnorm.ref import ref_rmsnorm
+from repro_torch.models import lm
+
+pytestmark = pytest.mark.gpu
+
+_INT = {torch.float16: torch.int16, torch.bfloat16: torch.int16, torch.float32: torch.int32}
+_MAN_BITS = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23}
+
+
+@pytest.fixture
+def cuda_device():
+    """The card, or a skip: the CUDA kernels have no CPU mode."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _plain(fn, *args, **kw):
+    prev = dispatch.set_backend("reference")
+    try:
+        return fn(*args, **kw)
+    finally:
+        dispatch.set_backend(prev)
+
+
+def _ulps(y, r, at=None):
+    """max |y - r| in ulps of r's dtype, taken at ``at`` (default r)."""
+    _, e = torch.frexp((r if at is None else at).float())
+    ulp = torch.ldexp(torch.ones_like(r, dtype=torch.float32), e - 1 - _MAN_BITS[r.dtype])
+    return float(((y.float() - r.float()).abs() / ulp).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+def test_e2afs_bit_identical(cuda_device, dtype):
+    if dtype == torch.float32:
+        x = sampled_normal_values()
+        x = torch.cat([x, torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"),
+                                        -2.0, 1e-40, -1e-40])])
+    else:
+        x = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(dtype)
+    x = x.to(cuda_device)
+    dispatch.reset_launch_counts()
+    for op in ("sqrt", "rsqrt"):
+        ours = getattr(e2afs_ops, op)(x)
+        plain = _plain(getattr(e2afs_ops, op), x)
+        same = (ours.view(_INT[dtype]) == plain.view(_INT[dtype])) | (
+            torch.isnan(ours) & torch.isnan(plain))
+        assert bool(same.all()), f"{op}: {int((~same).sum())} patterns differ"
+    assert dispatch.launch_counts()["e2afs_sqrt"] == 1
+    assert dispatch.launch_counts()["e2afs_rsqrt"] == 1
+
+
+@pytest.mark.parametrize("shape", [(8, 2560), (1024, 2560), (8 * 32 * 16, 128)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rmsnorm_matches_plain(cuda_device, dtype, shape):
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
+    s = (0.1 * torch.randn(shape[-1], generator=g, device=cuda_device)).to(dtype)
+    for scale, limit in ((torch.zeros_like(s), 1.0), (s, 2.0)):
+        ours, plain = rms_ops.rmsnorm(x, scale), ref_rmsnorm(x, scale)
+        if dtype == torch.float32:
+            torch.testing.assert_close(ours, plain, rtol=1e-6, atol=0)
+        else:
+            assert _ulps(ours, plain) <= limit
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_matches_plain(cuda_device, quantized, dtype):
+    b, t, h, kv, hd = 6, 300, 32, 8, 128
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    q = torch.randn(b, h, hd, generator=g, device=cuda_device).to(dtype)
+    if quantized:
+        k, v = (torch.randint(-127, 128, (b, t, kv, hd), generator=g, device=cuda_device,
+                              dtype=torch.int32).to(torch.int8) for _ in range(2))
+        ks, vs = (torch.rand(b, t, kv, generator=g, device=cuda_device) * 0.02 + 1e-3
+                  for _ in range(2))
+    else:
+        k, v = (torch.randn(b, t, kv, hd, generator=g, device=cuda_device).to(dtype)
+                for _ in range(2))
+        ks = vs = None
+    pos = torch.tensor([0, 3, 150, t - 1, t, 3 * t], dtype=torch.int32, device=cuda_device)
+    for wrap in (False, True):
+        ours = attn_ops.decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
+        plain = attn_ops.ref_decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
+        assert ours.dtype == dtype
+        if dtype == torch.float32:
+            torch.testing.assert_close(ours, plain, atol=1e-5, rtol=0)
+        else:
+            row = plain.float().abs().amax(dim=-1, keepdim=True).to(dtype)
+            assert _ulps(ours, plain, at=row.expand_as(plain)) <= 2.0
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    x = torch.ones(4, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        rms_ops.rmsnorm(x[:, ::2], torch.zeros(128, device=cuda_device))
+    with pytest.raises(ValueError, match="scale must be"):
+        rms_ops.rmsnorm(x, torch.zeros(256, device=cuda_device, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="float16/bfloat16/float32"):
+        e2afs_ops.sqrt(x.double())
+    q = torch.ones(2, 4, 16, device=cuda_device)
+    k = torch.ones(2, 8, 2, 16, device=cuda_device)
+    pos = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="int32"):
+        attn_ops.decode_attention(q, k, k, pos.long(), scale=0.25)
+    with pytest.raises(ValueError, match="query heads per KV head"):
+        attn_ops.decode_attention(torch.ones(2, 6, 16, device=cuda_device), k, k, pos, scale=0.25)
+    with pytest.raises(ValueError, match="need k_scale and v_scale"):
+        attn_ops.decode_attention(q, k.to(torch.int8), k.to(torch.int8), pos, scale=0.25)
+
+
+def test_model_kernels_match_plain_versions(cuda_device):
+    """float32 smoke model on the card: the kernel route and the plain
+    versions give the same greedy tokens; the kernel route launches every
+    norm and decode-attention kernel it should, the plain route none."""
+    cfg = get_smoke_config("qwen3-4b", act_dtype="float32", sqrt_unit="e2afs",
+                           decode_kernel="fused")
+    model = lm.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    b, s, gen = 2, 8, 16
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (b, s)))
+    prompt = prompt.to(cuda_device)
+    out = {}
+    for backend, route in (("auto", "fused"), ("reference", "reference")):
+        prev = dispatch.set_backend(backend)
+        try:
+            c = cfg.replace(decode_kernel=route)
+            dispatch.reset_launch_counts()
+            cache = lm.init_cache(c, b, s + gen, device=cuda_device)
+            logits, cache = lm.prefill(model, c, cache, prompt, last_logit_only=True)
+            toks, _, _ = lm.generate_scan(model, c, cache, logits.argmax(-1), s, gen)
+            out[backend] = (logits, toks, dispatch.launch_counts())
+        finally:
+            dispatch.set_backend(prev)
+    torch.testing.assert_close(out["auto"][0], out["reference"][0], atol=1e-4, rtol=0)
+    assert torch.equal(out["auto"][1], out["reference"][1])
+    assert out["auto"][2]["rmsnorm"] == (4 * cfg.n_layers + 1) * (1 + gen)
+    assert out["auto"][2]["decode_attention"] == cfg.n_layers * gen
+    assert set(out["reference"][2].values()) == {0}

@@ -1,0 +1,304 @@
+"""The torch port's dense decoder held against the JAX package.
+
+The reference initialises ``get_smoke_config("qwen3-4b", ...)`` with
+``lm.init(cfg, jax.random.key(0))``; its parameters cross over as numpy
+arrays through ``repro_torch.models.convert.params_from_numpy``.  JAX runs
+its own routes (the Pallas decode-attention kernel in interpret mode for
+``decode_kernel="fused"``); the port runs its plain versions on the CPU.
+
+Tolerances: float32 logits atol 1e-4 and caches atol 1e-5 (sums in another
+order); int8 cache codes and greedy tokens identical at float32.  bfloat16
+logits atol 5e-2: the two frameworks round bf16 intermediates at different
+places.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.layers import attention as jax_attn
+from repro.models import lm as jax_lm
+from repro.models.config import MoESpec
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.kernels import dispatch
+from repro_torch.launch import serve
+from repro_torch.layers import attention as attn
+from repro_torch.models import convert, lm
+
+B, S, GEN = 2, 8, 16
+
+
+def _configs(**kw):
+    return jax_smoke_config("qwen3-4b", **kw), get_smoke_config("qwen3-4b", **kw)
+
+
+@pytest.fixture(scope="module")
+def jax_params():
+    cache = {}
+
+    def get(act_dtype):
+        if act_dtype not in cache:
+            jcfg, _ = _configs(act_dtype=act_dtype, sqrt_unit="e2afs")
+            params, _ = jax_lm.init(jcfg, jax.random.key(0))
+            cache[act_dtype] = (params, jax.tree.map(np.asarray, params))
+        return cache[act_dtype]
+
+    return get
+
+
+def _prompt(vocab, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, (B, S)).astype(np.int32)
+
+
+def _np(x):
+    return np.asarray(x.float().numpy() if isinstance(x, torch.Tensor) else
+                      np.asarray(x).astype(np.float32))
+
+
+def _both(jax_params, act_dtype="float32", quantized=False, decode_kernel=None):
+    jcfg, tcfg = _configs(act_dtype=act_dtype, sqrt_unit="e2afs", decode_kernel=decode_kernel)
+    params, tree = jax_params(act_dtype)
+    model = convert.params_from_numpy(tcfg, tree, device="cpu")
+    prompt = _prompt(jcfg.vocab)
+    jcache, _ = jax_lm.init_cache(jcfg, B, S + GEN, quantized=quantized)
+    tcache = lm.init_cache(tcfg, B, S + GEN, quantized=quantized, device="cpu")
+    return jcfg, tcfg, params, model, prompt, jcache, tcache
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_prefill_logits_and_cache(jax_params, quantized):
+    jcfg, tcfg, params, model, prompt, jcache, tcache = _both(jax_params, quantized=quantized)
+    jlog, jcache = jax_lm.prefill(params, jcfg, jcache, jnp.asarray(prompt))
+    tlog, tcache = lm.prefill(model, tcfg, tcache, torch.from_numpy(prompt))
+    assert tuple(tlog.shape) == (B, S, jcfg.vocab)
+    np.testing.assert_allclose(_np(tlog), _np(jlog), atol=1e-4, rtol=0)
+    for key in jcache:
+        atol = 0 if key in ("k", "v") and quantized else 1e-5
+        np.testing.assert_allclose(_np(tcache[key]), _np(jcache[key]), atol=atol, rtol=0)
+    last, _ = lm.prefill(model, tcfg,
+                         lm.init_cache(tcfg, B, S + GEN, quantized=quantized, device="cpu"),
+                         torch.from_numpy(prompt), last_logit_only=True)
+    assert tuple(last.shape) == (B, 1, jcfg.vocab)
+    np.testing.assert_allclose(_np(last), _np(tlog[:, -1:]), atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_step_logits_and_cache(jax_params, quantized, per_row):
+    jcfg, tcfg, params, model, prompt, jcache, tcache = _both(jax_params, quantized=quantized)
+    jlog, jcache = jax_lm.prefill(params, jcfg, jcache, jnp.asarray(prompt))
+    _, tcache = lm.prefill(model, tcfg, tcache, torch.from_numpy(prompt))
+    tok = np.asarray(jnp.argmax(jlog[:, -1:], axis=-1)).astype(np.int32)
+    pos = np.array([S, S - 3], np.int32) if per_row else S
+    jl, jcache = jax_lm.decode_step(params, jcfg, jcache, jnp.asarray(tok), jnp.asarray(pos))
+    tl, tcache = lm.decode_step(model, tcfg, tcache, torch.from_numpy(tok),
+                                torch.from_numpy(pos) if per_row else pos)
+    np.testing.assert_allclose(_np(tl), _np(jl), atol=1e-4, rtol=0)
+    for key in jcache:
+        atol = 0 if key in ("k", "v") and quantized else 1e-5
+        np.testing.assert_allclose(_np(tcache[key]), _np(jcache[key]), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("decode_kernel", [None, "fused"])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_generate_scan_tokens_identical(jax_params, quantized, decode_kernel):
+    jcfg, tcfg, params, model, prompt, jcache, tcache = _both(
+        jax_params, quantized=quantized, decode_kernel=decode_kernel)
+    jlog, jcache = jax_lm.prefill(params, jcfg, jcache, jnp.asarray(prompt), last_logit_only=True)
+    tlog, tcache = lm.prefill(model, tcfg, tcache, torch.from_numpy(prompt), last_logit_only=True)
+    jt, jnext, _ = jax_lm.generate_scan(params, jcfg, jcache, jnp.argmax(jlog, axis=-1), S, GEN)
+    tt, tnext, _ = lm.generate_scan(model, tcfg, tcache, tlog.argmax(dim=-1), S, GEN)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(tnext.numpy(), np.asarray(jnext))
+
+
+def test_bfloat16_within_tolerance(jax_params):
+    jcfg, tcfg, params, model, prompt, jcache, tcache = _both(
+        jax_params, act_dtype="bfloat16", decode_kernel="fused")
+    jlog, jcache = jax_lm.prefill(params, jcfg, jcache, jnp.asarray(prompt), last_logit_only=True)
+    tlog, tcache = lm.prefill(model, tcfg, tcache, torch.from_numpy(prompt), last_logit_only=True)
+    assert tlog.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(tlog), _np(jlog), atol=5e-2, rtol=0)
+    tok = np.asarray(jnp.argmax(jlog, axis=-1)).astype(np.int32)
+    jl, _ = jax_lm.decode_step(params, jcfg, jcache, jnp.asarray(tok), S)
+    tl, _ = lm.decode_step(model, tcfg, tcache, torch.from_numpy(tok), S)
+    np.testing.assert_allclose(_np(tl), _np(jl), atol=5e-2, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# attention layer routes against the reference layer
+# ---------------------------------------------------------------------------
+
+
+def _layer(seed=1):
+    jcfg, tcfg = _configs(act_dtype="float32", sqrt_unit="e2afs")
+    rng = np.random.default_rng(seed)
+    d, h, kv, hd = jcfg.d_model, jcfg.n_heads, jcfg.n_kv_heads, jcfg.d_head
+    p = {"wq": rng.standard_normal((d, h, hd)) * 0.2, "wk": rng.standard_normal((d, kv, hd)) * 0.2,
+         "wv": rng.standard_normal((d, kv, hd)) * 0.2, "wo": rng.standard_normal((h, hd, d)) * 0.1,
+         "q_norm": rng.standard_normal(hd) * 0.1, "k_norm": rng.standard_normal(hd) * 0.1}
+    p = {k: v.astype(np.float32) for k, v in p.items()}
+    module = attn.Attention(tcfg, dtype=torch.float32, device="cpu")
+    with torch.no_grad():
+        for name, value in p.items():
+            getattr(module, name).copy_(torch.from_numpy(value))
+    x = rng.standard_normal((3, 1, d)).astype(np.float32)
+    return jcfg, tcfg, {k: jnp.asarray(v) for k, v in p.items()}, module, x
+
+
+@pytest.mark.parametrize("route", [None, "fused", "reference"])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("pos", [[2, 5, 20], 4])
+def test_attention_decode_routes_match_reference(route, quantized, pos):
+    """Per-row and scalar positions, a ring window of 12 (row 3 has wrapped),
+    float and int8 caches; out and the written cache against the JAX layer."""
+    jcfg, tcfg, jp, module, x = _layer()
+    rng = np.random.default_rng(7)
+    jcache = jax_attn.init_kv_cache(jcfg, 3, 12, jnp.float32, quantized=quantized)
+    # a cache that already holds lines, so the mask and the ring write matter
+    fill = {k: (rng.integers(-100, 100, v.shape).astype(np.int8) if v.dtype == jnp.int8 else
+                rng.uniform(0.001, 0.01, v.shape).astype(np.float32) if "scale" in k else
+                rng.standard_normal(v.shape).astype(np.float32)) for k, v in jcache.items()}
+    jcache = {k: jnp.asarray(v) for k, v in fill.items()}
+    tcache = {k: torch.from_numpy(v.copy()) for k, v in fill.items()}
+    jpos = jnp.asarray(pos, jnp.int32)
+    tpos = torch.tensor(pos, dtype=torch.int32) if isinstance(pos, list) else pos
+    jout, jc = jax_attn.attention_decode(jp, jcfg, jnp.asarray(x), jcache, jpos, window=12,
+                                         kernel=route)
+    tout, tc = attn.attention_decode(module, tcfg, torch.from_numpy(x), tcache, tpos, window=12,
+                                     kernel=route)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=1e-5, rtol=0)
+    for key in jc:
+        atol = 0 if jc[key].dtype == jnp.int8 else 1e-5
+        np.testing.assert_allclose(_np(tc[key]), _np(jc[key]), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+def test_attention_prefill_chunked_matches_reference(quantized):
+    """q_chunk=4 over 8 tokens takes the chunked path on both sides."""
+    jcfg, tcfg, jp, module, _ = _layer(2)
+    x = np.random.default_rng(3).standard_normal((2, 8, jcfg.d_model)).astype(np.float32)
+    positions = np.arange(8)
+    jcache = jax_attn.init_kv_cache(jcfg, 2, 10, jnp.float32, quantized=quantized)
+    tcache = attn.init_kv_cache(tcfg, 2, 10, torch.float32, quantized=quantized)
+    jout, jc = jax_attn.attention_prefill(jp, jcfg, jnp.asarray(x), jcache, jnp.asarray(positions),
+                                          q_chunk=4)
+    tout, tc = attn.attention_prefill(module, tcfg, torch.from_numpy(x), tcache,
+                                      torch.from_numpy(positions), q_chunk=4)
+    np.testing.assert_allclose(tout.numpy(), np.asarray(jout), atol=1e-5, rtol=0)
+    whole, _ = attn.attention_prefill(module, tcfg, torch.from_numpy(x),
+                                      attn.init_kv_cache(tcfg, 2, 10, torch.float32,
+                                                         quantized=quantized),
+                                      torch.from_numpy(positions))
+    np.testing.assert_allclose(tout.numpy(), whole.numpy(), atol=1e-6, rtol=0)
+    for key in jc:
+        atol = 0 if jc[key].dtype == jnp.int8 else 1e-5
+        np.testing.assert_allclose(_np(tc[key]), _np(jc[key]), atol=atol, rtol=0)
+
+
+@pytest.mark.parametrize("theta", [1e4, 1e6])
+def test_rope_matches_reference(theta):
+    """float32 rotation; cos/sin of large angles may differ in the last
+    float32 bits between the two libraries."""
+    from repro.layers.rope import apply_rope as jax_apply_rope
+    from repro_torch.layers.rope import apply_rope
+
+    x = np.random.default_rng(5).standard_normal((2, 7, 4, 16)).astype(np.float32)
+    pos = np.arange(7, dtype=np.int32) + 570
+    ref = np.asarray(jax_apply_rope(jnp.asarray(x), jnp.asarray(pos), theta=theta))
+    ours = apply_rope(torch.from_numpy(x), torch.from_numpy(pos), theta=theta)
+    np.testing.assert_allclose(ours.numpy(), ref, atol=1e-6, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# serve, entry points and config rules
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("quantized_kv", [False, True])
+def test_serve_scan_matches_loop(quantized_kv):
+    scan, stats = serve.generate("qwen3-4b", mode="scan", reps=1, verbose=False,
+                                 quantized_kv=quantized_kv, device="cpu")
+    loop, _ = serve.generate("qwen3-4b", mode="loop", reps=1, verbose=False,
+                             quantized_kv=quantized_kv, device="cpu")
+    assert tuple(scan.shape) == (2, 8 + 16)
+    assert torch.equal(scan, loop)
+    assert stats["device"] == "cpu" and stats["decode_tok_s"] > 0
+
+
+def test_serve_refuses_a_mesh():
+    with pytest.raises(NotImplementedError, match="sharded serving"):
+        serve.generate("qwen3-4b", mesh=object(), device="cpu")
+
+
+def test_serve_main_cli(capsys):
+    serve.main(["--device", "cpu", "--gen-len", "2", "--prompt-len", "3"])
+    assert "[serve] qwen3-4b mode=scan on cpu" in capsys.readouterr().out
+
+
+def test_entry_points_need_the_card_or_an_explicit_cpu(monkeypatch, jax_params):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("qwen3-4b")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        lm.init_cache(cfg, 1, 4)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        convert.params_from_numpy(cfg, jax_params("float32")[1])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.generate("qwen3-4b", verbose=False)
+    assert lm.init(cfg, device="cpu").embed.device.type == "cpu"
+
+
+def test_init_draws_the_reference_law():
+    cfg = get_smoke_config("qwen3-4b", act_dtype="float32")
+    model = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    again = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(model.parameters(), again.parameters()))
+    w = model.layers[0].mlp.wi_gate
+    assert float(w.abs().max()) <= 2.0 / cfg.d_model**0.5 + 1e-6  # truncated at 2 sigma
+    assert abs(float(w.std()) * cfg.d_model**0.5 - 0.88) < 0.05  # std of N(0,1) cut at +-2
+    assert float(model.layers[0].ln1.abs().max()) == 0.0  # norm scales start at zero
+    assert lm.param_count(model) == sum(
+        int(np.prod(a.shape)) for a in jax.tree.leaves(
+            jax_lm.init(jax_smoke_config("qwen3-4b"), jax.random.key(0), abstract=True)[0]))
+
+
+def test_full_width_config_mirrors_reference():
+    from repro.configs import get_config as jax_get_config
+
+    ours, ref = get_config("qwen3-4b"), jax_get_config("qwen3-4b")
+    for field in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_head", "d_ff", "vocab",
+                  "qk_norm", "rope_theta", "act_dtype", "padded_vocab"):
+        assert getattr(ours, field) == getattr(ref, field), field
+    assert ours.padded_vocab == 152064
+
+
+@pytest.mark.parametrize("override,match", [
+    ({"moe": MoESpec(4, 2, 32)}, "mixture-of-experts"),
+    ({"block_pattern": ("ssd",)}, "SSM"),
+    ({"kind": "encdec"}, "encoder-decoder"),
+    ({"sqrt_ladder": ("e2afs", "exact")}, "ladder"),
+    ({"sqrt_faults": object()}, "fault injection"),
+    ({"decode_kernel": "flash"}, "unknown decode kernel"),
+])
+def test_validate_rejects_what_the_port_does_not_run(override, match):
+    with pytest.raises(ValueError, match=match):
+        get_smoke_config("qwen3-4b", **override)
+
+
+def test_params_from_numpy_rejects_a_short_tree(jax_params):
+    tree = dict(jax_params("float32")[1])
+    del tree["unembed"]
+    with pytest.raises(ValueError, match="missing"):
+        convert.params_from_numpy(get_smoke_config("qwen3-4b"), tree, device="cpu")
+
+
+def test_cpu_model_never_counts_launches(jax_params):
+    _, tcfg, _, model, prompt, _, tcache = _both(jax_params, decode_kernel="fused")
+    dispatch.reset_launch_counts()
+    logits, tcache = lm.prefill(model, tcfg, tcache, torch.from_numpy(prompt), last_logit_only=True)
+    lm.generate_scan(model, tcfg, tcache, logits.argmax(-1), S, 2)
+    assert set(dispatch.launch_counts().values()) == {0}
