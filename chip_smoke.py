@@ -26,7 +26,22 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    device time per call (torch.profiler) and with CUDA events around
    back-to-back calls, beside the kernel's bound;
 6. times four full-width decode steps without and then under the profiler:
-   the device's idle share of the unprofiled step, top kernels.
+   the device's idle share of the unprofiled step, top kernels;
+7. Sobel kernel vs its plain version, bit-identical, from 3 x 3 to a
+   2160 x 3840 frame;
+8. K-means assignment kernel vs its plain version at 256^2 and 1920 x 1080
+   pixels, K = 8 and 20, and on the batch of 16 x 512^2 at K = 20 that
+   phase 9 quantises: equal assignments and counts, sums within 1e-6
+   relative of float64 sums of the same assignments and within 2e-6 of the
+   plain version (5e-5 for the batch, whose plain sums are the less exact),
+   bit-identical from run to run;
+9. the paper's evaluation path (``repro_torch.launch.paper``) on the card,
+   with the launch counts set to 0 just before and read just after: Table 3
+   equal to its CPU result, Table 4 (kernel route identical to the plain
+   route on every image, the paper's PSNR ordering), Fig. 5 (the fused Lloyd
+   run against the broadcast one: equal assignments, centroids within 2e-6;
+   13 launches per image); then a 1920 x 1080 frame and a batch of 16 images
+   of 512 x 512 quantised at K = 20 (wall ms, images/s).
 
 Before the last line it prints the card's name and power limit and one JSON
 line of kernels; the last line is ``{"ok": true, "device": {...}}``.  Without
@@ -50,6 +65,36 @@ SRC = ROOT / "src"
 # NVIDIA H100 SXM data sheet (dense): HBM rate and peak rates by input type
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+# Scalar pipes of the H100 SXM (Hopper white paper: 132 SMs, each with 128
+# FP32 and 64 INT32 lanes, at the 1.98 GHz boost clock): a float32 add, mul
+# or compare is one operation (the 67 TFLOP/s above counts an FMA as two),
+# an integer operation runs on the INT32 lanes, and both share the SM's 128
+# issue slots a clock.
+FP32_OPS_PER_S = 132 * 128 * 1.98e9  # 33.45e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9  # 16.73e12
+# Integer operations of one E2AFS sqrt of a positive normal float32 w (both
+# kernels clamp their input to at least 1e-9 or 1e-12 first, so no zero test
+# is needed), at the fewest Hopper instructions the datapath allows: mantissa
+# (LOP3), y_hi and exponent-parity predicates (2 LOP3), even path one +
+# (man >> 1) then - C_EVEN under y_hi (LEA.HI, predicated IADD), odd path
+# man + C_ODD under y_hi, t = one + (man >> 2), t + (t >> 1) (IADD, 2 LEA.HI),
+# the select (SEL), ovf = res >> 24 and res >> ovf (2 SHF), exponent
+# ((w >> 23) + 125) >> 1 + ovf (2 LEA.HI; (r >> 1) + bias without the parity
+# select, one less for the compose), compose (exp << 23) + res (LEA).  The
+# compiled count is read from the SASS in phase 5.
+E2AFS_SQRT_INT_OPS = 14
+
+# kmeans_assign's colour sums, relative: the kernel against float64 sums of
+# the same assignments (its own rounding, a fixed tree: it read 7.1e-8 to
+# 1.4e-7 at every shape of phase 8 on an H100), and the kernel against the
+# plain version, whose float32 one-hot matmul sums in cuBLAS's order.  That
+# order is the plain version's own error: one image read 2.9e-7 to 5.6e-7
+# from float64, but the batched matmul of the 16 x 512^2 deployment batch
+# read 2.86e-5, so the batch has a limit of its own, and the float64 limit
+# above is what holds the kernel there.
+KERNEL_SUMS_LIMIT = 1e-6
+PLAIN_SUMS_LIMIT = 2e-6
+PLAIN_BATCH_SUMS_LIMIT = 5e-5
 
 KERNELS = {
     "e2afs_sqrt": ("src/repro_torch/csrc/e2afs_sqrt.cu",
@@ -59,7 +104,71 @@ KERNELS = {
     "rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm/rmsnorm.py:32"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/attention/attention.py:62"),
+    "sobel": ("src/repro_torch/csrc/sobel.cu", "src/repro/kernels/sobel/sobel.py:23"),
+    "kmeans_assign": ("src/repro_torch/csrc/kmeans_assign.cu",
+                      "src/repro/kernels/kmeans/kmeans.py:30"),
 }
+
+
+def ops_bound_ms(fp_ops, int_ops):
+    """Least time for these scalar operations: the INT32 lanes or the SM's
+    issue slots, whichever is slower."""
+    return max(int_ops / INT32_OPS_PER_S, (fp_ops + int_ops) / FP32_OPS_PER_S) * 1e3
+
+
+# SASS opcodes by the pipe they issue to (the rest: loads, moves, branches)
+SASS_FLOAT = {"FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL"}
+SASS_INT = {"IADD3", "VIADD", "IMAD", "LOP3", "SHF", "LEA", "SEL", "ISETP", "IMNMX", "VIMNMX",
+            "PRMT", "SGXT", "BMSK", "IABS", "FLO", "POPC"}
+
+
+def sass_per_pair(lib):
+    """Compiled instructions per (pixel, centroid) pair of kmeans_assign's
+    distance loop, from ``cuobjdump -sass`` of its library: the backward
+    branch whose body holds the most FMULs is the unrolled loop over
+    centroids, and every pair in it has exactly three FMULs (d0^2, d1^2,
+    d2^2, which __fmul_rn keeps apart).  Returns (pairs in the body,
+    {opcode: count per pair})."""
+    import collections
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                         timeout=120, check=True).stdout
+    func = next(part for part in out.split("Function : ")[1:]
+                if part.split(None, 1)[0].find("assign_kernel") >= 0)
+    labels, insts = {}, []  # insts: (address, opcode, operands)
+    for line in func.splitlines():
+        lab = re.match(r"\s*(\.L_x_\d+):", line)
+        if lab:
+            labels[lab.group(1)] = None  # the address of the next instruction
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);",
+                     line)
+        if m:
+            addr = int(m.group(1), 16)
+            for key, val in labels.items():
+                if val is None:
+                    labels[key] = addr
+            insts.append((addr, m.group(2), m.group(3)))
+    best = None
+    for addr, op, args in insts:
+        if op.split(".")[0] != "BRA":
+            continue
+        tgt = re.search(r"0x([0-9a-f]+)|(\.L_x_\d+)", args)
+        if not tgt:
+            continue
+        to = int(tgt.group(1), 16) if tgt.group(1) else labels.get(tgt.group(2))
+        if to is None or to > addr:
+            continue
+        body = [o.split(".")[0] for a, o, _ in insts if to <= a <= addr]
+        if best is None or body.count("FMUL") > best.count("FMUL"):
+            best = body
+    if not best or best.count("FMUL") % 3:
+        raise RuntimeError("no loop with a multiple of three FMULs in assign_kernel's SASS")
+    pairs = best.count("FMUL") // 3
+    return pairs, {op: c / pairs for op, c in sorted(collections.Counter(best).items())}
 
 
 def ulp_of(r):
@@ -152,10 +261,15 @@ class Smoke:
             return None
         fn()
         self.sync()
-        _, rows = self.profiled(fn, iters)
-        if not rows:
-            raise AssertionError("the profiler saw no device time")
-        return sum(r[0] for r in rows) / iters / 1e3
+        # A profiler window now and then comes back without device events,
+        # for a kernel that the window before timed fine: take up to three
+        # windows before calling it a failure.
+        for attempt in range(3):
+            _, rows = self.profiled(fn, iters)
+            if rows:
+                return sum(r[0] for r in rows) / iters / 1e3
+            print(f"  (profiler window {attempt + 1} saw no device time)")
+        raise AssertionError("the profiler saw no device time")
 
     def gen(self, seed):
         return self.torch.Generator(device=self.dev).manual_seed(seed)
@@ -587,6 +701,277 @@ class Smoke:
                bound(nbytes, 4 * b * h * t * hd, "bfloat16"), rotating(sdpa),
                f"b={b} h={h} kv={kv} hd={hd} t={t} bfloat16 (g={g}, {copies} cache copies)")
 
+        # sobel: a 2160 x 3840 frame.  No PyTorch call computes the E2AFS
+        # magnitude: library_ms is None, and F.conv2d + torch.sqrt (another
+        # function) is printed as a near-yardstick only.
+        from repro_torch.kernels.kmeans import ops as k_ops
+        from repro_torch.kernels.kmeans import ref as k_ref
+        from repro_torch.kernels.sobel import ops as s_ops
+        from repro_torch.kernels.sobel import ref as s_ref
+
+        h, w = (108, 192) if self.rehearsal else (2160, 3840)
+        img = torch.rand(h, w, generator=self.gen(13), device=self.dev) * 255
+        taps = torch.tensor([[[[-1.0, 0.0, 1.0], [-2.0, 0.0, 2.0], [-1.0, 0.0, 1.0]]],
+                             [[[-1.0, -2.0, -1.0], [0.0, 0.0, 0.0], [1.0, 2.0, 1.0]]]],
+                            device=self.dev)
+
+        def conv_sqrt():
+            gxy = F.conv2d(img[None, None], taps)[0]
+            return torch.sqrt(torch.clamp(gxy[0] * gxy[0] + gxy[1] * gxy[1], min=1e-12))
+
+        out_px = (h - 2) * (w - 2)
+        t_bytes = (h * w + out_px) * 4 / HBM_BYTES_PER_S * 1e3
+        # per output: 18 tap products and 18 sums, gx^2 + gy^2 (3), the
+        # clamp (1) in float32; the E2AFS sqrt on the INT32 lanes
+        t_ops = ops_bound_ms(out_px * 40, out_px * E2AFS_SQRT_INT_OPS)
+        record("sobel", lambda: s_ops.sobel_magnitude(img), lambda: s_ref.ref_sobel(img),
+               (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"), None,
+               f"({h}, {w}) float32")
+        self.rows["sobel"]["yardstick"] = "F.conv2d + torch.sqrt (another function)"
+        self.rows["sobel"]["yardstick_ms"] = self.device_ms(conv_sqrt)
+
+        # kmeans_assign: the 1920 x 1080 frame, K = 20.  Yardstick, again
+        # another function: torch.cdist + argmin.
+        px, cent = self.pixels(self.frame(), 20, 20)
+        n, k = px.shape[0], cent.shape[0]
+        t_bytes = (n * 3 * 4 + k * 3 * 4 + n * 4 + k * 4 * 4) / HBM_BYTES_PER_S * 1e3
+        # per (pixel, centroid): 3 differences, 3 squares, 2 sums, the clamp
+        # and the argmin compare in float32 (10); the E2AFS sqrt and the two
+        # argmin selects (best distance, index) on the INT32 lanes
+        t_ops = ops_bound_ms(n * k * 10, n * k * (E2AFS_SQRT_INT_OPS + 2))
+        record("kmeans_assign", lambda: k_ops.kmeans_assign(px, cent),
+               lambda: k_ref.ref_kmeans_assign(px, cent),
+               (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations"), None,
+               f"N={n} (frame {self.frame().shape[1]}x{self.frame().shape[0]}) K={k} float32")
+        self.rows["kmeans_assign"]["yardstick"] = "torch.cdist + argmin (another function)"
+        self.rows["kmeans_assign"]["yardstick_ms"] = self.device_ms(
+            lambda: torch.cdist(px, cent).argmin(1))
+        if not self.rehearsal:
+            from repro_torch.kernels import _build
+
+            try:
+                pairs, per_pair = sass_per_pair(_build.build().libraries["kmeans_assign"])
+            except Exception as exc:  # a reading, not a check: report and go on
+                print(f"  kmeans_assign SASS: not read ({exc!r})")
+            else:
+                ints = sum(c for op, c in per_pair.items() if op in SASS_INT)
+                floats = sum(c for op, c in per_pair.items() if op in SASS_FLOAT)
+                self.rows["kmeans_assign"]["sass_per_pair"] = {
+                    "int": ints, "float": floats, "all": sum(per_pair.values())}
+                print(f"  kmeans_assign SASS of the distance loop ({pairs} pairs a pass): per "
+                      f"pair {ints:.3f} integer, {floats:.3f} float, "
+                      f"{sum(per_pair.values()):.3f} in all; bound counts "
+                      f"{E2AFS_SQRT_INT_OPS + 2} integer and 10 float; "
+                      + ", ".join(f"{op} {c:.3f}" for op, c in per_pair.items()))
+        for name in ("sobel", "kmeans_assign"):
+            print(f"  {name} near-yardstick {self.rows[name]['yardstick']}: device ms per call "
+                  f"{self.rows[name]['yardstick_ms']}")
+
+    # -- shared inputs of phases 5, 7-9 ----------------------------------------
+    def frame(self):
+        """One RGB frame of the deployment size (1920 x 1080; tiny in a
+        rehearsal): the peppers stand-in drawn at the frame's width, cropped."""
+        import numpy as np
+        from repro_torch.apps.images import rgb_test_image
+
+        if getattr(self, "_frame", None) is None:
+            h, w = (54, 96) if self.rehearsal else (1080, 1920)
+            self._frame = np.ascontiguousarray(rgb_test_image("peppers", w)[:h])
+        return self._frame
+
+    def stack(self):
+        """The deployment batch: 16 images of 512 x 512 (tiny in a
+        rehearsal), the four stand-ins in four rotations each."""
+        import numpy as np
+        from repro_torch.apps.images import IMAGE_NAMES, rgb_test_image
+
+        if getattr(self, "_stack", None) is None:
+            side = 32 if self.rehearsal else 512
+            self._stack = np.stack([np.rot90(rgb_test_image(name, side), r)
+                                    for name in IMAGE_NAMES for r in range(4)])
+        return self._stack
+
+    def pixels(self, rgb, k, seed):
+        from repro_torch.apps.kmeans import init_centroids
+
+        pix = self.torch.as_tensor(rgb.reshape(-1, 3)).to(self.dev, self.torch.float32)
+        return pix.contiguous(), init_centroids(pix, seed, k).contiguous()
+
+    # -- phase 7 -----------------------------------------------------------
+    def p7_sobel(self):
+        torch = self.torch
+        from repro_torch.apps.images import IMAGE_NAMES, test_image
+        from repro_torch.kernels.sobel import ops, ref
+
+        n = 32 if self.rehearsal else 256
+        frames = [(54, 96), (108, 192)] if self.rehearsal else [(1080, 1920), (2160, 3840)]
+        cases = [(f"random {h}x{w}", (h, w)) for h, w in [(3, 3), (67, 93), (34, 131)] + frames]
+        cases[3:3] = [(f"{name} {n}x{n}", name) for name in IMAGE_NAMES]
+        for label, spec in cases:
+            if isinstance(spec, str):
+                img = torch.as_tensor(test_image(spec, n)).to(self.dev, torch.float32)
+            else:
+                img = torch.rand(spec, generator=self.gen(spec[0] + spec[1]), device=self.dev) * 255
+            y, r = ops.sobel_magnitude(img), ref.ref_sobel(img)
+            self.sync()
+            bad = int((y.view(torch.int32) != r.view(torch.int32)).sum())
+            print(f"  sobel {label:22s}: {bad} of {y.numel()} pixels differ from the plain version")
+            if bad or tuple(y.shape) != (img.shape[0] - 2, img.shape[1] - 2):
+                raise AssertionError(f"sobel {label}: not bit-identical to its plain version")
+        self.rows["sobel"]["max_abs_err"] = 0.0
+
+    # -- phase 8 -----------------------------------------------------------
+    def p8_kmeans(self):
+        torch = self.torch
+        from repro_torch.apps.images import rgb_test_image
+        from repro_torch.apps.kmeans import init_centroids
+        from repro_torch.kernels.kmeans import ops, ref
+
+        def rel_to(a, b):
+            return float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+        n = 32 if self.rehearsal else 256
+        cases = []
+        for label, rgb in ((f"peppers {n}x{n}", rgb_test_image("peppers", n)),
+                           ("frame {}x{}".format(*self.frame().shape[:2]), self.frame())):
+            for k in (8, 20):
+                cases.append((label, *self.pixels(rgb, k, k), PLAIN_SUMS_LIMIT))
+        # the deployment batch at the shapes phase 9 gives the kernel, with
+        # the centroids kmeans_quantize_batch starts from
+        stack = self.stack()
+        bpx = torch.as_tensor(stack.reshape(len(stack), -1, 3)).to(self.dev, torch.float32)
+        bcent = torch.stack([init_centroids(bpx[i], i, 20) for i in range(len(stack))])
+        cases.append(("batch {} x {}x{}".format(*stack.shape[:3]), bpx.contiguous(),
+                      bcent.contiguous(), PLAIN_BATCH_SUMS_LIMIT))
+        worst = 0.0
+        for label, px, cent, plain_limit in cases:
+            k = cent.shape[-2]
+            got = ops.kmeans_assign(px, cent)
+            again = ops.kmeans_assign(px, cent)
+            ra, rs, rc = ref.ref_kmeans_assign(px, cent)
+            onehot = torch.nn.functional.one_hot(ra.long(), k).double()
+            exact = onehot.transpose(-1, -2) @ px.double()  # float64 sums, same assignments
+            self.sync()
+            flips = int((got[0] != ra).sum())
+            counts_equal = bool(torch.equal(got[2], rc))
+            rel = rel_to(got[1], rs)
+            rel_k, rel_p = rel_to(got[1].double(), exact), rel_to(rs.double(), exact)
+            same = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+            print(f"  kmeans_assign {label:22s} K={k:2d} N={px.shape[-2]}: {flips} assignments "
+                  f"differ, counts equal {counts_equal}, sums max relative diff {rel:.3e} "
+                  f"(limit {plain_limit:.0e}); against float64 sums of the same assignments: "
+                  f"kernel {rel_k:.3e} (limit {KERNEL_SUMS_LIMIT:.0e}), plain {rel_p:.3e}; "
+                  f"rerun bit-identical {same}")
+            if (flips or not counts_equal or rel > plain_limit or rel_k > KERNEL_SUMS_LIMIT
+                    or not same):
+                raise AssertionError(f"kmeans_assign {label} K={k} disagrees with its plain "
+                                     "version or with the float64 sums")
+            worst = max(worst, float((got[1] - rs).abs().max()))
+        self.rows["kmeans_assign"]["max_abs_err"] = worst
+
+    # -- phase 9 -----------------------------------------------------------
+    def p9_paper(self):
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.apps import kmeans, sobel
+        from repro_torch.apps.images import IMAGE_NAMES, rgb_test_image, test_image
+        from repro_torch.apps.metrics_img import psnr
+        from repro_torch.core import error_metrics, get_unit
+        from repro_torch.kernels import dispatch
+        from repro_torch.launch import paper
+
+        n = 64 if self.rehearsal else 256
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        t3 = paper.table3(device=self.dev)
+        t4 = paper.table4(device=self.dev, n=n)
+        f5 = paper.fig5(device=self.dev, n=n)
+        self.sync()
+        wall = time.perf_counter() - t0
+        counts = dispatch.launch_counts()
+        print(f"  paper path launches: {counts}; {wall:.2f} s wall (host clock, image metrics "
+              f"on the host; {self.card})")
+        want = {"sobel": len(IMAGE_NAMES), "kmeans_assign": 13}
+        self.rows["sobel"]["launches"] = counts["sobel"]
+        self.rows["kmeans_assign"]["launches"] = counts["kmeans_assign"]
+        if not self.rehearsal and any(counts[name] != c for name, c in want.items()):
+            raise AssertionError(f"paper path launches {counts}, want {want}")
+
+        # Table 3: the card against the CPU plain run, equal
+        for name in paper.UNITS + ("e2afs_rsqrt",):
+            op, refn = ("rsqrt", "rsqrt") if name == "e2afs_rsqrt" else ("sqrt", "sqrt")
+            unit = get_unit(name.split("_")[0])
+            cpu = error_metrics(getattr(unit, op), reference=refn, device="cpu")
+            if t3[name] != cpu:
+                raise AssertionError(f"Table 3 {name}: card {t3[name]} != CPU {cpu}")
+        print("  Table 3: every row equal to its CPU plain result")
+        # Table 4: kernel route identical to the plain route; the ordering
+        for name in IMAGE_NAMES:
+            img = test_image(name, n)
+            if not (sobel.edge_map(img, "e2afs", use_kernel=True, device=self.dev)
+                    == sobel.edge_map(img, "e2afs", device=self.dev)).all():
+                raise AssertionError(f"Table 4 {name}: kernel route differs from the plain route")
+        avg = {u: float(np.mean([t4[name][u]["psnr"] for name in IMAGE_NAMES]))
+               for u in paper.UNITS}
+        bar = t4["barbara"]
+        print(f"  Table 4: kernel route identical to the plain route on all {len(IMAGE_NAMES)} "
+              f"images; average PSNR cwaha8 {avg['cwaha8']:.3f} > e2afs {avg['e2afs']:.3f} > esas "
+              f"{avg['esas']:.3f}")
+        if not (avg["cwaha8"] > avg["e2afs"] > avg["esas"]
+                and bar["cwaha8"]["psnr"] > bar["e2afs"]["psnr"] > bar["esas"]["psnr"]):
+            raise AssertionError("Table 4: the paper's PSNR ordering does not hold")
+        # Fig. 5: the paper path's fused Lloyd run (13 launches an image)
+        # against the broadcast run from the same starting centroids.  Equal
+        # assignments make every centroid the mean of the same pixels, so the
+        # centroids differ only as the sums do (the sums' limit of phase 8).
+        rgb = rgb_test_image("peppers", n)
+        pix = torch.as_tensor(rgb.reshape(-1, 3)).to(self.dev, torch.float32)
+        start = kmeans.init_centroids(pix, 0, 20)  # kmeans_quantize's seed and K
+        dispatch.reset_launch_counts()
+        c_f, a_f = kmeans.lloyd(pix, start, iters=12, fused=True)
+        one = dispatch.launch_counts()["kmeans_assign"]
+        c_b, a_b = kmeans.lloyd(pix, start, iters=12, fused=False)
+        flips = int((a_f != a_b).sum())
+        crel = float(((c_f - c_b).abs() / c_b.abs().clamp_min(1e-30)).max())
+        quant = c_f[a_f.long()].reshape(rgb.shape).cpu().numpy().astype(np.float64)
+        p_fused = psnr(rgb.mean(-1), quant.mean(-1))
+        print(f"  Fig. 5 e2afs: fused against broadcast, {flips} of {a_f.numel()} assignments "
+              f"differ, centroids max relative diff {crel:.3e} (limit {PLAIN_SUMS_LIMIT:.0e}); "
+              f"fused PSNR {p_fused:.6f} dB, the paper path's {f5['e2afs']['psnr']:.6f}; "
+              f"{one} kmeans_assign launches for one image")
+        if flips or crel > PLAIN_SUMS_LIMIT or (not self.rehearsal and one != 13):
+            raise AssertionError("Fig. 5: fused and broadcast disagree, or launches != 13")
+        if p_fused != f5["e2afs"]["psnr"]:
+            raise AssertionError("Fig. 5: this fused run is not the paper path's")
+        if not all(np.isfinite(r["psnr"]) and 0 < r["ssim"] <= 1 for r in f5.values()):
+            raise AssertionError("Fig. 5: a PSNR or SSIM out of range")
+
+        # deployment size: a 1920 x 1080 frame, then 16 images of 512 x 512
+        frame, stack = self.frame(), self.stack()
+        for label, run, count in (
+                ("frame {}x{}".format(*frame.shape[:2]),
+                 lambda: kmeans.kmeans_quantize(frame, fused=True, device=self.dev), 1),
+                ("batch {} x {}x{}".format(*stack.shape[:3]),
+                 lambda: kmeans.kmeans_quantize_batch(stack, device=self.dev), len(stack))):
+            run()  # warm-up
+            dispatch.reset_launch_counts()
+            t0 = time.perf_counter()
+            quant, cent = run()
+            wall = time.perf_counter() - t0
+            launches = dispatch.launch_counts()["kmeans_assign"]
+            _, rows = self.profiled(run, 1)
+            busy = sum(r[0] for r in rows) / 1e3
+            kernels = sum(r[0] for r in rows if "assign" in r[2] or "reduce" in r[2]) / 1e3
+            print(f"  K-means K=20, 12 iterations, {label}: {wall * 1e3:.2f} ms wall, "
+                  f"{count / wall:.2f} images/s, {launches} kernel launches (host clock, numpy in "
+                  f"and out; {self.card}); device busy {busy:.3f} ms in a profiled repeat, "
+                  f"kmeans_assign {kernels:.3f} ms")
+            if not self.rehearsal and launches != 13:
+                raise AssertionError(f"{label}: {launches} launches, want 13")
+            if not np.isfinite(quant).all() or quant.min() < 0 or quant.max() > 255:
+                raise AssertionError(f"{label}: quantised values out of range")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -615,6 +1000,9 @@ def main(argv=None) -> int:
     smoke.phase("4c small model + serve.generate", smoke.p4_small)
     smoke.phase("5 times", smoke.p5_times)
     smoke.phase("6 profile", smoke.p6_profile)
+    smoke.phase("7 sobel", smoke.p7_sobel)
+    smoke.phase("8 kmeans_assign", smoke.p8_kmeans)
+    smoke.phase("9 paper", smoke.p9_paper)
     if smoke.failed:
         print(f"FAILED phases: {smoke.failed}", file=sys.stderr)
         return 1

@@ -1,24 +1,26 @@
 """SqrtUnit registry: every sqrt/rsqrt consumer takes a ``sqrt_unit`` name and
-resolves it here (torch port of ``repro.core.units`` for "exact" and
-"e2afs")::
+resolves it here (torch port of ``repro.core.units``: "exact", "e2afs" and
+the baselines "esas", "cwaha4", "cwaha8")::
 
     unit = get_unit("e2afs")
     y = unit.sqrt(x)                       # plain bit-level datapath
     z = get_unit("e2afs", kernel=True).rsqrt(x)   # the e2afs_sqrt kernel
 
 The kernel route goes through the dispatch layer: the CUDA kernel for a
-CUDA tensor, the plain version for a CPU tensor.
+CUDA tensor, the plain version for a CPU tensor.  The baselines are
+sqrt-only designs: their ``rsqrt`` is ``1 / sqrt``, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
+from functools import partial
 from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core import e2afs, exact
+from repro_torch.core import cwaha, e2afs, esas, exact
 
-__all__ = ["SqrtUnit", "get_unit"]
+__all__ = ["SqrtUnit", "available_units", "get_unit"]
 
 
 def _kernel_sqrt(x, **kw):
@@ -57,6 +59,8 @@ class SqrtUnit:
     def rsqrt(self, x: torch.Tensor, *, kernel: Optional[bool] = None, **kw) -> torch.Tensor:
         if self._use_kernel(kernel):
             return self._kernel_rsqrt(x, **kw)
+        if self._rsqrt is None:
+            return 1.0 / self._sqrt(x, **kw)
         return self._rsqrt(x, **kw)
 
 
@@ -70,6 +74,11 @@ _REGISTRY = {
         _kernel_sqrt=_kernel_sqrt,
         _kernel_rsqrt=_kernel_rsqrt,
     ),
+    "esas": SqrtUnit("esas", esas.esas_sqrt, None, "reconstructed ESAS (level-1 series)"),
+    "cwaha4": SqrtUnit("cwaha4", partial(cwaha.cwaha_sqrt, k=4), None,
+                       "reconstructed CWAHA, 4 clusters"),
+    "cwaha8": SqrtUnit("cwaha8", partial(cwaha.cwaha_sqrt, k=8), None,
+                       "reconstructed CWAHA, 8 clusters"),
 }
 
 
@@ -82,3 +91,7 @@ def get_unit(name: str, *, kernel: bool = False) -> SqrtUnit:
         unit._use_kernel(True)  # validate the route exists
         unit = dataclasses.replace(unit, kernel_default=True)
     return unit
+
+
+def available_units():
+    return tuple(_REGISTRY)

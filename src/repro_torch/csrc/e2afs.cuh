@@ -1,6 +1,6 @@
 // E2AFS / E2AFS-R integer datapath as __device__ functions, shared by every
-// kernel of repro_torch (the elementwise unit kernel inlines it, and so does
-// the fused RMSNorm kernel).
+// kernel of repro_torch (the elementwise unit kernel inlines it, and so do
+// the fused RMSNorm, Sobel and K-means kernels).
 //
 // Mirrors repro_torch/core/e2afs.py (itself bit-identical to
 // src/repro/core/e2afs.py) operation for operation:
@@ -145,6 +145,20 @@ __device__ __forceinline__ float rsqrt_f32(float x) {
   const int man = bits & man_mask<Fp32>();
   int exp_out, man_out;
   rsqrt_fields<Fp32>(exp, man, exp_out, man_out);
+  return __uint_as_float(compose<Fp32>(0, exp_out, man_out));
+}
+
+// E2AFS sqrt of a known-positive float32, no specials (the in-register
+// datapath of the fused Sobel and K-means kernels; the counterpart of
+// repro_torch/core/e2afs.py::e2afs_sqrt_positive).  x <= 0, and a float32
+// subnormal, give 0, as the reference's compare with denormals read as zero.
+__device__ __forceinline__ float sqrt_positive_f32(float x) {
+  const int bits = static_cast<int>(__float_as_uint(x));
+  const int exp = (bits >> Fp32::MAN) & exp_mask<Fp32>();
+  const int man = bits & man_mask<Fp32>();
+  if (x <= 0.0f || exp == 0) return 0.0f;
+  int exp_out, man_out;
+  sqrt_fields<Fp32>(exp, man, exp_out, man_out);
   return __uint_as_float(compose<Fp32>(0, exp_out, man_out));
 }
 

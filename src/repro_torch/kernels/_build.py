@@ -27,11 +27,12 @@ from typing import Callable, Optional, Sequence
 from repro_torch.core import numerics
 from repro_torch.core.e2afs import format_constants
 
-__all__ = ["BuildReport", "build", "function", "CSRC", "SOURCES"]
+__all__ = ["BuildReport", "build", "constant", "function", "CSRC", "SOURCES"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = CSRC / "build"
-SOURCES = ("e2afs_sqrt.cu", "rmsnorm.cu", "decode_attention.cu")
+SOURCES = ("e2afs_sqrt.cu", "rmsnorm.cu", "decode_attention.cu", "sobel.cu",
+           "kmeans_assign.cu")
 HEADERS = ("e2afs.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -119,15 +120,28 @@ def build() -> BuildReport:
     return _report
 
 
+def _lib(stem: str) -> ctypes.CDLL:
+    if stem not in _libs:
+        _libs[stem] = ctypes.CDLL(str(build().libraries[stem]))
+    return _libs[stem]
+
+
+def constant(stem: str, symbol: str) -> int:
+    """The value of ``extern "C" int symbol(void)`` of library ``stem``: a
+    compile-time constant of its source, so Python keeps no copy of it."""
+    fn = getattr(_lib(stem), symbol)
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return int(fn())
+
+
 def function(stem: str, symbol: str, argtypes: Sequence) -> Callable:
     """A ctypes entry point of library ``stem`` that raises when the C side
     returns a CUDA error code (the launch's ``cudaGetLastError()``)."""
     key = (stem, symbol)
     if key in _functions:
         return _functions[key]
-    if stem not in _libs:
-        _libs[stem] = ctypes.CDLL(str(build().libraries[stem]))
-    lib = _libs[stem]
+    lib = _lib(stem)
     fn = getattr(lib, symbol)
     fn.argtypes = list(argtypes)
     fn.restype = ctypes.c_int

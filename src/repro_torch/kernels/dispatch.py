@@ -28,7 +28,7 @@ __all__ = [
 ]
 
 BACKENDS = ("auto", "reference")
-KNOWN = ("decode_attention", "e2afs_rsqrt", "e2afs_sqrt", "rmsnorm")
+KNOWN = ("decode_attention", "e2afs_rsqrt", "e2afs_sqrt", "kmeans_assign", "rmsnorm", "sobel")
 
 _backend = "auto"
 _launches = dict.fromkeys(KNOWN, 0)

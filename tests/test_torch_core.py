@@ -182,6 +182,11 @@ def _imported_modules(path: Path):
 def test_port_imports_neither_jax_nor_repro():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 20
+    scanned = {str(p.relative_to(REPO / "src" / "repro_torch")) for p in files[:-1]}
+    assert {"core/esas.py", "core/cwaha.py", "core/metrics.py", "kernels/sobel/ops.py",
+            "kernels/sobel/ref.py", "kernels/kmeans/ops.py", "kernels/kmeans/ref.py",
+            "apps/images.py", "apps/metrics_img.py", "apps/sobel.py", "apps/kmeans.py",
+            "launch/paper.py"} <= scanned
     bad = []
     for path in files:
         for mod in _imported_modules(path):

@@ -10,8 +10,12 @@ Tolerances: e2afs bit-identical; RMSNorm float32 within 1e-6 relative, bf16
 ``T(x * inv)`` within one ulp (zero scale) and the scaled output within two
 (the ``1 + scale`` multiply stretches a one-ulp step, then rounds); decode
 attention float32 atol 1e-5, bf16 within two ulps at each (slot, head) row's
-largest output.  Only the order of float32 sums differs between a kernel and
-its plain version.
+largest output; Sobel bit-identical; K-means assignments and counts equal,
+sums within 1e-6 relative of a float64 sum of the same assignments (the
+kernel's fixed-order tree) and within 1e-5 of the plain version (cuBLAS
+sums of up to 262,144 terms in its own order), bit-identical from run to
+run.  Only the order of float32 sums differs between a kernel and its plain
+version.
 """
 import numpy as np
 import pytest
@@ -22,8 +26,12 @@ from repro_torch.core.metrics import sampled_normal_values
 from repro_torch.kernels import dispatch
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.e2afs_sqrt import ops as e2afs_ops
+from repro_torch.kernels.kmeans import ops as kmeans_ops
+from repro_torch.kernels.kmeans.ref import ref_kmeans_assign
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import ref_rmsnorm
+from repro_torch.kernels.sobel import ops as sobel_ops
+from repro_torch.kernels.sobel.ref import ref_sobel
 from repro_torch.models import lm
 
 pytestmark = pytest.mark.gpu
@@ -162,3 +170,98 @@ def test_model_kernels_match_plain_versions(cuda_device):
     assert out["auto"][2]["rmsnorm"] == (4 * cfg.n_layers + 1) * (1 + gen)
     assert out["auto"][2]["decode_attention"] == cfg.n_layers * gen
     assert set(out["reference"][2].values()) == {0}
+
+
+@pytest.mark.parametrize("shape", [(3, 3), (4, 1000), (67, 93), (34, 131), (256, 256),
+                                   (1080, 1920)])
+def test_sobel_bit_identical(cuda_device, shape):
+    g = torch.Generator(device=cuda_device).manual_seed(shape[0] * shape[1])
+    img = torch.rand(shape, generator=g, device=cuda_device) * 255
+    dispatch.reset_launch_counts()
+    ours = sobel_ops.sobel_magnitude(img)
+    assert dispatch.launch_counts()["sobel"] == 1
+    plain = ref_sobel(img)
+    assert ours.shape == (shape[0] - 2, shape[1] - 2)
+    assert torch.equal(ours.view(torch.int32), plain.view(torch.int32))
+
+
+def _kmeans_inputs(dev, b, n, k, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    px = torch.rand(b, n, 3, generator=g, device=dev) * 255
+    cent = torch.rand(b, k, 3, generator=g, device=dev) * 255
+    return px, cent
+
+
+def _check_kmeans(got, px, cent):
+    assign, sums, counts = got
+    ra, rs, rc = ref_kmeans_assign(px, cent)
+    assert torch.equal(assign, ra) and torch.equal(counts, rc)
+    onehot = torch.nn.functional.one_hot(ra.long(), cent.shape[-2]).double()
+    exact = onehot.transpose(-1, -2) @ px.double()
+    torch.testing.assert_close(sums.double(), exact, rtol=1e-6, atol=0)
+    torch.testing.assert_close(sums, rs, rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("n", [1, 513, 2048, 65536])
+@pytest.mark.parametrize("k", [1, 8, 256])
+def test_kmeans_assign_matches_plain(cuda_device, n, k):
+    px, cent = _kmeans_inputs(cuda_device, 1, n, k, n + k)
+    px, cent = px[0], cent[0]
+    dispatch.reset_launch_counts()
+    first = kmeans_ops.kmeans_assign(px, cent)
+    assert dispatch.launch_counts()["kmeans_assign"] == 1
+    assert first[0].shape == (n,) and first[1].shape == (k, 3) and first[2].shape == (k,)
+    _check_kmeans(first, px, cent)
+    again = kmeans_ops.kmeans_assign(px, cent)  # deterministic: no float atomics
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.parametrize("b,n", [(5, 70_000), (16, 512 * 512)])  # the latter: the deployment batch
+def test_kmeans_assign_batch_is_per_image(cuda_device, b, n):
+    px, cent = _kmeans_inputs(cuda_device, b, n, 20, 7)
+    batch = kmeans_ops.kmeans_assign(px, cent)
+    _check_kmeans(batch, px, cent)
+    for i in range(b):
+        one = kmeans_ops.kmeans_assign(px[i].contiguous(), cent[i].contiguous())
+        assert all(torch.equal(a[i], b) for a, b in zip(batch, one))
+
+
+def test_kmeans_and_sobel_refuse_what_they_do_not_take(cuda_device):
+    px, cent = _kmeans_inputs(cuda_device, 1, 100, 257, 1)
+    with pytest.raises(ValueError, match="K <= 256"):
+        kmeans_ops.kmeans_assign(px[0], cent[0])
+    with pytest.raises(ValueError, match="contiguous"):
+        kmeans_ops.kmeans_assign(px[0, ::2], cent[0, :8])
+    with pytest.raises(ValueError, match="float32"):
+        kmeans_ops.kmeans_assign(px[0].double(), cent[0, :8].double())
+    with pytest.raises(ValueError, match=r"\(N, 3\)"):
+        kmeans_ops.kmeans_assign(torch.ones(10, 4, device=cuda_device), cent[0, :8])
+    img = torch.ones(16, 16, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        sobel_ops.sobel_magnitude(img[:, ::2])
+    with pytest.raises(ValueError, match="H, W >= 3"):
+        sobel_ops.sobel_magnitude(img[:2].contiguous())
+
+
+def test_paper_path_on_the_card_matches_the_cpu(cuda_device):
+    """Table 3's metrics, Table 4's edge maps (kernel route) and the K-means
+    batch on the card against the same entry points on the CPU."""
+    from repro_torch.apps import images, kmeans, sobel
+    from repro_torch.core import error_metrics, get_unit
+
+    for name in ("esas", "cwaha4", "cwaha8", "e2afs"):
+        assert (error_metrics(get_unit(name).sqrt, device=cuda_device)
+                == error_metrics(get_unit(name).sqrt, device="cpu"))
+    img = images.test_image("barbara", 128)
+    np.testing.assert_array_equal(sobel.edge_map(img, "e2afs", use_kernel=True, device=cuda_device),
+                                  sobel.edge_map(img, "e2afs", device="cpu"))
+    np.testing.assert_array_equal(sobel.edge_map(img, "exact", device=cuda_device),
+                                  sobel.edge_map(img, "exact", device="cpu"))
+    rgbs = np.stack([images.rgb_test_image(name, 64) for name in images.IMAGE_NAMES])
+    dispatch.reset_launch_counts()
+    quant, cent = kmeans.kmeans_quantize_batch(rgbs, k=8, iters=6, device=cuda_device)
+    assert dispatch.launch_counts()["kmeans_assign"] == 7  # one per iteration + the last assignment
+    for i in range(len(rgbs)):
+        q, c = kmeans.kmeans_quantize(rgbs[i], k=8, iters=6, seed=i, fused=True, device=cuda_device)
+        np.testing.assert_array_equal(quant[i], q)
+        np.testing.assert_array_equal(cent[i], c)
