@@ -41,7 +41,23 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    route on every image, the paper's PSNR ordering), Fig. 5 (the fused Lloyd
    run against the broadcast one: equal assignments, centroids within 2e-6;
    13 launches per image); then a 1920 x 1080 frame and a batch of 16 images
-   of 512 x 512 quantised at K = 20 (wall ms, images/s).
+   of 512 x 512 quantised at K = 20 (wall ms, images/s);
+10. the adam kernel vs its plain version, bit-identical on p, m and v: sizes
+   1 to 2560 x 9728 (one ``wi_gate``), p and g in float32 and bfloat16,
+   steps 1, 2 and 1000, m and v from zero and random, zeros in g; and
+   bit-identical from run to run;
+11. training qwen3-4b at full width cut to 8 layers (bf16 activations,
+   E2AFS in every norm, ``remat="block"``, ``AdamWConfig(fused=True,
+   sqrt_unit="e2afs")``, batch 4 x 2048 from ``SyntheticLM``): one warm-up
+   step, then four timed steps with the launch counts set to 0 just before
+   and read just after (adam launches = parameter tensors x steps); ms/step,
+   tokens/s, peak memory, a profiled step's device-busy and adam shares;
+   the loss finite and, on the first batch, lower after the steps; one
+   step's update on the kernel route bit-identical to the same update on
+   the plain route (the clip once, then leaf by leaf);
+12. ``launch.train.train_loop`` at smoke width on the card: an aborted and
+   resumed run ends on the uninterrupted run's loss (rtol 1e-4);
+   microbatches and compressed gradients train with finite losses.
 
 Before the last line it prints the card's name and power limit and one JSON
 line of kernels; the last line is ``{"ok": true, "device": {...}}``.  Without
@@ -51,8 +67,10 @@ prints no result.  It imports neither ``jax`` nor the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import itertools
 import json
+import math
 import subprocess
 import sys
 import time
@@ -107,7 +125,12 @@ KERNELS = {
     "sobel": ("src/repro_torch/csrc/sobel.cu", "src/repro/kernels/sobel/sobel.py:23"),
     "kmeans_assign": ("src/repro_torch/csrc/kmeans_assign.cu",
                       "src/repro/kernels/kmeans/kmeans.py:30"),
+    "adam": ("src/repro_torch/csrc/adam.cu", "src/repro/kernels/adam/adam.py:28"),
 }
+
+# the fused AdamW step moves 4 streams in and 3 out: float32 p, g, m, v in
+# and p, m, v out, 28 bytes a parameter
+ADAM_BYTES_PER_PARAM = 28
 
 
 def ops_bound_ms(fp_ops, int_ops):
@@ -767,6 +790,39 @@ class Smoke:
             print(f"  {name} near-yardstick {self.rows[name]['yardstick']}: device ms per call "
                   f"{self.rows[name]['yardstick_ms']}")
 
+        # adam: one wi_gate leaf of qwen3-4b (2560 x 9728), float32 p and g.
+        # torch.optim.AdamW(fused=True) is another function (exact sqrt, the
+        # decay applied before the step): a yardstick, not library_ms.
+        from repro_torch.kernels.adam import ops as a_ops
+        from repro_torch.kernels.adam import ref as a_ref
+
+        shape = (256, 97) if self.rehearsal else (2560, 9728)
+        p, g, m, v, sched = self.adam_inputs(shape, torch.float32, torch.float32, 1000, False, 21)
+        hyper = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+        record("adam", lambda: a_ops.adam_update(p, g, m, v, sched, **hyper),
+               lambda: a_ref.ref_adam_update(p, g, m, v, sched, **hyper),
+               (p.numel() * ADAM_BYTES_PER_PARAM / HBM_BYTES_PER_S * 1e3, "bytes"), None,
+               f"{shape} float32")
+        w = torch.nn.Parameter(p.clone())
+        w.grad = g.clone()
+        fused = dict(fused=True) if self.dev.type == "cuda" else {}
+        opt = torch.optim.AdamW([w], lr=3e-4, betas=(0.9, 0.95), eps=1e-8, weight_decay=0.1,
+                                **fused)
+        opt.step()
+        self.rows["adam"]["yardstick"] = ("torch.optim.AdamW(fused=True) (another function: "
+                                          "exact sqrt, decay before the step)")
+        self.rows["adam"]["yardstick_ms"] = self.device_ms(opt.step)
+        print(f"  adam near-yardstick {self.rows['adam']['yardstick']}: device ms per call "
+              f"{self.rows['adam']['yardstick_ms']}")
+        from repro_torch.configs import get_config
+        from repro_torch.models import lm
+
+        meta = lm.LM(get_config("qwen3-4b", n_layers=8), device="meta", trainable=True)
+        n = lm.param_count(meta)
+        print(f"  adam bound of one training step of qwen3-4b at 8 layers: {n} parameters x "
+              f"{ADAM_BYTES_PER_PARAM} B = {n * ADAM_BYTES_PER_PARAM / 1e9:.2f} GB, "
+              f"{n * ADAM_BYTES_PER_PARAM / HBM_BYTES_PER_S * 1e3:.3f} ms")
+
     # -- shared inputs of phases 5, 7-9 ----------------------------------------
     def frame(self):
         """One RGB frame of the deployment size (1920 x 1080; tiny in a
@@ -972,6 +1028,238 @@ class Smoke:
             if not np.isfinite(quant).all() or quant.min() < 0 or quant.max() > 255:
                 raise AssertionError(f"{label}: quantised values out of range")
 
+    # -- phase 10 ----------------------------------------------------------
+    def adam_inputs(self, shape, p_dtype, g_dtype, step, zero_state, seed):
+        """(p, g, m, v, sched) on the card: g with every 7th entry 0, m and v
+        zero or random (0 together where a row never had a gradient), sched
+        = [3e-4, 1 - 0.9**step, 1 - 0.95**step] from the optimizer's own
+        schedule code."""
+        torch = self.torch
+        from repro_torch.optim import AdamWConfig
+        from repro_torch.optim.adamw import bias_corrections
+
+        gen = self.gen(seed)
+        p = torch.randn(shape, generator=gen, device=self.dev).to(p_dtype)
+        g = (torch.randn(shape, generator=gen, device=self.dev) * 0.01).to(g_dtype)
+        g.view(-1)[::7] = 0
+        if zero_state:
+            m = torch.zeros(shape, device=self.dev)
+            v = torch.zeros(shape, device=self.dev)
+        else:
+            m = torch.randn(shape, generator=gen, device=self.dev) * 1e-3
+            v = torch.rand(shape, generator=gen, device=self.dev) * 1e-5
+            m.view(-1)[::11] = 0
+            v.view(-1)[::11] = 0
+        b1c, b2c = bias_corrections(AdamWConfig(), torch.tensor(step, device=self.dev))
+        sched = torch.stack([torch.tensor(3e-4, device=self.dev), b1c, b2c]).contiguous()
+        return p, g, m, v, sched
+
+    def p10_adam(self):
+        torch = self.torch
+        from repro_torch.kernels.adam import ops, ref
+
+        hyper = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+        sizes = [(1,), (127,), (128,), (2560,), (4097,),
+                 (256, 97) if self.rehearsal else (2560, 9728)]
+        dtypes = (torch.float32, torch.bfloat16)
+        n_cases = bad_cases = 0
+        for shape, p_dt, g_dt, step, zero in itertools.product(sizes, dtypes, dtypes, (1, 2, 1000),
+                                                               (True, False)):
+            p, g, m, v, sched = self.adam_inputs(shape, p_dt, g_dt, step, zero, len(shape) + step)
+            want = ref.ref_adam_update(p, g, m, v, sched, **hyper)
+            runs = []
+            for _ in range(2):  # the kernel twice, from the same inputs
+                args = [t.clone() for t in (p, m, v)]
+                ops.adam_update(args[0], g, args[1], args[2], sched, **hyper)
+                runs.append(args)
+            self.sync()
+            diffs = []
+            for i, name in enumerate("pmv"):
+                ib = torch.int16 if runs[0][i].dtype == torch.bfloat16 else torch.int32
+                bits = runs[0][i].view(ib)
+                diffs.append(int((bits != want[i].view(ib)).sum()))
+                diffs.append(int((bits != runs[1][i].view(ib)).sum()))
+            n_cases += 1
+            if any(diffs):
+                bad_cases += 1
+                print(f"  adam {shape} p {p_dt} g {g_dt} step {step} zero state {zero}: "
+                      f"differing (vs plain, run to run) p {diffs[:2]} m {diffs[2:4]} "
+                      f"v {diffs[4:]}")
+        print(f"  adam: {n_cases} cases (sizes {[s for s in sizes]}, p and g in float32 and "
+              f"bfloat16, steps 1/2/1000, m and v zero and random): {bad_cases} not bit-identical "
+              f"to the plain version or from run to run")
+        if bad_cases:
+            raise AssertionError(f"adam: {bad_cases} of {n_cases} cases differ")
+        self.rows["adam"]["max_abs_err"] = 0.0
+
+    # -- phase 11 ----------------------------------------------------------
+    def p11_train(self):
+        torch = self.torch
+        from repro_torch.configs import get_config, get_smoke_config
+        from repro_torch.data import DataConfig, SyntheticLM
+        from repro_torch.kernels import dispatch
+        from repro_torch.launch.steps import loss_fn, make_train_step
+        from repro_torch.models import lm
+        from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, global_norm_clip
+
+        self.serving = None  # phase 4a's serving model
+        if not self.rehearsal:
+            torch.cuda.empty_cache()
+        kw = dict(n_layers=8, sqrt_unit="e2afs", remat="block")
+        if self.rehearsal:
+            cfg, batch, seq = get_smoke_config("qwen3-4b", **kw), 2, 64
+        else:
+            cfg, batch, seq = get_config("qwen3-4b", **kw), 4, 2048
+        # a fixed rate (the cosine over 10,000 steps barely moves in 6); the
+        # rehearsal's tiny model needs a larger one to move in 6 steps
+        lr = 3e-3 if self.rehearsal else 3e-4
+        opt_cfg = AdamWConfig(lr=lr, warmup_steps=1, fused=True, sqrt_unit="e2afs")
+        t0 = time.perf_counter()
+        model = lm.init(cfg, self.gen(0), device=self.dev, trainable=True)
+        opt = adamw_init(model)
+        n_params, n_tensors = lm.param_count(model), len(list(model.parameters()))
+        self.sync()
+        print(f"  {cfg.name} cut to {cfg.n_layers} layers: d {cfg.d_model}, heads {cfg.n_heads}/"
+              f"{cfg.n_kv_heads}, d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab} -> "
+              f"{cfg.padded_vocab}; {n_params / 1e9:.4f} B float32 parameters in {n_tensors} "
+              f"tensors; {cfg.act_dtype} activations, sqrt {cfg.sqrt_unit}, remat {cfg.remat}; "
+              f"batch {batch} x {seq}; init {time.perf_counter() - t0:.1f} s")
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0))
+
+        def batch_at(i):
+            return {k: torch.from_numpy(a).to(self.dev) for k, a in data.batch(i).items()}
+
+        step_fn = make_train_step(cfg, opt_cfg)
+        losses, lrs = [], []
+
+        def step(i):
+            nonlocal model, opt
+            model, opt, metrics = step_fn(model, opt, batch_at(i))
+            losses.append(float(metrics["loss"]))  # waits for the step
+            lrs.append(float(metrics["lr"]))
+
+        step(0)  # warm-up
+        timed = 4
+        if not self.rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launch_counts()
+        t0 = time.perf_counter()
+        for i in range(1, 1 + timed):
+            step(i)
+        wall = time.perf_counter() - t0
+        counts = dispatch.launch_counts()
+        peak = torch.cuda.max_memory_allocated() if not self.rehearsal else None
+        self.rows["adam"]["launches"] = counts["adam"]
+        ms = wall / timed * 1e3
+        print(f"  main path launches over {timed} steps: {counts}")
+        print(f"  losses {[round(x, 4) for x in losses]}; lr {lrs}")
+        print(f"  {ms:.1f} ms/step, {batch * seq / (wall / timed):.1f} tokens/s, peak memory "
+              f"{peak / 2**30 if peak is not None else float('nan'):.2f} GiB (host clock with "
+              f"synchronize; {self.card})")
+        if not self.rehearsal and counts["adam"] != n_tensors * timed:
+            raise AssertionError(f"adam launches {counts['adam']}, want {n_tensors} x {timed}")
+
+        # a profiled step: device-busy share and the adam kernels' share
+        _, rows = self.profiled(lambda: step(1 + timed), 1)
+        busy = sum(r[0] for r in rows) / 1e3
+        adam_ms = sum(r[0] for r in rows if "adam_kernel" in r[2]) / 1e3
+        bound = n_params * ADAM_BYTES_PER_PARAM / HBM_BYTES_PER_S * 1e3
+        print(f"  profiled step: device busy {busy:.2f} ms = {busy / ms:.3f} of the unprofiled "
+              f"step; adam kernels {adam_ms:.3f} ms ({adam_ms / max(busy, 1e-9):.4f} of busy; "
+              f"bound {bound:.3f} ms for {n_params * ADAM_BYTES_PER_PARAM / 1e9:.2f} GB)")
+        groups = {}
+        matmul = ("gemm", "nvjet", "xmma", "cutlass")
+        for dev_us, count, key in rows:
+            low = key.lower()
+            group = ("adam" if "adam_kernel" in low else
+                     "matrix products" if any(t in low for t in matmul) else
+                     "copies and casts" if "copy" in low else
+                     "reductions" if "reduce" in low else "other elementwise")
+            groups[group] = groups.get(group, 0.0) + dev_us / 1e3
+        print("  device ms by kind: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                                   sorted(groups.items(), key=lambda kv: -kv[1])))
+        for dev_us, count, key in rows[:14]:
+            print(f"    {dev_us / 1e3:9.3f} ms  {count:6d} calls  {key[:160]}")
+        # the first batch's loss again, after the six steps: on the same
+        # batch, the fall is not hidden by batch-to-batch noise
+        with torch.no_grad():
+            again = float(loss_fn(model, cfg, batch_at(0))[0])
+        print(f"  loss on the first batch: {losses[0]:.4f} at step 1, {again:.4f} after "
+              f"{len(losses)} steps")
+        if not all(math.isfinite(x) for x in losses + [again]):
+            raise AssertionError(f"non-finite loss: {losses}, {again}")
+        if not again < losses[0]:
+            raise AssertionError(f"the loss did not fall: {losses[0]} -> {again}")
+
+        # one step's update on the kernel route against the same update on
+        # the plain route, from the same parameters and gradients.  The
+        # step's clip (shared code, no kernel) runs once; then each leaf is
+        # updated on both routes, the plain one on a copy, so that only one
+        # leaf's copy and the plain datapath's temporaries sit beside the
+        # 25 GB of training state.
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        total, _ = loss_fn(model, cfg, batch_at(2 + timed))
+        total.backward()
+        grads = {n: p.grad for n, p in params.items()}
+        global_norm_clip(grads, opt_cfg.clip_norm, opt_cfg.sqrt_unit)
+        leaf_cfg = dataclasses.replace(opt_cfg, clip_norm=None)
+        dispatch.reset_launch_counts()
+        bad = []
+        for n, p in params.items():
+            with torch.no_grad():
+                twin = [t.detach().clone() for t in (p, opt["m"][n], opt["v"][n])]
+            adamw_update(leaf_cfg, {n: grads[n]},
+                         {"m": {n: opt["m"][n]}, "v": {n: opt["v"][n]}, "step": opt["step"]},
+                         {n: p})
+            prev = dispatch.set_backend("reference")
+            try:
+                adamw_update(leaf_cfg, {n: grads[n]},
+                             {"m": {n: twin[1]}, "v": {n: twin[2]}, "step": opt["step"]},
+                             {n: twin[0]})
+            finally:
+                dispatch.set_backend(prev)
+            for a, b in zip((p, opt["m"][n], opt["v"][n]), twin):
+                if not torch.equal(a.detach().view(torch.int32), b.view(torch.int32)):
+                    bad.append(n)
+            del twin
+        opt["step"] = opt["step"] + 1
+        self.sync()
+        print(f"  one step, kernel route vs plain route: {len(bad)} of {len(params)} parameter "
+              f"tensors differ in p, m or v ({dispatch.launch_counts()['adam']} adam launches)")
+        if bad:
+            raise AssertionError(f"kernel and plain routes differ: {bad[:5]}")
+        for p in params.values():
+            p.grad = None
+
+    # -- phase 12 ----------------------------------------------------------
+    def p12_resume(self):
+        import tempfile
+
+        import numpy as np
+
+        from repro_torch.launch.train import train_loop
+
+        kw = dict(steps=12, seq=32, batch=2, ckpt_every=6, log_every=1000, device=self.dev)
+        with tempfile.TemporaryDirectory() as tmp:
+            _, _, full = train_loop(ckpt_dir=f"{tmp}/full", **kw)
+            train_loop(ckpt_dir=f"{tmp}/int", abort_after=6, **kw)
+            _, _, resumed = train_loop(ckpt_dir=f"{tmp}/int", **kw)
+        rel = abs(resumed[-1] - full[-1]) / abs(full[-1])
+        print(f"  resume: uninterrupted last loss {full[-1]:.6f}, aborted at 6 and resumed "
+              f"{resumed[-1]:.6f} ({len(resumed)} steps after the restart), relative diff "
+              f"{rel:.2e} (limit 1e-4)")
+        if len(resumed) != 6 or not rel <= 1e-4:
+            raise AssertionError("resume is not exact")
+        for label, extra in (("microbatches=2", dict(microbatches=2)),
+                             ("compress=True", dict(compress=True))):
+            _, _, losses = train_loop(steps=6, seq=32, batch=4, log_every=1000, device=self.dev,
+                                      **extra)
+            print(f"  {label}: losses {[round(x, 4) for x in losses]}")
+            if len(losses) != 6 or not np.isfinite(losses).all():
+                raise AssertionError(f"{label}: non-finite loss")
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -1003,6 +1291,9 @@ def main(argv=None) -> int:
     smoke.phase("7 sobel", smoke.p7_sobel)
     smoke.phase("8 kmeans_assign", smoke.p8_kmeans)
     smoke.phase("9 paper", smoke.p9_paper)
+    smoke.phase("10 adam", smoke.p10_adam)
+    smoke.phase("11 train qwen3-4b", smoke.p11_train)
+    smoke.phase("12 train_loop resume", smoke.p12_resume)
     if smoke.failed:
         print(f"FAILED phases: {smoke.failed}", file=sys.stderr)
         return 1

@@ -9,6 +9,11 @@ the baselines "esas", "cwaha4", "cwaha8")::
 The kernel route goes through the dispatch layer: the CUDA kernel for a
 CUDA tensor, the plain version for a CPU tensor.  The baselines are
 sqrt-only designs: their ``rsqrt`` is ``1 / sqrt``, as in the reference.
+
+The approximate units' plain datapaths carry a gradient taken at the
+approximate value (``kernels.dispatch.make_differentiable_*``); "exact" uses
+torch's own autograd, and the kernel route has no gradient, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -19,6 +24,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import cwaha, e2afs, esas, exact
+from repro_torch.kernels.dispatch import make_differentiable_rsqrt, make_differentiable_sqrt
 
 __all__ = ["SqrtUnit", "available_units", "get_unit"]
 
@@ -33,6 +39,21 @@ def _kernel_rsqrt(x, **kw):
     from repro_torch.kernels.e2afs_sqrt import ops
 
     return ops.rsqrt(x, **kw)
+
+
+class _Reciprocal(torch.autograd.Function):
+    """``1 / y`` of the composed rsqrt, with the derivative the reference
+    takes of ``1.0 / y``: ``-(t * (1 / (y * y)))``, rounded in its order."""
+
+    @staticmethod
+    def forward(ctx, y):
+        ctx.save_for_backward(y)
+        return 1.0 / y
+
+    @staticmethod
+    def backward(ctx, t):
+        (y,) = ctx.saved_tensors
+        return -(t * (y.new_full((), 1.0) / (y * y)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +81,7 @@ class SqrtUnit:
         if self._use_kernel(kernel):
             return self._kernel_rsqrt(x, **kw)
         if self._rsqrt is None:
-            return 1.0 / self._sqrt(x, **kw)
+            return _Reciprocal.apply(self._sqrt(x, **kw))
         return self._rsqrt(x, **kw)
 
 
@@ -68,16 +89,17 @@ _REGISTRY = {
     "exact": SqrtUnit("exact", exact.exact_sqrt, exact.exact_rsqrt, "IEEE sqrt (reference)"),
     "e2afs": SqrtUnit(
         "e2afs",
-        e2afs.e2afs_sqrt,
-        e2afs.e2afs_rsqrt,
+        make_differentiable_sqrt(e2afs.e2afs_sqrt),
+        make_differentiable_rsqrt(e2afs.e2afs_rsqrt),
         "paper's dual-level shift-add datapath",
         _kernel_sqrt=_kernel_sqrt,
         _kernel_rsqrt=_kernel_rsqrt,
     ),
-    "esas": SqrtUnit("esas", esas.esas_sqrt, None, "reconstructed ESAS (level-1 series)"),
-    "cwaha4": SqrtUnit("cwaha4", partial(cwaha.cwaha_sqrt, k=4), None,
+    "esas": SqrtUnit("esas", make_differentiable_sqrt(esas.esas_sqrt), None,
+                     "reconstructed ESAS (level-1 series)"),
+    "cwaha4": SqrtUnit("cwaha4", make_differentiable_sqrt(partial(cwaha.cwaha_sqrt, k=4)), None,
                        "reconstructed CWAHA, 4 clusters"),
-    "cwaha8": SqrtUnit("cwaha8", partial(cwaha.cwaha_sqrt, k=8), None,
+    "cwaha8": SqrtUnit("cwaha8", make_differentiable_sqrt(partial(cwaha.cwaha_sqrt, k=8)), None,
                        "reconstructed CWAHA, 8 clusters"),
 }
 

@@ -32,7 +32,7 @@ __all__ = ["BuildReport", "build", "constant", "function", "CSRC", "SOURCES"]
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = CSRC / "build"
 SOURCES = ("e2afs_sqrt.cu", "rmsnorm.cu", "decode_attention.cu", "sobel.cu",
-           "kmeans_assign.cu")
+           "kmeans_assign.cu", "adam.cu")
 HEADERS = ("e2afs.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -10,10 +10,13 @@ Every kernel wrapper asks :func:`use_kernel` where to go, per call:
 There is no fallback: a CUDA tensor that the kernel refuses raises.  Each
 wrapper calls :func:`count_launch` where it launches its kernel and nowhere
 else, so a run can show that its main path went through the kernels.
+
+:func:`make_differentiable_sqrt` and :func:`make_differentiable_rsqrt` give
+an approximate unit a gradient (the reference's ``custom_jvp`` factories).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
@@ -22,13 +25,16 @@ __all__ = [
     "KNOWN",
     "count_launch",
     "launch_counts",
+    "make_differentiable_rsqrt",
+    "make_differentiable_sqrt",
     "reset_launch_counts",
     "set_backend",
     "use_kernel",
 ]
 
 BACKENDS = ("auto", "reference")
-KNOWN = ("decode_attention", "e2afs_rsqrt", "e2afs_sqrt", "kmeans_assign", "rmsnorm", "sobel")
+KNOWN = ("adam", "decode_attention", "e2afs_rsqrt", "e2afs_sqrt", "kmeans_assign", "rmsnorm",
+         "sobel")
 
 _backend = "auto"
 _launches = dict.fromkeys(KNOWN, 0)
@@ -72,3 +78,54 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+
+
+# ---------------------------------------------------------------------------
+# Differentiability of the approximate units
+# ---------------------------------------------------------------------------
+
+
+def _over(num: float, y: torch.Tensor) -> torch.Tensor:
+    """``num / y`` as one correctly rounded division (``float / tensor`` in
+    torch is a reciprocal times ``num``, two roundings)."""
+    return y.new_full((), num) / y
+
+
+def make_differentiable_sqrt(fn: Callable) -> Callable:
+    """Wrap an approximate sqrt so gradients flow: d/dx sqrt(x) = 1 / (2 sqrt(x)),
+    taken at the *approximate* forward value y, as ``t * (0.5 / y)``
+    (straight-through on the approximation error; the reference's rounding
+    order, so the gradients are bit-identical to it)."""
+
+    class _Sqrt(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            y = fn(x)
+            ctx.save_for_backward(y)
+            return y
+
+        @staticmethod
+        def backward(ctx, t):
+            (y,) = ctx.saved_tensors
+            return t * _over(0.5, y)
+
+    return _Sqrt.apply
+
+
+def make_differentiable_rsqrt(fn: Callable) -> Callable:
+    """Wrap an approximate rsqrt: d/dx x^(-1/2) = -y / (2x) at the approximate
+    forward value y, as ``t * (-0.5 * y / x)``."""
+
+    class _Rsqrt(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            y = fn(x)
+            ctx.save_for_backward(x, y)
+            return y
+
+        @staticmethod
+        def backward(ctx, t):
+            x, y = ctx.saved_tensors
+            return t * (-0.5 * y / x)
+
+    return _Rsqrt.apply

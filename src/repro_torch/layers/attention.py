@@ -1,6 +1,7 @@
 """Grouped-query attention with QK-norm (through the configured sqrt unit),
-RoPE, and a decode path over a float or int8 KV cache (torch port of the
-prefill/decode part of ``repro.layers.attention``).
+RoPE, a differentiable full-sequence path for training, and a decode path
+over a float or int8 KV cache (torch port of the train/prefill/decode part
+of ``repro.layers.attention``).
 
 Shapes follow the reference's (batch, seq, heads, head_dim) convention.  The
 cache is a dict of tensors; with ``layer_idx`` each tensor carries a leading
@@ -22,6 +23,7 @@ from repro_torch.layers.rope import rope_tables, rotate
 
 __all__ = [
     "Attention",
+    "attention_train",
     "attention_prefill",
     "attention_decode",
     "init_kv_cache",
@@ -46,8 +48,8 @@ class Attention(nn.Module):
             self.k_norm = parameter((hd,), dtype, device)
 
 
-def _qk_norm(scale, x, cfg):
-    return rmsnorm(scale, x, sqrt_unit=cfg.sqrt_unit, fused=cfg.sqrt_unit == "e2afs")
+def _qk_norm(scale, x, cfg, fused):
+    return rmsnorm(scale, x, sqrt_unit=cfg.sqrt_unit, fused=fused and cfg.sqrt_unit == "e2afs")
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -56,13 +58,14 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(d, -1)).view(b, s, w.shape[1], w.shape[2])
 
 
-def _project_qkv(p: Attention, cfg, xq, xkv, q_positions, kv_positions, *, use_rope):
+def _project_qkv(p: Attention, cfg, xq, xkv, q_positions, kv_positions, *, use_rope,
+                 fused_norm=True):
     q = _project(xq, p.wq)
     k = _project(xkv, p.wk)
     v = _project(xkv, p.wv)
     if cfg.qk_norm:
-        q = _qk_norm(p.q_norm, q, cfg)
-        k = _qk_norm(p.k_norm, k, cfg)
+        q = _qk_norm(p.q_norm, q, cfg, fused_norm)
+        k = _qk_norm(p.k_norm, k, cfg, fused_norm)
     if use_rope:
         q_tables = rope_tables(q_positions, q.shape[-1], theta=cfg.rope_theta)
         kv_tables = q_tables if kv_positions is q_positions else rope_tables(
@@ -100,6 +103,62 @@ def _softmax(x):
     """jax.nn.softmax's order: exp(x - max) / sum."""
     e = torch.exp(x - x.amax(dim=-1, keepdim=True))
     return e / e.sum(dim=-1, keepdim=True)
+
+
+class _Softmax(torch.autograd.Function):
+    """``jax.nn.softmax`` on float32 scores: the forward of :func:`_softmax`,
+    and the reference's derivative ``y * t - y * sum(y * t)`` (its
+    ``custom_jvp``, transposed).  Saves only y."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = _softmax(x)
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, t):
+        (y,) = ctx.saved_tensors
+        c = y * t
+        return c - y * c.sum(dim=-1, keepdim=True)
+
+
+def _scored_attention(q, k, v, mask, scale, sdt, out_dtype):
+    """The training block (the reference's ``_gqa_scores`` ->
+    ``_softmax_scores`` -> ``_gqa_out``): scores in ``sdt`` times the exact
+    ``scale``, plus the mask, softmax, weights cast to ``out_dtype`` before
+    the V product.  q: (b, sq, h, hd); k/v: (b, t, kv, hd); mask: (sq, t)."""
+    h = q.shape[2]
+    scores = torch.einsum("bshk,bthk->bhst", q, _expand_kv(k, h)).to(sdt) * scale
+    scores = scores + mask.to(sdt)[None, None]
+    w = _Softmax.apply(scores).to(out_dtype)
+    return torch.einsum("bhst,bthk->bshk", w, _expand_kv(v, h))
+
+
+def attention_train(p: Attention, cfg, x, *, positions=None, q_chunk: int = 1024):
+    """Full-sequence causal attention for training (the reference's
+    ``attention_train`` in "causal" mode), differentiable; writes no cache.
+    x: (b, s, d); positions: (s,), default ``arange(s)``.  QK-norm runs
+    unfused through the unit's differentiable datapath.  Sequences longer
+    than ``q_chunk`` (and a multiple of it) process queries in chunks, each
+    against the whole K/V, as the reference's ``_chunked_attention``.
+    Window and cross modes come with the model families that use them."""
+    s = x.shape[1]
+    pos = positions if positions is not None else torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(p, cfg, x, x, pos, pos, use_rope=cfg.pos == "rope",
+                           fused_norm=False)
+    scale = cfg.d_head**-0.5
+    sdt = getattr(torch, cfg.scores_dtype)
+    if s <= q_chunk or s % q_chunk:
+        out = _scored_attention(q, k, v, _mask("causal", pos, pos, None), scale, sdt, x.dtype)
+    else:
+        chunks = []
+        for i in range(s // q_chunk):
+            sl = slice(i * q_chunk, (i + 1) * q_chunk)
+            chunks.append(_scored_attention(q[:, sl], k, v, _mask("causal", pos[sl], pos, None),
+                                            scale, sdt, x.dtype))
+        out = torch.cat(chunks, dim=1)
+    return _out_proj(out, p.wo)
 
 
 def _fold_masked_attention(q, k, v, mask, scale, k_scale, v_scale, out_dtype):

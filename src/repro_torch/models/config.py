@@ -3,8 +3,8 @@
 
 :meth:`ModelConfig.validate` also rejects what the port does not run yet:
 mixture-of-experts, SSM and RG-LRU blocks, encoder-decoder models, vision
-tokens, non-RoPE positions, LayerNorm, the accuracy-SLO ladder and fault
-injection.
+tokens, non-RoPE positions, LayerNorm, the accuracy-SLO ladder, fault
+injection and selective remat ("minimal").
 """
 from __future__ import annotations
 
@@ -109,6 +109,9 @@ class ModelConfig:
         if self.sqrt_unit not in ("exact", "e2afs"):
             raise ValueError(f"the port has sqrt units 'exact' and 'e2afs', "
                              f"got {self.sqrt_unit!r}")
+        if self.remat not in ("none", "block"):
+            raise ValueError(f"the port runs remat 'none' or 'block'; selective remat "
+                             f"{self.remat!r} (attention scores only) is not ported yet")
         if self.act_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"the port runs bfloat16 or float32 activations, "
                              f"got {self.act_dtype!r}")

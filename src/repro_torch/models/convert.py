@@ -1,9 +1,17 @@
-"""Bridge from the JAX package's parameter tree to the port's modules.
+"""Bridge between the JAX package's parameter tree and the port's modules.
 
 ``jax.random`` and ``torch.Generator`` draw different numbers from one seed,
 so parity runs initialise with the reference (``repro.models.lm.init``),
 turn its tree into numpy arrays, and load them here.  Nothing is
 downloaded and JAX is not imported: the input is plain numpy.
+
+The reference's tree is ``embed``, ``unembed``, ``ln_f`` and
+``layers/{ln1, ln2, attn/{wq, wk, wv, wo, q_norm, k_norm},
+mlp/{wi_gate, wi_up, wo}}`` stacked on a leading L axis; the port names the
+same tensors ``embed`` ... ``layers.<i>.attn.wq``.  :func:`named_to_tree`
+and :func:`tree_to_named` map any per-parameter state (the parameters, the
+optimizer's moments) between the two, so checkpoints keep the reference's
+leaf names.
 """
 from __future__ import annotations
 
@@ -14,46 +22,79 @@ from repro_torch.device import resolve_device
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["params_from_numpy"]
+__all__ = ["named_to_tree", "params_from_numpy", "params_to_numpy", "tree_to_named"]
 
 
-def _tensor(a, dtype, device) -> torch.Tensor:
-    # float32 first: the reference keeps float32 masters, and numpy has no
-    # native bfloat16 that torch can read
-    return torch.from_numpy(np.array(a, dtype=np.float32)).to(
-        device=device, dtype=dtype)
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy, never a view: a checkpoint written later from it must not
+    see the in-place updates of the steps after.  numpy has no bfloat16:
+    such tensors come out as float32 (exact)."""
+    dtype = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+    return t.detach().to("cpu", dtype, copy=True).numpy()
+
+
+def named_to_tree(named: dict, n_layers: int) -> dict:
+    """``{port name: tensor}`` -> the reference's nested tree of numpy
+    arrays, per-layer tensors stacked on a leading L axis."""
+    tree, per_layer = {}, {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            per_layer.setdefault(tuple(parts[2:]), [None] * n_layers)[int(parts[1])] = _numpy(t)
+        else:
+            tree[name] = _numpy(t)
+    for path, arrays in per_layer.items():
+        if any(a is None for a in arrays):
+            raise ValueError(f"layers.*.{'.'.join(path)}: not every layer is present")
+        node = tree.setdefault("layers", {})
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.stack(arrays)
+    return tree
+
+
+def tree_to_named(tree: dict, names) -> dict:
+    """The reference's tree -> ``{port name: numpy array}`` for ``names``
+    (per-layer slices of the stacked arrays).  A name the tree lacks raises."""
+    out = {}
+    for name in names:
+        parts = name.split(".")
+        node = tree
+        try:
+            if parts[0] == "layers":
+                node = node["layers"]
+                for key in parts[2:]:
+                    node = node[key]
+                node = node[int(parts[1])]
+            else:
+                node = node[name]
+        except (KeyError, IndexError):
+            raise ValueError(f"parameter {name} is missing from the tree") from None
+        out[name] = node
+    return out
 
 
 @torch.no_grad()
-def params_from_numpy(cfg: ModelConfig, tree: dict, device=None) -> lm.LM:
-    """Map the reference tree (``embed``, ``unembed``, ``ln_f`` and
-    ``layers/{ln1, ln2, attn/{wq, wk, wv, wo, q_norm, k_norm},
-    mlp/{wi_gate, wi_up, wo}}`` stacked on a leading L axis) into an
-    :class:`~repro_torch.models.lm.LM`.  Each tensor is stored once in
-    ``cfg.act_dtype``: the reference casts its float32 masters at every use,
-    which gives the same values."""
+def params_from_numpy(cfg: ModelConfig, tree: dict, device=None, *,
+                      trainable: bool = False) -> lm.LM:
+    """Map the reference tree into an :class:`~repro_torch.models.lm.LM`.
+    For serving each tensor is stored once in ``cfg.act_dtype`` (the
+    reference casts its float32 masters at every use, which gives the same
+    values); ``trainable=True`` keeps float32 masters that require
+    gradients."""
     dev = resolve_device(device)
-    model = lm.LM(cfg, device=dev)
-    dtype = lm.act_dtype(cfg)
-    loaded = set()
-
-    def put(param: torch.nn.Parameter, name: str, a):
+    model = lm.LM(cfg, device=dev, trainable=trainable)
+    params = dict(model.named_parameters())
+    for name, a in tree_to_named(tree, params).items():
+        param = params[name]
         if tuple(np.shape(a)) != tuple(param.shape):
             raise ValueError(f"{name}: shape {np.shape(a)} != {tuple(param.shape)}")
-        param.copy_(_tensor(a, dtype, dev))
-        loaded.add(name)
-
-    for name in ("embed", "unembed", "ln_f"):
-        if name in tree:
-            put(getattr(model, name), name, tree[name])
-    layers = tree["layers"]
-    for i, block in enumerate(model.layers):
-        for name in ("ln1", "ln2"):
-            put(getattr(block, name), f"layers.{i}.{name}", layers[name][i])
-        for sub, module in (("attn", block.attn), ("mlp", block.mlp)):
-            for name, _ in module.named_parameters():
-                put(getattr(module, name), f"layers.{i}.{sub}.{name}", layers[sub][name][i])
-    missing = {n for n, _ in model.named_parameters()} - loaded
-    if missing:
-        raise ValueError(f"parameters missing from the tree: {sorted(missing)}")
+        # float32 first: numpy has no native bfloat16 that torch can read
+        param.copy_(torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, param.dtype))
     return model
+
+
+def params_to_numpy(model: lm.LM) -> dict:
+    """The model's parameters as the reference's tree of numpy arrays (layers
+    stacked), the inverse of :func:`params_from_numpy`."""
+    return named_to_tree(dict(model.named_parameters()), len(model.layers))

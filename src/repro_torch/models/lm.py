@@ -1,8 +1,9 @@
-"""Dense decoder LM: init, prefill, decode step and greedy decode (torch port
-of the uniform dense-decoder part of ``repro.models.lm``).
+"""Dense decoder LM: init, training forward, prefill, decode step and greedy
+decode (torch port of the uniform dense-decoder part of ``repro.models.lm``).
 
 Entry points:
-    init(cfg, generator, device)                 -> LM
+    init(cfg, generator, device, trainable=)     -> LM
+    forward(model, cfg, batch, return_hidden=)   -> (logits | (x, unembed), aux)
     init_cache(cfg, batch, cache_len, device=)   -> cache dict
     decode_step(model, cfg, cache, tokens, pos)  -> (logits, cache)
     prefill(model, cfg, cache, tokens)           -> (logits, cache)
@@ -13,15 +14,18 @@ The cache is a dict of stacked ``(L, b, t, kv, hd)`` tensors that prefill
 and decode update IN PLACE (the reference is functional and returns a new
 cache; here the returned dict is the one passed in).
 
-Every norm goes through ``layers.norms.rmsnorm``: with ``sqrt_unit="e2afs"``
-on its fused route (the RMSNorm kernel on CUDA, its plain version on the
-CPU; the reference's unfused call computes the same function), with
-"exact" through ``torch.rsqrt``.
+Serving runs every norm through ``layers.norms.rmsnorm``: with
+``sqrt_unit="e2afs"`` on its fused route (the RMSNorm kernel on CUDA, its
+plain version on the CPU; the reference's unfused call computes the same
+function), with "exact" through ``torch.rsqrt``.  The training forward runs
+every norm unfused, through the unit's differentiable datapath, as the
+reference's does (the RMSNorm kernel has no backward in either package).
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.layers import attention as attn
@@ -30,7 +34,7 @@ from repro_torch.layers.norms import rmsnorm
 from repro_torch.layers.param import parameter, truncated_normal
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["LM", "init", "init_cache", "decode_step", "prefill", "generate_scan",
+__all__ = ["LM", "init", "init_cache", "forward", "decode_step", "prefill", "generate_scan",
            "param_count"]
 
 
@@ -38,8 +42,9 @@ def act_dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.act_dtype)
 
 
-def _norm(scale, x, cfg):
-    return rmsnorm(scale, x, sqrt_unit=cfg.sqrt_unit, fused=cfg.sqrt_unit == "e2afs")
+def _norm(scale, x, cfg, *, fused=True):
+    return rmsnorm(scale, x, sqrt_unit=cfg.sqrt_unit,
+                   fused=fused and cfg.sqrt_unit == "e2afs")
 
 
 class Block(nn.Module):
@@ -52,14 +57,16 @@ class Block(nn.Module):
 
 
 class LM(nn.Module):
-    """Parameters in the reference's layout, stored once in the activation
-    dtype: embed (vp, d), unembed (d, vp), ln_f (d,), and one Block per
-    layer (the reference stacks them on a leading L axis)."""
+    """Parameters in the reference's layout: embed (vp, d), unembed (d, vp),
+    ln_f (d,), and one Block per layer (the reference stacks them on a
+    leading L axis).  For serving each is stored once in the activation
+    dtype, without gradient; ``trainable=True`` keeps float32 masters that
+    require gradients, as the reference always does, cast at every use."""
 
-    def __init__(self, cfg: ModelConfig, *, device):
+    def __init__(self, cfg: ModelConfig, *, device, trainable: bool = False):
         super().__init__()
         cfg.validate()
-        dtype = act_dtype(cfg)
+        dtype = torch.float32 if trainable else act_dtype(cfg)
         vp, d = cfg.padded_vocab, cfg.d_model
         self.embed = parameter((vp, d), dtype, device)
         if not cfg.tie_embeddings:
@@ -67,6 +74,7 @@ class LM(nn.Module):
         self.ln_f = parameter((d,), dtype, device)
         self.layers = nn.ModuleList(Block(cfg, dtype=dtype, device=device)
                                     for _ in range(cfg.n_layers))
+        self.requires_grad_(trainable)
 
     def unembed_matrix(self) -> torch.Tensor:
         return self.embed.T if not hasattr(self, "unembed") else self.unembed
@@ -78,14 +86,16 @@ _ZERO_INIT = ("ln1", "ln2", "ln_f", "q_norm", "k_norm")
 
 
 @torch.no_grad()
-def init(cfg: ModelConfig, generator: torch.Generator = None, *, device=None) -> LM:
+def init(cfg: ModelConfig, generator: torch.Generator = None, *, device=None,
+         trainable: bool = False) -> LM:
     """A model with random weights drawn from ``generator`` on ``device``
     (the card unless ``device="cpu"``).  The generator must live on that
-    device; None seeds a fresh one with 0."""
+    device; None seeds a fresh one with 0.  ``trainable`` builds float32
+    masters that require gradients (see :class:`LM`)."""
     dev = resolve_device(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    model = LM(cfg, device=dev)
+    model = LM(cfg, device=dev, trainable=trainable)
     for name, p in model.named_parameters():
         if name.rsplit(".", 1)[-1] in _ZERO_INIT:
             p.zero_()
@@ -103,6 +113,40 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, quantized: bool 
     dev = resolve_device(device)
     return attn.init_kv_cache(cfg, batch, cache_len, act_dtype(cfg), quantized=quantized,
                               device=dev, layers=cfg.n_layers)
+
+
+def _layer_train(layer: Block, cfg, x, positions):
+    """One block of the training forward (the reference's ``_layer_train``):
+    unfused norms, full-sequence causal attention, SwiGLU MLP."""
+    h = _norm(layer.ln1, x, cfg, fused=False)
+    x = x + attn.attention_train(layer.attn, cfg, h, positions=positions)
+    return x + mlp_apply(layer.mlp, cfg, _norm(layer.ln2, x, cfg, fused=False))
+
+
+def forward(model: LM, cfg: ModelConfig, batch: dict, *, return_hidden: bool = False):
+    """Training forward over ``batch["tokens"]`` (b, s), differentiable.
+
+    Returns (logits over the padded vocab (b, s, vp), aux) as the reference
+    does; with ``return_hidden`` the unembed product is left to the caller
+    (the loss computes it in sequence chunks): ((x, unembed), aux).
+    ``cfg.remat == "block"`` recomputes each layer's forward in the backward
+    pass (``torch.utils.checkpoint``), keeping only the layer inputs.
+    ``aux["moe_aux"]`` is 0: dense layers have no router loss."""
+    dt = act_dtype(cfg)
+    tokens = batch["tokens"]
+    x = model.embed.to(dt)[tokens]
+    positions = torch.arange(x.shape[1], device=x.device)
+    for layer in model.layers:
+        if cfg.remat == "block":
+            x = checkpoint(_layer_train, layer, cfg, x, positions, use_reentrant=False)
+        else:
+            x = _layer_train(layer, cfg, x, positions)
+    x = _norm(model.ln_f, x, cfg, fused=False)
+    aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+    unembed = model.unembed_matrix().to(x.dtype)
+    if return_hidden:
+        return (x, unembed), aux
+    return x @ unembed, aux
 
 
 def _window(cfg, block):

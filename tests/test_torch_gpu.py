@@ -14,8 +14,9 @@ largest output; Sobel bit-identical; K-means assignments and counts equal,
 sums within 1e-6 relative of a float64 sum of the same assignments (the
 kernel's fixed-order tree) and within 1e-5 of the plain version (cuBLAS
 sums of up to 262,144 terms in its own order), bit-identical from run to
-run.  Only the order of float32 sums differs between a kernel and its plain
-version.
+run; adam bit-identical (p, m and v; one training step on the kernel route
+against the plain route too).  Only the order of float32 sums differs
+between a kernel and its plain version.
 """
 import numpy as np
 import pytest
@@ -24,6 +25,8 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.metrics import sampled_normal_values
 from repro_torch.kernels import dispatch
+from repro_torch.kernels.adam import ops as adam_ops
+from repro_torch.kernels.adam.ref import ref_adam_update
 from repro_torch.kernels.attention import ops as attn_ops
 from repro_torch.kernels.e2afs_sqrt import ops as e2afs_ops
 from repro_torch.kernels.kmeans import ops as kmeans_ops
@@ -265,3 +268,90 @@ def test_paper_path_on_the_card_matches_the_cpu(cuda_device):
         q, c = kmeans.kmeans_quantize(rgbs[i], k=8, iters=6, seed=i, fused=True, device=cuda_device)
         np.testing.assert_array_equal(quant[i], q)
         np.testing.assert_array_equal(cent[i], c)
+
+
+def _adam_case(dev, n, p_dtype, g_dtype, step, seed):
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.optim.adamw import bias_corrections
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = torch.randn(n, generator=gen, device=dev).to(p_dtype)
+    g = (torch.randn(n, generator=gen, device=dev) * 0.01).to(g_dtype)
+    g[::7] = 0
+    m = torch.randn(n, generator=gen, device=dev) * 1e-3
+    v = torch.rand(n, generator=gen, device=dev) * 1e-5
+    m[::11] = 0
+    v[::11] = 0
+    b1c, b2c = bias_corrections(AdamWConfig(), torch.tensor(step, device=dev))
+    return p, g, m, v, torch.stack([torch.tensor(1e-3, device=dev), b1c, b2c])
+
+
+@pytest.mark.parametrize("n", [1, 1000, 3 * 2**20 + 5])
+@pytest.mark.parametrize("p_dtype,g_dtype", [(torch.float32, torch.float32),
+                                             (torch.bfloat16, torch.float32),
+                                             (torch.float32, torch.bfloat16),
+                                             (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("step", [1, 1000])
+def test_adam_bit_identical(cuda_device, n, p_dtype, g_dtype, step):
+    p, g, m, v, sched = _adam_case(cuda_device, n, p_dtype, g_dtype, step, n + step)
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+    want = ref_adam_update(p, g, m, v, sched, **hyper)
+    dispatch.reset_launch_counts()
+    got = adam_ops.adam_update(p, g, m, v, sched, **hyper)  # in place
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["adam"] == 1
+    assert got[0] is p and got[1] is m and got[2] is v
+    for ours, plain in zip(got, want):
+        assert ours.dtype == plain.dtype
+        ib = _INT[ours.dtype]
+        assert torch.equal(ours.view(ib), plain.view(ib))
+
+
+def test_adam_refuses_what_the_kernel_does_not_take(cuda_device):
+    p, g, m, v, sched = _adam_case(cuda_device, 64, torch.float32, torch.float32, 1, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        adam_ops.adam_update(p[::2], g[::2], m[::2], v[::2], sched)
+    with pytest.raises(ValueError, match="float32 m, v"):
+        adam_ops.adam_update(p, g, m.to(torch.bfloat16), v, sched)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        adam_ops.adam_update(p.half(), g, m, v, sched)
+    with pytest.raises(ValueError, match="one shape"):
+        adam_ops.adam_update(p, g[:32], m, v, sched)
+    with pytest.raises(ValueError, match="different devices"):
+        adam_ops.adam_update(p, g, m, v, sched.cpu())
+
+
+def test_training_step_kernel_route_equals_plain_route(cuda_device):
+    """One AdamW update of qwen3-4b at full width (one layer deep) from the
+    same parameters and gradients: the adam kernel route and the plain
+    route give bit-identical p, m and v."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import loss_fn
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+
+    cfg = get_config("qwen3-4b", n_layers=1, sqrt_unit="e2afs")
+    model = lm.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device,
+                    trainable=True)
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (1, 128), generator=gen, device=cuda_device)
+    total, _ = loss_fn(model, cfg, {"tokens": tokens, "labels": tokens.roll(-1, 1)})
+    total.backward()
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, fused=True, sqrt_unit="e2afs")
+    out = []
+    for backend in ("auto", "reference"):
+        params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        grads = {n: p.grad.clone() for n, p in model.named_parameters()}
+        state = adamw_init(params)
+        prev = dispatch.set_backend(backend)
+        try:
+            dispatch.reset_launch_counts()
+            adamw_update(opt_cfg, grads, state, params)
+            out.append((params, state, dispatch.launch_counts()["adam"]))
+        finally:
+            dispatch.set_backend(prev)
+    assert out[0][2] == len(out[0][0]) and out[1][2] == 0
+    for n in out[0][0]:
+        assert torch.equal(out[0][0][n].view(torch.int32), out[1][0][n].view(torch.int32)), n
+        for key in ("m", "v"):
+            assert torch.equal(out[0][1][key][n].view(torch.int32),
+                               out[1][1][key][n].view(torch.int32)), (key, n)

@@ -1,0 +1,291 @@
+"""The torch port's training forward and checkpoints held against the JAX
+package: the loss and its gradients, remat, float32 masters, and
+checkpoints in both directions.  The trainer is ``test_torch_trainer.py``.
+
+Tolerances, with their reasons:
+
+* loss and every parameter's gradient at the qwen3-4b smoke config
+  (float32 activations, weights from the reference's ``lm.init``), with
+  both the query-chunk and the loss-chunk loops running: s = 256 with the
+  query chunk set to 64 and the loss chunk to 128 in both packages (the
+  defaults, 1024, would need s = 2048, several times slower on the CPU for
+  the same code paths).  The loss within 1e-6 relative; each gradient
+  within 1e-5 of its leaf's largest |value| for "exact" (sums in another
+  order) and 5e-5 for "e2afs" (both read about 1.2e-6, here and at the
+  default chunks with s = 2048).  E2AFS's rsqrt steps at the mantissa MSB,
+  so a row whose mean square lands one ulp apart in the two frameworks may
+  move by a few percent there; the looser limit leaves room for one such
+  crossing in a small leaf, and the test prints the reading;
+* ``remat="block"`` against ``"none"`` in the port: equal gradients (the
+  recomputed forward is the same arithmetic);
+* checkpoints: bit-identical, bfloat16 included, in both directions.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import checkpoint as jax_ck
+from repro.configs import get_smoke_config as jax_smoke_config
+from repro.launch import steps as jax_steps
+from repro.layers import attention as jax_attn
+from repro.models import lm as jax_lm
+from repro_torch import checkpoint as ck
+from repro_torch.configs import get_smoke_config
+from repro_torch.launch import steps
+from repro_torch.layers import attention as attn
+from repro_torch.models import convert, lm
+
+S_LONG, Q_CHUNK, LOSS_CHUNK = 256, 64, 128
+
+
+@pytest.fixture(scope="module")
+def jax_tree():
+    params, _ = jax_lm.init(jax_smoke_config("qwen3-4b", act_dtype="float32"), jax.random.key(0))
+    return params, jax.tree.map(np.asarray, params)
+
+
+def _batch(vocab, b, s, seed=0):
+    rng = np.random.default_rng(seed)
+    return {"tokens": rng.integers(0, vocab, (b, s)).astype(np.int32),
+            "labels": rng.integers(0, vocab, (b, s)).astype(np.int32),
+            "loss_mask": (rng.random((b, s)) < 0.9).astype(np.float32)}
+
+
+def _port_grads(tcfg, tree, batch):
+    model = convert.params_from_numpy(tcfg, tree, device="cpu", trainable=True)
+    total, metrics = steps.loss_fn(model, tcfg, {k: torch.from_numpy(v) for k, v in batch.items()})
+    total.backward()
+    grads = convert.named_to_tree({n: p.grad for n, p in model.named_parameters()},
+                                  tcfg.n_layers)
+    return float(total.detach()), metrics, grads
+
+
+@pytest.fixture
+def small_chunks(monkeypatch):
+    """Both packages' query chunk and loss chunk, cut so that s = 256 runs
+    both chunk loops (restored after the test)."""
+    for fn in (jax_attn.attention_train, attn.attention_train):
+        monkeypatch.setitem(fn.__kwdefaults__, "q_chunk", Q_CHUNK)
+    monkeypatch.setattr(jax_steps, "LOSS_CHUNK", LOSS_CHUNK)
+    monkeypatch.setattr(steps, "LOSS_CHUNK", LOSS_CHUNK)
+
+
+@pytest.mark.parametrize("unit,limit", [("exact", 1e-5), ("e2afs", 5e-5)])
+def test_loss_and_gradients_match_the_reference(jax_tree, small_chunks, unit, limit):
+    params, tree = jax_tree
+    jcfg = jax_smoke_config("qwen3-4b", act_dtype="float32", sqrt_unit=unit)
+    tcfg = get_smoke_config("qwen3-4b", act_dtype="float32", sqrt_unit=unit)
+    batch = _batch(jcfg.vocab, 2, S_LONG)
+    (j_total, j_metrics), j_grads = jax.value_and_grad(jax_steps.loss_fn, has_aux=True)(
+        params, jcfg, {k: jnp.asarray(v) for k, v in batch.items()})
+    t_total, t_metrics, t_grads = _port_grads(tcfg, tree, batch)
+    np.testing.assert_allclose(t_total, float(j_total), rtol=1e-6)
+    np.testing.assert_allclose(float(t_metrics["loss"].detach()), float(j_metrics["loss"]),
+                               rtol=1e-6)
+    worst = {}
+    for path, g_ref in jax.tree_util.tree_flatten_with_path(j_grads)[0]:
+        node = t_grads
+        for key in path:
+            node = node[key.key]
+        g_ref = np.asarray(g_ref)
+        assert node.shape == g_ref.shape
+        name = "/".join(key.key for key in path)
+        worst[name] = float(np.abs(node - g_ref).max() / np.abs(g_ref).max())
+    print(f"{unit}: gradient error / leaf max: {worst}")
+    assert max(worst.values()) <= limit, worst
+
+
+def test_remat_block_equals_none():
+    cfg = get_smoke_config("qwen3-4b", act_dtype="float32", sqrt_unit="e2afs", remat="none")
+    batch = {k: torch.from_numpy(v) for k, v in _batch(cfg.vocab, 2, 64, seed=1).items()}
+    grads = []
+    for remat in ("none", "block"):
+        c = cfg.replace(remat=remat)
+        model = lm.init(c, torch.Generator().manual_seed(5), device="cpu", trainable=True)
+        total, _ = steps.loss_fn(model, c, batch)
+        total.backward()
+        grads.append({n: p.grad for n, p in model.named_parameters()})
+    assert grads[0].keys() == grads[1].keys()
+    for name in grads[0]:
+        assert torch.equal(grads[0][name], grads[1][name]), name
+
+
+def test_forward_returns_the_padded_vocab_and_trains_float32_masters():
+    cfg = get_smoke_config("qwen3-4b", sqrt_unit="e2afs", vocab=250)  # padded to 256
+    model = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu", trainable=True)
+    assert all(p.dtype == torch.float32 and p.requires_grad for p in model.parameters())
+    tokens = torch.randint(0, cfg.vocab, (2, 16), generator=torch.Generator().manual_seed(1))
+    logits, aux = lm.forward(model, cfg, {"tokens": tokens})
+    assert logits.shape == (2, 16, cfg.padded_vocab) and logits.dtype == torch.bfloat16
+    assert float(aux["moe_aux"]) == 0.0
+    serving = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert all(p.dtype == torch.bfloat16 and not p.requires_grad for p in serving.parameters())
+
+
+def test_validate_rejects_selective_remat():
+    with pytest.raises(ValueError, match="minimal"):
+        get_smoke_config("qwen3-4b", remat="minimal")
+
+
+def test_params_round_trip_through_the_reference_layout(jax_tree):
+    _, tree = jax_tree
+    cfg = get_smoke_config("qwen3-4b", act_dtype="float32")
+    back = convert.params_to_numpy(convert.params_from_numpy(cfg, tree, device="cpu",
+                                                             trainable=True))
+    flat_a = jax.tree_util.tree_flatten_with_path(tree)[0]
+    flat_b = jax.tree_util.tree_flatten_with_path(back)[0]
+    assert [p for p, _ in flat_a] == [p for p, _ in flat_b]
+    for (_, a), (_, b) in zip(flat_a, flat_b):
+        np.testing.assert_array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# checkpoints (ports of tests/substrates/test_checkpoint.py's cases)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture
+def tree():
+    return {"params": {"w": torch.arange(12.0).reshape(3, 4), "b": torch.ones(4)},
+            "opt": {"m": torch.zeros(3, 4), "step": torch.tensor(7, dtype=torch.int32)}}
+
+
+def _leaves(t):
+    return [leaf for _, leaf in ck.checkpoint._flatten(t)]
+
+
+def test_checkpoint_round_trip(tmp_path, tree):
+    ck.save(tmp_path, 5, tree)
+    out = ck.restore(tmp_path, 5, tree)
+    for a, b in zip(_leaves(tree), _leaves(out)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+def test_checkpoint_latest_step(tmp_path, tree):
+    assert ck.latest_step(tmp_path) is None
+    for step in (1, 10, 3):
+        ck.save(tmp_path, step, tree)
+    assert ck.latest_step(tmp_path) == 10
+
+
+def test_checkpoint_partial_write_is_invisible(tmp_path, tree):
+    ck.save(tmp_path, 2, tree)
+    (tmp_path / "tmp-9").mkdir()
+    (tmp_path / "step-9").mkdir()  # no manifest: incomplete
+    assert ck.latest_step(tmp_path) == 2
+
+
+def test_checkpoint_async_then_restore(tmp_path, tree):
+    ck.save_async(tmp_path, 4, tree).join()
+    out = ck.restore(tmp_path, 4, tree)
+    assert torch.equal(out["params"]["w"], tree["params"]["w"])
+
+
+def test_checkpoint_idempotent_save(tmp_path, tree):
+    assert ck.save(tmp_path, 6, tree) == ck.save(tmp_path, 6, tree)
+
+
+def test_checkpoint_stale_tmp_swept(tmp_path, tree):
+    ck.save(tmp_path, 2, tree)
+    stale = tmp_path / "tmp-7"
+    stale.mkdir()
+    (stale / "params_w.npy").write_bytes(b"half a leaf")
+    assert ck.latest_step(tmp_path) == 2 and not stale.exists()
+    stale.mkdir()
+    ck.save(tmp_path, 8, tree)
+    assert not stale.exists() and ck.latest_step(tmp_path) == 8
+
+
+def test_checkpoint_async_error_reraised(tmp_path, tree):
+    ck.wait_pending()
+    clash = tmp_path / "ck"
+    clash.write_text("not a directory")
+    ck.save_async(clash, 1, tree).join()
+    with pytest.raises(ck.CheckpointError, match="step 1"):
+        ck.wait_pending()
+    ck.wait_pending()  # delivered once
+
+
+def test_checkpoint_missing_step_names_latest(tmp_path, tree):
+    ck.save(tmp_path, 3, tree)
+    with pytest.raises(ck.CheckpointError, match=r"step-9.*latest committed step.*3"):
+        ck.restore(tmp_path, 9, tree)
+
+
+@pytest.mark.parametrize("damage,match", [
+    ("delete", r"torn.*params_w\.npy"),
+    ("corrupt", r"params_w\.npy.*unreadable"),
+])
+def test_checkpoint_torn_or_corrupt_leaf_named(tmp_path, tree, damage, match):
+    ck.save(tmp_path, 5, tree)
+    leaf = tmp_path / "step-5" / "params_w.npy"
+    if damage == "delete":
+        leaf.unlink()
+    else:
+        leaf.write_bytes(b"\x00\x01garbage")
+    with pytest.raises(ck.CheckpointError, match=match):
+        ck.restore(tmp_path, 5, tree)
+
+
+def test_checkpoint_shape_mismatch_names_leaf(tmp_path, tree):
+    ck.save(tmp_path, 5, tree)
+    wrong = {"params": {"w": torch.zeros(2, 2), "b": torch.ones(4)}, "opt": tree["opt"]}
+    with pytest.raises(ck.CheckpointError, match=r"params_w.*shape"):
+        ck.restore(tmp_path, 5, wrong)
+
+
+def test_checkpoint_ignores_extra_leaves(tmp_path, tree):
+    ck.save(tmp_path, 5, {**tree, "extra": torch.arange(3)})
+    out = ck.restore(tmp_path, 5, tree)
+    assert "extra" not in out and torch.equal(out["params"]["w"], tree["params"]["w"])
+
+
+def test_checkpoint_bf16_round_trip_and_no_shardings(tmp_path):
+    t16 = {"w": torch.arange(8.0, dtype=torch.bfloat16) / 3, "i": torch.arange(3)}
+    ck.save(tmp_path, 1, t16)
+    out = ck.restore(tmp_path, 1, t16)
+    assert out["w"].dtype == torch.bfloat16 and torch.equal(out["w"], t16["w"])
+    assert torch.equal(out["i"], t16["i"])
+    with pytest.raises(NotImplementedError):
+        ck.restore(tmp_path, 1, t16, shardings={"w": None, "i": None})
+
+
+def _cross_tree(seed):
+    rng = np.random.default_rng(seed)
+    w16 = rng.standard_normal((5, 7)).astype(np.float32)
+    return {"params": {"w": rng.standard_normal((3, 4)).astype(np.float32), "w16": w16},
+            "opt": {"step": np.int32(9)}}
+
+
+def test_a_step_written_by_the_reference_restores_in_the_port(tmp_path):
+    src = _cross_tree(0)
+    jtree = {"params": {"w": jnp.asarray(src["params"]["w"]),
+                        "w16": jnp.asarray(src["params"]["w16"]).astype(jnp.bfloat16)},
+             "opt": {"step": jnp.int32(9)}}
+    jax_ck.save(tmp_path, 3, jtree)
+    like = {"params": {"w": torch.zeros(3, 4), "w16": torch.zeros(5, 7, dtype=torch.bfloat16)},
+            "opt": {"step": torch.tensor(0, dtype=torch.int32)}}
+    out = ck.restore(tmp_path, 3, like)
+    np.testing.assert_array_equal(out["params"]["w"].numpy(), src["params"]["w"])
+    want16 = np.asarray(jtree["params"]["w16"]).view(np.int16)
+    np.testing.assert_array_equal(out["params"]["w16"].view(torch.int16).numpy(), want16)
+    assert int(out["opt"]["step"]) == 9
+
+
+def test_a_step_written_by_the_port_restores_in_the_reference(tmp_path):
+    src = _cross_tree(1)
+    ptree = {"params": {"w": torch.from_numpy(src["params"]["w"]),
+                        "w16": torch.from_numpy(src["params"]["w16"]).to(torch.bfloat16)},
+             "opt": {"step": torch.tensor(9, dtype=torch.int32)}}
+    ck.save(tmp_path, 3, ptree)
+    like = {"params": {"w": jnp.zeros((3, 4)), "w16": jnp.zeros((5, 7), jnp.bfloat16)},
+            "opt": {"step": jnp.int32(0)}}
+    out = jax_ck.restore(tmp_path, 3, like)
+    np.testing.assert_array_equal(np.asarray(out["params"]["w"]), src["params"]["w"])
+    assert out["params"]["w16"].dtype == jnp.bfloat16
+    np.testing.assert_array_equal(np.asarray(out["params"]["w16"]).view(np.int16),
+                                  ptree["params"]["w16"].view(torch.int16).numpy())
+    assert int(out["opt"]["step"]) == 9
