@@ -11,9 +11,11 @@ Phases, one line or more each; any failure makes the run exit non-zero:
 1. e2afs sqrt/rsqrt kernel vs its plain version: bit-identical (NaN as NaN)
    over every fp16 and bf16 pattern and the fp32 grid, plus the paper's
    Table 2 example (0x785A -> 0 10110 1000100001);
-2. RMSNorm kernel vs plain version at the serving shapes, bf16 and fp32;
+2. RMSNorm kernel vs plain version at the serving shapes, bf16 and fp32,
+   and two calls bit-identical;
 3. decode-attention kernel vs plain version at the serving widths, bf16 and
-   fp32, float and int8 caches, wrap off and on, mixed per-row positions;
+   fp32, float and int8 caches, wrap off and on, mixed per-row positions,
+   t = 576 and 4096, two calls bit-identical;
 4. the main paths, each with the launch counts set to 0 just before and read
    just after: (a) qwen3-4b at full width serving batch 8 (prompt 512, 64
    greedy tokens, cache 576) on the kernels, held against the same weights
@@ -24,9 +26,12 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    tokens), and ``serve.generate`` at smoke width;
 5. times each kernel, its plain version and a PyTorch yardstick call, both as
    device time per call (torch.profiler) and with CUDA events around
-   back-to-back calls, beside the kernel's bound;
+   back-to-back calls, beside the kernel's bound; RMSNorm also at every
+   serving shape of phase 2 in bf16 beside F.rms_norm, and decode attention
+   also at t = 4096 beside SDPA;
 6. times four full-width decode steps without and then under the profiler:
-   the device's idle share of the unprofiled step, top kernels;
+   the device's idle share of the unprofiled step, top kernels, and the
+   device ms a step of decode attention and of RMSNorm by name;
 7. Sobel kernel vs its plain version, bit-identical, from 3 x 3 to a
    2160 x 3840 frame;
 8. K-means assignment kernel vs its plain version at 256^2 and 1920 x 1080
@@ -285,14 +290,17 @@ class Smoke:
         fn()
         self.sync()
         # A profiler window now and then comes back without device events,
-        # for a kernel that the window before timed fine: take up to three
-        # windows before calling it a failure.
+        # or with only some of a kernel's launches (each call launches the
+        # same kernels, so every count is a multiple of iters): take up to
+        # three windows, and fail if none saw every launch.
         for attempt in range(3):
             _, rows = self.profiled(fn, iters)
-            if rows:
+            if rows and all(r[1] % iters == 0 for r in rows):
                 return sum(r[0] for r in rows) / iters / 1e3
-            print(f"  (profiler window {attempt + 1} saw no device time)")
-        raise AssertionError("the profiler saw no device time")
+            print(f"  (profiler window {attempt + 1} saw "
+                  f"{'launch counts ' + str([r[1] for r in rows]) if rows else 'no device time'}"
+                  f" for {iters} calls)")
+        raise AssertionError("no profiler window saw every launch of the calls")
 
     def gen(self, seed):
         return self.torch.Generator(device=self.dev).manual_seed(seed)
@@ -379,7 +387,10 @@ class Smoke:
                 x, s = self.rms_inputs(rows, d, dtype, rows + d)
                 for label, scale in (("scale", s), ("zero scale", torch.zeros_like(s))):
                     y, r = ops.rmsnorm(x, scale), ref.ref_rmsnorm(x, scale)
+                    again = ops.rmsnorm(x, scale)
                     self.sync()
+                    if not torch.equal(y, again):
+                        raise AssertionError(f"rmsnorm {dtype} ({rows}, {d}): two calls differ")
                     diff = (y.float() - r.float()).abs()
                     err = float(diff.max())
                     ulps = float((diff / ulp_of(r)).max())
@@ -431,31 +442,42 @@ class Smoke:
                 for quant in (False, True):
                     for wrap in (False, True):
                         args = self.attn_inputs(b, h, kv, hd, t, dtype, quant, t + quant)
-                        y = ops.decode_attention(*args, scale=hd**-0.5, wrap=wrap)
                         r = ops.ref_decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                        y = ops.decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                        again = ops.decode_attention(*args, scale=hd**-0.5, wrap=wrap)
                         self.sync()
-                        diff = (y.float() - r.float()).abs()
-                        err = float(diff.max())
-                        if dtype == torch.float32:
-                            ok = torch.allclose(y, r, atol=1e-5, rtol=1e-5)
-                            limit = "atol 1e-5, rtol 1e-5"
-                        else:
-                            # Only the order of the float32 sums differs and
-                            # bf16 rounds the weights and outputs after them:
-                            # within two bf16 ulps at each (slot, head) row's
-                            # largest output.  One cache line dropped or
-                            # doubled moves a row by several.
-                            row = r.float().abs().amax(dim=-1, keepdim=True).to(dtype)
-                            ulps = float((diff / ulp_of(row)).max())
-                            ok = ulps <= 2.0
-                            limit = f"{ulps:.2f} row ulps, limit 2"
-                        print(f"  decode_attention {str(dtype):14s} t={t:5d} int8={quant!s:5s} "
-                              f"wrap={wrap!s:5s}: max |diff| {err:.3e} ({limit}) "
-                              f"{'ok' if ok else 'FAIL'}")
-                        if not ok:
-                            raise AssertionError("decode attention disagrees with its plain version")
-                        if dtype == torch.bfloat16 and t == lengths[0] and not quant and not wrap:
-                            self.rows["decode_attention"]["max_abs_err"] = err
+                        if not torch.equal(y, again):
+                            raise AssertionError("decode attention: two calls differ")
+                        split = ("" if self.rehearsal else
+                                 " (S={chunks} of {chunk_lines} lines)".format(
+                                     **ops.plan(*args[:2])))
+                        self.check_attention(y, r, dtype, f"t={t:5d} int8={quant!s:5s} "
+                                             f"wrap={wrap!s:5s}{split}")
+                        if (dtype == torch.bfloat16 and t == lengths[0] and not quant
+                                and not wrap):
+                            self.rows["decode_attention"]["max_abs_err"] = float(
+                                (y.float() - r.float()).abs().max())
+
+    def check_attention(self, y, r, dtype, label):
+        torch = self.torch
+        diff = (y.float() - r.float()).abs()
+        err = float(diff.max())
+        if dtype == torch.float32:
+            ok = torch.allclose(y, r, atol=1e-5, rtol=1e-5)
+            limit = "atol 1e-5, rtol 1e-5"
+        else:
+            # Only the order of the float32 sums differs and bf16 rounds the
+            # weights and outputs after them: within two bf16 ulps at each
+            # (slot, head) row's largest output.  One cache line dropped or
+            # doubled moves a row by several.
+            row = r.float().abs().amax(dim=-1, keepdim=True).to(dtype)
+            ulps = float((diff / ulp_of(row)).max())
+            ok = ulps <= 2.0
+            limit = f"{ulps:.2f} row ulps, limit 2"
+        print(f"  decode_attention {str(dtype):14s} {label}: max |diff| {err:.3e} ({limit}) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("decode attention disagrees with its plain version")
 
     # -- phase 4 -----------------------------------------------------------
     def p4_serve(self):
@@ -640,6 +662,11 @@ class Smoke:
         for dev_us, count, key in rows[:14]:
             print(f"    {dev_us / steps / 1e3:9.4f} ms/step  {count / steps:7.1f} calls/step  "
                   f"{key[:90]}")
+        for name in ("decode_attention", "rmsnorm"):  # every launch of each, by name
+            mine = [r for r in rows if name in r[2]]
+            print(f"  {name}: {sum(r[0] for r in mine) / steps / 1e3:.4f} device ms/step in "
+                  f"{sum(r[1] for r in mine) / steps:.1f} kernel launches/step "
+                  f"({', '.join(sorted({r[2].split('<')[0] for r in mine}))})")
         if not self.rehearsal and busy <= 0:
             raise AssertionError("the profiler saw no device time")
 
@@ -682,47 +709,82 @@ class Smoke:
             record(name, lambda k=kern: k(x), lambda p=plain: p(x), bound(2 * n * 4, 0, "float32"),
                    lambda f=lib: f(x), f"{tuple(shape)} float32")
 
-        # rmsnorm: the decode layer-norm shape, bf16
-        rows, d = (2, 2560) if self.rehearsal else (8, 2560)
+        # rmsnorm: the decode layer-norm shape, bf16, in the kernels line;
+        # then every serving shape of phase 2 in bf16, each beside its byte
+        # bound and F.rms_norm (exact rsqrt: another function, same work)
+        b, s_len, h, kv = (2, 16, 4, 2) if self.rehearsal else (8, 512, 32, 8)
+        rms_shapes = [(b, 2560), (b * h, 128), (b * kv, 128), (b * s_len, 2560),
+                      (b * s_len * kv, 128), (b * s_len * h, 128)]
+        rows, d = rms_shapes[0]
         xs, s = self.rms_inputs(rows, d, torch.bfloat16, 7)
         weight = 1.0 + s
         record("rmsnorm", lambda: r_ops.rmsnorm(xs, s), lambda: r_ref.ref_rmsnorm(xs, s),
                bound((2 * rows * d + d) * 2, 4 * rows * d, "bfloat16"),
                lambda: F.rms_norm(xs, (d,), weight=weight, eps=1e-6), f"({rows}, {d}) bfloat16")
+        self.rows["rmsnorm"]["shapes"] = []
+        for rows, d in rms_shapes:
+            xs, s = self.rms_inputs(rows, d, torch.bfloat16, 7 + rows)
+            weight = 1.0 + s
+            at = {"shape": [rows, d],
+                  "ms": self.device_ms(lambda: r_ops.rmsnorm(xs, s)),
+                  "bound_ms": bound((2 * rows * d + d) * 2, 4 * rows * d, "bfloat16")[0],
+                  "library_ms": self.device_ms(
+                      lambda: F.rms_norm(xs, (d,), weight=weight, eps=1e-6))}
+            self.rows["rmsnorm"]["shapes"].append(at)
+            print(f"  rmsnorm ({rows}, {d}) bfloat16: device ms per call: kernel {at['ms']}, "
+                  f"F.rms_norm {at['library_ms']}; bound {at['bound_ms']:.6f} ms (bytes)")
 
         # decode attention: one decode step's layer at the serving widths,
-        # every cache line live (the last step); enough copies of the cache
-        # to stream more than twice the 50 MB L2 between repeats
-        b, h, kv, hd, t = (2, 8, 2, 32, 24) if self.rehearsal else (8, 32, 8, 128, 576)
-        pos = torch.full((b,), t - 1, dtype=torch.int32, device=self.dev)
-        one = self.attn_inputs(b, h, kv, hd, t, torch.bfloat16, False, 11, pos=pos)
-        cache_bytes = 2 * one[1].numel() * 2
-        copies = 1 if self.rehearsal else max(1, -(-100_000_000 // cache_bytes))
-        sets = [one] + [self.attn_inputs(b, h, kv, hd, t, torch.bfloat16, False, 12 + i, pos=pos)
-                        for i in range(copies - 1)]
-        it = {"i": 0}
-
-        def rotating(fn):
-            def call():
-                a = sets[it["i"] % len(sets)]
-                it["i"] += 1
-                return fn(a)
-            return call
-
+        # every cache line live (the last step), at the serving cache (576,
+        # in the kernels line) and at 4096; enough copies of the cache to
+        # stream more than twice the 50 MB L2 between repeats.
+        b, h, kv, hd = (2, 8, 2, 32) if self.rehearsal else (8, 32, 8, 128)
         g = h // kv
-        mask = torch.ones(b, 1, 1, t, dtype=torch.bool, device=self.dev)
+        self.rows["decode_attention"]["lengths"] = []
+        for t in ((24, 40) if self.rehearsal else (576, 4096)):
+            pos = torch.full((b,), t - 1, dtype=torch.int32, device=self.dev)
+            one = self.attn_inputs(b, h, kv, hd, t, torch.bfloat16, False, 11, pos=pos)
+            cache_bytes = 2 * one[1].numel() * 2
+            copies = 1 if self.rehearsal else max(1, -(-100_000_000 // cache_bytes))
+            sets = [one] + [self.attn_inputs(b, h, kv, hd, t, torch.bfloat16, False, 12 + i,
+                                             pos=pos) for i in range(copies - 1)]
+            it = {"i": 0}
 
-        def sdpa(a):  # (b, h, 1, hd) against (b, kv, t, hd) views of the cache
-            return F.scaled_dot_product_attention(a[0][:, :, None], a[1].transpose(1, 2),
-                                                  a[2].transpose(1, 2), attn_mask=mask,
-                                                  enable_gqa=True)
+            def rotating(fn, sets=sets, it=it):
+                def call():
+                    a = sets[it["i"] % len(sets)]
+                    it["i"] += 1
+                    return fn(a)
+                return call
 
-        nbytes = (b * h * hd * 2) * 2 + cache_bytes + b * 4
-        record("decode_attention",
-               rotating(lambda a: attn_ops.decode_attention(*a, scale=hd**-0.5)),
-               rotating(lambda a: attn_ops.ref_decode_attention(*a, scale=hd**-0.5)),
-               bound(nbytes, 4 * b * h * t * hd, "bfloat16"), rotating(sdpa),
-               f"b={b} h={h} kv={kv} hd={hd} t={t} bfloat16 (g={g}, {copies} cache copies)")
+            mask = torch.ones(b, 1, 1, t, dtype=torch.bool, device=self.dev)
+
+            def sdpa(a, mask=mask):  # (b, h, 1, hd) against (b, kv, t, hd) views of the cache
+                return F.scaled_dot_product_attention(a[0][:, :, None], a[1].transpose(1, 2),
+                                                      a[2].transpose(1, 2), attn_mask=mask,
+                                                      enable_gqa=True)
+
+            nbytes = (b * h * hd * 2) * 2 + cache_bytes + b * 4
+            bnd = bound(nbytes, 4 * b * h * t * hd, "bfloat16")
+            kern = rotating(lambda a: attn_ops.decode_attention(*a, scale=hd**-0.5))
+            note = f"b={b} h={h} kv={kv} hd={hd} t={t} bfloat16 (g={g}, {copies} cache copies)"
+            at = {"t": t, "bound_ms": bnd[0]}
+            if not self.rehearsal:
+                at.update(attn_ops.plan(one[0], one[1]))
+                at.pop("workspace")
+                note += (f", S={at['chunks']} chunks of {at['chunk_lines']} lines, "
+                         f"{at['slots']} slots a launch")
+            if t == 576 or (self.rehearsal and t == 24):
+                record("decode_attention", kern,
+                       rotating(lambda a: attn_ops.ref_decode_attention(*a, scale=hd**-0.5)),
+                       bnd, rotating(sdpa), note)
+                at.update(ms=self.rows["decode_attention"]["ms"],
+                          library_ms=self.rows["decode_attention"]["library_ms"])
+            else:
+                at.update(ms=self.device_ms(kern), library_ms=self.device_ms(rotating(sdpa)))
+                print(f"  decode_attention {note}: device ms per call: kernel {at['ms']}, SDPA "
+                      f"{at['library_ms']}; bound {bnd[0]:.6f} ms ({bnd[1]})")
+            self.rows["decode_attention"]["lengths"].append(at)
 
         # sobel: a 2160 x 3840 frame.  No PyTorch call computes the E2AFS
         # magnitude: library_ms is None, and F.conv2d + torch.sqrt (another

@@ -1,5 +1,6 @@
-// One-query decode attention per slot: GQA, float32 scores, int8 scales
-// folded in, per-row validity from pos, float32 softmax, V-accumulate.
+// One-query decode attention per slot, with the cache length split over
+// blocks: GQA, float32 scores, int8 scales folded in, per-row validity from
+// pos, float32 softmax, V-accumulate.
 //
 // Replaces the TPU kernel src/repro/kernels/attention/attention.py (_kernel
 // and _kernel_quant, body _attend, reached through
@@ -8,35 +9,70 @@
 //   s   = T(sum_k q*k)                (float32 sum, rounded to the activation
 //                                      dtype T, as the einsum returns T)
 //   s   = float(s) * scale [* k_scale] + (valid ? 0 : -2e38)
-//   w   = exp(s - max) / sum           (float32, two passes)
-//   w   = T(w) [then T(w * T(v_scale))]
+//   M   = max over all t of s          (exact in any order)
+//   e   = exp(s - M); sum = one float32 sum of e over all t, fixed order
+//   w   = T(e / sum) [then T(w * T(v_scale))]
 //   out = T(sum_t w * v)               (float32 accumulate)
 // valid = t <= pos, or every line once wrap and pos >= cache length.
 //
-// Bound on the H100: bytes.  The K and V cache lines dominate (b*t*kv*hd
-// elements each), against 4*g*hd operations per line.  Design: one block of
-// 512 threads per (slot, KV head) serves its g = h/kv query heads, so each K
-// and V line is read from device memory once.  A group of hd/VEC lanes
-// covers one cache line with one vector load per lane (16 bytes of bf16 or
-// float32, 8 of int8), so a warp reads 32/(hd/VEC) lines at a time and each
-// warp keeps two such loads in flight.  Phase 1 reduces the g dot products
-// of a line with shuffles inside its lane group.  The scores go to a
-// float32 scratch row per query head, allocated by the wrapper, because the
-// weights must be rounded to T after the full softmax: an online softmax
-// would not reproduce that rounding.  Phase 2 is the two-pass softmax with
-// all g rows reduced together.  Phase 3 streams V once with the same lane
-// layout, accumulates per-lane float32 partials in registers, and sums them
-// across lane groups and warps in a fixed order (deterministic, no
-// atomics).  int8 caches are read as stored and converted in registers.
-// At b = 8 and kv = 8 only 64 blocks run on 132 SMs; splitting the cache
-// length over more blocks is the next step.
+// Why not the online softmax of flash-decoding: it rescales a chunk's
+// exp(s - m_c) by exp(m_c - M) afterwards, which is not exp(s - M) to the
+// last bit, and w is rounded to T right after the division, so a rescaled
+// weight can land one ulp of T away on some lines.  Here every chunk waits
+// for the global max before it exponentiates and for the global sum before
+// it divides: two exchanges between the blocks of a (slot, KV head), and a
+// third for their partial outputs.
+//
+// Bound on the H100: bytes.  The K and V cache lines (b*t*kv*hd elements
+// each) dominate, against 4*g*hd operations a line, about 2 FLOP a byte at
+// g = 4, far below the ~295 at which the tensor cores would bind; so no
+// tensor cores, and the design is about filling the SMs and keeping bytes in
+// flight.  A block of 128 threads takes one (slot, KV head, chunk of cache
+// lines) and serves the g = h/kv query heads of that KV head, so each line
+// is read from device memory once.
+//
+// One cooperative launch (cudaLaunchCooperativeKernel) runs every block of
+// a call at once, and grid syncs separate the steps: the blocks write their
+// chunk maxima, then their chunk sums, then their float32 partial outputs
+// (b, h, S, hd) to a workspace that the wrapper allocates, and read the
+// others' back in chunk order.  A chunk's scores stay in shared memory
+// across the syncs.  Its K tiles and then its V tiles stream through a ring
+// of kRing tiles of shared memory with cp.async (16-byte copies; 8 bytes
+// for an int8 line of hd = 8), so the first V tiles land while the scores'
+// last tiles, the max, the exp and the sum are formed.  A group of hd/VEC
+// lanes reads one K line from the ring (a 16-byte load a lane, 8 bytes of
+// int8) and its g dot products meet in a transposing shuffle reduction
+// (g - 1 + log2(lanes / g) shuffles, not g * log2(lanes)).  Every sum, max
+// and combine runs in a fixed order, so two calls on the same inputs are
+// bit-identical (no atomics).
+//
+// How the split is chosen (plan_of): as many chunks a (slot, KV head) as the
+// blocks that fit on the card at once allow (asked of the occupancy API
+// once a device), but no chunk shorter than a tile (32 lines of a bf16
+// hd = 128 cache) and none longer than the scores' room (960 lines at
+// g = 4).  Serving shape b = 8, kv = 8 on 132 SMs at 4 blocks an SM: t = 576
+// gives 8 chunks of 72 lines (512 blocks), t = 4096 8 chunks of 512.  A
+// cache no longer than a tile is one chunk (S = 1), whose output is written
+// directly, with no sync.  Where the slots' chunks outnumber the resident
+// blocks (a long cache, or a large batch), the call launches once for each
+// run of slots that fits.
+#include <cooperative_groups.h>
+
+#include <atomic>
+
 #include "e2afs.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int kThreads = 512;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
-constexpr int kUnroll = 2;  // cache lines in flight per lane group
+constexpr int kTileBytes = 8192;     // most bytes of one tile of K or V lines
+constexpr int kTileMaxLines = 128;
+constexpr int kRing = 4;             // tiles in flight a block
+constexpr int kScoreFloats = 3840;   // a chunk's g x cl scores (15 KB)
+constexpr int kMaxDevices = 64;
 constexpr float kNegInf = -2.0e38f;  // the reference's additive mask
 constexpr unsigned int kMinusInfBits = 0xff800000u;
 
@@ -83,6 +119,39 @@ __device__ __forceinline__ void load_vec(const signed char* p, float (&out)[8]) 
   }
 }
 
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's copy groups are pending
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Copy `lines` cache lines of hd elements, `stride` elements apart in
+// device memory, to consecutive lines of dst in shared memory.
+template <class KV>
+__device__ __forceinline__ void stage(KV* dst, const KV* src, long long stride, int lines, int hd) {
+  const int line_bytes = hd * static_cast<int>(sizeof(KV));
+  if (line_bytes % 16 == 0) {
+    const int per = line_bytes / 16;
+    for (int i = threadIdx.x; i < lines * per; i += kThreads) {
+      const int l = i / per, u = i - l * per;
+      const char* s = reinterpret_cast<const char*>(src + l * stride) + u * 16;
+      const unsigned int d = static_cast<unsigned int>(
+          __cvta_generic_to_shared(reinterpret_cast<char*>(dst + l * hd) + u * 16));
+      asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(s) : "memory");
+    }
+  } else {  // an int8 line of hd = 8: one 8-byte copy
+    for (int l = threadIdx.x; l < lines; l += kThreads) {
+      const unsigned int d = static_cast<unsigned int>(__cvta_generic_to_shared(dst + l * hd));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src + l * stride)
+                   : "memory");
+    }
+  }
+}
+
 // Reduce G values over the block (max or sum); every thread gets the result.
 // `red` holds G * kWarps floats.  Warps' partials combine in a fixed order.
 template <int G, bool MAX>
@@ -107,147 +176,253 @@ __device__ __forceinline__ void block_reduce(float (&v)[G], float* red) {
   __syncthreads();
 }
 
-template <class T, class KV, int G>
-__global__ void __launch_bounds__(kThreads)
-decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
-                        const KV* __restrict__ v, const int* __restrict__ pos,
-                        const float* __restrict__ k_scale, const float* __restrict__ v_scale,
-                        float* __restrict__ scratch, T* __restrict__ out, int t_len, int kvh,
-                        int hd, float scale, int wrap) {
-  constexpr int VEC = vec_of<KV>();
-  extern __shared__ float smem[];
-  float* q_s = smem;                      // G * hd query values, as float
-  float* part = q_s + G * hd;             // kWarps * G * hd output partials
-  float* red = part + kWarps * G * hd;    // G * kWarps reduction slots
-  const int h = kvh * G;
-  const int bi = blockIdx.x / kvh;
-  const int kh = blockIdx.x % kvh;
+// Hands the block's G values to the other chunks of its (slot, KV head)
+// and replaces them with the reduction over all S chunks (max or sum):
+// vals is (b, h, S) in device memory; a warp a head, lanes strided over the
+// chunks, then the shuffle tree, so the order is fixed.  Every thread gets
+// the results.  The grid sync inside makes every block's values visible.
+template <int G, bool MAX>
+__device__ __forceinline__ void across_chunks(float* vals, long long head0, int c, int S,
+                                              float (&r)[G], float* slots) {
+#pragma unroll
+  for (int j = 0; j < G; ++j) {
+    if (threadIdx.x == j) vals[(head0 + j) * S + c] = r[j];
+  }
+  cg::this_grid().sync();
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int lpl = hd / VEC;   // lanes per cache line: a power of two <= 32
-  const int lpw = 32 / lpl;   // lines per warp
-  const int sub = lane / lpl, sl = lane % lpl;
-  const int d0 = sl * VEC;    // this lane's first head_dim element
-  const int stride = kWarps * lpw;  // lines per block step
-  const long long head0 = static_cast<long long>(bi) * h + static_cast<long long>(kh) * G;
-  const long long line0 = static_cast<long long>(bi) * t_len * kvh + kh;  // line(tt) = line0 + tt*kvh
-
-  for (int i = threadIdx.x; i < G * hd; i += kThreads) q_s[i] = to_f(q[head0 * hd + i]);
+  for (int j = warp; j < G; j += kWarps) {
+    const float* p = vals + (head0 + j) * S;
+    float v = MAX ? __uint_as_float(kMinusInfBits) : 0.f;
+    for (int i = lane; i < S; i += 32) {
+      const float x = __ldcg(p + i);  // written by other blocks: past L1
+      v = MAX ? fmaxf(v, x) : v + x;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float o = __shfl_xor_sync(0xffffffffu, v, off);
+      v = MAX ? fmaxf(v, o) : v + o;
+    }
+    if (lane == 0) slots[j] = v;
+  }
   __syncthreads();
+#pragma unroll
+  for (int j = 0; j < G; ++j) r[j] = slots[j];
+  __syncthreads();
+}
+
+// Sums each of a lane group's G dot products over its lpl lanes (lpl a power
+// of two, lpl >= G) with G - 1 + log2(lpl / G) shuffles instead of
+// G * log2(lpl): each level hands half of the remaining heads to the partner
+// lane, so a lane ends with one head, sl / (lpl / G), summed over the whole
+// group, in s[0].  The order of the additions is fixed.
+template <int G>
+__device__ __forceinline__ void reduce_heads(float (&s)[G], int lpl, int sl) {
+  int off = lpl >> 1;
+#pragma unroll
+  for (int n = G; n > 1; n >>= 1) {
+    const bool upper = (sl & off) != 0;
+#pragma unroll
+    for (int i = 0; i < n / 2; ++i) {
+      const float send = upper ? s[i] : s[i + n / 2];
+      const float keep = upper ? s[i + n / 2] : s[i];
+      s[i] = keep + __shfl_xor_sync(0xffffffffu, send, off);
+    }
+    off >>= 1;
+  }
+  for (; off > 0; off >>= 1) s[0] += __shfl_xor_sync(0xffffffffu, s[0], off);
+}
+
+struct Args {
+  const void* q;
+  const void* k;
+  const void* v;
+  const int* pos;
+  const float* k_scale;  // null for float caches
+  const float* v_scale;
+  float* cmax;  // (b, h, S) chunk maxima
+  float* csum;  // (b, h, S) chunk sums of exp(s - M)
+  float* part;  // (b, h, S, hd) partial outputs
+  void* out;
+  int b, t_len, h, kvh, hd;  // b: the slots of this launch
+  int S;   // chunks a (slot, KV head)
+  int cl;  // cache lines a chunk (the last may be shorter)
+  int tl;  // cache lines a tile
+  float scale;
+  int wrap;
+};
+
+template <class T, class KV, int G>
+__global__ void __launch_bounds__(kThreads, 4) decode_attention_kernel(Args a) {
+  constexpr int VEC = vec_of<KV>();
+  __shared__ __align__(16) unsigned char ring[kRing * kTileBytes];
+  __shared__ float sc[kScoreFloats];  // the chunk's scores, e, then w: row j at sc + j * cl
+  __shared__ float red[G * kWarps];
+  __shared__ float slots[G];
+  const int hd = a.hd, tl = a.tl, cl = a.cl, S = a.S;
+  const int lpl = hd / VEC;  // lanes a cache line: a power of two <= 32
+  const int lpw = 32 / lpl;  // lines a warp
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int sub = lane / lpl, sl = lane % lpl;
+  const int d0 = sl * VEC;   // this lane's first head_dim element
+
+  // this block: slot bi, KV head kh, chunk c of lines [c0, c0 + n)
+  const int c = blockIdx.x % S;
+  const int kh = (blockIdx.x / S) % a.kvh, bi = blockIdx.x / S / a.kvh;
+  const int c0 = c * cl, n = min(cl, a.t_len - c0);
+  const long long head0 = static_cast<long long>(bi) * a.h + static_cast<long long>(kh) * G;
+  const long long line0 = static_cast<long long>(bi) * a.t_len * a.kvh + kh;  // line(t) = line0 + t * kvh
+  const long long stride = static_cast<long long>(a.kvh) * hd;
+  const long long first = (line0 + static_cast<long long>(c0) * a.kvh) * hd;
+  const KV* kc = static_cast<const KV*>(a.k) + first;
+  const KV* vc = static_cast<const KV*>(a.v) + first;
+  KV* ring_kv = reinterpret_cast<KV*>(ring);
+  constexpr int kSlot = kTileBytes / static_cast<int>(sizeof(KV));  // elements a ring slot
+  const int nt = (n + tl - 1) / tl;  // tiles of K, then as many of V
+
+  // tile i of the stream K0 .. K(nt-1), V0 .. V(nt-1) into slot i % kRing;
+  // past the stream an empty group, so that every wait counts the same
+  auto fetch = [&](int i) {
+    if (i < 2 * nt) {
+      const int ti = i < nt ? i : i - nt;
+      stage(ring_kv + (i % kRing) * kSlot, (i < nt ? kc : vc) + ti * tl * stride, stride,
+            min(tl, n - ti * tl), hd);
+    }
+    cp_async_commit();
+  };
+#pragma unroll
+  for (int i = 0; i < kRing; ++i) fetch(i);
+
+  // -- scores and the chunk's maxima --
   float qr[G][VEC];
+  const T* q = static_cast<const T*>(a.q) + head0 * hd;
 #pragma unroll
   for (int j = 0; j < G; ++j) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) qr[j][e] = q_s[j * hd + d0 + e];
+    for (int e = 0; e < VEC; ++e) qr[j][e] = to_f(q[j * hd + d0 + e]);
   }
-  const int p = pos[bi];
-  const bool all_valid = wrap != 0 && p >= t_len;
-  float* sc = scratch + head0 * t_len;  // row j at sc + j * t_len
-
-  // Phase 1: scores.  t0 is uniform across the warp, so every lane takes
-  // part in the shuffles; lanes past the end compute zeros and store none.
-  for (int t0 = warp * lpw; t0 < t_len; t0 += stride * kUnroll) {
-    float kx[kUnroll][VEC];
+  const int p = a.pos[bi];
+  const bool all_valid = a.wrap != 0 && p >= a.t_len;
+  const bool split = lpl >= G;  // reduce_heads applies
+  const int mine = split ? sl / (lpl / G) : 0;  // the head this lane ends with
+  const bool writer = split ? sl % (lpl / G) == 0 : sl == 0;
+  float m[G];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int tt = t0 + u * stride + sub;
-      if (tt < t_len) {
-        load_vec(k + (line0 + static_cast<long long>(tt) * kvh) * hd + d0, kx[u]);
+  for (int j = 0; j < G; ++j) m[j] = __uint_as_float(kMinusInfBits);
+  for (int ti = 0; ti < nt; ++ti) {
+    cp_async_wait<kRing - 1>();  // tile ti has landed (this thread's copies) ...
+    __syncthreads();             // ... and everyone's
+    const KV* tile = ring_kv + (ti % kRing) * kSlot;
+    const int nl = min(tl, n - ti * tl);
+    // l0 is uniform across the warp, so every lane takes part in the
+    // shuffles; lanes past the tile compute zeros and store none
+    for (int l0 = warp * lpw; l0 < nl; l0 += kWarps * lpw) {
+      const int l = l0 + sub;
+      float kx[VEC];
+      if (l < nl) {
+        load_vec(tile + l * hd + d0, kx);
       } else {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) kx[u][e] = 0.f;
+        for (int e = 0; e < VEC; ++e) kx[e] = 0.f;
       }
-    }
-#pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int tt = t0 + u * stride + sub;
       float s[G];
 #pragma unroll
       for (int j = 0; j < G; ++j) {
         float acc = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc = fmaf(qr[j][e], kx[u][e], acc);
+        for (int e = 0; e < VEC; ++e) acc = fmaf(qr[j][e], kx[e], acc);
         s[j] = acc;
       }
-      for (int off = lpl >> 1; off > 0; off >>= 1) {
+      if (split) {
+        reduce_heads<G>(s, lpl, sl);
+      } else {
+        for (int off = lpl >> 1; off > 0; off >>= 1) {
 #pragma unroll
-        for (int j = 0; j < G; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
+          for (int j = 0; j < G; ++j) s[j] += __shfl_xor_sync(0xffffffffu, s[j], off);
+        }
       }
-      if (sl == 0 && tt < t_len) {
-        const long long line = line0 + static_cast<long long>(tt) * kvh;
-        const float ks = k_scale != nullptr ? k_scale[line] : 1.f;
+      if (writer && l < nl) {
+        const int lc = ti * tl + l;  // line within the chunk
+        const int tt = c0 + lc;
+        const long long line = line0 + static_cast<long long>(tt) * a.kvh;
+        const float ks = a.k_scale != nullptr ? a.k_scale[line] : 1.f;
         const float mask = (all_valid || tt <= p) ? 0.f : kNegInf;
 #pragma unroll
         for (int j = 0; j < G; ++j) {
-          float val = __fmul_rn(round_to<T>(s[j]), scale);
-          if (k_scale != nullptr) val = __fmul_rn(val, ks);
-          sc[j * t_len + tt] = __fadd_rn(val, mask);
+          if (split && j > 0) break;  // one head a lane, in s[0]
+          float val = __fmul_rn(round_to<T>(s[j]), a.scale);
+          if (a.k_scale != nullptr) val = __fmul_rn(val, ks);
+          val = __fadd_rn(val, mask);
+          sc[(split ? mine : j) * cl + lc] = val;
+          m[j] = fmaxf(m[j], val);
         }
       }
     }
+    __syncthreads();  // the slot is free: the next tile of the stream goes there
+    fetch(ti + kRing);
   }
-  __syncthreads();
-
-  // Phase 2: float32 softmax of the G rows together, weights rounded to T.
-  float m[G], sum[G];
+  if (split) {  // this lane's maximum belongs to head `mine`
+    const float own = m[0];
 #pragma unroll
-  for (int j = 0; j < G; ++j) {
-    m[j] = __uint_as_float(kMinusInfBits);
-    sum[j] = 0.f;
-  }
-  for (int tt = threadIdx.x; tt < t_len; tt += kThreads) {
-#pragma unroll
-    for (int j = 0; j < G; ++j) m[j] = fmaxf(m[j], sc[j * t_len + tt]);
+    for (int j = 0; j < G; ++j) m[j] = j == mine ? own : __uint_as_float(kMinusInfBits);
   }
   block_reduce<G, true>(m, red);
-  for (int tt = threadIdx.x; tt < t_len; tt += kThreads) {
+  if (S > 1) across_chunks<G, true>(a.cmax, head0, c, S, m, slots);
+
+  // -- e = exp(s - M) in place, and the sums --
+  float sum[G];
+#pragma unroll
+  for (int j = 0; j < G; ++j) sum[j] = 0.f;
+  for (int l = threadIdx.x; l < n; l += kThreads) {
 #pragma unroll
     for (int j = 0; j < G; ++j) {
-      const float e = expf(__fsub_rn(sc[j * t_len + tt], m[j]));
-      sc[j * t_len + tt] = e;
+      const float e = expf(__fsub_rn(sc[j * cl + l], m[j]));
+      sc[j * cl + l] = e;
       sum[j] += e;
     }
   }
   block_reduce<G, false>(sum, red);
-  for (int tt = threadIdx.x; tt < t_len; tt += kThreads) {
-    const float vs = v_scale != nullptr
-                         ? round_to<T>(v_scale[line0 + static_cast<long long>(tt) * kvh])
+  if (S > 1) across_chunks<G, false>(a.csum, head0, c, S, sum, slots);
+
+  // -- w = T(e / sum) [then T(w * T(v_scale))] in place --
+  for (int l = threadIdx.x; l < n; l += kThreads) {
+    const float vs = a.v_scale != nullptr
+                         ? round_to<T>(a.v_scale[line0 + static_cast<long long>(c0 + l) * a.kvh])
                          : 1.f;
 #pragma unroll
     for (int j = 0; j < G; ++j) {
-      float w = round_to<T>(__fdiv_rn(sc[j * t_len + tt], sum[j]));
-      if (v_scale != nullptr) w = round_to<T>(__fmul_rn(w, vs));
-      sc[j * t_len + tt] = w;
+      float wv = round_to<T>(__fdiv_rn(sc[j * cl + l], sum[j]));
+      if (a.v_scale != nullptr) wv = round_to<T>(__fmul_rn(wv, vs));
+      sc[j * cl + l] = wv;
     }
   }
-  __syncthreads();
 
-  // Phase 3: out[j, d] = sum_t w[j, t] * v[t, d] with the phase-1 lane layout.
+  // -- sum_t w * v over the V tiles, a lane's share in registers --
   float acc[G][VEC];
 #pragma unroll
   for (int j = 0; j < G; ++j) {
 #pragma unroll
     for (int e = 0; e < VEC; ++e) acc[j][e] = 0.f;
   }
-  for (int t0 = warp * lpw; t0 < t_len; t0 += stride * kUnroll) {
-    float vx[kUnroll][VEC];
+  for (int ti = 0; ti < nt; ++ti) {
+    cp_async_wait<kRing - 1>();
+    __syncthreads();  // also orders the weights above before their first read
+    const KV* tile = ring_kv + ((nt + ti) % kRing) * kSlot;
+    const int nl = min(tl, n - ti * tl);
+#pragma unroll 2
+    for (int l = warp * lpw + sub; l < nl; l += kWarps * lpw) {
+      float vx[VEC];
+      load_vec(tile + l * hd + d0, vx);
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int tt = t0 + u * stride + sub;
-      if (tt < t_len) load_vec(v + (line0 + static_cast<long long>(tt) * kvh) * hd + d0, vx[u]);
-    }
+      for (int j = 0; j < G; ++j) {
+        const float wj = sc[j * cl + ti * tl + l];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int tt = t0 + u * stride + sub;
-      if (tt < t_len) {
-#pragma unroll
-        for (int j = 0; j < G; ++j) {
-          const float w = sc[j * t_len + tt];
-#pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[j][e] = fmaf(w, vx[u][e], acc[j][e]);
-        }
+        for (int e = 0; e < VEC; ++e) acc[j][e] = fmaf(wj, vx[e], acc[j][e]);
       }
     }
+    __syncthreads();
+    fetch(nt + ti + kRing);
   }
+  cp_async_wait<0>();  // only empty groups are left; the ring takes the warps' sums
   // combine the warp's lane groups (same sl), then the warps in order
   for (int off = lpl; off < 32; off <<= 1) {
 #pragma unroll
@@ -256,81 +431,201 @@ decode_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k,
       for (int e = 0; e < VEC; ++e) acc[j][e] += __shfl_xor_sync(0xffffffffu, acc[j][e], off);
     }
   }
+  float* wsum = reinterpret_cast<float*>(ring);  // kWarps * G * hd floats <= the ring
   if (sub == 0) {
 #pragma unroll
     for (int j = 0; j < G; ++j) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) part[(warp * G + j) * hd + d0 + e] = acc[j][e];
+      for (int e = 0; e < VEC; ++e) wsum[(warp * G + j) * hd + d0 + e] = acc[j][e];
     }
   }
   __syncthreads();
+  T* out = static_cast<T*>(a.out);
   for (int i = threadIdx.x; i < G * hd; i += kThreads) {
     float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += part[w * G * hd + i];
-    out[head0 * hd + i] = from_f<T>(s);
+    for (int wp = 0; wp < kWarps; ++wp) s += wsum[wp * G * hd + i];
+    if (S == 1) {
+      out[head0 * hd + i] = from_f<T>(s);
+    } else {
+      const int j = i / hd;
+      a.part[((head0 + j) * S + c) * hd + (i - j * hd)] = s;
+    }
+  }
+  if (S == 1) return;
+
+  // -- out = T(sum over the chunks of the partials), in chunk order --
+  cg::this_grid().sync();
+  const long long outs = static_cast<long long>(a.b) * a.h * hd;
+  for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < outs;
+       i += static_cast<long long>(gridDim.x) * kThreads) {
+    const long long row = i / hd;
+    const float* pp = a.part + row * S * hd + (i - row * hd);
+    float s = 0.f;
+    for (int k = 0; k < S; ++k) s += __ldcg(pp + static_cast<long long>(k) * hd);
+    out[i] = from_f<T>(s);
   }
 }
 
+// Blocks of the kernel that fit on the current device at once: asked of the
+// occupancy API once a device.
 template <class T, class KV, int G>
-int launch_group(const void* q, const void* k, const void* v, const int* pos,
-                 const float* k_scale, const float* v_scale, float* scratch, void* out, int b,
-                 int t_len, int kvh, int hd, float scale, int wrap, cudaStream_t stream) {
-  const size_t smem = (static_cast<size_t>(G) * hd * (1 + kWarps) + G * kWarps) * sizeof(float);
-  auto kernel = decode_attention_kernel<T, KV, G>;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+int capacity(int& cap) {
+  static std::atomic<int> cached[kMaxDevices];  // 0: not asked yet
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < kMaxDevices && (cap = cached[dev].load(std::memory_order_relaxed)) > 0) return 0;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_attention_kernel<T, KV, G>,
+                                                        kThreads, 0);
   }
-  kernel<<<b * kvh, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v), pos,
-      k_scale, v_scale, scratch, static_cast<T*>(out), t_len, kvh, hd, scale, wrap);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cap = per_sm * sms;
+  if (cap < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  if (dev < kMaxDevices) cached[dev].store(cap, std::memory_order_relaxed);
+  return 0;
+}
+
+struct Plan {
+  int S, cl, tl;
+  int slots;  // slots a launch
+  long long ws_floats;
+};
+
+template <class T, class KV, int G>
+int plan_of(int b, int t_len, int h, int kvh, int hd, Plan& p) {
+  int cap = 0;
+  const int err = capacity<T, KV, G>(cap);
+  if (err != 0) return err;
+  p.tl = min(kTileMaxLines, kTileBytes / (hd * static_cast<int>(sizeof(KV))));
+  const long long lines_max = kScoreFloats / G;  // the scores' room
+  const long long s_min = (t_len + lines_max - 1) / lines_max;
+  if (kvh * s_min > cap) return static_cast<int>(cudaErrorInvalidValue);  // too long a cache
+  // as many chunks as the resident blocks allow, none shorter than a tile
+  long long s = min(static_cast<long long>((t_len + p.tl - 1) / p.tl),
+                    cap / (static_cast<long long>(b) * kvh));
+  s = max(max(s, s_min), 1LL);
+  // as even as the chunk count allows, no chunk empty
+  p.cl = static_cast<int>((t_len + s - 1) / s);
+  p.S = (t_len + p.cl - 1) / p.cl;
+  p.slots = static_cast<int>(min(static_cast<long long>(b), cap / (static_cast<long long>(kvh) * p.S)));
+  p.ws_floats = p.S > 1 ? static_cast<long long>(p.slots) * h * p.S * (hd + 2) : 0;
+  return 0;
+}
+
+template <class T, class KV, int G>
+int run(const Args& a, cudaStream_t stream) {
+  Plan p;
+  int err = plan_of<T, KV, G>(a.b, a.t_len, a.h, a.kvh, a.hd, p);
+  if (err != 0) return err;
+  const long long rows = static_cast<long long>(p.slots) * a.h;
+  for (int b0 = 0; b0 < a.b; b0 += p.slots) {  // one launch for each run of slots that fits
+    Args s = a;
+    s.b = min(p.slots, a.b - b0);
+    s.S = p.S;
+    s.cl = p.cl;
+    s.tl = p.tl;
+    s.q = static_cast<const T*>(a.q) + static_cast<long long>(b0) * a.h * a.hd;
+    s.out = static_cast<T*>(a.out) + static_cast<long long>(b0) * a.h * a.hd;
+    const long long lines = static_cast<long long>(b0) * a.t_len * a.kvh;
+    s.k = static_cast<const KV*>(a.k) + lines * a.hd;
+    s.v = static_cast<const KV*>(a.v) + lines * a.hd;
+    s.pos = a.pos + b0;
+    if (a.k_scale != nullptr) {
+      s.k_scale = a.k_scale + lines;
+      s.v_scale = a.v_scale + lines;
+    }
+    s.csum = a.cmax + rows * p.S;
+    s.part = s.csum + rows * p.S;
+    void* args[] = {&s};
+    err = static_cast<int>(cudaLaunchCooperativeKernel(
+        reinterpret_cast<void*>(decode_attention_kernel<T, KV, G>),
+        dim3(static_cast<unsigned int>(s.b * a.kvh * p.S)), dim3(kThreads), args, 0, stream));
+    if (err != 0) return err;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 template <class T, class KV>
-int launch(const void* q, const void* k, const void* v, const int* pos, const float* k_scale,
-           const float* v_scale, float* scratch, void* out, int b, int t_len, int h, int kvh,
-           int hd, float scale, int wrap, cudaStream_t stream) {
+int dispatch_group(const Args& a, Plan* plan, cudaStream_t stream) {
   constexpr int VEC = vec_of<KV>();
-  const int lpl = hd / VEC;
-  if (hd % VEC != 0 || lpl < 1 || lpl > 32 || (lpl & (lpl - 1)) != 0) {
+  const int lpl = a.hd / VEC;
+  if (a.hd % VEC != 0 || lpl < 1 || lpl > 32 || (lpl & (lpl - 1)) != 0 || a.t_len < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  switch (h / kvh) {
-    case 1: return launch_group<T, KV, 1>(q, k, v, pos, k_scale, v_scale, scratch, out, b, t_len, kvh, hd, scale, wrap, stream);
-    case 2: return launch_group<T, KV, 2>(q, k, v, pos, k_scale, v_scale, scratch, out, b, t_len, kvh, hd, scale, wrap, stream);
-    case 4: return launch_group<T, KV, 4>(q, k, v, pos, k_scale, v_scale, scratch, out, b, t_len, kvh, hd, scale, wrap, stream);
-    case 8: return launch_group<T, KV, 8>(q, k, v, pos, k_scale, v_scale, scratch, out, b, t_len, kvh, hd, scale, wrap, stream);
+#define REPRO_GROUP(G)                                                                  \
+  case G:                                                                               \
+    return plan != nullptr ? plan_of<T, KV, G>(a.b, a.t_len, a.h, a.kvh, a.hd, *plan) \
+                           : run<T, KV, G>(a, stream);
+  switch (a.h / a.kvh) {
+    REPRO_GROUP(1)
+    REPRO_GROUP(2)
+    REPRO_GROUP(4)
+    REPRO_GROUP(8)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_GROUP
+}
+
+int dispatch(const Args& a, int act_dtype, int kv_int8, Plan* plan, cudaStream_t stream) {
+  if (a.kvh <= 0 || a.h % a.kvh != 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (act_dtype == 1 && !kv_int8) return dispatch_group<__nv_bfloat16, __nv_bfloat16>(a, plan, stream);
+  if (act_dtype == 1 && kv_int8) return dispatch_group<__nv_bfloat16, signed char>(a, plan, stream);
+  if (act_dtype == 2 && !kv_int8) return dispatch_group<float, float>(a, plan, stream);
+  if (act_dtype == 2 && kv_int8) return dispatch_group<float, signed char>(a, plan, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+Args args_of(int b, int t_len, int h, int kvh, int hd) {
+  Args a = {};
+  a.b = b;
+  a.t_len = t_len;
+  a.h = h;
+  a.kvh = kvh;
+  a.hd = hd;
+  return a;
 }
 
 }  // namespace
 
+// The split for these shapes on the current device: out[0] = float32
+// workspace elements a launch needs, out[1] = S, out[2] = cache lines a
+// chunk, out[3] = slots a launch.  Returns a CUDA error code.
+extern "C" int decode_attention_plan(int b, int t_len, int h, int kvh, int hd, int act_dtype,
+                                     int kv_int8, long long* out) {
+  Plan p = {};
+  const int err = dispatch(args_of(b, t_len, h, kvh, hd), act_dtype, kv_int8, &p, nullptr);
+  if (err != 0) return err;
+  out[0] = p.ws_floats;
+  out[1] = p.S;
+  out[2] = p.cl;
+  out[3] = p.slots;
+  return 0;
+}
+
 // act_dtype: 1 = bfloat16, 2 = float32; kv_int8: the cache holds int8 values
 // (then k_scale and v_scale are given).  h / kv must be 1, 2, 4 or 8, and
 // hd / VEC a power of two <= 32 (VEC = 4 for a float32 cache, else 8); the
-// K/V base pointers must be 16-byte aligned.  Returns cudaGetLastError().
+// K/V base pointers must be 16-byte aligned; workspace holds the elements
+// decode_attention_plan gives for the same shapes.  Returns the first launch
+// error, or cudaGetLastError() after the last launch.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,
                                        const void* pos, const void* k_scale,
-                                       const void* v_scale, void* scratch, void* out, int b,
+                                       const void* v_scale, void* workspace, void* out, int b,
                                        int t_len, int h, int kvh, int hd, float scale, int wrap,
                                        int act_dtype, int kv_int8, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (kvh <= 0 || h % kvh != 0) return static_cast<int>(cudaErrorInvalidValue);
   if (b <= 0) return 0;
-  const int* p = static_cast<const int*>(pos);
-  const float* ks = static_cast<const float*>(k_scale);
-  const float* vs = static_cast<const float*>(v_scale);
-  float* sc = static_cast<float*>(scratch);
-  if (act_dtype == 1 && !kv_int8)
-    return launch<__nv_bfloat16, __nv_bfloat16>(q, k, v, p, ks, vs, sc, out, b, t_len, h, kvh, hd, scale, wrap, s);
-  if (act_dtype == 1 && kv_int8)
-    return launch<__nv_bfloat16, signed char>(q, k, v, p, ks, vs, sc, out, b, t_len, h, kvh, hd, scale, wrap, s);
-  if (act_dtype == 2 && !kv_int8)
-    return launch<float, float>(q, k, v, p, ks, vs, sc, out, b, t_len, h, kvh, hd, scale, wrap, s);
-  if (act_dtype == 2 && kv_int8)
-    return launch<float, signed char>(q, k, v, p, ks, vs, sc, out, b, t_len, h, kvh, hd, scale, wrap, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  Args a = args_of(b, t_len, h, kvh, hd);
+  a.q = q;
+  a.k = k;
+  a.v = v;
+  a.pos = static_cast<const int*>(pos);
+  a.k_scale = static_cast<const float*>(k_scale);
+  a.v_scale = static_cast<const float*>(v_scale);
+  a.cmax = static_cast<float*>(workspace);
+  a.out = out;
+  a.scale = scale;
+  a.wrap = wrap;
+  return dispatch(a, act_dtype, kv_int8, nullptr, static_cast<cudaStream_t>(stream));
 }

@@ -1,12 +1,16 @@
 """Public wrapper: fused per-slot decode attention.
 
-A CUDA tensor goes to ``csrc/decode_attention.cu`` (one launch, counted),
-a CPU tensor to the plain version in :mod:`.ref`.  The kernel reads an int8
-cache as stored; no pre-cast copy of the cache is made.
+A CUDA tensor goes to ``csrc/decode_attention.cu`` (one counted launch of
+the kernel, which splits the cache length over blocks), a CPU tensor to the
+plain version in :mod:`.ref`.  The kernel reads an int8 cache as stored; no
+pre-cast copy of the cache is made.  The ``.cu`` file plans the split from
+the shapes and the card (:func:`plan`, asked once a shape); the wrapper
+allocates the float32 workspace the plan asks for.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -17,6 +21,7 @@ __all__ = ["decode_attention", "ref_decode_attention"]
 
 _DTYPE_CODE = {torch.bfloat16: 1, torch.float32: 2}
 _GROUPS = (1, 2, 4, 8)  # query heads per KV head that decode_attention.cu instantiates
+_PLAN_ARGTYPES = (ctypes.c_int,) * 7 + (ctypes.POINTER(ctypes.c_longlong),)
 _ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
 
@@ -28,9 +33,11 @@ def _check(q, k, v, pos, k_scale, v_scale):
         raise ValueError(f"expected q (b, h, hd) and k/v (b, t, kv, hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     b, h, hd = q.shape
-    kb, _, kv, khd = k.shape
+    kb, t, kv, khd = k.shape
     if kb != b or khd != hd or h % kv:
         raise ValueError(f"shapes do not match: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if t < 1:
+        raise ValueError("decode attention needs a cache of at least one line")
     if h // kv not in _GROUPS:
         raise ValueError(f"the kernel serves {_GROUPS} query heads per KV head, got {h // kv}")
     vec = 4 if k.dtype == torch.float32 else 8  # elements per vector load
@@ -58,6 +65,28 @@ def _check(q, k, v, pos, k_scale, v_scale):
     return quantized
 
 
+@functools.lru_cache(maxsize=None)
+def _plan(device: int, b: int, t: int, h: int, kv: int, hd: int, dtype_code: int,
+          int8: int) -> tuple:
+    out = (ctypes.c_longlong * 4)()
+    fn = _build.function("decode_attention", "decode_attention_plan", _PLAN_ARGTYPES)
+    with torch.cuda.device(device):
+        fn(b, t, h, kv, hd, dtype_code, int8, out)
+    return tuple(out)
+
+
+def plan(q, k) -> dict:
+    """How ``decode_attention.cu`` splits these shapes on q's card: the
+    chunks a (slot, KV head) and the cache lines a chunk, the slots a launch,
+    and the float32 workspace elements.  Needs the built kernel; asked once
+    a shape."""
+    b, h, hd = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    ws, chunks, lines, slots = _plan(q.device.index, b, t, h, kv, hd, _DTYPE_CODE[q.dtype],
+                                     int(k.dtype == torch.int8))
+    return {"workspace": ws, "chunks": chunks, "chunk_lines": lines, "slots": slots}
+
+
 def decode_attention(q, k, v, pos, k_scale=None, v_scale=None, *, scale: float,
                      wrap: bool = False) -> torch.Tensor:
     """One fused decode-attention step.  q: (b, h, hd); k/v: (b, t, kv, hd)
@@ -72,13 +101,13 @@ def decode_attention(q, k, v, pos, k_scale=None, v_scale=None, *, scale: float,
     out = torch.empty_like(q)
     if b == 0:
         return out
-    scratch = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    workspace = torch.empty(plan(q, k)["workspace"], dtype=torch.float32, device=q.device)
     fn = _build.function("decode_attention", "decode_attention_launch", _ARGTYPES)
     with torch.cuda.device(q.device):
         fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos.data_ptr(),
            k_scale.data_ptr() if quantized else None,
            v_scale.data_ptr() if quantized else None,
-           scratch.data_ptr(), out.data_ptr(), b, t, h, kv, hd, scale, int(wrap),
+           workspace.data_ptr(), out.data_ptr(), b, t, h, kv, hd, scale, int(wrap),
            _DTYPE_CODE[q.dtype], int(quantized),
            torch.cuda.current_stream(q.device).cuda_stream)
     dispatch.count_launch("decode_attention")

@@ -15,7 +15,7 @@ from repro_torch.kernels.rmsnorm.ref import ref_rmsnorm
 __all__ = ["rmsnorm"]
 
 _DTYPE_CODE = {torch.bfloat16: 1, torch.float32: 2}
-_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_float, ctypes.c_int, ctypes.c_void_p)
 
 

@@ -86,45 +86,135 @@ def test_e2afs_bit_identical(cuda_device, dtype):
     assert dispatch.launch_counts()["e2afs_rsqrt"] == 1
 
 
-@pytest.mark.parametrize("shape", [(8, 2560), (1024, 2560), (8 * 32 * 16, 128)])
+@pytest.mark.parametrize("shape", [(8, 2560), (1024, 2560), (8 * 32 * 16, 128)] + [
+    (rows, d) for rows in (1, 3, 4096) for d in (100, 128, 1152, 2560)] + [
+    (3, 12288), (3, 40000)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_matches_plain(cuda_device, dtype, shape):
+    """Every layout of rmsnorm.cu: rows of a block (d = 1152, 2560), rows
+    wider than a block's threads (12288) and than its registers (40000),
+    rows that share a warp (d = 128), and the one-element loads (d = 100, and
+    x not on a 16-byte boundary)."""
     g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
     x = torch.randn(shape, generator=g, device=cuda_device).to(dtype)
     s = (0.1 * torch.randn(shape[-1], generator=g, device=cuda_device)).to(dtype)
+    # the same values one element past a 16-byte boundary, still contiguous
+    unaligned = torch.empty(x.numel() + 1, dtype=dtype, device=cuda_device)[1:].view(shape)
+    unaligned.copy_(x)
     for scale, limit in ((torch.zeros_like(s), 1.0), (s, 2.0)):
-        ours, plain = rms_ops.rmsnorm(x, scale), ref_rmsnorm(x, scale)
-        if dtype == torch.float32:
-            torch.testing.assert_close(ours, plain, rtol=1e-6, atol=0)
-        else:
-            assert _ulps(ours, plain) <= limit
+        plain = ref_rmsnorm(x, scale)
+        ours = rms_ops.rmsnorm(x, scale)
+        assert torch.equal(ours, rms_ops.rmsnorm(x, scale)), "two calls differ"
+        for out in (ours, rms_ops.rmsnorm(unaligned, scale)):
+            if dtype == torch.float32:
+                torch.testing.assert_close(out, plain, rtol=1e-6, atol=0)
+            else:
+                assert _ulps(out, plain) <= limit
 
 
-@pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_attention_matches_plain(cuda_device, quantized, dtype):
-    b, t, h, kv, hd = 6, 300, 32, 8, 128
-    g = torch.Generator(device=cuda_device).manual_seed(2)
-    q = torch.randn(b, h, hd, generator=g, device=cuda_device).to(dtype)
+def _attn_case(dev, b, t, h, kv, hd, dtype, quantized, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(b, h, hd, generator=g, device=dev).to(dtype)
     if quantized:
-        k, v = (torch.randint(-127, 128, (b, t, kv, hd), generator=g, device=cuda_device,
+        k, v = (torch.randint(-127, 128, (b, t, kv, hd), generator=g, device=dev,
                               dtype=torch.int32).to(torch.int8) for _ in range(2))
-        ks, vs = (torch.rand(b, t, kv, generator=g, device=cuda_device) * 0.02 + 1e-3
+        ks, vs = (torch.rand(b, t, kv, generator=g, device=dev) * 0.02 + 1e-3
                   for _ in range(2))
     else:
-        k, v = (torch.randn(b, t, kv, hd, generator=g, device=cuda_device).to(dtype)
-                for _ in range(2))
+        k, v = (torch.randn(b, t, kv, hd, generator=g, device=dev).to(dtype) for _ in range(2))
         ks = vs = None
-    pos = torch.tensor([0, 3, 150, t - 1, t, 3 * t], dtype=torch.int32, device=cuda_device)
+    # mixed rows: the first line, early, middle, the last line, at and past the end
+    rows = [0, 3, t // 2, t - 1, t, 3 * t]
+    pos = torch.tensor([rows[i % len(rows)] for i in range(b)], dtype=torch.int32, device=dev)
+    return q, k, v, pos, ks, vs
+
+
+_LENGTHS = ("1", "chunk-1", "chunk", "chunk+1", "576", "4096")
+
+
+def _one_chunk(q, kv, k_dtype):
+    """The longest cache that decode_attention.cu keeps as one chunk for
+    these shapes (a tile: 32 lines of a bf16 hd = 128 cache)."""
+    b, _, hd = q.shape
+    t = 1
+    while attn_ops.plan(q, torch.empty(b, t + 1, kv, hd, dtype=k_dtype, device="meta"))[
+            "chunks"] == 1:
+        t += 1
+    return t
+
+
+def _length(name, q, kv, k_dtype):
+    """A named cache length: around the longest one-chunk cache, or a
+    serving length."""
+    if not name.startswith("chunk"):
+        return int(name)
+    return _one_chunk(q, kv, k_dtype) + {"chunk-1": -1, "chunk": 0, "chunk+1": 1}[name]
+
+
+def _assert_attention_close(out, plain, dtype):
+    assert out.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, plain, atol=1e-5, rtol=0)
+    else:
+        row = plain.float().abs().amax(dim=-1, keepdim=True).to(dtype)
+        assert _ulps(out, plain, at=row.expand_as(plain)) <= 2.0
+
+
+@pytest.mark.parametrize("length", _LENGTHS)
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_matches_plain(cuda_device, quantized, dtype, group, length):
+    """decode_attention.cu against the plain version: every group size,
+    float and int8 caches, wrap off and on, mixed per-row positions, cache
+    lengths around one chunk and at the serving lengths.  Two calls are
+    bit-identical."""
+    b, h, hd = 6, 32, 128
+    kv = h // group
+    q = torch.empty(b, h, hd, dtype=dtype, device=cuda_device)
+    t = _length(length, q, kv, torch.int8 if quantized else dtype)
+    q, k, v, pos, ks, vs = _attn_case(cuda_device, b, t, h, kv, hd, dtype, quantized, t + group)
     for wrap in (False, True):
-        ours = attn_ops.decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
         plain = attn_ops.ref_decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
-        assert ours.dtype == dtype
-        if dtype == torch.float32:
-            torch.testing.assert_close(ours, plain, atol=1e-5, rtol=0)
-        else:
-            row = plain.float().abs().amax(dim=-1, keepdim=True).to(dtype)
-            assert _ulps(ours, plain, at=row.expand_as(plain)) <= 2.0
+        ours = attn_ops.decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
+        again = attn_ops.decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
+        assert torch.equal(ours, again), "two calls differ"
+        _assert_attention_close(ours, plain, dtype)
+
+
+def test_decode_attention_in_runs_of_slots(cuda_device):
+    """More chunks than the blocks that fit on the card at once: the call
+    launches once for each run of slots that fits, and still matches."""
+    b, h, kv, hd, t, dtype = 40, 32, 4, 128, 4096, torch.bfloat16
+    q, k, v, pos, ks, vs = _attn_case(cuda_device, b, t, h, kv, hd, dtype, False, 5)
+    assert attn_ops.plan(q, k)["slots"] < b
+    plain = attn_ops.ref_decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=True)
+    ours = attn_ops.decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=True)
+    assert torch.equal(ours, attn_ops.decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5,
+                                                       wrap=True)), "two calls differ"
+    _assert_attention_close(ours, plain, dtype)
+
+
+@pytest.mark.parametrize("b", [1, 8, 256])
+@pytest.mark.parametrize("t", [1, 31, 32, 33, 576, 4096, 32768])
+def test_decode_attention_plan_covers_every_line(cuda_device, b, t):
+    """The split: S chunks of chunk_lines cover lines 0..t-1 once, no chunk
+    is empty, a cache of one tile (32 bf16 lines of hd = 128) is one chunk,
+    a launch takes between 1 and b slots, and the workspace holds the chunk
+    maxima, sums and partial outputs of a launch's slots."""
+    h, kv, hd = 32, 8, 128
+    q = torch.empty(b, h, hd, dtype=torch.bfloat16, device=cuda_device)
+    k = torch.empty(b, t, kv, hd, dtype=torch.bfloat16, device="meta")
+    p = attn_ops.plan(q, k)
+    s, cl = p["chunks"], p["chunk_lines"]
+    assert (s - 1) * cl < t <= s * cl
+    if t <= 32:
+        assert s == 1
+    elif b * kv * 2 <= torch.cuda.get_device_properties(cuda_device).multi_processor_count:
+        # room on the card for two chunks a (slot, KV head)
+        assert s > 1
+    assert 1 <= p["slots"] <= b
+    assert p["workspace"] == (p["slots"] * h * s * (hd + 2) if s > 1 else 0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):

@@ -245,6 +245,7 @@ def test_other_devices_raise():
     ("scales", "need k_scale and v_scale"),
     ("pos", "int32"),
     ("dtype", "k/v must be int8"),
+    ("empty", "at least one line"),
 ])
 def test_decode_attention_refusals(case, match):
     """What the CUDA kernel does not take is refused before any launch (the
@@ -261,5 +262,7 @@ def test_decode_attention_refusals(case, match):
         pos = pos.long()
     elif case == "dtype":
         k = k.double()
+    elif case == "empty":
+        k, v = k[:, :0], v[:, :0]
     with pytest.raises(ValueError, match=match):
         attn_ops._check(q, k, v, pos, ks, vs)
