@@ -10,7 +10,9 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    ``src/repro_torch/csrc`` and prints nvcc's ``-Xptxas -v`` report;
 1. e2afs sqrt/rsqrt kernel vs its plain version: bit-identical (NaN as NaN)
    over every fp16 and bf16 pattern and the fp32 grid, plus the paper's
-   Table 2 example (0x785A -> 0 10110 1000100001);
+   Table 2 example (0x785A -> 0 10110 1000100001); and the lean sqrt of the
+   Sobel and K-means kernels bit-identical to the general one on every
+   positive normal float32 from 1e-12 up (about 1.4 billion patterns);
 2. RMSNorm kernel vs plain version at the serving shapes, bf16 and fp32,
    and two calls bit-identical;
 3. decode-attention kernel vs plain version at the serving widths, bf16 and
@@ -21,9 +23,12 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    greedy tokens, cache 576) on the kernels, held against the same weights
    and prompt on the plain versions; (b) the sqrt-unit entry point
    ``get_unit("e2afs", kernel=True)`` on an activation-sized tensor, held
-   bit-identical to the plain version.  Then a
+   bit-identical to the plain version.  Then (c) a
    small float32 model on the card, kernels vs plain versions (identical
-   tokens), and ``serve.generate`` at smoke width;
+   tokens), with global attention and with every layer a 6-token sliding
+   window (a 6-line ring cache, wrapped by the decode positions, and the
+   decode-attention launches counted), and ``serve.generate`` at smoke
+   width;
 5. times each kernel, its plain version and a PyTorch yardstick call, both as
    device time per call (torch.profiler) and with CUDA events around
    back-to-back calls, beside the kernel's bound; RMSNorm also at every
@@ -118,6 +123,11 @@ E2AFS_SQRT_INT_OPS = 14
 KERNEL_SUMS_LIMIT = 1e-6
 PLAIN_SUMS_LIMIT = 2e-6
 PLAIN_BATCH_SUMS_LIMIT = 5e-5
+
+# torch.profiler windows tried before a timing fails: on the H100 machines a
+# window now and then sees no device time or misses a launch, at worst three
+# windows in a row so far.
+PROFILER_WINDOWS = 10
 
 KERNELS = {
     "e2afs_sqrt": ("src/repro_torch/csrc/e2afs_sqrt.cu",
@@ -255,31 +265,46 @@ class Smoke:
         end.synchronize()
         return start.elapsed_time(end) / iters
 
-    def profiled(self, fn, iters):
+    def profiled(self, fn, iters, every_launch=False):
         """Run fn iters times under torch.profiler; returns (host wall us,
         [(device us, calls, kernel name)] sorted, largest first).  Only
-        device-side events: an operator's own entry repeats its kernels'."""
+        device-side events: an operator's own entry repeats its kernels'.
+
+        A profiler window on the card now and then comes back without device
+        events, or with only some of a kernel's launches: such a window is
+        thrown away and the calls run again, up to PROFILER_WINDOWS windows,
+        and the run fails if none saw device time (with every_launch, if none
+        saw every launch: each call launches the same kernels, so every
+        count is a multiple of iters).  A CPU rehearsal takes one window."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU] + ([] if self.rehearsal else [ProfilerActivity.CUDA])
-        with profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                fn()
-            self.sync()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        rows = []
-        for e in prof.key_averages():
-            if e.device_type != DeviceType.CUDA:
-                continue
-            dev_us = getattr(e, "self_device_time_total", None)
-            if dev_us is None:
-                dev_us = getattr(e, "self_cuda_time_total", 0.0)
-            if dev_us > 0:
-                rows.append((dev_us, e.count, e.key))
-        rows.sort(reverse=True)
-        return wall_us, rows
+        for window in range(1, PROFILER_WINDOWS + 1):
+            with profile(activities=activities) as prof:
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    fn()
+                self.sync()
+                wall_us = (time.perf_counter() - t0) * 1e6
+            rows = []
+            for e in prof.key_averages():
+                if e.device_type != DeviceType.CUDA:
+                    continue
+                dev_us = getattr(e, "self_device_time_total", None)
+                if dev_us is None:
+                    dev_us = getattr(e, "self_cuda_time_total", 0.0)
+                if dev_us > 0:
+                    rows.append((dev_us, e.count, e.key))
+            rows.sort(reverse=True)
+            if self.rehearsal or rows and not (every_launch and
+                                               any(r[1] % iters for r in rows)):
+                return wall_us, rows
+            print(f"  (profiler window {window} saw "
+                  f"{'launch counts ' + str([r[1] for r in rows]) if rows else 'no device time'}"
+                  f" for {iters} calls)")
+        raise AssertionError(f"none of {PROFILER_WINDOWS} profiler windows saw "
+                             f"{'every launch of the calls' if every_launch else 'device time'}")
 
     def device_ms(self, fn, iters=20):
         """Device time per call: the kernels' own time under torch.profiler,
@@ -289,18 +314,8 @@ class Smoke:
             return None
         fn()
         self.sync()
-        # A profiler window now and then comes back without device events,
-        # or with only some of a kernel's launches (each call launches the
-        # same kernels, so every count is a multiple of iters): take up to
-        # three windows, and fail if none saw every launch.
-        for attempt in range(3):
-            _, rows = self.profiled(fn, iters)
-            if rows and all(r[1] % iters == 0 for r in rows):
-                return sum(r[0] for r in rows) / iters / 1e3
-            print(f"  (profiler window {attempt + 1} saw "
-                  f"{'launch counts ' + str([r[1] for r in rows]) if rows else 'no device time'}"
-                  f" for {iters} calls)")
-        raise AssertionError("no profiler window saw every launch of the calls")
+        _, rows = self.profiled(fn, iters, every_launch=True)
+        return sum(r[0] for r in rows) / iters / 1e3
 
     def gen(self, seed):
         return self.torch.Generator(device=self.dev).manual_seed(seed)
@@ -361,6 +376,19 @@ class Smoke:
             raise AssertionError(f"Table 2 example gives {bits:#06x}")
         for name in ("e2afs_sqrt", "e2afs_rsqrt"):
             self.rows[name]["max_abs_err"] = 0.0
+        # the lean sqrt of the Sobel and K-means kernels against the general
+        # one, over every positive normal float32 pattern from 1e-12 to +inf
+        # (excluded), in chunks of 2^28 on the card
+        if self.rehearsal:
+            print("  lean sqrt vs general sqrt: a check of the CUDA datapath, not run on the CPU")
+            return
+        first, last, chunk = int(torch.tensor(1e-12).view(torch.int32)), 0x7F800000, 1 << 28
+        bad = sum(ops.sqrt_normal_mismatches(lo, min(lo + chunk, last), self.dev)
+                  for lo in range(first, last, chunk))
+        print(f"  lean sqrt (sobel, kmeans_assign) vs general sqrt: {bad} of {last - first} "
+              f"positive normal float32 patterns from 1e-12 up differ")
+        if bad:
+            raise AssertionError(f"the lean sqrt differs from the general one on {bad} patterns")
 
     # -- phase 2 -----------------------------------------------------------
     def rms_inputs(self, rows, d, dtype, seed):
@@ -600,7 +628,8 @@ class Smoke:
 
     def p4_small(self):
         """A small float32 model on the card: kernels vs plain versions give
-        identical greedy tokens; then serve.generate at smoke width."""
+        identical greedy tokens, with global attention and with every layer
+        a 6-token sliding window; then serve.generate at smoke width."""
         torch = self.torch
         from repro_torch.configs import get_smoke_config
         from repro_torch.kernels import dispatch
@@ -610,23 +639,42 @@ class Smoke:
         cfg = get_smoke_config("qwen3-4b", act_dtype="float32", sqrt_unit="e2afs",
                                decode_kernel="fused")
         model = lm.init(cfg, self.gen(3), device=self.dev)
-        prompt = torch.randint(0, cfg.vocab, (4, 12), generator=self.gen(4), device=self.dev)
-        outs = []
-        for backend, route in (("auto", "fused"), ("reference", "reference")):
-            prev = dispatch.set_backend(backend)
-            try:
-                c = cfg.replace(decode_kernel=route)
-                cache = lm.init_cache(c, 4, 28, device=self.dev)
-                logits, cache = lm.prefill(model, c, cache, prompt, last_logit_only=True)
-                toks, _, _ = lm.generate_scan(model, c, cache, logits[:, -1:].argmax(-1), 12, 16)
-                outs.append((logits, toks))
-            finally:
-                dispatch.set_backend(prev)
-        diff = float((outs[0][0] - outs[1][0]).abs().max())
-        same = bool(torch.equal(outs[0][1], outs[1][1]))
-        print(f"  smoke float32: logits max |diff| {diff:.3e} (atol 1e-4), tokens identical: {same}")
-        if diff > 1e-4 or not same:
-            raise AssertionError("small float32 model: kernels disagree with plain versions")
+        prompt_len, gen_len, cache_len = 12, 16, 28
+        prompt = torch.randint(0, cfg.vocab, (4, prompt_len), generator=self.gen(4),
+                               device=self.dev)
+        window = cfg.replace(block_pattern=("window",), window=6).validate()
+        for label, base, lines in (("global", cfg, cache_len), ("window 6", window, 6)):
+            outs = []
+            for backend, route in (("auto", "fused"), ("reference", "reference")):
+                prev = dispatch.set_backend(backend)
+                try:
+                    c = base.replace(decode_kernel=route)
+                    cache = lm.init_cache(c, 4, cache_len, device=self.dev)
+                    logits, cache = lm.prefill(model, c, cache, prompt, last_logit_only=True)
+                    dispatch.reset_launch_counts()
+                    toks, _, _ = lm.generate_scan(model, c, cache, logits[:, -1:].argmax(-1),
+                                                  prompt_len, gen_len)
+                    self.sync()
+                    outs.append((logits, toks, cache["k"].shape[2],
+                                 dispatch.launch_counts()["decode_attention"]))
+                finally:
+                    dispatch.set_backend(prev)
+            diff = float((outs[0][0] - outs[1][0]).abs().max())
+            same = bool(torch.equal(outs[0][1], outs[1][1]))
+            want = 0 if self.rehearsal else cfg.n_layers * gen_len
+            print(f"  smoke float32 {label}: {outs[0][2]} cache lines (want {lines}; positions "
+                  f"0-{prompt_len + gen_len - 1}), logits max |diff| {diff:.3e} (atol 1e-4), "
+                  f"tokens identical: {same}; decode_attention launches {outs[0][3]} on the "
+                  f"kernel route (want {want}), {outs[1][3]} on the plain route")
+            if diff > 1e-4 or not same:
+                raise AssertionError(f"small float32 model ({label}): kernels disagree with "
+                                     "plain versions")
+            if outs[0][2] != lines or outs[1][2] != lines:
+                raise AssertionError(f"small float32 model ({label}): cache of "
+                                     f"{outs[0][2]} lines, want {lines}")
+            if outs[0][3] != want or outs[1][3] != 0:
+                raise AssertionError(f"small float32 model ({label}): decode_attention "
+                                     f"launches {outs[0][3]} and {outs[1][3]}")
         for mode in serve.MODES:
             serve.generate("qwen3-4b", mode=mode, reps=1, device=self.dev)
 

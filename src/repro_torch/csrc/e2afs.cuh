@@ -162,4 +162,30 @@ __device__ __forceinline__ float sqrt_positive_f32(float x) {
   return __uint_as_float(compose<Fp32>(0, exp_out, man_out));
 }
 
+// E2AFS sqrt of a positive normal float32: the in-register datapath of the
+// fused Sobel and K-means kernels, which clamp their input to at least 1e-12
+// or 1e-9 first.  The same bits as sqrt_positive_f32 on every such input
+// (chip_smoke.py phase 1 checks all of them) in fewer instructions.  There is
+// no zero or subnormal test, and no overflow step: float32 never takes it
+// (the odd path peaks at 16,777,110 < 2^24).  The output word comes from the
+// input word w = exp 2^23 + man, with w >> 1 = exp 2^22 + (man >> 1):
+//  * exp = 2j + 1 (r = exp - bias even): the exponent is j + 63, so the word
+//    is (j + 64) 2^23 + (man >> 1) - y_hi C_EVEN = (w >> 1) + 64 2^23 - 2^22
+//    - y_hi C_EVEN;
+//  * exp = 2j (r odd): the exponent is j + 62, so the word is (j + 62) 2^23
+//    + t + (t >> 1) with t = 2^23 + ((man + y_hi C_ODD) >> 2), and
+//    (w >> 1) & 0x7F800000 = j 2^23.
+// y_hi enters as a 0 or 1 multiplier, not a select.  chip_smoke.py phase 5
+// reads what the K-means distance loop compiles to.
+__device__ __forceinline__ float sqrt_normal_f32(float x) {
+  constexpr unsigned one = 1u << Fp32::MAN;
+  const unsigned w = __float_as_uint(x);
+  const unsigned y_hi = (w >> (Fp32::MAN - 1)) & 1u;
+  const unsigned man = w & man_mask<Fp32>();
+  const unsigned even_word = (w >> 1) + (64u * one - (one >> 1)) - y_hi * Fp32::C_EVEN;
+  const unsigned t = ((man + y_hi * Fp32::C_ODD) >> 2) + one;
+  const unsigned odd_word = ((w >> 1) & 0x7F800000u) + 62u * one + t + (t >> 1);
+  return __uint_as_float((w & one) != 0 ? even_word : odd_word);
+}
+
 }  // namespace e2afs

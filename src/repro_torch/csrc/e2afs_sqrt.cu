@@ -43,7 +43,35 @@ void launch(const void* x, void* y, long long n, int rsqrt, cudaStream_t stream)
   }
 }
 
+// The number of float32 patterns in [first, last) on which sqrt_normal_f32
+// and sqrt_positive_f32 differ, added to *mismatches (one atomic a warp).
+__global__ void normal_check_kernel(unsigned first, unsigned last,
+                                    unsigned long long* __restrict__ mismatches) {
+  const unsigned long long stride = static_cast<unsigned long long>(gridDim.x) * blockDim.x;
+  unsigned bad = 0;
+  for (unsigned long long i = first + static_cast<unsigned long long>(blockIdx.x) * blockDim.x +
+                              threadIdx.x;
+       i < last; i += stride) {
+    const float x = __uint_as_float(static_cast<unsigned>(i));
+    bad += __float_as_uint(e2afs::sqrt_normal_f32(x)) !=
+           __float_as_uint(e2afs::sqrt_positive_f32(x));
+  }
+  bad = __reduce_add_sync(0xffffffffu, bad);
+  if ((threadIdx.x & 31) == 0 && bad != 0) atomicAdd(mismatches, static_cast<unsigned long long>(bad));
+}
+
 }  // namespace
+
+// The check of the Sobel and K-means kernels' lean sqrt against the general
+// one over the patterns [first, last); mismatches: one uint64 on the card,
+// added to.  Returns cudaGetLastError().
+extern "C" int e2afs_sqrt_normal_check(unsigned first, unsigned last, void* mismatches,
+                                       void* stream) {
+  if (last <= first) return 0;
+  normal_check_kernel<<<132 * 8, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      first, last, static_cast<unsigned long long*>(mismatches));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // dtype: 0 = float16, 1 = bfloat16, 2 = float32.  Returns cudaGetLastError().
 extern "C" int e2afs_sqrt_launch(const void* x, void* y, long long n, int dtype, int rsqrt,

@@ -12,7 +12,7 @@ import torch
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.e2afs_sqrt.ref import ref_rsqrt, ref_sqrt
 
-__all__ = ["sqrt", "rsqrt"]
+__all__ = ["sqrt", "rsqrt", "sqrt_normal_mismatches"]
 
 _DTYPE_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -45,3 +45,22 @@ def rsqrt(x: torch.Tensor) -> torch.Tensor:
     if not dispatch.use_kernel(x):
         return ref_rsqrt(x)
     return _launch(x, rsqrt=True)
+
+
+def sqrt_normal_mismatches(first: int, last: int, device) -> int:
+    """The number of float32 bit patterns in [first, last) on which the lean
+    E2AFS sqrt of the Sobel and K-means kernels (``csrc/e2afs.cuh``,
+    ``sqrt_normal_f32``) differs from the general one (``sqrt_positive_f32``),
+    counted on the card.  A check of the CUDA datapath: no plain version, no
+    launch count."""
+    if not 0 <= first <= last < 2**32:
+        raise ValueError(f"patterns [{first}, {last}) are not float32 bit patterns")
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"the check runs on the card, got {device}")
+    out = torch.zeros((), dtype=torch.int64, device=device)
+    fn = _build.function("e2afs_sqrt", "e2afs_sqrt_normal_check",
+                         (ctypes.c_uint, ctypes.c_uint, ctypes.c_void_p, ctypes.c_void_p))
+    with torch.cuda.device(device):
+        fn(first, last, out.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    return int(out)

@@ -6,6 +6,7 @@ to the plain version in :mod:`.ref`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -15,7 +16,12 @@ from repro_torch.kernels.sobel.ref import ref_sobel
 __all__ = ["sobel_magnitude"]
 
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
-_MAX_ROWS = 65535 * 16  # grid.y limit times the block's 16 output rows
+
+
+@functools.cache
+def _max_rows() -> int:
+    """The largest image height the grid of csrc/sobel.cu takes."""
+    return _build.constant("sobel", "sobel_max_rows")
 
 
 def sobel_magnitude(img: torch.Tensor) -> torch.Tensor:
@@ -30,8 +36,8 @@ def sobel_magnitude(img: torch.Tensor) -> torch.Tensor:
     if not img.is_contiguous():
         raise ValueError("sobel kernel needs a contiguous image")
     h, w = img.shape
-    if h > _MAX_ROWS or h * w >= 2**31:
-        raise ValueError(f"sobel kernel takes at most {_MAX_ROWS} rows and 2^31 pixels, "
+    if h > _max_rows() or h * w >= 2**31:
+        raise ValueError(f"sobel kernel takes at most {_max_rows()} rows and 2^31 pixels, "
                          f"got {h} x {w}")
     out = torch.empty((h - 2, w - 2), dtype=torch.float32, device=img.device)
     fn = _build.function("sobel", "sobel_launch", _ARGTYPES)

@@ -107,11 +107,15 @@ def init(cfg: ModelConfig, generator: torch.Generator = None, *, device=None,
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, quantized: bool = False,
                device=None) -> dict:
-    """Zeroed stacked cache ``(L, batch, cache_len, kv, hd)`` (int8 plus
-    float32 scales when ``quantized``) on ``device`` (the card unless
-    ``device="cpu"``)."""
+    """Zeroed stacked cache ``(L, batch, lines, kv, hd)`` (int8 plus float32
+    scales when ``quantized``) on ``device`` (the card unless
+    ``device="cpu"``).  ``lines`` is ``cache_len``; a sliding-window model
+    gets ``min(cache_len, cfg.window)``, a ring of its window, as the
+    reference's ``_layer_cache`` (patterns are uniform: ``validate``
+    refuses mixed ones)."""
     dev = resolve_device(device)
-    return attn.init_kv_cache(cfg, batch, cache_len, act_dtype(cfg), quantized=quantized,
+    lines = min(cache_len, cfg.window) if cfg.blocks[0] == "window" else cache_len
+    return attn.init_kv_cache(cfg, batch, lines, act_dtype(cfg), quantized=quantized,
                               device=dev, layers=cfg.n_layers)
 
 

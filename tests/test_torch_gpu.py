@@ -236,12 +236,16 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         attn_ops.decode_attention(q, k.to(torch.int8), k.to(torch.int8), pos, scale=0.25)
 
 
-def test_model_kernels_match_plain_versions(cuda_device):
+@pytest.mark.parametrize("window", [None, 6])
+def test_model_kernels_match_plain_versions(cuda_device, window):
     """float32 smoke model on the card: the kernel route and the plain
     versions give the same greedy tokens; the kernel route launches every
-    norm and decode-attention kernel it should, the plain route none."""
+    norm and decode-attention kernel it should, the plain route none.  With
+    window 6, every layer slides: its cache is a 6-line ring, which the
+    prompt of 8 and the 16 steps wrap around."""
+    extra = {} if window is None else {"block_pattern": ("window",), "window": window}
     cfg = get_smoke_config("qwen3-4b", act_dtype="float32", sqrt_unit="e2afs",
-                           decode_kernel="fused")
+                           decode_kernel="fused", **extra)
     model = lm.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
     b, s, gen = 2, 8, 16
     prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (b, s)))
@@ -253,6 +257,7 @@ def test_model_kernels_match_plain_versions(cuda_device):
             c = cfg.replace(decode_kernel=route)
             dispatch.reset_launch_counts()
             cache = lm.init_cache(c, b, s + gen, device=cuda_device)
+            assert cache["k"].shape[2] == (s + gen if window is None else window)
             logits, cache = lm.prefill(model, c, cache, prompt, last_logit_only=True)
             toks, _, _ = lm.generate_scan(model, c, cache, logits.argmax(-1), s, gen)
             out[backend] = (logits, toks, dispatch.launch_counts())
@@ -265,17 +270,34 @@ def test_model_kernels_match_plain_versions(cuda_device):
     assert set(out["reference"][2].values()) == {0}
 
 
+def test_sqrt_normal_matches_the_general_sqrt(cuda_device):
+    """The Sobel and K-means kernels' lean E2AFS sqrt gives the general
+    datapath's bits on every positive normal float32 from 1e-12 up."""
+    first = int(torch.tensor(1e-12).view(torch.int32))
+    assert e2afs_ops.sqrt_normal_mismatches(first, 0x7F800000, cuda_device) == 0
+
+
+# W = 3, 4, 5 and 7 mod 8 and H not a multiple of the kernel's 8-row strip;
+# 3 x W and H x 3; the frames; a few NaN and infinite pixels.  offset 1
+# starts the image 4 bytes past an aligned address, so no row takes the
+# 16-byte loads.
 @pytest.mark.parametrize("shape", [(3, 3), (4, 1000), (67, 93), (34, 131), (256, 256),
-                                   (1080, 1920)])
-def test_sobel_bit_identical(cuda_device, shape):
+                                   (19, 12), (21, 2047), (3, 517), (613, 3), (1080, 1920),
+                                   (2160, 3840)])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_sobel_bit_identical(cuda_device, shape, offset):
     g = torch.Generator(device=cuda_device).manual_seed(shape[0] * shape[1])
-    img = torch.rand(shape, generator=g, device=cuda_device) * 255
+    flat = torch.rand(offset + shape[0] * shape[1], generator=g, device=cuda_device) * 255
+    flat[offset + 7::97] = float("nan")  # the plain version's specials: NaN and +inf out
+    flat[offset + 50::89] = float("inf")
+    img = flat[offset:].view(shape)
     dispatch.reset_launch_counts()
     ours = sobel_ops.sobel_magnitude(img)
     assert dispatch.launch_counts()["sobel"] == 1
     plain = ref_sobel(img)
     assert ours.shape == (shape[0] - 2, shape[1] - 2)
     assert torch.equal(ours.view(torch.int32), plain.view(torch.int32))
+    assert torch.equal(ours.view(torch.int32), sobel_ops.sobel_magnitude(img).view(torch.int32))
 
 
 def _kmeans_inputs(dev, b, n, k, seed):
@@ -295,8 +317,8 @@ def _check_kmeans(got, px, cent):
     torch.testing.assert_close(sums, rs, rtol=1e-5, atol=0)
 
 
-@pytest.mark.parametrize("n", [1, 513, 2048, 65536])
-@pytest.mark.parametrize("k", [1, 8, 256])
+@pytest.mark.parametrize("n", [1, 513, 2048, 2049, 65536])
+@pytest.mark.parametrize("k", [1, 3, 8, 20, 256])
 def test_kmeans_assign_matches_plain(cuda_device, n, k):
     px, cent = _kmeans_inputs(cuda_device, 1, n, k, n + k)
     px, cent = px[0], cent[0]
@@ -314,6 +336,7 @@ def test_kmeans_assign_batch_is_per_image(cuda_device, b, n):
     px, cent = _kmeans_inputs(cuda_device, b, n, 20, 7)
     batch = kmeans_ops.kmeans_assign(px, cent)
     _check_kmeans(batch, px, cent)
+    assert all(torch.equal(a, b) for a, b in zip(batch, kmeans_ops.kmeans_assign(px, cent)))
     for i in range(b):
         one = kmeans_ops.kmeans_assign(px[i].contiguous(), cent[i].contiguous())
         assert all(torch.equal(a[i], b) for a, b in zip(batch, one))

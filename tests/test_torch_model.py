@@ -127,6 +127,36 @@ def test_bfloat16_within_tolerance(jax_params):
     np.testing.assert_allclose(_np(tl), _np(jl), atol=5e-2, rtol=0)
 
 
+@pytest.mark.parametrize("quantized", [False, True])
+def test_window_model_cache_is_the_window(jax_params, quantized):
+    """A uniform sliding-window model (window 6) with a prompt of 8 and a
+    24-line cache: both packages give every layer a ring of
+    min(cache_len, window) = 6 lines, so decode attends to the last 6
+    tokens only.  float32 logits atol 1e-4 (sums in another order); greedy
+    tokens identical over 16 steps."""
+    kw = dict(act_dtype="float32", sqrt_unit="e2afs", block_pattern=("window",), window=6)
+    jcfg, tcfg = _configs(**kw)
+    params, tree = jax_params("float32")
+    model = convert.params_from_numpy(tcfg, tree, device="cpu")
+    prompt = _prompt(jcfg.vocab)
+    cache_len = 24
+    jcache, _ = jax_lm.init_cache(jcfg, B, cache_len, quantized=quantized)
+    tcache = lm.init_cache(tcfg, B, cache_len, quantized=quantized, device="cpu")
+    assert tcache["k"].shape[2] == jcache["k"].shape[2] == tcfg.window
+    jlog, jcache = jax_lm.prefill(params, jcfg, jcache, jnp.asarray(prompt), last_logit_only=True)
+    tlog, tcache = lm.prefill(model, tcfg, tcache, torch.from_numpy(prompt), last_logit_only=True)
+    np.testing.assert_allclose(_np(tlog), _np(jlog), atol=1e-4, rtol=0)
+    tok = np.asarray(jnp.argmax(jlog, axis=-1)).astype(np.int32)
+    jl, _ = jax_lm.decode_step(params, jcfg, jcache, jnp.asarray(tok), S)
+    tl, _ = lm.decode_step(model, tcfg, {k: v.clone() for k, v in tcache.items()},
+                           torch.from_numpy(tok), S)
+    np.testing.assert_allclose(_np(tl), _np(jl), atol=1e-4, rtol=0)
+    jt, jnext, _ = jax_lm.generate_scan(params, jcfg, jcache, jnp.asarray(tok), S, GEN)
+    tt, tnext, _ = lm.generate_scan(model, tcfg, tcache, torch.from_numpy(tok), S, GEN)
+    np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+    np.testing.assert_array_equal(tnext.numpy(), np.asarray(jnext))
+
+
 # ---------------------------------------------------------------------------
 # attention layer routes against the reference layer
 # ---------------------------------------------------------------------------
