@@ -10,9 +10,11 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    ``src/repro_torch/csrc`` and prints nvcc's ``-Xptxas -v`` report;
 1. e2afs sqrt/rsqrt kernel vs its plain version: bit-identical (NaN as NaN)
    over every fp16 and bf16 pattern and the fp32 grid, plus the paper's
-   Table 2 example (0x785A -> 0 10110 1000100001); and the lean sqrt of the
+   Table 2 example (0x785A -> 0 10110 1000100001); the lean sqrt of the
    Sobel and K-means kernels bit-identical to the general one on every
-   positive normal float32 from 1e-12 up (about 1.4 billion patterns);
+   positive normal float32 from 1e-12 up (about 1.4 billion patterns); and
+   the e2afs kernel's datapath bit-identical to the general one on every
+   fp16, bf16 and float32 pattern (2^32 for float32), sqrt and rsqrt;
 2. RMSNorm kernel vs plain version at the serving shapes, bf16 and fp32,
    and two calls bit-identical;
 3. decode-attention kernel vs plain version at the serving widths, bf16 and
@@ -22,8 +24,9 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    just after: (a) qwen3-4b at full width serving batch 8 (prompt 512, 64
    greedy tokens, cache 576) on the kernels, held against the same weights
    and prompt on the plain versions; (b) the sqrt-unit entry point
-   ``get_unit("e2afs", kernel=True)`` on an activation-sized tensor, held
-   bit-identical to the plain version.  Then (c) a
+   ``get_unit("e2afs", kernel=True)`` on an activation-sized tensor,
+   forward and backward (no launch in the backward), outputs and gradients
+   held bit-identical to the plain route.  Then (c) a
    small float32 model on the card, kernels vs plain versions (identical
    tokens), with global attention and with every layer a 6-token sliding
    window (a 6-line ring cache, wrapped by the decode positions, and the
@@ -33,7 +36,9 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    device time per call (torch.profiler) and with CUDA events around
    back-to-back calls, beside the kernel's bound; RMSNorm also at every
    serving shape of phase 2 in bf16 beside F.rms_norm, and decode attention
-   also at t = 4096 beside SDPA;
+   also at t = 4096 beside SDPA; the e2afs kernel in float32, fp16 and bf16
+   at the unit path's 10,485,760 elements, each call on a rotation of
+   inputs and outputs over four times the L2, beside its first design;
 6. times four full-width decode steps without and then under the profiler:
    the device's idle share of the unprofiled step, top kernels, and the
    device ms a step of decode attention and of RMSNorm by name;
@@ -78,6 +83,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import itertools
 import json
 import math
@@ -92,6 +98,9 @@ SRC = ROOT / "src"
 
 # NVIDIA H100 SXM data sheet (dense): HBM rate and peak rates by input type
 HBM_BYTES_PER_S = 3.35e12
+# bytes a rotation of inputs and outputs spans so that each call meets its
+# data cold: four times the H100's 50 MB L2
+COLD_BYTES = 4 * 50 * 2**20
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
 # Scalar pipes of the H100 SXM (Hopper white paper: 132 SMs, each with 128
 # FP32 and 64 INT32 lanes, at the 1.98 GHz boost clock): a float32 add, mul
@@ -146,6 +155,21 @@ KERNELS = {
 # the fused AdamW step moves 4 streams in and 3 out: float32 p, g, m, v in
 # and p, m, v out, 28 bytes a parameter
 ADAM_BYTES_PER_PARAM = 28
+
+
+def cold(fn, inputs):
+    """A call of fn on each input in turn, each output kept until its input
+    comes round again: every call reads and writes memory that the
+    len(inputs) - 1 calls before it did not touch."""
+    outputs = [None] * len(inputs)
+    turn = itertools.count()
+
+    def call():
+        i = next(turn) % len(inputs)
+        outputs[i] = fn(inputs[i])
+        return outputs[i]
+
+    return call
 
 
 def ops_bound_ms(fp_ops, int_ops):
@@ -380,7 +404,8 @@ class Smoke:
         # one, over every positive normal float32 pattern from 1e-12 to +inf
         # (excluded), in chunks of 2^28 on the card
         if self.rehearsal:
-            print("  lean sqrt vs general sqrt: a check of the CUDA datapath, not run on the CPU")
+            print("  lean sqrt and kernel datapath vs general datapath: checks of the CUDA "
+                  "datapath, not run on the CPU")
             return
         first, last, chunk = int(torch.tensor(1e-12).view(torch.int32)), 0x7F800000, 1 << 28
         bad = sum(ops.sqrt_normal_mismatches(lo, min(lo + chunk, last), self.dev)
@@ -389,6 +414,16 @@ class Smoke:
               f"positive normal float32 patterns from 1e-12 up differ")
         if bad:
             raise AssertionError(f"the lean sqrt differs from the general one on {bad} patterns")
+        # the elementwise kernel's datapath against the general one, on every
+        # pattern of each format, by vectors and one value at a time
+        for dtype in (torch.float16, torch.bfloat16, torch.float32):
+            for rsqrt in (False, True):
+                bad = ops.unit_mismatches(dtype, rsqrt=rsqrt, device=self.dev)
+                total = 1 << torch.finfo(dtype).bits
+                print(f"  kernel datapath {'rsqrt' if rsqrt else 'sqrt':5s} {str(dtype):14s} vs "
+                      f"general datapath: {bad} of {total} patterns differ")
+                if bad:
+                    raise AssertionError(f"the kernel's {dtype} datapath differs on {bad} patterns")
 
     # -- phase 2 -----------------------------------------------------------
     def rms_inputs(self, rows, d, dtype, seed):
@@ -599,32 +634,48 @@ class Smoke:
                         cache_len)
 
     def p4_unit(self):
+        """The sqrt-unit entry point on an activation-sized tensor, forward
+        and backward: one launch a kernel, none in the backward; outputs and
+        gradients bit-identical to the plain route's."""
         torch = self.torch
         from repro_torch.core import get_unit
         from repro_torch.kernels import dispatch
 
         shape = (2, 16, 64) if self.rehearsal else (8, 512, 2560)
         x = torch.rand(shape, generator=self.gen(2), device=self.dev) * 4.0 + 1e-3
-        unit = get_unit("e2afs", kernel=True)
+        ct = torch.randn(shape, generator=self.gen(3), device=self.dev)
+
+        def run(unit):
+            outs, grads = [], []
+            for op in (unit.sqrt, unit.rsqrt):
+                xt = x.clone().requires_grad_(True)
+                y = op(xt)
+                y.backward(ct)
+                outs.append(y.detach())
+                grads.append(xt.grad)
+            self.sync()
+            return outs, grads
+
         dispatch.reset_launch_counts()
-        y, z = unit.sqrt(x), unit.rsqrt(x)
-        self.sync()
+        outs, grads = run(get_unit("e2afs", kernel=True))
         counts = dispatch.launch_counts()
-        print(f"  unit path {tuple(shape)} float32 launches: {counts}")
+        print(f"  unit path {tuple(shape)} float32, forward and backward, launches: {counts}")
         for name in ("e2afs_sqrt", "e2afs_rsqrt"):
             self.rows[name]["launches"] = counts[name]
         if not self.rehearsal and (counts["e2afs_sqrt"] != 1 or counts["e2afs_rsqrt"] != 1):
             raise AssertionError(f"unit path launches {counts}")
-        from repro_torch.kernels.e2afs_sqrt import ref
-
-        for label, out, plain in (("sqrt", y, ref.ref_sqrt(x)), ("rsqrt", z, ref.ref_rsqrt(x))):
+        plain_outs, plain_grads = run(get_unit("e2afs"))
+        for label, out, plain, grad, plain_grad in zip(("sqrt", "rsqrt"), outs, plain_outs, grads,
+                                                       plain_grads):
             same = (out.view(torch.int32) == plain.view(torch.int32)) | (
                 torch.isnan(out) & torch.isnan(plain))
             bad = int((~same).sum())
-            print(f"  unit {label:5s} vs plain version at {tuple(shape)}: {bad} of {x.numel()} "
-                  f"differ; all finite: {bool(torch.isfinite(out).all())}")
-            if bad or not bool(torch.isfinite(out).all()):
-                raise AssertionError(f"unit path {label} differs from its plain version")
+            bad_grad = int((grad.view(torch.int32) != plain_grad.view(torch.int32)).sum())
+            finite = bool(torch.isfinite(out).all()) and bool(torch.isfinite(grad).all())
+            print(f"  unit {label:5s} vs plain route at {tuple(shape)}: {bad} outputs and "
+                  f"{bad_grad} gradients of {x.numel()} differ; all finite: {finite}")
+            if bad or bad_grad or not finite:
+                raise AssertionError(f"unit path {label} differs from the plain route")
 
     def p4_small(self):
         """A small float32 model on the card: kernels vs plain versions give
@@ -748,14 +799,50 @@ class Smoke:
                   f"{row['events_ms']}, plain {row['plain_events_ms']}, library "
                   f"{row['library_events_ms']}; bound {bound_pair[0]:.6f} ms ({bound_pair[1]})")
 
-        # e2afs: the unit path's shape, float32
+        # e2afs: the unit path's shape in each format, every call on inputs
+        # and outputs that the calls before it left cold (a rotation over at
+        # least 4x the L2), beside the first design, the plain version and
+        # torch.sqrt / torch.rsqrt (exact: another function, the same bytes)
+        # on the same rotation; the float32 row goes into the kernels line.
+        # Then the float32 call on one input, as timed before the rotation.
         shape = (2, 16, 64) if self.rehearsal else (8, 512, 2560)
-        x = torch.rand(shape, generator=self.gen(2), device=self.dev) * 4.0 + 1e-3
-        n = x.numel()
-        for name, kern, plain, lib in (("e2afs_sqrt", e_ops.sqrt, e_ref.ref_sqrt, torch.sqrt),
-                                       ("e2afs_rsqrt", e_ops.rsqrt, e_ref.ref_rsqrt, torch.rsqrt)):
-            record(name, lambda k=kern: k(x), lambda p=plain: p(x), bound(2 * n * 4, 0, "float32"),
-                   lambda f=lib: f(x), f"{tuple(shape)} float32")
+        n = math.prod(shape)
+        for name, rsqrt, kern, plain, lib in (
+                ("e2afs_sqrt", False, e_ops.sqrt, e_ref.ref_sqrt, torch.sqrt),
+                ("e2afs_rsqrt", True, e_ops.rsqrt, e_ref.ref_rsqrt, torch.rsqrt)):
+            row = self.rows[name]
+            row["formats"] = []
+            for dtype in (torch.float32, torch.float16, torch.bfloat16):
+                size = torch.finfo(dtype).bits // 8
+                sets = 2 if self.rehearsal else -(-COLD_BYTES // (2 * n * size))
+                xs = [(torch.rand(shape, generator=self.gen(30 + i), device=self.dev) * 4.0
+                       + 1e-3).to(dtype) for i in range(sets)]
+                first = functools.partial(e_ops.scalar_design, rsqrt=rsqrt)
+                at = {"dtype": str(dtype), "elements": n, "sets": sets,
+                      "ms": self.device_ms(cold(kern, xs)),
+                      "first_design_ms": self.device_ms(cold(first, xs)),
+                      "plain_ms": self.device_ms(cold(plain, xs)),
+                      "library_ms": self.device_ms(cold(lib, xs)),
+                      "bound_ms": 2 * n * size / HBM_BYTES_PER_S * 1e3}
+                share = (f"{at['bound_ms'] / at['ms']:.3f}" if at["ms"] else "not measured")
+                print(f"  {name} {tuple(shape)} {str(dtype):14s} cold ({sets} sets): device ms "
+                      f"per call: kernel {at['ms']}, first design {at['first_design_ms']}, plain "
+                      f"{at['plain_ms']}, {lib.__name__} {at['library_ms']}; bound "
+                      f"{at['bound_ms']:.6f} ms (bytes); bound / kernel {share}")
+                row["formats"].append(at)
+                if dtype == torch.float32:
+                    row.update(ms=at["ms"], plain_ms=at["plain_ms"], library_ms=at["library_ms"],
+                               bound_ms=at["bound_ms"], bound_by="bytes",
+                               events_ms=self.time_ms(cold(kern, xs)),
+                               library_events_ms=self.time_ms(cold(lib, xs)))
+                del xs
+            x = torch.rand(shape, generator=self.gen(2), device=self.dev) * 4.0 + 1e-3
+            row.update(unrotated_ms=self.device_ms(lambda k=kern: k(x)),
+                       unrotated_library_ms=self.device_ms(lambda f=lib: f(x)))
+            print(f"  {name} {tuple(shape)} float32 on one input (not rotated): device ms per "
+                  f"call: kernel {row['unrotated_ms']}, {lib.__name__} "
+                  f"{row['unrotated_library_ms']}; events ms per call (cold): kernel "
+                  f"{row['events_ms']}, {lib.__name__} {row['library_events_ms']}")
 
         # rmsnorm: the decode layer-norm shape, bf16, in the kernels line;
         # then every serving shape of phase 2 in bf16, each beside its byte

@@ -10,10 +10,11 @@ The kernel route goes through the dispatch layer: the CUDA kernel for a
 CUDA tensor, the plain version for a CPU tensor.  The baselines are
 sqrt-only designs: their ``rsqrt`` is ``1 / sqrt``, as in the reference.
 
-The approximate units' plain datapaths carry a gradient taken at the
-approximate value (``kernels.dispatch.make_differentiable_*``); "exact" uses
-torch's own autograd, and the kernel route has no gradient, as in the
-reference.
+The approximate units carry a gradient taken at the approximate value
+(``kernels.dispatch.make_differentiable_*``), on their plain datapaths and
+on the kernel route alike, as the reference's ``custom_jvp`` rules do; the
+kernel route's backward is plain elementwise torch and launches no kernel.
+"exact" uses torch's own autograd.
 """
 from __future__ import annotations
 

@@ -162,30 +162,117 @@ __device__ __forceinline__ float sqrt_positive_f32(float x) {
   return __uint_as_float(compose<Fp32>(0, exp_out, man_out));
 }
 
+// E2AFS sqrt of a positive normal input word w (the format's bits, zero
+// extended): the same bits as sqrt_fields and compose on every such input
+// (chip_smoke.py phase 1 checks all of them) in fewer instructions.  There
+// is no zero or subnormal test, and no overflow step: no format takes it
+// (the odd path peaks at 2047 < 2^11 in fp16, 255 < 2^8 in bf16 and
+// 16,777,110 < 2^24 in float32).  With bias B = 2^(EXP-1) - 1 (odd), the
+// output word comes from w = exp 2^MAN + man, with w >> 1 = j 2^MAN +
+// ((exp & 1) 2^MAN + man) >> 1 for j = exp >> 1:
+//  * exp = 2j + 1 (r = exp - B even): the exponent is j + (B + 1)/2, so the
+//    word is (j + (B + 1)/2) 2^MAN + (man >> 1) - y_hi C_EVEN = (w >> 1) +
+//    (B + 1)/2 2^MAN - 2^(MAN-1) - y_hi C_EVEN;
+//  * exp = 2j (r odd): the exponent is j + (B - 1)/2, and the mantissa
+//    t + (t >> 1) carries the leading one, so the word is (j + (B - 3)/2)
+//    2^MAN + t + (t >> 1) with t = 2^MAN + ((man + y_hi C_ODD) >> 2), and
+//    (w >> 1) & (exponent field) = j 2^MAN.
+// y_hi enters as a 0 or 1 multiplier, not a select.
+template <class F>
+__device__ __forceinline__ unsigned sqrt_normal_bits(unsigned w) {
+  constexpr unsigned one = 1u << F::MAN;
+  constexpr unsigned exps = static_cast<unsigned>(exp_mask<F>()) << F::MAN;
+  constexpr unsigned half_bias = (bias<F>() + 1) / 2;
+  const unsigned y_hi = (w >> (F::MAN - 1)) & 1u;
+  const unsigned man = w & man_mask<F>();
+  const unsigned even_word = (w >> 1) + (half_bias * one - (one >> 1)) - y_hi * F::C_EVEN;
+  const unsigned t = ((man + y_hi * F::C_ODD) >> 2) + one;
+  const unsigned odd_word = ((w >> 1) & exps) + (half_bias - 2) * one + t + (t >> 1);
+  return (w & one) != 0 ? even_word : odd_word;
+}
+
+// The part of sqrt_normal_bits that depends on more than the low MAN + 1
+// bits of w (the exponent's parity and the mantissa): j 2^MAN, from the
+// note above.  The rest, sqrt_normal_bits(w) - sqrt_exponent_word(w), is
+// a function of those bits alone: 2048 values in fp16, 256 in bf16.
+template <class F>
+__device__ __forceinline__ unsigned sqrt_exponent_word(unsigned w) {
+  return (w >> 1) & (static_cast<unsigned>(exp_mask<F>()) << F::MAN);
+}
+
 // E2AFS sqrt of a positive normal float32: the in-register datapath of the
 // fused Sobel and K-means kernels, which clamp their input to at least 1e-12
-// or 1e-9 first.  The same bits as sqrt_positive_f32 on every such input
-// (chip_smoke.py phase 1 checks all of them) in fewer instructions.  There is
-// no zero or subnormal test, and no overflow step: float32 never takes it
-// (the odd path peaks at 16,777,110 < 2^24).  The output word comes from the
-// input word w = exp 2^23 + man, with w >> 1 = exp 2^22 + (man >> 1):
-//  * exp = 2j + 1 (r = exp - bias even): the exponent is j + 63, so the word
-//    is (j + 64) 2^23 + (man >> 1) - y_hi C_EVEN = (w >> 1) + 64 2^23 - 2^22
-//    - y_hi C_EVEN;
-//  * exp = 2j (r odd): the exponent is j + 62, so the word is (j + 62) 2^23
-//    + t + (t >> 1) with t = 2^23 + ((man + y_hi C_ODD) >> 2), and
-//    (w >> 1) & 0x7F800000 = j 2^23.
-// y_hi enters as a 0 or 1 multiplier, not a select.  chip_smoke.py phase 5
-// reads what the K-means distance loop compiles to.
+// or 1e-9 first (sqrt_normal_bits; 0x7F800000 is the exponent field, 64 and
+// 62 the two paths' exponent offsets).  chip_smoke.py phase 1 holds it to
+// sqrt_positive_f32 on every such input, and phase 5 reads what the K-means
+// distance loop compiles to.
 __device__ __forceinline__ float sqrt_normal_f32(float x) {
-  constexpr unsigned one = 1u << Fp32::MAN;
-  const unsigned w = __float_as_uint(x);
-  const unsigned y_hi = (w >> (Fp32::MAN - 1)) & 1u;
-  const unsigned man = w & man_mask<Fp32>();
-  const unsigned even_word = (w >> 1) + (64u * one - (one >> 1)) - y_hi * Fp32::C_EVEN;
-  const unsigned t = ((man + y_hi * Fp32::C_ODD) >> 2) + one;
-  const unsigned odd_word = ((w >> 1) & 0x7F800000u) + 62u * one + t + (t >> 1);
-  return __uint_as_float((w & one) != 0 ? even_word : odd_word);
+  return __uint_as_float(sqrt_normal_bits<Fp32>(__float_as_uint(x)));
+}
+
+// E2AFS-R rsqrt of a positive normal input word w: the same bits as
+// rsqrt_fields and compose on every such input, in fewer instructions, as
+// the sum of an exponent word and a mantissa term.
+//  * The exponent is (3B - 1)/2 - ceil(exp / 2) in both parities, and
+//    ((w + 2^MAN) >> 1) & (exponent field) = ceil(exp / 2) 2^MAN.
+//  * The region (exponent parity, y_hi) picks the intercept and the second
+//    shift: 8 >> y_hi when r is odd (shifts 1, 8 and 2, 4), 2 + y_hi when r
+//    is even (1, 2 and 2, 3); the first shift is 1 + y_hi in all four.
+//  * With d = res - 2^MAN, the word is exp_out 2^MAN + d; where res < 2^MAN
+//    (only in region r odd, y_hi, near its top) the mantissa doubles and the
+//    exponent drops by one: exp_out 2^MAN + 2d.  So the term is d + min(d, 0).
+// The term depends on the low MAN + 1 bits of w only (the exponent's parity
+// and the mantissa): 2048 values in fp16, 256 in bf16.
+template <class F>
+__device__ __forceinline__ unsigned rsqrt_exponent_word(unsigned w) {
+  constexpr unsigned one = 1u << F::MAN;
+  constexpr unsigned exps = static_cast<unsigned>(exp_mask<F>()) << F::MAN;
+  constexpr unsigned exp_top = (3u * bias<F>() - 1u) / 2u * one;
+  return exp_top - (((w + one) >> 1) & exps);
+}
+
+template <class F>
+__device__ __forceinline__ int rsqrt_mantissa_term(unsigned w) {
+  constexpr unsigned one = 1u << F::MAN;
+  const unsigned y_hi = (w >> (F::MAN - 1)) & 1u;
+  const unsigned man = w & man_mask<F>();
+  const bool even = (w & one) != 0;  // r = exp - B even
+  const int rs = even ? (y_hi ? F::RS_01 : F::RS_00) : (y_hi ? F::RS_11 : F::RS_10);
+  const unsigned second = even ? 2u + y_hi : 8u >> y_hi;
+  const int d = rs - static_cast<int>(one + (man >> (1u + y_hi)) + (man >> second));
+  return d + (d < 0 ? d : 0);
+}
+
+template <class F>
+__device__ __forceinline__ unsigned rsqrt_normal_bits(unsigned w) {
+  return rsqrt_exponent_word<F>(w) + static_cast<unsigned>(rsqrt_mantissa_term<F>(w));
+}
+
+// Whether the word w (zero extended) is a positive normal value.
+template <class F>
+__device__ __forceinline__ bool positive_normal(unsigned w) {
+  constexpr unsigned one = 1u << F::MAN;
+  constexpr unsigned exps = static_cast<unsigned>(exp_mask<F>()) << F::MAN;
+  return w - one < exps - one;
+}
+
+// unit_bits on a word that is not a positive normal: sqrt gives 0 for +-0
+// and positive subnormals, +inf for +inf; rsqrt gives +inf and 0 there;
+// both give NaN for NaN and every other negative input.
+template <class F, bool RSQRT>
+__device__ __forceinline__ unsigned special_bits(unsigned w) {
+  constexpr unsigned one = 1u << F::MAN, sign = 1u << (F::EXP + F::MAN);
+  if (w == F::INF_BITS) return RSQRT ? 0u : F::INF_BITS;
+  const bool zero = w < one || w == sign;
+  return zero ? (RSQRT ? F::INF_BITS : 0u) : F::NAN_BITS;
+}
+
+// The elementwise kernel's datapath, one word: unit_bits's bits on every
+// input (chip_smoke.py phase 1 checks every pattern of each format).
+template <class F, bool RSQRT>
+__device__ __forceinline__ unsigned lean_unit_bits(unsigned w) {
+  if (!positive_normal<F>(w)) return special_bits<F, RSQRT>(w);
+  return RSQRT ? rsqrt_normal_bits<F>(w) : sqrt_normal_bits<F>(w);
 }
 
 }  // namespace e2afs

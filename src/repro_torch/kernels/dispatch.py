@@ -12,7 +12,8 @@ wrapper calls :func:`count_launch` where it launches its kernel and nowhere
 else, so a run can show that its main path went through the kernels.
 
 :func:`make_differentiable_sqrt` and :func:`make_differentiable_rsqrt` give
-an approximate unit a gradient (the reference's ``custom_jvp`` factories).
+an approximate unit a gradient (the reference's ``custom_jvp`` factories),
+on the plain datapaths and on the e2afs kernel route alike.
 """
 from __future__ import annotations
 
@@ -109,7 +110,7 @@ def make_differentiable_sqrt(fn: Callable) -> Callable:
             (y,) = ctx.saved_tensors
             return t * _over(0.5, y)
 
-    return _Sqrt.apply
+    return _apply_if_needed(_Sqrt, fn)
 
 
 def make_differentiable_rsqrt(fn: Callable) -> Callable:
@@ -128,4 +129,16 @@ def make_differentiable_rsqrt(fn: Callable) -> Callable:
             x, y = ctx.saved_tensors
             return t * (-0.5 * y / x)
 
-    return _Rsqrt.apply
+    return _apply_if_needed(_Rsqrt, fn)
+
+
+def _apply_if_needed(function: type, fn: Callable) -> Callable:
+    """``function.apply`` where x needs a gradient; plain ``fn`` otherwise,
+    with no autograd state."""
+
+    def call(x: torch.Tensor) -> torch.Tensor:
+        if x.requires_grad and torch.is_grad_enabled():
+            return function.apply(x)
+        return fn(x)
+
+    return call

@@ -86,6 +86,101 @@ def test_e2afs_bit_identical(cuda_device, dtype):
     assert dispatch.launch_counts()["e2afs_rsqrt"] == 1
 
 
+def _same_bits(a, b):
+    """Bit-identical, NaN as NaN."""
+    ai, bi = a.view(_INT[a.dtype]), b.view(_INT[b.dtype])
+    return bool(((ai == bi) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _e2afs_inputs(n, dtype, dev, seed):
+    """Positive normals over 16 binades, with the specials (+-0, +-inf, NaN,
+    a negative normal, +-subnormal) written at the head, in the middle and
+    at the tail."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.exp(torch.empty(n, device=dev).uniform_(-5.5, 5.5, generator=g)).to(dtype)
+    sub = torch.finfo(dtype).tiny / 4
+    specials = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), -2.0, sub,
+                             -sub], device=dev).to(dtype)
+    where = sorted({i for i in [*range(9), *range(n // 2 - 4, n // 2 + 5), *range(n - 9, n)]
+                    if 0 <= i < n})
+    for j, i in enumerate(where):
+        x[i] = specials[j % len(specials)]
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+def test_e2afs_kernel_route_gradient_equals_plain_route(cuda_device, dtype):
+    """The kernel route differentiates (ROADMAP C.14): its gradient is the
+    plain route's, bit for bit, from one forward launch and none on the
+    backward.  Positive normal inputs only (fp16 rsqrt of a subnormal is
+    ROADMAP C.2)."""
+    from repro_torch.core import get_unit
+
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    x = torch.exp(torch.empty(1 << 20, device=cuda_device).uniform_(-4, 4, generator=g)).to(dtype)
+    ct = torch.randn(x.shape, generator=g, device=cuda_device).to(dtype)
+    for op in ("sqrt", "rsqrt"):
+        grads = []
+        for kernel in (True, False):
+            xt = x.clone().requires_grad_(True)
+            dispatch.reset_launch_counts()
+            y = getattr(get_unit("e2afs", kernel=kernel), op)(xt)
+            forward = dispatch.launch_counts()
+            y.backward(ct)
+            torch.cuda.synchronize()
+            assert forward[f"e2afs_{op}"] == int(kernel)
+            assert dispatch.launch_counts() == forward, "the backward launched a kernel"
+            grads.append(xt.grad)
+        assert torch.equal(grads[0].view(_INT[dtype]), grads[1].view(_INT[dtype]))
+        assert bool(torch.isfinite(grads[0]).all())
+
+
+@pytest.mark.parametrize("n", [0, 1, 2, 3, 5, 6, 7, 8, 9, 15, 16, 17, 31, 32, 33, 1_000_003,
+                               2**20 + 3])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+def test_e2afs_any_length(cuda_device, dtype, n):
+    """Lengths around the 16-byte vectors (4 or 8 values) and the unroll,
+    specials at the head, in the body and at the tail; two calls give the
+    same bits."""
+    x = _e2afs_inputs(n, dtype, cuda_device, n)
+    for op in (e2afs_ops.sqrt, e2afs_ops.rsqrt):
+        ours = op(x)
+        assert ours.shape == x.shape and ours.dtype == dtype
+        assert torch.equal(ours.view(_INT[dtype]), op(x).view(_INT[dtype])), "two calls differ"
+        assert _same_bits(ours, _plain(op, x))
+
+
+@pytest.mark.parametrize("k", range(1, 8))
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+def test_e2afs_unaligned_views(cuda_device, dtype, k):
+    """x = base[k:] starts k elements past a 16-byte boundary: the output
+    takes x's address mod 16, and the bits are those of an aligned copy."""
+    base = _e2afs_inputs(4099 + k, dtype, cuda_device, k)
+    x = base[k:]
+    for op in (e2afs_ops.sqrt, e2afs_ops.rsqrt):
+        ours = op(x)
+        assert ours.data_ptr() % 16 == x.data_ptr() % 16 and ours.is_contiguous()
+        assert _same_bits(ours, _plain(op, x))
+        assert torch.equal(ours.view(_INT[dtype]), op(x.clone()).view(_INT[dtype]))
+
+
+@pytest.mark.parametrize("op", ["sqrt", "rsqrt"])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+def test_e2afs_datapath_on_every_pattern(cuda_device, dtype, op):
+    """The kernel's lean datapath gives the general one's bits on all 2^16
+    or 2^32 patterns, by vectors and one value at a time."""
+    assert e2afs_ops.unit_mismatches(dtype, rsqrt=op == "rsqrt", device=cuda_device) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+def test_e2afs_first_design_gives_the_same_bits(cuda_device, dtype):
+    """The first design, timed beside the kernel by chip_smoke.py phase 5."""
+    x = _e2afs_inputs(100_003, dtype, cuda_device, 5)
+    for rsqrt, op in ((False, e2afs_ops.sqrt), (True, e2afs_ops.rsqrt)):
+        assert torch.equal(e2afs_ops.scalar_design(x, rsqrt=rsqrt).view(_INT[dtype]),
+                           op(x).view(_INT[dtype]))
+
+
 @pytest.mark.parametrize("shape", [(8, 2560), (1024, 2560), (8 * 32 * 16, 128)] + [
     (rows, d) for rows in (1, 3, 4096) for d in (100, 128, 1152, 2560)] + [
     (3, 12288), (3, 40000)])
@@ -225,6 +320,8 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
         rms_ops.rmsnorm(x, torch.zeros(256, device=cuda_device, dtype=torch.bfloat16))
     with pytest.raises(ValueError, match="float16/bfloat16/float32"):
         e2afs_ops.sqrt(x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        e2afs_ops.rsqrt(x[:, ::2])
     q = torch.ones(2, 4, 16, device=cuda_device)
     k = torch.ones(2, 8, 2, 16, device=cuda_device)
     pos = torch.zeros(2, dtype=torch.int32, device=cuda_device)

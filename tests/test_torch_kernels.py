@@ -92,6 +92,30 @@ def test_e2afs_matches_pallas_interpret(op, name):
     assert (pallas[pos_sub] == 0).all() and torch.isposinf(ours[torch.from_numpy(pos_sub)]).all()
 
 
+@pytest.mark.parametrize("k", range(8))
+@pytest.mark.parametrize("name", ["fp16", "bf16", "fp32"])
+def test_e2afs_output_takes_the_inputs_address_mod_16(name, k):
+    """The kernel reads x and writes y in 16-byte vectors from x's first
+    16-byte boundary, so the wrapper's output lies at x's address mod 16,
+    whatever view x is (base[k:] here), with x's shape."""
+    base = torch.zeros(3 * 67 + 8, dtype=_TORCH[name])
+    x = base[k:k + 3 * 67].view(3, 67)
+    y = e2afs_ops._output_like(x)
+    assert y.data_ptr() % 16 == x.data_ptr() % 16
+    assert y.shape == x.shape and y.dtype == x.dtype and y.is_contiguous()
+
+
+def test_e2afs_kernel_refusals():
+    """What the CUDA kernel does not take is refused before any launch (the
+    checks run on any device)."""
+    with pytest.raises(ValueError, match="float16/bfloat16/float32"):
+        e2afs_ops._check(torch.ones(4, dtype=torch.float64))
+    with pytest.raises(ValueError, match="contiguous"):
+        e2afs_ops._check(torch.ones(4, 8)[:, ::2])
+    with pytest.raises(ValueError, match="runs on the card"):
+        e2afs_ops.scalar_design(torch.ones(4), rsqrt=False)
+
+
 # ---------------------------------------------------------------------------
 # rmsnorm
 # ---------------------------------------------------------------------------

@@ -70,15 +70,21 @@ def _ulps(a, b):
 
 
 @pytest.mark.parametrize("op", ["sqrt", "rsqrt"])
-@pytest.mark.parametrize("unit", ["e2afs", "esas", "cwaha4", "cwaha8"])
+@pytest.mark.parametrize("unit", ["e2afs", "esas", "cwaha4", "cwaha8", "e2afs-kernel"])
 def test_unit_gradient_bit_identical(unit, op):
+    """Each unit's gradient against the reference's.  "e2afs-kernel" is the
+    kernel route, ``get_unit("e2afs", kernel=True)``: the JAX side runs its
+    Pallas kernel interpreted, as the JAX package's tests run it on the CPU,
+    and the port's route takes its plain version on a CPU tensor."""
+    name, _, route = unit.partition("-")
+    kernel = route == "kernel"
     x = np.asarray(sampled_normal_values())
     ct = np.random.default_rng(0).standard_normal(x.shape).astype(np.float32)
-    y_j, vjp = jax.vjp(getattr(jax_get_unit(unit), op), jnp.asarray(x))
+    y_j, vjp = jax.vjp(getattr(jax_get_unit(name, kernel=kernel), op), jnp.asarray(x))
     g_j = np.asarray(vjp(jnp.asarray(ct))[0])
 
     xt = torch.from_numpy(x.copy()).requires_grad_(True)
-    y_t = getattr(get_unit(unit), op)(xt)
+    y_t = getattr(get_unit(name, kernel=kernel), op)(xt)
     y_t.backward(torch.from_numpy(ct))
     g_t = xt.grad.numpy()
 
@@ -92,11 +98,31 @@ def test_unit_gradient_bit_identical(unit, op):
         assert not differ.any()
 
 
-def test_kernel_route_has_no_gradient_and_exact_uses_autograd():
-    x = torch.tensor([0.25, 4.0], requires_grad=True)
-    assert not get_unit("e2afs", kernel=True).sqrt(x).requires_grad
-    get_unit("exact").sqrt(x).sum().backward()
-    np.testing.assert_allclose(x.grad.numpy(), [1.0, 0.25], rtol=1e-7)
+@pytest.mark.parametrize("op", ["sqrt", "rsqrt"])
+def test_kernel_route_has_the_plain_routes_gradient_and_exact_uses_autograd(op):
+    """The kernel route differentiates as the plain route does (the
+    reference's kernel route is a ``custom_jvp`` with the plain route's
+    rules), and an input that needs no gradient goes through with no
+    autograd state."""
+    x = np.asarray([0.25, 4.0, 0.7, 1e-6, 3e6], np.float32)
+    ct = np.asarray([1.0, -2.0, 0.5, 3.0, 0.25], np.float32)
+    grads = []
+    for unit in (get_unit("e2afs"), get_unit("e2afs", kernel=True)):
+        xt = torch.from_numpy(x.copy()).requires_grad_(True)
+        y = getattr(unit, op)(xt)
+        assert y.grad_fn is not None
+        y.backward(torch.from_numpy(ct))
+        grads.append(xt.grad.numpy())
+        assert getattr(unit, op)(torch.from_numpy(x)).grad_fn is None
+        with torch.no_grad():
+            assert getattr(unit, op)(xt).grad_fn is None
+    assert np.array_equal(_bits(grads[0]), _bits(grads[1]))
+    assert np.all(np.isfinite(grads[1]) & (grads[1] != 0))
+
+    xt = torch.tensor([0.25, 4.0], requires_grad=True)
+    getattr(get_unit("exact"), op)(xt).sum().backward()
+    want = [1.0, 0.25] if op == "sqrt" else [-4.0, -1.0 / 16]
+    np.testing.assert_allclose(xt.grad.numpy(), want, rtol=1e-7)
 
 
 # ---------------------------------------------------------------------------
