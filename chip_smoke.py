@@ -15,11 +15,13 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    positive normal float32 from 1e-12 up (about 1.4 billion patterns); and
    the e2afs kernel's datapath bit-identical to the general one on every
    fp16, bf16 and float32 pattern (2^32 for float32), sqrt and rsqrt;
-2. RMSNorm kernel vs plain version at the serving shapes, bf16 and fp32,
-   and two calls bit-identical;
+2. RMSNorm kernel vs plain version at the serving shapes of qwen3-4b and
+   gemma3-1b (rows of 1152 and 256), bf16 and fp32, and two calls
+   bit-identical;
 3. decode-attention kernel vs plain version at the serving widths, bf16 and
    fp32, float and int8 caches, wrap off and on, mixed per-row positions,
-   t = 576 and 4096, two calls bit-identical;
+   t = 576 and 4096, and at gemma3-1b's (one KV head of 4 query heads,
+   head_dim 256, t = 512 and 2112), two calls bit-identical;
 4. the main paths, each with the launch counts set to 0 just before and read
    just after: (a) qwen3-4b at full width serving batch 8 (prompt 512, 64
    greedy tokens, cache 576) on the kernels, held against the same weights
@@ -31,12 +33,17 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    tokens), with global attention and with every layer a 6-token sliding
    window (a 6-line ring cache, wrapped by the decode positions, and the
    decode-attention launches counted), and ``serve.generate`` at smoke
-   width;
+   width; (d) gemma3-1b at full width (26 layers, 5 window layers of 512 to
+   1 global, bf16, batch 8, prompt 2048, 64 greedy tokens, cache 2112), the
+   counts set to 0 just before and read just after (6,825 RMSNorm and 1,664
+   decode-attention launches, 1,408 with wrap), held to the same contract
+   against the plain versions, prefill ms and ms a step beside the decode
+   floor reckoned from the weights and the cache;
 5. times each kernel, its plain version and a PyTorch yardstick call, both as
    device time per call (torch.profiler) and with CUDA events around
    back-to-back calls, beside the kernel's bound; RMSNorm also at every
    serving shape of phase 2 in bf16 beside F.rms_norm, and decode attention
-   also at t = 4096 beside SDPA; the e2afs kernel in float32, fp16 and bf16
+   also at t = 4096 beside SDPA, both at gemma3-1b's shapes as well; the e2afs kernel in float32, fp16 and bf16
    at the unit path's 10,485,760 elements, each call on a rotation of
    inputs and outputs over four times the L2, beside its first design;
 6. times four full-width decode steps without and then under the profiler:
@@ -70,6 +77,9 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    the loss finite and, on the first batch, lower after the steps; one
    step's update on the kernel route bit-identical to the same update on
    the plain route (the clip once, then leaf by leaf);
+    11b. the same for gemma3-1b at full width and full depth (26 layers,
+   1.0 B parameters), its window layers on the banded chunks, one warm-up
+   and two timed steps (no route comparison);
 12. ``launch.train.train_loop`` at smoke width on the card: an aborted and
    resumed run ends on the uninterrupted run's loss (rtol 1e-4);
    microbatches and compressed gradients train with finite losses.
@@ -253,6 +263,7 @@ class Smoke:
         self.rows = {name: {"name": name, "route": "cuda", "source": src, "replaces": rep}
                      for name, (src, rep) in KERNELS.items()}
         self.card = "rehearsal on the CPU: no card"
+        self.training = {}
 
     # -- helpers -----------------------------------------------------------
     def phase(self, name, fn):
@@ -443,7 +454,7 @@ class Smoke:
         # (b * prompt * kv, hd); and (b * 128, d)
         b, s_len, h, kv = (2, 16, 4, 2) if self.rehearsal else (8, 512, 32, 8)
         shapes = [(b, 2560), (b * 128, 2560), (b * s_len, 2560), (b * h, 128), (b * kv, 128),
-                  (b * s_len * kv, 128), (b * s_len * h, 128)]
+                  (b * s_len * kv, 128), (b * s_len * h, 128)] + self.gemma_rms_shapes()
         worst = 0.0
         for dtype in (torch.bfloat16, torch.float32):
             for rows, d in shapes:
@@ -471,6 +482,14 @@ class Smoke:
                     if dtype == torch.bfloat16 and label == "scale":
                         worst = max(worst, err)
         self.rows["rmsnorm"]["max_abs_err"] = worst
+
+    def gemma_rms_shapes(self):
+        """The rows gemma3-1b's serving path gives the RMSNorm kernel (batch
+        8, prompt 2048): decode and prefill layer norms of 1152, decode
+        qk-norm rows of 256 (4 query heads, 1 KV head) and prefill ones."""
+        b, s_len = (2, 24) if self.rehearsal else (8, 2048)
+        return [(b, 1152), (b * s_len, 1152), (b * 4, 256), (b, 256), (b * s_len, 256),
+                (b * s_len * 4, 256)]
 
     # -- phase 3 -----------------------------------------------------------
     def attn_inputs(self, b, h, kv, hd, t, dtype, quant, seed, pos=None):
@@ -520,6 +539,26 @@ class Smoke:
                                 and not wrap):
                             self.rows["decode_attention"]["max_abs_err"] = float(
                                 (y.float() - r.float()).abs().max())
+        # gemma3-1b's decode layer: one KV head of four query heads, head_dim
+        # 256 (a float32 line is 64 vectors, two a lane), a window layer's
+        # 512-line ring and a global layer's 2112 lines
+        b, h, kv, hd = (8, 4, 1, 256)
+        for dtype in (torch.bfloat16, torch.float32):
+            for t in ((24, 40) if self.rehearsal else (512, 2112)):
+                for quant in (False, True):
+                    for wrap in (False, True):
+                        args = self.attn_inputs(b, h, kv, hd, t, dtype, quant, t + 3 + quant)
+                        r = ops.ref_decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                        y = ops.decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                        again = ops.decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                        self.sync()
+                        if not torch.equal(y, again):
+                            raise AssertionError("decode attention: two calls differ")
+                        split = ("" if self.rehearsal else
+                                 " (S={chunks} of {chunk_lines} lines)".format(
+                                     **ops.plan(*args[:2])))
+                        self.check_attention(y, r, dtype, f"gemma3-1b kv=1 g=4 hd=256 t={t:5d} "
+                                             f"int8={quant!s:5s} wrap={wrap!s:5s}{split}")
 
     def check_attention(self, y, r, dtype, label):
         torch = self.torch
@@ -729,14 +768,136 @@ class Smoke:
         for mode in serve.MODES:
             serve.generate("qwen3-4b", mode=mode, reps=1, device=self.dev)
 
-    # -- phase 6 -----------------------------------------------------------
-    def p6_profile(self):
-        """Four full-width decode steps (after the counted run), timed
-        without the profiler and then under it: the device's idle share of
-        the unprofiled step, and the top kernels."""
+    def p4_gemma(self):
+        """gemma3-1b at full width on the kernels: five window layers (a ring
+        of 512 lines) to one global (2112 lines), held against the same
+        weights and prompt on the plain versions."""
+        torch = self.torch
+        from repro_torch.configs import get_config, get_smoke_config
+        from repro_torch.kernels import dispatch
         from repro_torch.models import lm
 
-        cfg, model, prompt, tok, batch, prompt_len, cache_len = self.serving
+        if self.rehearsal:
+            cfg = get_smoke_config("gemma3-1b", sqrt_unit="e2afs", decode_kernel="fused")
+            batch, prompt_len, gen_len = 2, 24, 4
+        else:
+            cfg = get_config("gemma3-1b", sqrt_unit="e2afs", decode_kernel="fused")
+            batch, prompt_len, gen_len = 8, 2048, 64
+        cache_len = prompt_len + gen_len
+        windows = cfg.blocks.count("window")
+        print(f"  {cfg.name}: {cfg.n_layers} layers ({windows} window of {cfg.window}, "
+              f"{cfg.n_layers - windows} global), d {cfg.d_model}, heads {cfg.n_heads}/"
+              f"{cfg.n_kv_heads}, d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab} -> "
+              f"{cfg.padded_vocab} (tied), {cfg.act_dtype}; batch {batch}, prompt {prompt_len}, "
+              f"{gen_len} new tokens, cache {cache_len}")
+        t0 = time.perf_counter()
+        model = lm.init(cfg, self.gen(0), device=self.dev)
+        self.sync()
+        n_params = lm.param_count(model)
+        print(f"  init: {n_params / 1e9:.4f} B parameters in {time.perf_counter() - t0:.1f} s")
+        prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=self.gen(1),
+                               device=self.dev)
+
+        def run(c, n):
+            cache = lm.init_cache(c, batch, cache_len, device=self.dev)
+            self.sync()
+            t_a = time.perf_counter()
+            logits, cache = lm.prefill(model, c, cache, prompt, last_logit_only=True)
+            self.sync()
+            t_b = time.perf_counter()
+            toks, _, cache = lm.generate_scan(model, c, cache, logits[:, -1:].argmax(-1),
+                                              prompt_len, n)
+            self.sync()
+            return logits, toks, cache, t_b - t_a, time.perf_counter() - t_b
+
+        run(cfg, 2)  # warm-up
+        if not self.rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        dispatch.reset_launch_counts()
+        logits, toks, cache, pf_s, dec_s = run(cfg, gen_len)  # the main path
+        counts, details = dispatch.launch_counts(), dispatch.launch_details()
+        peak = torch.cuda.max_memory_allocated() if not self.rehearsal else None
+        lines = [layer["k"].shape[1] for layer in cache]
+        want_lines = [min(cache_len, cfg.window) if b == "window" else cache_len
+                      for b in cfg.blocks]
+        want = {"rmsnorm": (4 * cfg.n_layers + 1) * (1 + gen_len),
+                "decode_attention": cfg.n_layers * gen_len}
+        want_details = {"decode_attention wrap": windows * gen_len,
+                        "decode_attention no wrap": (cfg.n_layers - windows) * gen_len}
+        print(f"  main path launches: rmsnorm {counts['rmsnorm']} (want {want['rmsnorm']}), "
+              f"decode_attention {counts['decode_attention']} (want "
+              f"{want['decode_attention']}): {details} (want {want_details})")
+        print(f"  cache lines by layer: {lines}")
+        self.rows["rmsnorm"]["gemma3_1b_launches"] = counts["rmsnorm"]
+        self.rows["decode_attention"]["gemma3_1b_launches"] = counts["decode_attention"]
+        self.rows["decode_attention"]["gemma3_1b_launch_details"] = details
+        # decode floor: every weight read once a step (the tied embedding as
+        # the unembed) and every cache line of every layer (the kernel reads
+        # the whole buffer and masks)
+        cache_bytes = sum(t.numel() * t.element_size() for layer in cache for t in layer.values())
+        weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        floor_ms = (weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+        self.gemma_serving = {"prefill_ms": pf_s * 1e3, "ms_per_step": dec_s / gen_len * 1e3,
+                              "tok_s": batch * gen_len / dec_s, "floor_ms": floor_ms,
+                              "peak_gib": peak / 2**30 if peak is not None else None}
+        print(f"  prefill {pf_s * 1e3:.1f} ms; decode {dec_s / gen_len * 1e3:.2f} ms/step, "
+              f"{batch * gen_len / dec_s:.1f} tok/s; decode floor {floor_ms:.3f} ms/step "
+              f"({weight_bytes / 1e9:.3f} GB of weights + {cache_bytes / 1e9:.3f} GB of cache "
+              f"over {HBM_BYTES_PER_S / 1e12:.2f} TB/s); peak memory "
+              f"{peak / 2**30 if peak is not None else float('nan'):.2f} GiB (host clock with "
+              f"synchronize; {self.card})")
+
+        prev = dispatch.set_backend("reference")
+        try:
+            ref_logits, ref_toks, _, rpf_s, rdec_s = run(cfg.replace(decode_kernel="reference"),
+                                                         gen_len)
+        finally:
+            dispatch.set_backend(prev)
+        print(f"  plain versions: prefill {rpf_s * 1e3:.1f} ms; decode "
+              f"{rdec_s / gen_len * 1e3:.2f} ms/step")
+        if lines != want_lines:
+            raise AssertionError(f"cache lines {lines}, want {want_lines}")
+        if not self.rehearsal and (counts["rmsnorm"] != want["rmsnorm"]
+                                   or counts["decode_attention"] != want["decode_attention"]
+                                   or details != want_details):
+            raise AssertionError(f"launch counts {counts} {details}, want {want} {want_details}")
+        if not self.rehearsal and dispatch.launch_counts() != counts:
+            raise AssertionError("the plain-version run launched a kernel")
+        if tuple(logits.shape) != (batch, 1, cfg.vocab) or tuple(toks.shape) != (batch, gen_len):
+            raise AssertionError(f"shapes: logits {tuple(logits.shape)}, tokens {tuple(toks.shape)}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite first-step logits")
+        diff = float((logits.float() - ref_logits.float()).abs().max())
+        top = ref_logits.float().abs().max()
+        limit = 4 * float(ulp_of(top.reshape(1).to(ref_logits.dtype)))
+        agree = float((toks == ref_toks).float().mean())
+        first = [int((toks[:, i] == ref_toks[:, i]).sum()) for i in range(min(2, gen_len))]
+        print(f"  kernels vs plain versions: first-step logits max |diff| {diff:.4g} "
+              f"(limit {limit:.4g}: 4 {ref_logits.dtype} ulps at max |logit| {float(top):.4g}); "
+              f"first two generated tokens agree {first} of {batch}; greedy token agreement "
+              f"{agree:.3f} over {toks.numel()} tokens")
+        # the phase 4a contract
+        if diff > limit:
+            raise AssertionError("gemma3-1b logits disagree with the plain versions")
+        if first != [batch] * len(first):
+            raise AssertionError(f"first generated tokens disagree: {first} of {batch}")
+        print("  gemma3-1b decode profile:")
+        self.profile_decode(cfg, model, prompt, logits[:, -1:].argmax(-1), batch, prompt_len,
+                            cache_len, top=8)
+
+    # -- phase 6 -----------------------------------------------------------
+    def p6_profile(self):
+        """Four full-width decode steps of qwen3-4b (after the counted run),
+        timed without the profiler and then under it."""
+        self.profile_decode(*self.serving, top=14)
+
+    def profile_decode(self, cfg, model, prompt, tok, batch, prompt_len, cache_len, *, top):
+        """Four decode steps after a prefill, timed without the profiler and
+        then under it: the device's idle share of the unprofiled step, the
+        ``top`` kernels, and the device ms a step of decode attention and of
+        RMSNorm by name."""
+        from repro_torch.models import lm
+
         cache = lm.init_cache(cfg, batch, cache_len, device=self.dev)
         _, cache = lm.prefill(model, cfg, cache, prompt, last_logit_only=True)
         lm.decode_step(model, cfg, cache, tok, prompt_len)  # warm
@@ -758,7 +919,7 @@ class Smoke:
               f"{wall_us / steps / 1e3:.3f} under the profiler; device busy "
               f"{busy / steps / 1e3:.3f} ms/step; idle share {1 - busy / plain_us:.3f} of the "
               f"unprofiled step ({1 - busy / wall_us:.3f} of the profiled one); {self.card}")
-        for dev_us, count, key in rows[:14]:
+        for dev_us, count, key in rows[:top]:
             print(f"    {dev_us / steps / 1e3:9.4f} ms/step  {count / steps:7.1f} calls/step  "
                   f"{key[:90]}")
         for name in ("decode_attention", "rmsnorm"):  # every launch of each, by name
@@ -868,6 +1029,22 @@ class Smoke:
             self.rows["rmsnorm"]["shapes"].append(at)
             print(f"  rmsnorm ({rows}, {d}) bfloat16: device ms per call: kernel {at['ms']}, "
                   f"F.rms_norm {at['library_ms']}; bound {at['bound_ms']:.6f} ms (bytes)")
+        # gemma3-1b's rows, the same way, plus events and the plain version
+        self.rows["rmsnorm"]["gemma3_shapes"] = []
+        for rows, d in self.gemma_rms_shapes():
+            xs, s = self.rms_inputs(rows, d, torch.bfloat16, 70 + rows + d)
+            weight = 1.0 + s
+            at = {"shape": [rows, d],
+                  "ms": self.device_ms(lambda: r_ops.rmsnorm(xs, s)),
+                  "events_ms": self.time_ms(lambda: r_ops.rmsnorm(xs, s)),
+                  "plain_ms": self.device_ms(lambda: r_ref.ref_rmsnorm(xs, s)),
+                  "bound_ms": bound((2 * rows * d + d) * 2, 4 * rows * d, "bfloat16")[0],
+                  "library_ms": self.device_ms(
+                      lambda: F.rms_norm(xs, (d,), weight=weight, eps=1e-6))}
+            self.rows["rmsnorm"]["gemma3_shapes"].append(at)
+            print(f"  rmsnorm gemma3-1b ({rows}, {d}) bfloat16: device ms per call: kernel "
+                  f"{at['ms']}, plain {at['plain_ms']}, F.rms_norm {at['library_ms']}; events ms: "
+                  f"kernel {at['events_ms']}; bound {at['bound_ms']:.6f} ms (bytes)")
 
         # decode attention: one decode step's layer at the serving widths,
         # every cache line live (the last step), at the serving cache (576,
@@ -920,6 +1097,59 @@ class Smoke:
                 print(f"  decode_attention {note}: device ms per call: kernel {at['ms']}, SDPA "
                       f"{at['library_ms']}; bound {bnd[0]:.6f} ms ({bnd[1]})")
             self.rows["decode_attention"]["lengths"].append(at)
+
+        # gemma3-1b's decode layer (b 8, one KV head of 4 query heads, head_dim
+        # 256): a window layer's wrapped 512-line ring and a global layer's
+        # 2112 lines at the last step, in bf16 (the serving path) and float32
+        # (two vectors a lane), each beside its byte bound and SDPA
+        b, h, kv, hd = 8, 4, 1, 256
+        self.rows["decode_attention"]["gemma3_shapes"] = []
+        ring, full = (24, 40) if self.rehearsal else (512, 2112)
+        for dtype, t in itertools.product((torch.bfloat16, torch.float32), (ring, full)):
+            wrap = t == ring  # the window layer's ring, wrapped at the last step
+            last = full - 1 if wrap else t - 1
+            pos = torch.full((b,), last, dtype=torch.int32, device=self.dev)
+            size = torch.finfo(dtype).bits // 8
+            cache_bytes = 2 * b * t * kv * hd * size
+            copies = 1 if self.rehearsal else max(1, -(-100_000_000 // cache_bytes))
+            sets = [self.attn_inputs(b, h, kv, hd, t, dtype, False, 40 + i, pos=pos)
+                    for i in range(copies)]
+            it = {"i": 0}
+
+            def rotating(fn, sets=sets, it=it):
+                def call():
+                    a = sets[it["i"] % len(sets)]
+                    it["i"] += 1
+                    return fn(a)
+                return call
+
+            mask = torch.ones(b, 1, 1, t, dtype=torch.bool, device=self.dev)
+
+            def sdpa(a, mask=mask):
+                return F.scaled_dot_product_attention(a[0][:, :, None], a[1].transpose(1, 2),
+                                                      a[2].transpose(1, 2), attn_mask=mask,
+                                                      enable_gqa=True)
+
+            nbytes = (b * h * hd * size) * 2 + cache_bytes + b * 4
+            bnd = bound(nbytes, 4 * b * h * t * hd,
+                        "bfloat16" if dtype == torch.bfloat16 else "float32")
+            at = {"dtype": str(dtype), "t": t, "wrap": wrap, "bound_ms": bnd[0],
+                  "ms": self.device_ms(rotating(
+                      lambda a, w=wrap: attn_ops.decode_attention(*a, scale=hd**-0.5, wrap=w))),
+                  "events_ms": self.time_ms(rotating(
+                      lambda a, w=wrap: attn_ops.decode_attention(*a, scale=hd**-0.5, wrap=w))),
+                  "plain_ms": self.device_ms(rotating(
+                      lambda a, w=wrap: attn_ops.ref_decode_attention(*a, scale=hd**-0.5,
+                                                                      wrap=w))),
+                  "library_ms": self.device_ms(rotating(sdpa))}
+            if not self.rehearsal:
+                plan = attn_ops.plan(sets[0][0], sets[0][1])
+                at.update(chunks=plan["chunks"], chunk_lines=plan["chunk_lines"])
+            self.rows["decode_attention"]["gemma3_shapes"].append(at)
+            print(f"  decode_attention gemma3-1b b={b} h={h} kv={kv} hd={hd} t={t} {dtype} "
+                  f"wrap={wrap} ({copies} cache copies, S={at.get('chunks')}): device ms per "
+                  f"call: kernel {at['ms']}, plain {at['plain_ms']}, SDPA {at['library_ms']}; "
+                  f"events ms: kernel {at['events_ms']}; bound {bnd[0]:.6f} ms ({bnd[1]})")
 
         # sobel: a 2160 x 3840 frame.  No PyTorch call computes the E2AFS
         # magnitude: library_ms is None, and F.conv2d + torch.sqrt (another
@@ -1291,22 +1521,46 @@ class Smoke:
 
     # -- phase 11 ----------------------------------------------------------
     def p11_train(self):
-        torch = self.torch
         from repro_torch.configs import get_config, get_smoke_config
+
+        self.serving = None  # phase 4a's serving model
+        kw = dict(n_layers=8, sqrt_unit="e2afs", remat="block")
+        if self.rehearsal:
+            cfg, batch, seq = get_smoke_config("qwen3-4b", **kw), 2, 64
+        else:
+            cfg, batch, seq = get_config("qwen3-4b", **kw), 4, 2048
+        self.train_phase(cfg, batch, seq, timed=4, compare_routes=True, launches_key="launches")
+
+    def p11b_train_gemma(self):
+        """gemma3-1b at full width and full depth (26 layers: 1.0 B float32
+        parameters, 16 GB of p, g, m and v), its window layers on the banded
+        chunks."""
+        from repro_torch.configs import get_config, get_smoke_config
+
+        kw = dict(sqrt_unit="e2afs", remat="block")
+        if self.rehearsal:
+            cfg, batch, seq = get_smoke_config("gemma3-1b", **kw), 2, 64
+        else:
+            cfg, batch, seq = get_config("gemma3-1b", **kw), 4, 2048
+        self.train_phase(cfg, batch, seq, timed=2, compare_routes=False,
+                         launches_key="gemma3_1b_launches")
+
+    def train_phase(self, cfg, batch, seq, *, timed, compare_routes, launches_key):
+        """One warm-up step, then ``timed`` steps with the launch counts set
+        to 0 just before and read just after (adam launches = parameter
+        tensors x steps, kept in the adam row under ``launches_key``); ms/step, tokens/s, peak memory, a profiled step's
+        device-busy and adam shares; the loss finite and, on the first batch,
+        lower after the steps.  ``compare_routes``: then one step's update on
+        the kernel route bit-identical to the plain route's."""
+        torch = self.torch
         from repro_torch.data import DataConfig, SyntheticLM
         from repro_torch.kernels import dispatch
         from repro_torch.launch.steps import loss_fn, make_train_step
         from repro_torch.models import lm
         from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, global_norm_clip
 
-        self.serving = None  # phase 4a's serving model
         if not self.rehearsal:
             torch.cuda.empty_cache()
-        kw = dict(n_layers=8, sqrt_unit="e2afs", remat="block")
-        if self.rehearsal:
-            cfg, batch, seq = get_smoke_config("qwen3-4b", **kw), 2, 64
-        else:
-            cfg, batch, seq = get_config("qwen3-4b", **kw), 4, 2048
         # a fixed rate (the cosine over 10,000 steps barely moves in 6); the
         # rehearsal's tiny model needs a larger one to move in 6 steps
         lr = 3e-3 if self.rehearsal else 3e-4
@@ -1316,7 +1570,7 @@ class Smoke:
         opt = adamw_init(model)
         n_params, n_tensors = lm.param_count(model), len(list(model.parameters()))
         self.sync()
-        print(f"  {cfg.name} cut to {cfg.n_layers} layers: d {cfg.d_model}, heads {cfg.n_heads}/"
+        print(f"  {cfg.name} at {cfg.n_layers} layers: d {cfg.d_model}, heads {cfg.n_heads}/"
               f"{cfg.n_kv_heads}, d_head {cfg.d_head}, d_ff {cfg.d_ff}, vocab {cfg.vocab} -> "
               f"{cfg.padded_vocab}; {n_params / 1e9:.4f} B float32 parameters in {n_tensors} "
               f"tensors; {cfg.act_dtype} activations, sqrt {cfg.sqrt_unit}, remat {cfg.remat}; "
@@ -1336,7 +1590,6 @@ class Smoke:
             lrs.append(float(metrics["lr"]))
 
         step(0)  # warm-up
-        timed = 4
         if not self.rehearsal:
             torch.cuda.reset_peak_memory_stats()
         dispatch.reset_launch_counts()
@@ -1346,7 +1599,7 @@ class Smoke:
         wall = time.perf_counter() - t0
         counts = dispatch.launch_counts()
         peak = torch.cuda.max_memory_allocated() if not self.rehearsal else None
-        self.rows["adam"]["launches"] = counts["adam"]
+        self.rows["adam"][launches_key] = counts["adam"]
         ms = wall / timed * 1e3
         print(f"  main path launches over {timed} steps: {counts}")
         print(f"  losses {[round(x, 4) for x in losses]}; lr {lrs}")
@@ -1377,7 +1630,7 @@ class Smoke:
                                                    sorted(groups.items(), key=lambda kv: -kv[1])))
         for dev_us, count, key in rows[:14]:
             print(f"    {dev_us / 1e3:9.3f} ms  {count:6d} calls  {key[:160]}")
-        # the first batch's loss again, after the six steps: on the same
+        # the first batch's loss again, after the steps: on the same
         # batch, the fall is not hidden by batch-to-batch noise
         with torch.no_grad():
             again = float(loss_fn(model, cfg, batch_at(0))[0])
@@ -1387,6 +1640,11 @@ class Smoke:
             raise AssertionError(f"non-finite loss: {losses}, {again}")
         if not again < losses[0]:
             raise AssertionError(f"the loss did not fall: {losses[0]} -> {again}")
+        self.training[cfg.name] = {"ms_per_step": ms, "tok_s": batch * seq / (wall / timed),
+                                   "peak_gib": peak / 2**30 if peak is not None else None,
+                                   "busy_ms": busy, "adam_ms": adam_ms}
+        if not compare_routes:
+            return
 
         # one step's update on the kernel route against the same update on
         # the plain route, from the same parameters and gradients.  The
@@ -1483,6 +1741,7 @@ def main(argv=None) -> int:
     smoke.phase("4a serve qwen3-4b", smoke.p4_serve)
     smoke.phase("4b sqrt unit", smoke.p4_unit)
     smoke.phase("4c small model + serve.generate", smoke.p4_small)
+    smoke.phase("4d serve gemma3-1b", smoke.p4_gemma)
     smoke.phase("5 times", smoke.p5_times)
     smoke.phase("6 profile", smoke.p6_profile)
     smoke.phase("7 sobel", smoke.p7_sobel)
@@ -1490,6 +1749,7 @@ def main(argv=None) -> int:
     smoke.phase("9 paper", smoke.p9_paper)
     smoke.phase("10 adam", smoke.p10_adam)
     smoke.phase("11 train qwen3-4b", smoke.p11_train)
+    smoke.phase("11b train gemma3-1b", smoke.p11b_train_gemma)
     smoke.phase("12 train_loop resume", smoke.p12_resume)
     if smoke.failed:
         print(f"FAILED phases: {smoke.failed}", file=sys.stderr)

@@ -3,8 +3,9 @@
 step written by either package restores in the other.
 
 Format: one directory per step holding one ``.npy`` per leaf of a tree of
-nested dicts (keys sorted, the leaf named by its joined key path, as the
-reference's tree flattening names it) and ``manifest.json``.  Writes go to
+nested dicts and lists (keys sorted, list entries by index, the leaf named
+by its joined key path, as the reference's tree flattening names it, e.g.
+``params_layers_3_attn_wq``) and ``manifest.json``.  Writes go to
 ``<dir>/tmp-<step>``, renamed to ``<dir>/step-<step>`` only after the
 manifest lands, so a crashed writer never leaves a half-readable step.
 bfloat16 leaves are stored as 2-byte void records (numpy has no bfloat16)
@@ -69,19 +70,26 @@ _pending: list = []
 
 
 def _flatten(tree, prefix=()):
-    """[(path tuple, leaf)] of nested dicts in the reference's order (keys
-    sorted)."""
+    """[(path tuple, leaf)] of nested dicts and lists in the reference's
+    order (keys sorted, list entries by index, named by it)."""
     if isinstance(tree, dict):
         return [item for k in sorted(tree) for item in _flatten(tree[k], prefix + (str(k),))]
+    if isinstance(tree, list):
+        return [item for i, node in enumerate(tree) for item in _flatten(node, prefix + (str(i),))]
     return [(prefix, tree)]
 
 
 def _unflatten(like, leaves):
-    """Rebuild ``like``'s nested dicts from leaves in :func:`_flatten` order."""
+    """Rebuild ``like``'s nested dicts and lists from leaves in
+    :func:`_flatten` order."""
     it = iter(leaves)
 
     def build(node):
-        return {k: build(node[k]) for k in sorted(node)} if isinstance(node, dict) else next(it)
+        if isinstance(node, dict):
+            return {k: build(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [build(n) for n in node]
+        return next(it)
 
     return build(like)
 

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("qwen3-4b",)
+ARCH_IDS = ("qwen3-4b", "gemma3-1b", "deepseek-67b")
 
 
 def _module(arch_id: str):

@@ -41,8 +41,9 @@
 // for an int8 line of hd = 8), so the first V tiles land while the scores'
 // last tiles, the max, the exp and the sum are formed.  A group of hd/VEC
 // lanes reads one K line from the ring (a 16-byte load a lane, 8 bytes of
-// int8) and its g dot products meet in a transposing shuffle reduction
-// (g - 1 + log2(lanes / g) shuffles, not g * log2(lanes)).  Every sum, max
+// int8; a float32 line of hd = 256 is 64 vectors, so 32 lanes take two
+// each, hd/2 elements apart) and its g dot products meet in a transposing
+// shuffle reduction (g - 1 + log2(lanes / g) shuffles, not g * log2(lanes)).  Every sum, max
 // and combine runs in a fixed order, so two calls on the same inputs are
 // bit-identical (no atomics).
 //
@@ -116,6 +117,21 @@ __device__ __forceinline__ void load_vec(const signed char* p, float (&out)[8]) 
   for (int i = 0; i < 8; ++i) {
     const unsigned int word = i < 4 ? u.x : u.y;
     out[i] = static_cast<float>(static_cast<signed char>((word >> (8 * (i & 3))) & 0xFFu));
+  }
+}
+
+// A lane's NV vectors of one line: vector n at p + n * part (part = hd / NV
+// elements), so that each of the NV loads of a lane group covers one
+// contiguous run of the line.
+template <int NV, class KV, int E>
+__device__ __forceinline__ void load_lane(const KV* p, int part, float (&out)[E]) {
+  constexpr int V = E / NV;
+#pragma unroll
+  for (int n = 0; n < NV; ++n) {
+    float v[V];
+    load_vec(p + n * part, v);
+#pragma unroll
+    for (int e = 0; e < V; ++e) out[n * V + e] = v[e];
   }
 }
 
@@ -251,19 +267,21 @@ struct Args {
   int wrap;
 };
 
-template <class T, class KV, int G>
+template <class T, class KV, int G, int NV>
 __global__ void __launch_bounds__(kThreads, 4) decode_attention_kernel(Args a) {
   constexpr int VEC = vec_of<KV>();
+  constexpr int EPL = VEC * NV;  // elements a lane holds of a line
   __shared__ __align__(16) unsigned char ring[kRing * kTileBytes];
   __shared__ float sc[kScoreFloats];  // the chunk's scores, e, then w: row j at sc + j * cl
   __shared__ float red[G * kWarps];
   __shared__ float slots[G];
   const int hd = a.hd, tl = a.tl, cl = a.cl, S = a.S;
-  const int lpl = hd / VEC;  // lanes a cache line: a power of two <= 32
+  const int lpl = hd / EPL;  // lanes a cache line: a power of two <= 32
   const int lpw = 32 / lpl;  // lines a warp
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int sub = lane / lpl, sl = lane % lpl;
   const int d0 = sl * VEC;   // this lane's first head_dim element
+  const int part = hd / NV;  // its NV vectors sit part elements apart (dim(e) below)
 
   // this block: slot bi, KV head kh, chunk c of lines [c0, c0 + n)
   const int c = blockIdx.x % S;
@@ -293,12 +311,14 @@ __global__ void __launch_bounds__(kThreads, 4) decode_attention_kernel(Args a) {
   for (int i = 0; i < kRing; ++i) fetch(i);
 
   // -- scores and the chunk's maxima --
-  float qr[G][VEC];
+  // the head_dim element that a lane's e-th value stands for
+  auto dim = [&](int e) { return (e / VEC) * part + d0 + e % VEC; };
+  float qr[G][EPL];
   const T* q = static_cast<const T*>(a.q) + head0 * hd;
 #pragma unroll
   for (int j = 0; j < G; ++j) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) qr[j][e] = to_f(q[j * hd + d0 + e]);
+    for (int e = 0; e < EPL; ++e) qr[j][e] = to_f(q[j * hd + dim(e)]);
   }
   const int p = a.pos[bi];
   const bool all_valid = a.wrap != 0 && p >= a.t_len;
@@ -317,19 +337,19 @@ __global__ void __launch_bounds__(kThreads, 4) decode_attention_kernel(Args a) {
     // shuffles; lanes past the tile compute zeros and store none
     for (int l0 = warp * lpw; l0 < nl; l0 += kWarps * lpw) {
       const int l = l0 + sub;
-      float kx[VEC];
+      float kx[EPL];
       if (l < nl) {
-        load_vec(tile + l * hd + d0, kx);
+        load_lane<NV>(tile + l * hd + d0, part, kx);
       } else {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) kx[e] = 0.f;
+        for (int e = 0; e < EPL; ++e) kx[e] = 0.f;
       }
       float s[G];
 #pragma unroll
       for (int j = 0; j < G; ++j) {
         float acc = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc = fmaf(qr[j][e], kx[e], acc);
+        for (int e = 0; e < EPL; ++e) acc = fmaf(qr[j][e], kx[e], acc);
         s[j] = acc;
       }
       if (split) {
@@ -397,11 +417,11 @@ __global__ void __launch_bounds__(kThreads, 4) decode_attention_kernel(Args a) {
   }
 
   // -- sum_t w * v over the V tiles, a lane's share in registers --
-  float acc[G][VEC];
+  float acc[G][EPL];
 #pragma unroll
   for (int j = 0; j < G; ++j) {
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[j][e] = 0.f;
+    for (int e = 0; e < EPL; ++e) acc[j][e] = 0.f;
   }
   for (int ti = 0; ti < nt; ++ti) {
     cp_async_wait<kRing - 1>();
@@ -410,13 +430,13 @@ __global__ void __launch_bounds__(kThreads, 4) decode_attention_kernel(Args a) {
     const int nl = min(tl, n - ti * tl);
 #pragma unroll 2
     for (int l = warp * lpw + sub; l < nl; l += kWarps * lpw) {
-      float vx[VEC];
-      load_vec(tile + l * hd + d0, vx);
+      float vx[EPL];
+      load_lane<NV>(tile + l * hd + d0, part, vx);
 #pragma unroll
       for (int j = 0; j < G; ++j) {
         const float wj = sc[j * cl + ti * tl + l];
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[j][e] = fmaf(wj, vx[e], acc[j][e]);
+        for (int e = 0; e < EPL; ++e) acc[j][e] = fmaf(wj, vx[e], acc[j][e]);
       }
     }
     __syncthreads();
@@ -428,7 +448,7 @@ __global__ void __launch_bounds__(kThreads, 4) decode_attention_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < G; ++j) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[j][e] += __shfl_xor_sync(0xffffffffu, acc[j][e], off);
+      for (int e = 0; e < EPL; ++e) acc[j][e] += __shfl_xor_sync(0xffffffffu, acc[j][e], off);
     }
   }
   float* wsum = reinterpret_cast<float*>(ring);  // kWarps * G * hd floats <= the ring
@@ -436,7 +456,7 @@ __global__ void __launch_bounds__(kThreads, 4) decode_attention_kernel(Args a) {
 #pragma unroll
     for (int j = 0; j < G; ++j) {
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) wsum[(warp * G + j) * hd + d0 + e] = acc[j][e];
+      for (int e = 0; e < EPL; ++e) wsum[(warp * G + j) * hd + dim(e)] = acc[j][e];
     }
   }
   __syncthreads();
@@ -468,7 +488,7 @@ __global__ void __launch_bounds__(kThreads, 4) decode_attention_kernel(Args a) {
 
 // Blocks of the kernel that fit on the current device at once: asked of the
 // occupancy API once a device.
-template <class T, class KV, int G>
+template <class T, class KV, int G, int NV>
 int capacity(int& cap) {
   static std::atomic<int> cached[kMaxDevices];  // 0: not asked yet
   int dev = 0, sms = 0, per_sm = 0;
@@ -477,7 +497,7 @@ int capacity(int& cap) {
   if (dev < kMaxDevices && (cap = cached[dev].load(std::memory_order_relaxed)) > 0) return 0;
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_attention_kernel<T, KV, G>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, decode_attention_kernel<T, KV, G, NV>,
                                                         kThreads, 0);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -493,10 +513,10 @@ struct Plan {
   long long ws_floats;
 };
 
-template <class T, class KV, int G>
+template <class T, class KV, int G, int NV>
 int plan_of(int b, int t_len, int h, int kvh, int hd, Plan& p) {
   int cap = 0;
-  const int err = capacity<T, KV, G>(cap);
+  const int err = capacity<T, KV, G, NV>(cap);
   if (err != 0) return err;
   p.tl = min(kTileMaxLines, kTileBytes / (hd * static_cast<int>(sizeof(KV))));
   const long long lines_max = kScoreFloats / G;  // the scores' room
@@ -514,10 +534,10 @@ int plan_of(int b, int t_len, int h, int kvh, int hd, Plan& p) {
   return 0;
 }
 
-template <class T, class KV, int G>
+template <class T, class KV, int G, int NV>
 int run(const Args& a, cudaStream_t stream) {
   Plan p;
-  int err = plan_of<T, KV, G>(a.b, a.t_len, a.h, a.kvh, a.hd, p);
+  int err = plan_of<T, KV, G, NV>(a.b, a.t_len, a.h, a.kvh, a.hd, p);
   if (err != 0) return err;
   const long long rows = static_cast<long long>(p.slots) * a.h;
   for (int b0 = 0; b0 < a.b; b0 += p.slots) {  // one launch for each run of slots that fits
@@ -540,24 +560,19 @@ int run(const Args& a, cudaStream_t stream) {
     s.part = s.csum + rows * p.S;
     void* args[] = {&s};
     err = static_cast<int>(cudaLaunchCooperativeKernel(
-        reinterpret_cast<void*>(decode_attention_kernel<T, KV, G>),
+        reinterpret_cast<void*>(decode_attention_kernel<T, KV, G, NV>),
         dim3(static_cast<unsigned int>(s.b * a.kvh * p.S)), dim3(kThreads), args, 0, stream));
     if (err != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class T, class KV>
+template <class T, class KV, int NV>
 int dispatch_group(const Args& a, Plan* plan, cudaStream_t stream) {
-  constexpr int VEC = vec_of<KV>();
-  const int lpl = a.hd / VEC;
-  if (a.hd % VEC != 0 || lpl < 1 || lpl > 32 || (lpl & (lpl - 1)) != 0 || a.t_len < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-#define REPRO_GROUP(G)                                                                  \
-  case G:                                                                               \
-    return plan != nullptr ? plan_of<T, KV, G>(a.b, a.t_len, a.h, a.kvh, a.hd, *plan) \
-                           : run<T, KV, G>(a, stream);
+#define REPRO_GROUP(G)                                                                      \
+  case G:                                                                                   \
+    return plan != nullptr ? plan_of<T, KV, G, NV>(a.b, a.t_len, a.h, a.kvh, a.hd, *plan) \
+                           : run<T, KV, G, NV>(a, stream);
   switch (a.h / a.kvh) {
     REPRO_GROUP(1)
     REPRO_GROUP(2)
@@ -568,12 +583,28 @@ int dispatch_group(const Args& a, Plan* plan, cudaStream_t stream) {
 #undef REPRO_GROUP
 }
 
+// One vector a lane where a line has at most 32 of them; a float32 line of
+// 64 vectors (hd = 256) takes two a lane.
+template <class T, class KV>
+int dispatch_vectors(const Args& a, Plan* plan, cudaStream_t stream) {
+  constexpr int VEC = vec_of<KV>();
+  const int vectors = a.hd / VEC;
+  if (a.hd % VEC != 0 || a.t_len < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (sizeof(KV) == 4) {
+    if (vectors == 64) return dispatch_group<T, KV, 2>(a, plan, stream);
+  }
+  if (vectors < 1 || vectors > 32 || (vectors & (vectors - 1)) != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return dispatch_group<T, KV, 1>(a, plan, stream);
+}
+
 int dispatch(const Args& a, int act_dtype, int kv_int8, Plan* plan, cudaStream_t stream) {
   if (a.kvh <= 0 || a.h % a.kvh != 0) return static_cast<int>(cudaErrorInvalidValue);
-  if (act_dtype == 1 && !kv_int8) return dispatch_group<__nv_bfloat16, __nv_bfloat16>(a, plan, stream);
-  if (act_dtype == 1 && kv_int8) return dispatch_group<__nv_bfloat16, signed char>(a, plan, stream);
-  if (act_dtype == 2 && !kv_int8) return dispatch_group<float, float>(a, plan, stream);
-  if (act_dtype == 2 && kv_int8) return dispatch_group<float, signed char>(a, plan, stream);
+  if (act_dtype == 1 && !kv_int8) return dispatch_vectors<__nv_bfloat16, __nv_bfloat16>(a, plan, stream);
+  if (act_dtype == 1 && kv_int8) return dispatch_vectors<__nv_bfloat16, signed char>(a, plan, stream);
+  if (act_dtype == 2 && !kv_int8) return dispatch_vectors<float, float>(a, plan, stream);
+  if (act_dtype == 2 && kv_int8) return dispatch_vectors<float, signed char>(a, plan, stream);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -606,7 +637,8 @@ extern "C" int decode_attention_plan(int b, int t_len, int h, int kvh, int hd, i
 
 // act_dtype: 1 = bfloat16, 2 = float32; kv_int8: the cache holds int8 values
 // (then k_scale and v_scale are given).  h / kv must be 1, 2, 4 or 8, and
-// hd / VEC a power of two <= 32 (VEC = 4 for a float32 cache, else 8); the
+// hd / VEC a power of two <= 32 (VEC = 4 for a float32 cache, else 8), or
+// 64 for a float32 cache (hd = 256, two vectors a lane); the
 // K/V base pointers must be 16-byte aligned; workspace holds the elements
 // decode_attention_plan gives for the same shapes.  Returns the first launch
 // error, or cudaGetLastError() after the last launch.

@@ -41,9 +41,10 @@ def _check(q, k, v, pos, k_scale, v_scale):
     if h // kv not in _GROUPS:
         raise ValueError(f"the kernel serves {_GROUPS} query heads per KV head, got {h // kv}")
     vec = 4 if k.dtype == torch.float32 else 8  # elements per vector load
-    lanes = hd // vec
-    if hd % vec or not 1 <= lanes <= 32 or lanes & (lanes - 1):
-        raise ValueError(f"head_dim {hd} must be {vec} x a power of two <= 32 "
+    vectors = hd // vec  # a lane takes one, or two when a float32 line has 64
+    most = 64 if k.dtype == torch.float32 else 32
+    if hd % vec or not 1 <= vectors <= most or vectors & (vectors - 1):
+        raise ValueError(f"head_dim {hd} must be {vec} x a power of two <= {most} "
                          f"for a {k.dtype} cache")
     quantized = k.dtype == torch.int8
     if not quantized and (k.dtype != q.dtype or v.dtype != q.dtype):
@@ -110,5 +111,5 @@ def decode_attention(q, k, v, pos, k_scale=None, v_scale=None, *, scale: float,
            workspace.data_ptr(), out.data_ptr(), b, t, h, kv, hd, scale, int(wrap),
            _DTYPE_CODE[q.dtype], int(quantized),
            torch.cuda.current_stream(q.device).cuda_stream)
-    dispatch.count_launch("decode_attention")
+    dispatch.count_launch("decode_attention", "wrap" if wrap else "no wrap")
     return out

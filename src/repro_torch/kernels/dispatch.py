@@ -26,6 +26,7 @@ __all__ = [
     "KNOWN",
     "count_launch",
     "launch_counts",
+    "launch_details",
     "make_differentiable_rsqrt",
     "make_differentiable_sqrt",
     "reset_launch_counts",
@@ -39,6 +40,7 @@ KNOWN = ("adam", "decode_attention", "e2afs_rsqrt", "e2afs_sqrt", "kmeans_assign
 
 _backend = "auto"
 _launches = dict.fromkeys(KNOWN, 0)
+_details: dict = {}
 
 
 def set_backend(name: Optional[str]) -> str:
@@ -68,17 +70,28 @@ def use_kernel(*tensors: Optional[torch.Tensor]) -> bool:
     return _backend != "reference"
 
 
-def count_launch(name: str) -> None:
+def count_launch(name: str, detail: Optional[str] = None) -> None:
+    """One launch of kernel ``name``; ``detail`` (a variant such as "wrap")
+    is also tallied under "<name> <detail>" in :func:`launch_details`."""
     _launches[name] += 1
+    if detail is not None:
+        key = f"{name} {detail}"
+        _details[key] = _details.get(key, 0) + 1
 
 
 def launch_counts() -> dict:
     return dict(_launches)
 
 
+def launch_details() -> dict:
+    """Launches by variant, for the kernels whose wrapper names one."""
+    return dict(_details)
+
+
 def reset_launch_counts() -> None:
     for name in _launches:
         _launches[name] = 0
+    _details.clear()
 
 
 # ---------------------------------------------------------------------------

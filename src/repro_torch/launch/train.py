@@ -3,8 +3,9 @@ resume, a heartbeat with a straggler deadline, optional int8 gradient
 compression and microbatching.
 
   * atomic checkpoints every ``ckpt_every`` steps (async writer), in the
-    reference's format and tree layout (layers stacked), so a step written
-    by either package restores in the other;
+    reference's format and tree layout (layers stacked, or a list of
+    layers for a mixed model), so a step written by either package
+    restores in the other;
   * on start, resumes from the latest complete checkpoint (crash = rerun);
   * a per-step wall-time heartbeat; a step over ``step_deadline`` (or the
     step ``inject_straggler_at``) is a straggler event and checkpoints at
@@ -56,11 +57,16 @@ def build(arch: str, *, smoke: bool, seq: int, batch: int, sqrt_unit: str, micro
 
 def state_tree(model, opt_state) -> dict:
     """``{"params", "opt": {"m", "v", "step"[, "residual"]}}`` as host numpy
-    arrays in the reference's layout (the trainer's checkpoint)."""
+    arrays in the reference's layout (the trainer's checkpoint): layers
+    stacked for a uniform model, a list of layers for a mixed one."""
     n = len(model.layers)
-    opt = {k: (v.detach().to("cpu", copy=True).numpy() if k == "step" else named_to_tree(v, n))
+
+    def tree(named):
+        return named_to_tree(named, n, stacked=model.stacked)
+
+    opt = {k: (v.detach().to("cpu", copy=True).numpy() if k == "step" else tree(v))
            for k, v in opt_state.items()}
-    return {"params": named_to_tree(dict(model.named_parameters()), n), "opt": opt}
+    return {"params": tree(dict(model.named_parameters())), "opt": opt}
 
 
 @torch.no_grad()

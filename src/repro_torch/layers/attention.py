@@ -135,14 +135,19 @@ def _scored_attention(q, k, v, mask, scale, sdt, out_dtype):
     return torch.einsum("bhst,bthk->bshk", w, _expand_kv(v, h))
 
 
-def attention_train(p: Attention, cfg, x, *, positions=None, q_chunk: int = 1024):
-    """Full-sequence causal attention for training (the reference's
-    ``attention_train`` in "causal" mode), differentiable; writes no cache.
-    x: (b, s, d); positions: (s,), default ``arange(s)``.  QK-norm runs
-    unfused through the unit's differentiable datapath.  Sequences longer
-    than ``q_chunk`` (and a multiple of it) process queries in chunks, each
-    against the whole K/V, as the reference's ``_chunked_attention``.
-    Window and cross modes come with the model families that use them."""
+def attention_train(p: Attention, cfg, x, *, mode: str = "causal",
+                    window: Optional[int] = None, positions=None, q_chunk: int = 1024):
+    """Full-sequence attention for training (the reference's
+    ``attention_train`` in "causal" or "window" mode), differentiable;
+    writes no cache.  x: (b, s, d); positions: (s,), default ``arange(s)``.
+    QK-norm runs unfused through the unit's differentiable datapath.
+    Sequences longer than ``q_chunk`` (and a multiple of it) process queries
+    in chunks, as the reference's ``_chunked_attention``: each chunk against
+    the whole K/V, or in "window" mode against a band of ``window +
+    q_chunk`` lines (K/V left-padded by ``window`` lines at position
+    ``-10**9``, which the mask drops), so the scores are ``(b, h, q_chunk,
+    window + q_chunk)``.  Cross mode comes with the model family that uses
+    it."""
     s = x.shape[1]
     pos = positions if positions is not None else torch.arange(s, device=x.device)
     q, k, v = _project_qkv(p, cfg, x, x, pos, pos, use_rope=cfg.pos == "rope",
@@ -150,15 +155,23 @@ def attention_train(p: Attention, cfg, x, *, positions=None, q_chunk: int = 1024
     scale = cfg.d_head**-0.5
     sdt = getattr(torch, cfg.scores_dtype)
     if s <= q_chunk or s % q_chunk:
-        out = _scored_attention(q, k, v, _mask("causal", pos, pos, None), scale, sdt, x.dtype)
-    else:
-        chunks = []
-        for i in range(s // q_chunk):
-            sl = slice(i * q_chunk, (i + 1) * q_chunk)
-            chunks.append(_scored_attention(q[:, sl], k, v, _mask("causal", pos[sl], pos, None),
-                                            scale, sdt, x.dtype))
-        out = torch.cat(chunks, dim=1)
-    return _out_proj(out, p.wo)
+        return _out_proj(_scored_attention(q, k, v, _mask(mode, pos, pos, window), scale, sdt,
+                                           x.dtype), p.wo)
+    kp = pos
+    banded = mode == "window" and window is not None
+    if banded:  # in padded coordinates chunk i's band is [i * q_chunk, i * q_chunk + band)
+        band = window + q_chunk
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, window, 0))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, window, 0))
+        kp = torch.cat([pos.new_full((window,), -(10**9)), pos])
+    chunks = []
+    for i in range(s // q_chunk):
+        sl = slice(i * q_chunk, (i + 1) * q_chunk)
+        kv_sl = slice(i * q_chunk, i * q_chunk + band) if banded else slice(None)
+        chunks.append(_scored_attention(q[:, sl], k[:, kv_sl], v[:, kv_sl],
+                                        _mask(mode, pos[sl], kp[kv_sl], window), scale, sdt,
+                                        x.dtype))
+    return _out_proj(torch.cat(chunks, dim=1), p.wo)
 
 
 def _fold_masked_attention(q, k, v, mask, scale, k_scale, v_scale, out_dtype):

@@ -7,11 +7,13 @@ downloaded and JAX is not imported: the input is plain numpy.
 
 The reference's tree is ``embed``, ``unembed``, ``ln_f`` and
 ``layers/{ln1, ln2, attn/{wq, wk, wv, wo, q_norm, k_norm},
-mlp/{wi_gate, wi_up, wo}}`` stacked on a leading L axis; the port names the
-same tensors ``embed`` ... ``layers.<i>.attn.wq``.  :func:`named_to_tree`
-and :func:`tree_to_named` map any per-parameter state (the parameters, the
+mlp/{wi_gate, wi_up, wo}}``: for a uniform model one dict whose arrays are
+stacked on a leading L axis, for a mixed model (gemma3-1b's window and
+global layers) a list of L per-layer dicts.  The port names the same
+tensors ``embed`` ... ``layers.<i>.attn.wq``.  :func:`named_to_tree` and
+:func:`tree_to_named` map any per-parameter state (the parameters, the
 optimizer's moments) between the two, so checkpoints keep the reference's
-leaf names.
+leaf names (``layers_wq``-style stacked leaves, or ``layers_<i>_...``).
 """
 from __future__ import annotations
 
@@ -33,9 +35,17 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", dtype, copy=True).numpy()
 
 
-def named_to_tree(named: dict, n_layers: int) -> dict:
+def _put(node: dict, path, value) -> None:
+    for key in path[:-1]:
+        node = node.setdefault(key, {})
+    node[path[-1]] = value
+
+
+def named_to_tree(named: dict, n_layers: int, *, stacked: bool) -> dict:
     """``{port name: tensor}`` -> the reference's nested tree of numpy
-    arrays, per-layer tensors stacked on a leading L axis."""
+    arrays: per-layer tensors stacked on a leading L axis (``stacked``: a
+    uniform model, ``cfg.uniform``), or a list of ``n_layers`` per-layer
+    dicts (a mixed model)."""
     tree, per_layer = {}, {}
     for name, t in named.items():
         parts = name.split(".")
@@ -43,29 +53,38 @@ def named_to_tree(named: dict, n_layers: int) -> dict:
             per_layer.setdefault(tuple(parts[2:]), [None] * n_layers)[int(parts[1])] = _numpy(t)
         else:
             tree[name] = _numpy(t)
+    if not per_layer:
+        return tree
+    layers = {} if stacked else [{} for _ in range(n_layers)]
     for path, arrays in per_layer.items():
         if any(a is None for a in arrays):
             raise ValueError(f"layers.*.{'.'.join(path)}: not every layer is present")
-        node = tree.setdefault("layers", {})
-        for key in path[:-1]:
-            node = node.setdefault(key, {})
-        node[path[-1]] = np.stack(arrays)
+        if stacked:
+            _put(layers, path, np.stack(arrays))
+        else:
+            for layer, a in zip(layers, arrays):
+                _put(layer, path, a)
+    tree["layers"] = layers
     return tree
 
 
 def tree_to_named(tree: dict, names) -> dict:
-    """The reference's tree -> ``{port name: numpy array}`` for ``names``
-    (per-layer slices of the stacked arrays).  A name the tree lacks raises."""
+    """The reference's tree -> ``{port name: numpy array}`` for ``names``:
+    per-layer slices of the stacked arrays, or the entries of the list of
+    per-layer dicts, by the type of ``tree["layers"]``.  A name the tree
+    lacks raises."""
     out = {}
     for name in names:
         parts = name.split(".")
         node = tree
         try:
             if parts[0] == "layers":
-                node = node["layers"]
+                layers, i = node["layers"], int(parts[1])
+                node = layers[i] if isinstance(layers, list) else layers
                 for key in parts[2:]:
                     node = node[key]
-                node = node[int(parts[1])]
+                if not isinstance(layers, list):
+                    node = node[i]
             else:
                 node = node[name]
         except (KeyError, IndexError):
@@ -96,5 +115,7 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device=None, *,
 
 def params_to_numpy(model: lm.LM) -> dict:
     """The model's parameters as the reference's tree of numpy arrays (layers
-    stacked), the inverse of :func:`params_from_numpy`."""
-    return named_to_tree(dict(model.named_parameters()), len(model.layers))
+    stacked, or a list for a mixed model), the inverse of
+    :func:`params_from_numpy`."""
+    return named_to_tree(dict(model.named_parameters()), len(model.layers),
+                         stacked=model.stacked)

@@ -1,18 +1,22 @@
 """Dense decoder LM: init, training forward, prefill, decode step and greedy
-decode (torch port of the uniform dense-decoder part of ``repro.models.lm``).
+decode (torch port of the dense-decoder part of ``repro.models.lm``: uniform
+stacks, and stacks that mix "global" and "window" blocks).
 
 Entry points:
     init(cfg, generator, device, trainable=)     -> LM
     forward(model, cfg, batch, return_hidden=)   -> (logits | (x, unembed), aux)
-    init_cache(cfg, batch, cache_len, device=)   -> cache dict
+    init_cache(cfg, batch, cache_len, device=)   -> cache dict, or list of dicts
     decode_step(model, cfg, cache, tokens, pos)  -> (logits, cache)
     prefill(model, cfg, cache, tokens)           -> (logits, cache)
     generate_scan(model, cfg, cache, tok, start_pos, gen_len)
                                                  -> (tokens, next_tok, cache)
 
-The cache is a dict of stacked ``(L, b, t, kv, hd)`` tensors that prefill
-and decode update IN PLACE (the reference is functional and returns a new
-cache; here the returned dict is the one passed in).
+As in the reference, a uniform stack's cache is one dict of stacked
+``(L, b, t, kv, hd)`` tensors, and a mixed stack's is a list of per-layer
+dicts ``(b, t, kv, hd)``, each layer's ``t`` its own (a window layer's ring
+of the window).  Prefill and decode update it IN PLACE (the reference is
+functional and returns a new cache; here the returned cache is the one
+passed in).
 
 Serving runs every norm through ``layers.norms.rmsnorm``: with
 ``sqrt_unit="e2afs"`` on its fused route (the RMSNorm kernel on CUDA, its
@@ -58,14 +62,17 @@ class Block(nn.Module):
 
 class LM(nn.Module):
     """Parameters in the reference's layout: embed (vp, d), unembed (d, vp),
-    ln_f (d,), and one Block per layer (the reference stacks them on a
-    leading L axis).  For serving each is stored once in the activation
-    dtype, without gradient; ``trainable=True`` keeps float32 masters that
-    require gradients, as the reference always does, cast at every use."""
+    ln_f (d,), and one Block per layer (the reference stacks a uniform
+    model's on a leading L axis and keeps a mixed model's as a list:
+    ``stacked`` records which).  For serving each is stored once in the
+    activation dtype, without gradient; ``trainable=True`` keeps float32
+    masters that require gradients, as the reference always does, cast at
+    every use."""
 
     def __init__(self, cfg: ModelConfig, *, device, trainable: bool = False):
         super().__init__()
         cfg.validate()
+        self.stacked = cfg.uniform
         dtype = torch.float32 if trainable else act_dtype(cfg)
         vp, d = cfg.padded_vocab, cfg.d_model
         self.embed = parameter((vp, d), dtype, device)
@@ -105,25 +112,43 @@ def init(cfg: ModelConfig, generator: torch.Generator = None, *, device=None,
     return model
 
 
+def _cache_lines(cfg, block, cache_len):
+    """The reference's ``_layer_cache``: a window block keeps a ring of
+    ``min(cache_len, cfg.window)`` lines, a global block ``cache_len``."""
+    return min(cache_len, cfg.window) if block == "window" else cache_len
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, quantized: bool = False,
-               device=None) -> dict:
-    """Zeroed stacked cache ``(L, batch, lines, kv, hd)`` (int8 plus float32
-    scales when ``quantized``) on ``device`` (the card unless
-    ``device="cpu"``).  ``lines`` is ``cache_len``; a sliding-window model
-    gets ``min(cache_len, cfg.window)``, a ring of its window, as the
-    reference's ``_layer_cache`` (patterns are uniform: ``validate``
-    refuses mixed ones)."""
+               device=None):
+    """Zeroed KV cache (int8 plus float32 scales when ``quantized``) on
+    ``device`` (the card unless ``device="cpu"``), in the reference's two
+    forms: for a uniform stack one dict of ``(L, batch, lines, kv, hd)``
+    tensors, for a mixed stack a list of per-layer dicts of ``(batch,
+    lines, kv, hd)``.  A layer's ``lines`` is ``cache_len``, or for a window
+    layer ``min(cache_len, cfg.window)``, a ring of its window."""
     dev = resolve_device(device)
-    lines = min(cache_len, cfg.window) if cfg.blocks[0] == "window" else cache_len
-    return attn.init_kv_cache(cfg, batch, lines, act_dtype(cfg), quantized=quantized,
-                              device=dev, layers=cfg.n_layers)
+    dt = act_dtype(cfg)
+    if cfg.uniform:
+        return attn.init_kv_cache(cfg, batch, _cache_lines(cfg, cfg.blocks[0], cache_len), dt,
+                                  quantized=quantized, device=dev, layers=cfg.n_layers)
+    return [attn.init_kv_cache(cfg, batch, _cache_lines(cfg, block, cache_len), dt,
+                               quantized=quantized, device=dev) for block in cfg.blocks]
 
 
-def _layer_train(layer: Block, cfg, x, positions):
+def _layer_cache(cache, i):
+    """Layer ``i``'s share of the cache, as ``(cache, layer_idx)`` for the
+    attention layer: the stacked dict with ``i``, or the list's own dict."""
+    return (cache[i], None) if isinstance(cache, list) else (cache, i)
+
+
+def _layer_train(layer: Block, cfg, block, x, positions):
     """One block of the training forward (the reference's ``_layer_train``):
-    unfused norms, full-sequence causal attention, SwiGLU MLP."""
+    unfused norms, full-sequence causal attention ("global") or causal
+    sliding-window attention ("window"), SwiGLU MLP."""
     h = _norm(layer.ln1, x, cfg, fused=False)
-    x = x + attn.attention_train(layer.attn, cfg, h, positions=positions)
+    mode = "causal" if block == "global" else "window"
+    x = x + attn.attention_train(layer.attn, cfg, h, mode=mode, window=cfg.window,
+                                 positions=positions)
     return x + mlp_apply(layer.mlp, cfg, _norm(layer.ln2, x, cfg, fused=False))
 
 
@@ -140,11 +165,11 @@ def forward(model: LM, cfg: ModelConfig, batch: dict, *, return_hidden: bool = F
     tokens = batch["tokens"]
     x = model.embed.to(dt)[tokens]
     positions = torch.arange(x.shape[1], device=x.device)
-    for layer in model.layers:
+    for layer, block in zip(model.layers, cfg.blocks):
         if cfg.remat == "block":
-            x = checkpoint(_layer_train, layer, cfg, x, positions, use_reentrant=False)
+            x = checkpoint(_layer_train, layer, cfg, block, x, positions, use_reentrant=False)
         else:
-            x = _layer_train(layer, cfg, x, positions)
+            x = _layer_train(layer, cfg, block, x, positions)
     x = _norm(model.ln_f, x, cfg, fused=False)
     aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
     unembed = model.unembed_matrix().to(x.dtype)
@@ -164,29 +189,33 @@ def _logits(model: LM, cfg, x):
 
 
 @torch.no_grad()
-def decode_step(model: LM, cfg: ModelConfig, cache: dict, tokens: torch.Tensor, pos):
-    """One decode forward (a single token per batch row) over the cache.
+def decode_step(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, pos):
+    """One decode forward (a single token per batch row) over the cache (a
+    stacked dict or a per-layer list, as :func:`init_cache` gives it).
 
     tokens: (b, 1) integer; pos: the position of this token, an int
     (lock-step batch) or a (b,) tensor (one position per row).  Writes one
-    token line per layer into ``cache`` in place.  Returns
+    token line per layer into ``cache`` in place; a window layer writes its
+    ring at ``pos % window`` and attends with ``wrap``.  Returns
     (logits (b, 1, vocab), cache).
     """
     x = model.embed[tokens]
     for i, (layer, block) in enumerate(zip(model.layers, cfg.blocks)):
+        c, idx = _layer_cache(cache, i)
         h = _norm(layer.ln1, x, cfg)
-        h, _ = attn.attention_decode(layer.attn, cfg, h, cache, pos,
-                                     window=_window(cfg, block), layer_idx=i)
+        h, _ = attn.attention_decode(layer.attn, cfg, h, c, pos,
+                                     window=_window(cfg, block), layer_idx=idx)
         x = x + h
         x = x + mlp_apply(layer.mlp, cfg, _norm(layer.ln2, x, cfg))
     return _logits(model, cfg, x), cache
 
 
 @torch.no_grad()
-def prefill(model: LM, cfg: ModelConfig, cache: dict, tokens: torch.Tensor, *,
+def prefill(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, *,
             last_logit_only: bool = False):
     """One-shot batched prefill over the prompt, writing positions [0, s) of
-    every layer's cache in place.  tokens: (b, s) with s >= 1 into a fresh
+    every layer's cache in place (a window layer's ring shorter than the
+    prompt keeps the last lines).  tokens: (b, s) with s >= 1 into a fresh
     cache.  Returns (logits (b, s, vocab), cache); ``last_logit_only`` keeps
     only the last position's row, (b, 1, vocab)."""
     s = tokens.shape[1]
@@ -196,9 +225,10 @@ def prefill(model: LM, cfg: ModelConfig, cache: dict, tokens: torch.Tensor, *,
     x = model.embed[tokens]
     positions = torch.arange(s, device=tokens.device)
     for i, (layer, block) in enumerate(zip(model.layers, cfg.blocks)):
+        c, idx = _layer_cache(cache, i)
         h = _norm(layer.ln1, x, cfg)
-        h, _ = attn.attention_prefill(layer.attn, cfg, h, cache, positions,
-                                      window=_window(cfg, block), layer_idx=i)
+        h, _ = attn.attention_prefill(layer.attn, cfg, h, c, positions,
+                                      window=_window(cfg, block), layer_idx=idx)
         x = x + h
         x = x + mlp_apply(layer.mlp, cfg, _norm(layer.ln2, x, cfg))
     if last_logit_only:
@@ -207,7 +237,7 @@ def prefill(model: LM, cfg: ModelConfig, cache: dict, tokens: torch.Tensor, *,
 
 
 @torch.no_grad()
-def generate_scan(model: LM, cfg: ModelConfig, cache: dict, tok: torch.Tensor, start_pos: int,
+def generate_scan(model: LM, cfg: ModelConfig, cache, tok: torch.Tensor, start_pos: int,
                   gen_len: int):
     """Greedy decode of ``gen_len`` steps: a Python loop over
     :func:`decode_step` with the argmax on the device and no host

@@ -183,7 +183,9 @@ def test_e2afs_first_design_gives_the_same_bits(cuda_device, dtype):
 
 @pytest.mark.parametrize("shape", [(8, 2560), (1024, 2560), (8 * 32 * 16, 128)] + [
     (rows, d) for rows in (1, 3, 4096) for d in (100, 128, 1152, 2560)] + [
-    (3, 12288), (3, 40000)])
+    (3, 12288), (3, 40000)] + [
+    # gemma3-1b serving: decode and prefill rows of 1152, qk-norm rows of 256
+    (8, 1152), (8 * 2048, 1152), (8, 256), (8 * 4, 256), (8 * 2048, 256), (8 * 2048 * 4, 256)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rmsnorm_matches_plain(cuda_device, dtype, shape):
     """Every layout of rmsnorm.cu: rows of a block (d = 1152, 2560), rows
@@ -269,6 +271,24 @@ def test_decode_attention_matches_plain(cuda_device, quantized, dtype, group, le
     q = torch.empty(b, h, hd, dtype=dtype, device=cuda_device)
     t = _length(length, q, kv, torch.int8 if quantized else dtype)
     q, k, v, pos, ks, vs = _attn_case(cuda_device, b, t, h, kv, hd, dtype, quantized, t + group)
+    for wrap in (False, True):
+        plain = attn_ops.ref_decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
+        ours = attn_ops.decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
+        again = attn_ops.decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
+        assert torch.equal(ours, again), "two calls differ"
+        _assert_attention_close(ours, plain, dtype)
+
+
+@pytest.mark.parametrize("t", [512, 2112])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_gemma3_shapes(cuda_device, dtype, quantized, t):
+    """gemma3-1b's decode layer: 8 slots, one KV head of four query heads,
+    head_dim 256 (a float32 line is 64 vectors: two a lane), a window
+    layer's 512-line ring and a global layer's 2112 lines, wrap off and on,
+    mixed per-row positions.  Two calls are bit-identical."""
+    b, h, kv, hd = 8, 4, 1, 256
+    q, k, v, pos, ks, vs = _attn_case(cuda_device, b, t, h, kv, hd, dtype, quantized, t + 7)
     for wrap in (False, True):
         plain = attn_ops.ref_decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
         ours = attn_ops.decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
@@ -364,6 +384,43 @@ def test_model_kernels_match_plain_versions(cuda_device, window):
     assert torch.equal(out["auto"][1], out["reference"][1])
     assert out["auto"][2]["rmsnorm"] == (4 * cfg.n_layers + 1) * (1 + gen)
     assert out["auto"][2]["decode_attention"] == cfg.n_layers * gen
+    assert set(out["reference"][2].values()) == {0}
+
+
+def test_gemma3_smoke_model_kernels_match_plain_versions(cuda_device):
+    """gemma3-1b's smoke config (five window layers of 8 to one global) in
+    float32 on the card: a prompt of 12 wraps the window layers' 8-line
+    rings at prefill and the 16 steps wrap them again.  The kernel route and
+    the plain versions give the same greedy tokens; the kernel route
+    launches decode attention with wrap on every window layer and off on
+    every global one, the plain route nothing."""
+    cfg = get_smoke_config("gemma3-1b", act_dtype="float32", sqrt_unit="e2afs",
+                           decode_kernel="fused")
+    model = lm.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    b, s, gen = 2, 12, 16
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (b, s)))
+    prompt = prompt.to(cuda_device)
+    out = {}
+    for backend, route in (("auto", "fused"), ("reference", "reference")):
+        prev = dispatch.set_backend(backend)
+        try:
+            c = cfg.replace(decode_kernel=route)
+            dispatch.reset_launch_counts()
+            cache = lm.init_cache(c, b, s + gen, device=cuda_device)
+            assert [layer["k"].shape[1] for layer in cache] == [
+                cfg.window if block == "window" else s + gen for block in cfg.blocks]
+            logits, cache = lm.prefill(model, c, cache, prompt, last_logit_only=True)
+            toks, _, _ = lm.generate_scan(model, c, cache, logits.argmax(-1), s, gen)
+            out[backend] = (logits, toks, dispatch.launch_counts(), dispatch.launch_details())
+        finally:
+            dispatch.set_backend(prev)
+    torch.testing.assert_close(out["auto"][0], out["reference"][0], atol=1e-4, rtol=0)
+    assert torch.equal(out["auto"][1], out["reference"][1])
+    windows = cfg.blocks.count("window")
+    assert out["auto"][2]["rmsnorm"] == (4 * cfg.n_layers + 1) * (1 + gen)
+    assert out["auto"][2]["decode_attention"] == cfg.n_layers * gen
+    assert out["auto"][3] == {"decode_attention wrap": windows * gen,
+                              "decode_attention no wrap": (cfg.n_layers - windows) * gen}
     assert set(out["reference"][2].values()) == {0}
 
 

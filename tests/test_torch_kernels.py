@@ -290,3 +290,21 @@ def test_decode_attention_refusals(case, match):
         k, v = k[:, :0], v[:, :0]
     with pytest.raises(ValueError, match=match):
         attn_ops._check(q, k, v, pos, ks, vs)
+
+
+def test_launch_details_tally_variants():
+    """A wrapper may name the variant it launched (decode attention: "wrap"
+    or "no wrap"); the tally sits beside the kernel's count and resets with
+    it."""
+    dispatch.reset_launch_counts()
+    try:
+        for detail in ("wrap", "wrap", "no wrap"):
+            dispatch.count_launch("decode_attention", detail)
+        dispatch.count_launch("rmsnorm")
+        assert dispatch.launch_counts()["decode_attention"] == 3
+        assert dispatch.launch_counts()["rmsnorm"] == 1
+        assert dispatch.launch_details() == {"decode_attention wrap": 2,
+                                             "decode_attention no wrap": 1}
+    finally:
+        dispatch.reset_launch_counts()
+    assert dispatch.launch_details() == {} and set(dispatch.launch_counts().values()) == {0}

@@ -1,6 +1,7 @@
 """The torch port's dense decoder held against the JAX package.
 
-The reference initialises ``get_smoke_config("qwen3-4b", ...)`` with
+The reference initialises ``get_smoke_config("qwen3-4b", ...)`` (and
+gemma3-1b's and deepseek-67b's, below) with
 ``lm.init(cfg, jax.random.key(0))``; its parameters cross over as numpy
 arrays through ``repro_torch.models.convert.params_from_numpy``.  JAX runs
 its own routes (the Pallas decode-attention kernel in interpret mode for
@@ -9,7 +10,9 @@ its own routes (the Pallas decode-attention kernel in interpret mode for
 Tolerances: float32 logits atol 1e-4 and caches atol 1e-5 (sums in another
 order); int8 cache codes and greedy tokens identical at float32.  bfloat16
 logits atol 5e-2: the two frameworks round bf16 intermediates at different
-places.
+places.  gemma3-1b's int8 prefill: see
+``test_mixed_prefill_logits_and_per_layer_caches`` (one code on a rounding
+boundary).
 """
 import jax
 import jax.numpy as jnp
@@ -332,3 +335,167 @@ def test_cpu_model_never_counts_launches(jax_params):
     logits, tcache = lm.prefill(model, tcfg, tcache, torch.from_numpy(prompt), last_logit_only=True)
     lm.generate_scan(model, tcfg, tcache, logits.argmax(-1), S, 2)
     assert set(dispatch.launch_counts().values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# gemma3-1b (five window layers to one global) and deepseek-67b, smoke configs
+# ---------------------------------------------------------------------------
+
+MIX_S, MIX_GEN = 12, 16  # the prompt is longer than gemma3-1b's smoke window (8)
+MIX_ARCHS = ("gemma3-1b", "deepseek-67b")
+
+
+@pytest.fixture(scope="module")
+def mixed_runs():
+    """Per (arch, quantized, decode_kernel): the reference's weights as a
+    numpy tree, the prompt, and the JAX package's prefill logits, caches
+    after prefill, greedy tokens and next token, each computed once."""
+    trees, runs = {}, {}
+
+    def get(arch, quantized=False, decode_kernel=None):
+        key = (arch, quantized, decode_kernel)
+        if arch not in trees:
+            params, _ = jax_lm.init(jax_smoke_config(arch, act_dtype="float32",
+                                                     sqrt_unit="e2afs"), jax.random.key(0))
+            trees[arch] = (params, jax.tree.map(np.asarray, params))
+        if key not in runs:
+            jcfg = jax_smoke_config(arch, act_dtype="float32", sqrt_unit="e2afs",
+                                    decode_kernel=decode_kernel)
+            params = trees[arch][0]
+            prompt = np.random.default_rng(1).integers(0, jcfg.vocab, (B, MIX_S)).astype(np.int32)
+            jcache, _ = jax_lm.init_cache(jcfg, B, MIX_S + MIX_GEN, quantized=quantized)
+            jlog, jcache = jax_lm.prefill(params, jcfg, jcache, jnp.asarray(prompt))
+            after = jax.tree.map(np.asarray, jcache)
+            jt, jnext, _ = jax_lm.generate_scan(params, jcfg, jcache,
+                                                jnp.argmax(jlog[:, -1:], axis=-1), MIX_S, MIX_GEN)
+            runs[key] = {"prompt": prompt, "logits": np.asarray(jlog), "cache": after,
+                         "tokens": np.asarray(jt), "next": np.asarray(jnext)}
+        return trees[arch][1], runs[key]
+
+    return get
+
+
+def _port_prefill(arch, tree, prompt, quantized=False, decode_kernel=None):
+    tcfg = get_smoke_config(arch, act_dtype="float32", sqrt_unit="e2afs",
+                            decode_kernel=decode_kernel)
+    model = convert.params_from_numpy(tcfg, tree, device="cpu")
+    tcache = lm.init_cache(tcfg, B, MIX_S + MIX_GEN, quantized=quantized, device="cpu")
+    tlog, tcache = lm.prefill(model, tcfg, tcache, torch.from_numpy(prompt))
+    return tcfg, model, tlog, tcache
+
+
+def _layer_caches(cfg, cache):
+    """Per-layer cache dicts of either form, as numpy."""
+    if isinstance(cache, list):
+        return [{k: _np(v) for k, v in c.items()} for c in cache]
+    return [{k: _np(v[i]) for k, v in cache.items()} for i in range(cfg.n_layers)]
+
+
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("arch", MIX_ARCHS)
+def test_mixed_prefill_logits_and_per_layer_caches(mixed_runs, arch, quantized):
+    """A prompt of 12: gemma3-1b's window layers keep the last 8 tokens in an
+    8-line ring (rolled so token p sits at line p % 8), its global layers
+    and every deepseek-67b layer keep all 12 of 28 lines.  Float caches:
+    logits atol 1e-4, caches atol 1e-5 (sums in another order).  int8
+    caches: scales atol 1e-5, and the codes identical but for at most two a
+    layer that differ by one: a K or V value that the two frameworks put
+    1e-6 apart can sit on a rounding boundary of its code (one such code in
+    gemma3-1b's layer 5 here), and that one code moves the logits by up to
+    about 5e-3, so int8 logits are held to atol 1e-2 (the greedy tokens,
+    below, stay identical)."""
+    tree, ref = mixed_runs(arch, quantized)
+    tcfg, _, tlog, tcache = _port_prefill(arch, tree, ref["prompt"], quantized)
+    assert isinstance(tcache, list) != tcfg.uniform
+    np.testing.assert_allclose(_np(tlog), ref["logits"], atol=1e-2 if quantized else 1e-4, rtol=0)
+    want_lines = [tcfg.window if b == "window" else MIX_S + MIX_GEN for b in tcfg.blocks]
+    ours = _layer_caches(tcfg, tcache)
+    theirs = _layer_caches(tcfg, ref["cache"])
+    assert [c["k"].shape[1] for c in ours] == [c["k"].shape[1] for c in theirs] == want_lines
+    for layer, (mine, want) in enumerate(zip(ours, theirs)):
+        assert mine.keys() == want.keys()
+        for key in want:
+            if key in ("k", "v") and quantized:
+                off = np.abs(mine[key] - want[key])
+                assert off.max() <= 1 and (off > 0).sum() <= 2, (layer, key, off.max(),
+                                                                  (off > 0).sum())
+            else:
+                np.testing.assert_allclose(mine[key], want[key], atol=1e-5, rtol=0,
+                                           err_msg=f"layer {layer} {key}")
+
+
+@pytest.mark.parametrize("decode_kernel", [None, "fused"])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("arch", MIX_ARCHS)
+def test_mixed_generate_scan_tokens_identical(mixed_runs, arch, quantized, decode_kernel):
+    """Prefill then 16 greedy steps, float32: tokens identical to the JAX
+    package's, on the inline route and the decode-attention kernel's (its
+    plain version on the CPU; the Pallas kernel interpreted on the JAX
+    side), with the window layers' rings wrapped at prefill and again in
+    decode."""
+    tree, ref = mixed_runs(arch, quantized, decode_kernel)
+    tcfg, model, tlog, tcache = _port_prefill(arch, tree, ref["prompt"], quantized, decode_kernel)
+    tt, tnext, _ = lm.generate_scan(model, tcfg, tcache, tlog[:, -1:].argmax(dim=-1), MIX_S,
+                                    MIX_GEN)
+    np.testing.assert_array_equal(tt.numpy(), ref["tokens"])
+    np.testing.assert_array_equal(tnext.numpy(), ref["next"])
+
+
+@pytest.mark.parametrize("per_row", [False, True])
+def test_mixed_decode_step_logits_and_caches(mixed_runs, per_row):
+    """One gemma3-1b decode step after the prompt, at one position or one per
+    row: logits atol 1e-4, every layer's cache atol 1e-5."""
+    tree, ref = mixed_runs("gemma3-1b")
+    tcfg, model, tlog, tcache = _port_prefill("gemma3-1b", tree, ref["prompt"])
+    jcfg = jax_smoke_config("gemma3-1b", act_dtype="float32", sqrt_unit="e2afs")
+    params = jax.tree.map(jnp.asarray, tree)
+    jcache = jax.tree.map(jnp.asarray, ref["cache"])
+    tok = ref["logits"][:, -1:].argmax(-1).astype(np.int32)
+    pos = np.array([MIX_S, MIX_S + 5], np.int32) if per_row else MIX_S
+    jl, jcache = jax_lm.decode_step(params, jcfg, jcache, jnp.asarray(tok), jnp.asarray(pos))
+    tl, tcache = lm.decode_step(model, tcfg, tcache, torch.from_numpy(tok),
+                                torch.from_numpy(pos) if per_row else pos)
+    np.testing.assert_allclose(_np(tl), _np(jl), atol=1e-4, rtol=0)
+    for layer, (mine, want) in enumerate(zip(_layer_caches(tcfg, tcache),
+                                             _layer_caches(tcfg, jcache))):
+        for key in want:
+            np.testing.assert_allclose(mine[key], want[key], atol=1e-5, rtol=0,
+                                       err_msg=f"layer {layer} {key}")
+
+
+@pytest.mark.parametrize("arch", MIX_ARCHS)
+def test_full_width_mixed_and_deepseek_configs_mirror_reference(arch):
+    from repro.configs import get_config as jax_get_config
+
+    ours, ref = get_config(arch), jax_get_config(arch)
+    for field in ("n_layers", "d_model", "n_heads", "n_kv_heads", "d_head", "d_ff", "vocab",
+                  "qk_norm", "rope_theta", "act_dtype", "padded_vocab", "block_pattern",
+                  "window", "tie_embeddings", "blocks", "uniform"):
+        assert getattr(ours, field) == getattr(ref, field), field
+    smoke, ref_smoke = get_smoke_config(arch), jax_smoke_config(arch)
+    assert dataclasses_fields(smoke) == dataclasses_fields(ref_smoke)
+
+
+def dataclasses_fields(cfg):
+    return {f: getattr(cfg, f) for f in ("n_layers", "d_model", "n_heads", "n_kv_heads",
+                                         "d_head", "d_ff", "vocab", "window", "block_pattern")}
+
+
+def test_gemma3_param_count_matches_reference():
+    """1.0 B parameters at full width (no allocation: meta tensors on our
+    side, abstract shapes on the reference's)."""
+    from repro.configs import get_config as jax_get_config
+
+    ours = lm.param_count(lm.LM(get_config("gemma3-1b"), device="meta"))
+    theirs = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(
+        jax_lm.init(jax_get_config("gemma3-1b"), jax.random.key(0), abstract=True)[0]))
+    assert ours == theirs and 0.99e9 < ours < 1.01e9
+
+
+def test_serve_generate_gemma3_scan_matches_loop():
+    scan, _ = serve.generate("gemma3-1b", mode="scan", reps=1, verbose=False, prompt_len=12,
+                             device="cpu")
+    loop, _ = serve.generate("gemma3-1b", mode="loop", reps=1, verbose=False, prompt_len=12,
+                             device="cpu")
+    assert tuple(scan.shape) == (2, 12 + 16)
+    assert torch.equal(scan, loop)
