@@ -82,7 +82,21 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    and two timed steps (no route comparison);
 12. ``launch.train.train_loop`` at smoke width on the card: an aborted and
    resumed run ends on the uninterrupted run's loss (rtol 1e-4);
-   microbatches and compressed gradients train with finite losses.
+   microbatches and compressed gradients train with finite losses;
+13. the continuous-batching ``launch.engine.Engine``, run right after phase
+   6 on the serving models of phases 4a and 4d, its decode chunk of 8
+   steps captured once as a CUDA graph and replayed: (a) qwen3-4b with 8
+   slots of 576 lines, 24 requests from seed 0 (prompts from {128, 256,
+   512}, budgets from {16, 32, 64}, all arriving at 0); (b) gemma3-1b with
+   8 slots of 2112 lines, 12 requests (prompts {512, 1000, 2048}, budgets
+   {16, 64}).  Each: a replay bit-identical to the same chunk run eagerly
+   from one pool state; ms a decode step replayed and eager, the idle
+   share of a profiled replay; the trace served with the launch counts set
+   to 0 just before and read just after (RMSNorm and decode attention
+   exactly what the admissions and chunks imply); 8 requests (the longest
+   prompts, then reused slots) token-identical alone in the pool; the
+   first two tokens of every request equal to batch-1 ``solo_generate``;
+   makespan and tok/s beside ``run_static_baseline``'s.
 
 Before the last line it prints the card's name and power limit and one JSON
 line of kernels; the last line is ``{"ok": true, "device": {...}}``.  Without
@@ -264,6 +278,7 @@ class Smoke:
                      for name, (src, rep) in KERNELS.items()}
         self.card = "rehearsal on the CPU: no card"
         self.training = {}
+        self.serving = self.gemma = None
 
     # -- helpers -----------------------------------------------------------
     def phase(self, name, fn):
@@ -884,6 +899,7 @@ class Smoke:
         print("  gemma3-1b decode profile:")
         self.profile_decode(cfg, model, prompt, logits[:, -1:].argmax(-1), batch, prompt_len,
                             cache_len, top=8)
+        self.gemma = (cfg, model)
 
     # -- phase 6 -----------------------------------------------------------
     def p6_profile(self):
@@ -929,6 +945,192 @@ class Smoke:
                   f"({', '.join(sorted({r[2].split('<')[0] for r in mine}))})")
         if not self.rehearsal and busy <= 0:
             raise AssertionError("the profiler saw no device time")
+
+    # -- phase 13 ----------------------------------------------------------
+    def p13a_engine(self):
+        """The continuous-batching engine on qwen3-4b at full width (phase
+        4a's model): 8 slots of 576 lines, chunks of 8 steps, 24 requests."""
+        if self.rehearsal:
+            shape = dict(slots=4, cache_len=40, n_requests=8, prompts=(3, 5, 12), budgets=(2, 4, 7))
+        else:
+            shape = dict(slots=8, cache_len=576, n_requests=24, prompts=(128, 256, 512),
+                         budgets=(16, 32, 64))
+        self.engine_phase(*self.serving[:2], chunk=8, key="engine_qwen3_4b_launches", **shape)
+
+    def p13b_engine_gemma(self):
+        """The same on gemma3-1b at full width (phase 4d's model): 8 slots of
+        2112 lines (the window layers' rings of 512), 12 requests."""
+        if self.rehearsal:
+            shape = dict(slots=4, cache_len=40, n_requests=6, prompts=(3, 12, 20), budgets=(2, 7))
+        else:
+            shape = dict(slots=8, cache_len=2112, n_requests=12, prompts=(512, 1000, 2048),
+                         budgets=(16, 64))
+        self.engine_phase(*self.gemma, chunk=8, key="engine_gemma3_1b_launches", **shape)
+
+    def engine_phase(self, cfg, model, *, slots, cache_len, chunk, n_requests, prompts, budgets,
+                     key):
+        """``launch.engine.Engine`` over a slot pool, its decode chunk one
+        captured CUDA graph.  A trace of requests from seed 0 (prompt lengths
+        and budgets drawn from the given sets, all arriving at 0):
+
+        * a replay of the graph bit-identical to the same chunk run eagerly,
+          from one pool state (the first ``slots`` requests admitted);
+        * ms a decode step replayed and eager, and the device's idle share of
+          a profiled replay;
+        * the trace served with the launch counts set to 0 just before and
+          read just after: RMSNorm and decode-attention launches equal to
+          what the admissions and chunks imply, every request complete;
+        * eight requests (the longest prompts, then requests in reused
+          slots) token-identical to the same request alone in the pool;
+        * against batch-1 ``solo_generate``: the first two tokens equal for
+          every request (the decode-attention split depends on the batch,
+          so later tokens may part on near ties), the share of equal tokens
+          printed;
+        * ``run_static_baseline`` on the same trace, its tok/s beside the
+          engine's."""
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.kernels import dispatch
+        from repro_torch.launch.engine import Engine, Request, run_static_baseline, solo_generate
+        from repro_torch.models import lm
+
+        rng = np.random.default_rng(0)
+        reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(rng.choice(prompts))).astype(
+                    np.int32), max_new_tokens=int(rng.choice(budgets))) for i in range(n_requests)]
+        windows = cfg.blocks.count("window")
+        per_forward = 4 * cfg.n_layers + 1  # RMSNorm launches: 2 norms + qk-norms a layer, ln_f
+        print(f"  {cfg.name}: {slots} slots of {cache_len} lines, chunks of {chunk} steps; "
+              f"{n_requests} requests, prompts {sorted(set(len(r.prompt) for r in reqs))}, "
+              f"budgets {sorted(set(r.max_new_tokens for r in reqs))}, "
+              f"{sum(r.max_new_tokens for r in reqs)} tokens in all")
+        eng = Engine(model, cfg, num_slots=slots, cache_len=cache_len, chunk=chunk)
+        t0 = time.perf_counter()
+        eng.warmup(prompt_lens=prompts)
+        self.sync()
+        print(f"  warmup (one admission a prompt length, one chunk eagerly and its capture): "
+              f"{time.perf_counter() - t0:.2f} s; graph captured: {eng._graph is not None}")
+        if not self.rehearsal and eng._graph is None:
+            raise AssertionError("the decode chunk was not captured")
+
+        # a replay against the eager chunk, from one pool state
+        for slot in range(slots):
+            eng._admit(reqs[slot], slot, 0.0)
+        start = [t.clone() for t in lm.pool_tensors(eng.pool)]
+
+        def restore():
+            for t, s0 in zip(lm.pool_tensors(eng.pool), start):
+                t.copy_(s0)
+
+        def outcome(run):
+            restore()
+            run()
+            self.sync()
+            return [t.clone() for t in lm.pool_tensors(eng.pool)] + [eng._packed.clone()]
+
+        eager = outcome(eng._chunk_eager)
+        graphed = outcome(eng._decode_chunk)
+        differ = [i for i, (a, b) in enumerate(zip(graphed, eager))
+                  if not torch.equal(a.view(torch.uint8) if a.is_floating_point() else a,
+                                     b.view(torch.uint8) if b.is_floating_point() else b)]
+        print(f"  replayed chunk vs eager chunk from one pool state: {len(differ)} of "
+              f"{len(eager)} tensors differ (tokens, emitted, tok, pos, active, remaining, "
+              f"every cache tensor)")
+        if differ:
+            raise AssertionError(f"the graphed chunk differs from the eager one: tensors {differ}")
+
+        # ms a step: replays (CUDA events) and eager chunks (host clock)
+        restore()
+        replay_ms = self.time_ms(eng._decode_chunk, iters=4)
+        restore()
+        self.sync()
+        t0 = time.perf_counter()
+        for _ in range(2):
+            eng._chunk_eager()
+        self.sync()
+        eager_ms = (time.perf_counter() - t0) / 2 * 1e3
+        restore()
+        wall_us, rows = self.profiled(eng._decode_chunk, 1, every_launch=True)
+        busy = sum(r[0] for r in rows)
+        replay_us = replay_ms * 1e3 if replay_ms else float("nan")
+        print(f"  ms a decode step: graphed {replay_us / chunk / 1e3:.3f} (CUDA events around 4 "
+              f"replays), eager {eager_ms / chunk:.3f} (host clock); a profiled replay: device "
+              f"busy {busy / chunk / 1e3:.3f} ms a step, idle share {1 - busy / replay_us:.3f} of "
+              f"the unprofiled replay ({1 - busy / wall_us:.3f} of the profiled one, "
+              f"{wall_us / chunk / 1e3:.3f} ms a step); {self.card}")
+        for dev_us, count, name in rows[:8]:
+            print(f"    {dev_us / chunk / 1e3:9.4f} ms/step  {count / chunk:7.1f} calls/step  "
+                  f"{name[:90]}")
+
+        # the main path: the trace through Engine.run
+        eng.reset()
+        self.sync()
+        dispatch.reset_launch_counts()
+        done = eng.run(reqs)
+        counts, details = dispatch.launch_counts(), dispatch.launch_details()
+        stats = eng.stats
+        steps = stats["decode_chunks"] * chunk
+        want = {"rmsnorm": per_forward * (n_requests + steps),
+                "decode_attention": cfg.n_layers * steps}
+        want_details = {"decode_attention wrap": windows * steps} if windows else {}
+        if cfg.n_layers > windows:
+            want_details["decode_attention no wrap"] = (cfg.n_layers - windows) * steps
+        self.rows["rmsnorm"][key] = counts["rmsnorm"]
+        self.rows["decode_attention"][key] = counts["decode_attention"]
+        print(f"  Engine.run: makespan {stats['makespan_s']:.3f} s, {stats['total_tokens']} "
+              f"tokens, {stats['tok_s']:.1f} tok/s, {stats['decode_chunks']} chunks (at the "
+              f"replay's ms a step: {steps * replay_us / chunk / 1e6:.3f} s of decode, the rest "
+              f"{n_requests} admissions and the host); "
+              f"launches: rmsnorm {counts['rmsnorm']} (want {want['rmsnorm']}: {n_requests} "
+              f"admissions + {steps} steps, {per_forward} each), decode_attention "
+              f"{counts['decode_attention']} (want {want['decode_attention']}), {details}")
+        if not self.rehearsal and (counts["rmsnorm"] != want["rmsnorm"]
+                                   or counts["decode_attention"] != want["decode_attention"]
+                                   or details != want_details):
+            raise AssertionError(f"launch counts {counts} {details}, want {want} {want_details}")
+        if stats["n_ok"] != n_requests:
+            raise AssertionError(f"not every request completed: {stats}")
+        for r in reqs:
+            toks = done[r.uid].tokens
+            if len(toks) != r.max_new_tokens or toks.min() < 0 or toks.max() >= cfg.vocab:
+                raise AssertionError(f"request {r.uid}: {len(toks)} tokens of "
+                                     f"{r.max_new_tokens}, range {toks.min()}-{toks.max()}")
+
+        # the same requests alone in the pool
+        longest = max(len(r.prompt) for r in reqs)
+        order = sorted(reqs, key=lambda r: (len(r.prompt) < longest, r.uid < slots, r.uid))
+        picked = order[:4] + [r for r in order[4:] if r.uid >= slots][:4]
+        chosen = {r.uid for r in picked}
+        picked += [r for r in order[4:] if r.uid not in chosen][:8 - len(picked)]
+        same = 0
+        for r in picked:
+            eng.reset()
+            alone = eng.run([r])[r.uid].tokens
+            same += int(np.array_equal(alone, done[r.uid].tokens))
+        print(f"  alone in the pool: {same} of {len(picked)} requests token-identical (uids "
+              f"{[r.uid for r in picked]}: prompt {longest} first, then reused slots, uid >= "
+              f"{slots})")
+        if (len(picked) < min(8, n_requests) or same != len(picked)
+                or len(picked[0].prompt) != longest or not any(r.uid >= slots for r in picked)):
+            raise AssertionError("staggered requests differ from the same requests alone")
+
+        # the lock-step baseline on the same trace
+        _, base = run_static_baseline(model, cfg, reqs, num_slots=slots)
+        print(f"  run_static_baseline: makespan {base['makespan_s']:.3f} s, {base['tok_s']:.1f} "
+              f"tok/s (engine {stats['tok_s']:.1f}, {stats['tok_s'] / base['tok_s']:.2f}x)")
+
+        # batch-1 solo runs
+        first, equal, total = 0, 0, 0
+        for r in reqs:
+            solo = solo_generate(model, cfg, r.prompt, r.max_new_tokens, cache_len=cache_len)
+            mine = done[r.uid].tokens
+            first += int(np.array_equal(solo[:2], mine[:2]))
+            equal += int((solo == mine).sum())
+            total += len(solo)
+        print(f"  against batch-1 solo_generate: first two tokens equal in {first} of "
+              f"{n_requests} requests; {equal} of {total} tokens equal ({equal / total:.3f})")
+        if first != n_requests:
+            raise AssertionError("first two tokens differ from batch-1 solo runs")
 
     # -- phase 5 -----------------------------------------------------------
     def p5_times(self):
@@ -1523,7 +1725,7 @@ class Smoke:
     def p11_train(self):
         from repro_torch.configs import get_config, get_smoke_config
 
-        self.serving = None  # phase 4a's serving model
+        self.serving = self.gemma = None  # phases 4a's and 4d's serving models
         kw = dict(n_layers=8, sqrt_unit="e2afs", remat="block")
         if self.rehearsal:
             cfg, batch, seq = get_smoke_config("qwen3-4b", **kw), 2, 64
@@ -1744,6 +1946,8 @@ def main(argv=None) -> int:
     smoke.phase("4d serve gemma3-1b", smoke.p4_gemma)
     smoke.phase("5 times", smoke.p5_times)
     smoke.phase("6 profile", smoke.p6_profile)
+    smoke.phase("13a engine qwen3-4b", smoke.p13a_engine)  # on phase 4a's model
+    smoke.phase("13b engine gemma3-1b", smoke.p13b_engine_gemma)  # on phase 4d's model
     smoke.phase("7 sobel", smoke.p7_sobel)
     smoke.phase("8 kmeans_assign", smoke.p8_kmeans)
     smoke.phase("9 paper", smoke.p9_paper)

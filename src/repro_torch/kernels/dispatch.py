@@ -11,24 +11,33 @@ There is no fallback: a CUDA tensor that the kernel refuses raises.  Each
 wrapper calls :func:`count_launch` where it launches its kernel and nowhere
 else, so a run can show that its main path went through the kernels.
 
+A CUDA graph launches its kernels at each replay, not where the wrappers
+run: :func:`capture_launches` keeps the counts a capture makes out of the
+totals (a capture launches nothing), and :func:`replay_launches` adds them
+to the totals once a replay.
+
 :func:`make_differentiable_sqrt` and :func:`make_differentiable_rsqrt` give
 an approximate unit a gradient (the reference's ``custom_jvp`` factories),
 on the plain datapaths and on the e2afs kernel route alike.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import contextlib
+from typing import Callable, Iterator, Optional
 
 import torch
 
 __all__ = [
     "BACKENDS",
     "KNOWN",
+    "Launches",
+    "capture_launches",
     "count_launch",
     "launch_counts",
     "launch_details",
     "make_differentiable_rsqrt",
     "make_differentiable_sqrt",
+    "replay_launches",
     "reset_launch_counts",
     "set_backend",
     "use_kernel",
@@ -41,6 +50,7 @@ KNOWN = ("adam", "decode_attention", "e2afs_rsqrt", "e2afs_sqrt", "kmeans_assign
 _backend = "auto"
 _launches = dict.fromkeys(KNOWN, 0)
 _details: dict = {}
+_capturing: Optional["Launches"] = None
 
 
 def set_backend(name: Optional[str]) -> str:
@@ -70,13 +80,54 @@ def use_kernel(*tensors: Optional[torch.Tensor]) -> bool:
     return _backend != "reference"
 
 
-def count_launch(name: str, detail: Optional[str] = None) -> None:
-    """One launch of kernel ``name``; ``detail`` (a variant such as "wrap")
-    is also tallied under "<name> <detail>" in :func:`launch_details`."""
-    _launches[name] += 1
+class Launches:
+    """The launches recorded while a CUDA graph was captured, by kernel and
+    by variant: what one replay of that graph launches."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(KNOWN, 0)
+        self.details: dict = {}
+
+
+def _tally(counts: dict, details: dict, name: str, detail: Optional[str]) -> None:
+    counts[name] += 1
     if detail is not None:
         key = f"{name} {detail}"
-        _details[key] = _details.get(key, 0) + 1
+        details[key] = details.get(key, 0) + 1
+
+
+def count_launch(name: str, detail: Optional[str] = None) -> None:
+    """One launch of kernel ``name``; ``detail`` (a variant such as "wrap")
+    is also tallied under "<name> <detail>" in :func:`launch_details`.
+    Inside :func:`capture_launches` the launch goes to the capture's record
+    instead of the totals."""
+    if _capturing is not None:
+        _tally(_capturing.counts, _capturing.details, name, detail)
+    else:
+        _tally(_launches, _details, name, detail)
+
+
+@contextlib.contextmanager
+def capture_launches() -> Iterator[Launches]:
+    """Record the launches counted inside the block (a CUDA graph's
+    capture) in the yielded :class:`Launches`, leaving the totals as they
+    were."""
+    global _capturing
+    if _capturing is not None:
+        raise RuntimeError("launches are already being captured")
+    _capturing = record = Launches()
+    try:
+        yield record
+    finally:
+        _capturing = None
+
+
+def replay_launches(record: Launches) -> None:
+    """Add to the totals what one replay of a captured graph launches."""
+    for name, n in record.counts.items():
+        _launches[name] += n
+    for key, n in record.details.items():
+        _details[key] = _details.get(key, 0) + n
 
 
 def launch_counts() -> dict:

@@ -93,6 +93,11 @@ class ModelConfig:
     def uniform(self) -> bool:
         return len(set(self.blocks)) == 1
 
+    @property
+    def is_subquadratic(self) -> bool:
+        """True if no layer needs an unbounded dense KV cache."""
+        return all(b != "global" for b in self.blocks)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

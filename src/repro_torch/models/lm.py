@@ -11,6 +11,12 @@ Entry points:
     generate_scan(model, cfg, cache, tok, start_pos, gen_len)
                                                  -> (tokens, next_tok, cache)
 
+Slot-pool serving (the continuous-batching engine's primitives):
+    init_pool_state(cfg, num_slots, cache_len)   -> pool dict
+    slot_rows_like / insert_cache_slots / prefill_into_slots
+    sample_tokens(logits, pos, keys, temperature, top_k)
+    decode_slots_step / decode_slots_scan
+
 As in the reference, a uniform stack's cache is one dict of stacked
 ``(L, b, t, kv, hd)`` tensors, and a mixed stack's is a list of per-layer
 dicts ``(b, t, kv, hd)``, each layer's ``t`` its own (a window layer's ring
@@ -27,6 +33,8 @@ reference's does (the RMSNorm kernel has no backward in either package).
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -39,7 +47,9 @@ from repro_torch.layers.param import parameter, truncated_normal
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["LM", "init", "init_cache", "forward", "decode_step", "prefill", "generate_scan",
-           "param_count"]
+           "param_count", "init_pool_state", "pool_tensors", "slot_rows_like",
+           "insert_cache_slots", "prefill_into_slots", "sample_tokens", "decode_slots_step",
+           "decode_slots_scan"]
 
 
 def act_dtype(cfg) -> torch.dtype:
@@ -261,3 +271,212 @@ def generate_scan(model: LM, cfg: ModelConfig, cache, tok: torch.Tensor, start_p
 
 def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+# ---------------------------------------------------------------------------
+# Slot-scheduled serving: continuous batching over a KV-cache slot pool
+# ---------------------------------------------------------------------------
+
+
+def _slot_batch_axis(cfg) -> int:
+    """Axis of the batch dim in cache leaves: a uniform stack carries a
+    leading stacked-layers axis, so batch is axis 1; a mixed stack's
+    per-layer dicts put it at 0."""
+    return 1 if cfg.uniform else 0
+
+
+def _cache_leaves(cache) -> list:
+    layers = cache if isinstance(cache, list) else [cache]
+    return [layer[name] for layer in layers for name in sorted(layer)]
+
+
+def init_pool_state(cfg: ModelConfig, num_slots: int, cache_len: int, *,
+                    quantized: bool = False, device=None) -> dict:
+    """The engine's device-side slot-pool state, on ``device`` (the card
+    unless ``device="cpu"``), in the reference's layout::
+
+        {"cache":     init_cache(cfg, num_slots, cache_len, quantized=),
+         "tok":       (b, 1) int32   next token each slot feeds,
+         "pos":       (b,)   int32   per-slot position counters,
+         "active":    (b,)   bool    slot liveness,
+         "remaining": (b,)   int32   per-slot generation budgets,
+         "keys":      (b, 2) uint32  per-slot sampling stream (seed, uid)}
+
+    Every tensor is updated in place from then on and never reallocated (a
+    CUDA graph of the decode chunk holds their addresses).  The reference
+    fills ``keys`` from a split PRNG key; here admission writes each slot's
+    (seed, request id) words, and the keys start zero."""
+    dev = resolve_device(device)
+    b = num_slots
+    return {
+        "cache": init_cache(cfg, b, cache_len, quantized=quantized, device=dev),
+        "tok": torch.zeros((b, 1), dtype=torch.int32, device=dev),
+        "pos": torch.zeros((b,), dtype=torch.int32, device=dev),
+        "active": torch.zeros((b,), dtype=torch.bool, device=dev),
+        "remaining": torch.zeros((b,), dtype=torch.int32, device=dev),
+        "keys": torch.zeros((b, 2), dtype=torch.uint32, device=dev),
+    }
+
+
+def pool_tensors(pool: dict) -> list:
+    """Every tensor of a pool state, the cache's leaves first, in a fixed
+    order (to zero, copy or compare a pool in place)."""
+    return _cache_leaves(pool["cache"]) + [pool[k] for k in ("tok", "pos", "active",
+                                                              "remaining", "keys")]
+
+
+def slot_rows_like(cfg: ModelConfig, cache, k: int):
+    """A fresh zeroed cache for ``k`` requests, shaped like ``cache`` with
+    the batch axis resized: the staging rows a new request prefills into
+    before they land in the live pool."""
+    ax = _slot_batch_axis(cfg)
+
+    def rows(a):
+        return torch.zeros(a.shape[:ax] + (k,) + a.shape[ax + 1:], dtype=a.dtype, device=a.device)
+
+    if isinstance(cache, list):
+        return [{name: rows(a) for name, a in layer.items()} for layer in cache]
+    return {name: rows(a) for name, a in cache.items()}
+
+
+def insert_cache_slots(cfg: ModelConfig, cache, rows, slots: torch.Tensor):
+    """Land per-request cache rows in the live pool IN PLACE: row ``i`` of
+    every leaf of ``rows`` overwrites batch row ``slots[i]`` of ``cache``
+    (``index_copy_``).  Whole-row writes, so the slot's previous occupant's
+    KV is cleared wholesale, and the pool's tensors keep their addresses.
+    slots: (k,) integer tensor on the cache's device.  Returns ``cache``."""
+    ax = _slot_batch_axis(cfg)
+    slots = slots.to(torch.long)
+    for buf, r in zip(_cache_leaves(cache), _cache_leaves(rows)):
+        buf.index_copy_(ax, slots, r.to(buf.dtype))
+    return cache
+
+
+@torch.no_grad()
+def prefill_into_slots(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor,
+                       slots: torch.Tensor):
+    """Admit requests into a live slot pool: a batch-k :func:`prefill` into
+    fresh staging rows (the same math and cache layout as a solo prefill),
+    then one whole-row write a cache tensor into ``slots`` of the live
+    cache, in place.  Lines the prompt does not reach stay zero and are
+    masked by the per-slot validity mask until the new occupant writes them.
+
+    tokens: (k, s) prompts of one length; slots: (k,) integer tensor.
+    Returns (last-token logits (k, 1, vocab), cache)."""
+    rows = slot_rows_like(cfg, cache, tokens.shape[0])
+    logits, rows = prefill(model, cfg, rows, tokens, last_logit_only=True)
+    return logits, insert_cache_slots(cfg, cache, rows, slots)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a 32-bit constant c,
+    with every product below 2^49 (no int64 overflow on any device)."""
+    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
+
+
+def _mix32(x: torch.Tensor) -> torch.Tensor:
+    """A bijection of 32-bit words held in int64 (the "lowbias32" hash)."""
+    x = x ^ (x >> 16)
+    x = _mul32(x, 0x7FEB352D)
+    x = x ^ (x >> 15)
+    x = _mul32(x, 0x846CA68B)
+    return x ^ (x >> 16)
+
+
+def _stream_bits(keys: torch.Tensor, pos: torch.Tensor, vocab: int) -> torch.Tensor:
+    """(b, vocab) 32-bit words (in int64) of a counter-based hash of (seed,
+    request id, position, vocab index): integer ops only, so the same bits
+    on the CPU and the card, and capturable in a CUDA graph.  A row's words
+    depend on its request and token index, never on its slot."""
+    k = keys.to(torch.int64)
+    row = _mix32(_mix32(_mix32(k[:, 0]) ^ k[:, 1]) ^ (pos.to(torch.int64) & _M32))[:, None]
+    idx = torch.arange(vocab, dtype=torch.int64, device=keys.device)
+    return _mix32((_mix32(row ^ idx) + row) & _M32)
+
+
+def _gumbel(keys: torch.Tensor, pos: torch.Tensor, vocab: int) -> torch.Tensor:
+    """Standard Gumbel noise (b, vocab) float32 from :func:`_stream_bits`."""
+    u = ((_stream_bits(keys, pos, vocab) >> 8).to(torch.float32) + 0.5) * 2.0**-24  # (0, 1)
+    return -torch.log(-torch.log(u))
+
+
+def sample_tokens(logits: torch.Tensor, pos: torch.Tensor, keys: Optional[torch.Tensor],
+                  temperature: float, top_k: int) -> torch.Tensor:
+    """Per-slot next token from (b, v) float32 logits, as (b,) int32.
+
+    Greedy when ``temperature`` is 0: the argmax, first index on ties (as
+    ``jnp.argmax``).  Otherwise Gumbel-max over ``logits / temperature``
+    (the law of ``jax.random.categorical``), with ``top_k`` keeping the
+    logits ``>=`` the k-th largest; the noise comes from each row's (seed,
+    request id) key words and its position ``pos`` (:func:`_gumbel`), so a
+    request's samples depend only on its key and token index.  The bits
+    are not ``jax.random``'s (ROADMAP C.15)."""
+    if not temperature:
+        return logits.argmax(dim=-1).to(torch.int32)
+    lg = logits.float() / logits.new_full((), temperature, dtype=torch.float32)
+    if top_k:
+        kth = torch.topk(lg, top_k, dim=-1).values[:, -1:]
+        lg = torch.where(lg >= kth, lg, float("-inf"))
+    return (lg + _gumbel(keys, pos, lg.shape[-1])).argmax(dim=-1).to(torch.int32)
+
+
+@torch.no_grad()
+def decode_slots_step(model: LM, cfg: ModelConfig, pool: dict, toks: torch.Tensor,
+                      emitted: torch.Tensor, i: int, *, eos_id: Optional[int] = None,
+                      temperature: float = 0.0, top_k: int = 0) -> None:
+    """One slot-scheduled decode step over ``pool`` (an
+    :func:`init_pool_state` dict), every row an independent request.
+
+    Each active slot emits the token it FEEDS (the :func:`generate_scan`
+    convention) into ``toks[:, i]`` and its liveness into ``emitted[:, i]``,
+    advances ``pos``, spends one of ``remaining``, and goes inactive once its
+    budget is spent or the token it just emitted is ``eos_id`` (the EOS is
+    emitted).  Inactive slots re-feed their last token at a frozen position:
+    their logits are discarded and row-wise math keeps them from touching
+    live rows.  Updates the pool in place and reads nothing back to the
+    host, so a run of steps can be captured in a CUDA graph."""
+    tok, pos, active, remaining = pool["tok"], pool["pos"], pool["active"], pool["remaining"]
+    logits, _ = decode_step(model, cfg, pool["cache"], tok, pos)
+    nxt = sample_tokens(logits[:, -1].float(), pos, pool["keys"], temperature, top_k)
+    fed = tok[:, 0]
+    toks[:, i] = fed
+    emitted[:, i] = active
+    live = active.to(torch.int32)
+    remaining.sub_(live)
+    still = active & (remaining > 0)
+    if eos_id is not None:
+        still &= fed != eos_id
+    pos.add_(live)
+    tok.copy_(torch.where(active[:, None], nxt[:, None], tok))
+    active.copy_(still)
+
+
+@torch.no_grad()
+def decode_slots_scan(model: LM, cfg: ModelConfig, cache, tok, pos, active, remaining,
+                      n_steps: int, *, eos_id: Optional[int] = None, temperature: float = 0.0,
+                      top_k: int = 0, keys: Optional[torch.Tensor] = None):
+    """``n_steps`` of :func:`decode_slots_step`: a Python loop with no host
+    synchronisation (the reference's ``lax.scan``).
+
+    tok (b, 1) int32, pos (b,) int32, active (b,) bool, remaining (b,) int32
+    and the cache are updated IN PLACE; keys (b, 2) uint32 request-derived
+    stream words, required when ``temperature`` > 0.  Returns (toks
+    (b, n_steps) int32, emitted (b, n_steps) bool, tok, pos, active,
+    remaining, cache), the reference's order."""
+    if temperature and keys is None:
+        raise ValueError(
+            "temperature sampling needs per-request keys (a (b, 2) keys tensor); "
+            "slot-index defaults would tie a request's samples to its slot"
+        )
+    pool = {"cache": cache, "tok": tok, "pos": pos, "active": active,
+            "remaining": remaining, "keys": keys}
+    b = tok.shape[0]
+    toks = torch.zeros((b, n_steps), dtype=torch.int32, device=tok.device)
+    emitted = torch.zeros((b, n_steps), dtype=torch.bool, device=tok.device)
+    for i in range(n_steps):
+        decode_slots_step(model, cfg, pool, toks, emitted, i, eos_id=eos_id,
+                          temperature=temperature, top_k=top_k)
+    return toks, emitted, tok, pos, active, remaining, cache

@@ -35,6 +35,7 @@ from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.kernels.rmsnorm.ref import ref_rmsnorm
 from repro_torch.kernels.sobel import ops as sobel_ops
 from repro_torch.kernels.sobel.ref import ref_sobel
+from repro_torch.launch.engine import Engine, Request
 from repro_torch.models import lm
 
 pytestmark = pytest.mark.gpu
@@ -622,3 +623,108 @@ def test_training_step_kernel_route_equals_plain_route(cuda_device):
         for key in ("m", "v"):
             assert torch.equal(out[0][1][key][n].view(torch.int32),
                                out[1][1][key][n].view(torch.int32)), (key, n)
+
+
+# ---------------------------------------------------------------------------
+# The engine's decode chunk as a CUDA graph
+# ---------------------------------------------------------------------------
+
+_ENGINE_CASES = [(arch, act_dtype, quantized) for arch in ("qwen3-4b", "gemma3-1b")
+                 for act_dtype in ("bfloat16", "float32") for quantized in (False, True)]
+
+
+def _engine(dev, arch, act_dtype, quantized, **kw):
+    """An engine of three slots of 40 lines (past gemma3-1b's smoke window of
+    8) at smoke width, on the decode-attention and RMSNorm kernels."""
+    cfg = get_smoke_config(arch, act_dtype=act_dtype, sqrt_unit="e2afs", decode_kernel="fused")
+    model = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    return cfg, Engine(model, cfg, num_slots=3, cache_len=40, chunk=4, quantized_kv=quantized,
+                       **kw)
+
+
+def _trace(cfg):
+    """Five requests: prompts 3 to 12 (past the smoke window), budgets 2 to
+    9, one arriving later than the rest."""
+    rng = np.random.default_rng(1)
+    shapes = ((5, 9), (12, 3), (3, 7), (8, 2), (4, 6))
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, n).astype(np.int32),
+                    max_new_tokens=budget, arrival_s=0.05 if i == 4 else 0.0)
+            for i, (n, budget) in enumerate(shapes)]
+
+
+def _pool_bits_equal(a, b):
+    return all(torch.equal(x, y) if not x.is_floating_point() else _same_bits(x, y)
+               for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("arch,act_dtype,quantized", _ENGINE_CASES)
+def test_graphed_chunk_equals_the_eager_chunk(cuda_device, arch, act_dtype, quantized):
+    """From one pool state (three requests admitted, one of which spends its
+    budget mid-chunk), a replay of the captured chunk and the same chunk run
+    eagerly give bit-identical tokens, emission masks, tok, pos, active,
+    remaining and cache tensors; N replays count N times the eager chunk's
+    launches, by kernel and by variant."""
+    cfg, eng = _engine(cuda_device, arch, act_dtype, quantized)
+    eng.warmup(prompt_lens={3, 5, 12})
+    assert eng._graph is not None
+    for slot, req in enumerate(_trace(cfg)[:3]):
+        eng._admit(req, slot, 0.0)
+    start = [t.clone() for t in lm.pool_tensors(eng.pool)]
+
+    def chunk(run):
+        for t, s0 in zip(lm.pool_tensors(eng.pool), start):
+            t.copy_(s0)
+        dispatch.reset_launch_counts()
+        run()
+        torch.cuda.synchronize()
+        return ([t.clone() for t in lm.pool_tensors(eng.pool)] + [eng._packed.clone()],
+                dispatch.launch_counts(), dispatch.launch_details())
+
+    eager, eager_counts, eager_details = chunk(eng._chunk_eager)
+    graphed, graph_counts, graph_details = chunk(eng._decode_chunk)
+    assert _pool_bits_equal(graphed, eager)
+    assert graph_counts == eager_counts and graph_details == eager_details
+    assert eager_counts["decode_attention"] == eng.chunk * cfg.n_layers
+    assert eager_counts["rmsnorm"] == eng.chunk * (4 * cfg.n_layers + 1)
+    dispatch.reset_launch_counts()
+    for _ in range(3):
+        eng._decode_chunk()
+    assert dispatch.launch_counts() == {k: 3 * v for k, v in eager_counts.items()}
+    assert dispatch.launch_details() == {k: 3 * v for k, v in eager_details.items()}
+
+
+@pytest.mark.parametrize("arch,act_dtype,quantized", _ENGINE_CASES)
+def test_staggered_request_equals_the_request_alone(cuda_device, arch, act_dtype, quantized):
+    """Five requests through three slots (staggered admissions, reused
+    slots, a late arrival): each one's tokens are bit-identical to the same
+    request served alone in a pool of the same size."""
+    cfg, eng = _engine(cuda_device, arch, act_dtype, quantized)
+    eng.warmup(prompt_lens={3, 4, 5, 8, 12})
+    reqs = _trace(cfg)
+    done = eng.run(reqs)
+    assert eng.stats["n_ok"] == len(reqs)
+    for r in reqs:
+        eng.reset()
+        alone = eng.run([Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)])
+        assert len(done[r.uid].tokens) == r.max_new_tokens
+        np.testing.assert_array_equal(done[r.uid].tokens, alone[r.uid].tokens)
+
+
+def test_sampling_on_the_card(cuda_device):
+    """Sampled tokens follow the request's stream, not its slot, on the card
+    too; the stream's hash words are the CPU's bit for bit."""
+    _, eng_first = _engine(cuda_device, "qwen3-4b", "float32", False, temperature=0.8,
+                           top_k=8, seed=3)
+    cfg, eng_second = _engine(cuda_device, "qwen3-4b", "float32", False, temperature=0.8,
+                              top_k=8, seed=3)
+    target = dict(uid=7, prompt=np.arange(4, dtype=np.int32), max_new_tokens=9)
+    filler = dict(uid=1, prompt=np.arange(3, dtype=np.int32), max_new_tokens=2)
+    a = eng_first.run([Request(**target), Request(**filler, arrival_s=1e-4)])[7].tokens
+    b = eng_second.run([Request(**target, arrival_s=1e-4), Request(**filler)])[7].tokens
+    np.testing.assert_array_equal(a, b)
+    assert len(a) == 9 and a.min() >= 0 and a.max() < cfg.vocab
+    keys = torch.tensor([[3, 7], [0xFFFFFFFF, 0x7FFFFFFF]], dtype=torch.int64).to(torch.uint32)
+    pos = torch.tensor([0, 2_000_000_000], dtype=torch.int32)
+    cpu = lm._stream_bits(keys, pos, cfg.padded_vocab)
+    assert torch.equal(lm._stream_bits(keys.to(cuda_device), pos.to(cuda_device),
+                                       cfg.padded_vocab).cpu(), cpu)

@@ -308,3 +308,31 @@ def test_launch_details_tally_variants():
     finally:
         dispatch.reset_launch_counts()
     assert dispatch.launch_details() == {} and set(dispatch.launch_counts().values()) == {0}
+
+
+def test_captured_launches_count_at_each_replay():
+    """Launches counted while a CUDA graph is captured stay out of the
+    totals (a capture launches nothing) and are added once a replay; a
+    capture inside a capture is refused."""
+    dispatch.reset_launch_counts()
+    try:
+        dispatch.count_launch("rmsnorm")
+        with dispatch.capture_launches() as record:
+            dispatch.count_launch("decode_attention", "wrap")
+            dispatch.count_launch("rmsnorm")
+            dispatch.count_launch("rmsnorm")
+            with pytest.raises(RuntimeError, match="already"):
+                with dispatch.capture_launches():
+                    pass
+        assert dispatch.launch_counts()["rmsnorm"] == 1
+        assert dispatch.launch_counts()["decode_attention"] == 0
+        assert record.counts["rmsnorm"] == 2 and record.counts["decode_attention"] == 1
+        for _ in range(3):
+            dispatch.replay_launches(record)
+        assert dispatch.launch_counts()["rmsnorm"] == 7
+        assert dispatch.launch_counts()["decode_attention"] == 3
+        assert dispatch.launch_details() == {"decode_attention wrap": 3}
+        dispatch.count_launch("rmsnorm")  # counting goes on to the totals after the capture
+        assert dispatch.launch_counts()["rmsnorm"] == 8
+    finally:
+        dispatch.reset_launch_counts()
