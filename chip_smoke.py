@@ -72,7 +72,9 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    E2AFS in every norm, ``remat="block"``, ``AdamWConfig(fused=True,
    sqrt_unit="e2afs")``, batch 4 x 2048 from ``SyntheticLM``): one warm-up
    step, then four timed steps with the launch counts set to 0 just before
-   and read just after (adam launches = parameter tensors x steps); ms/step,
+   and read just after (adam launches = parameter tensors x steps; the
+   unfused norms' e2afs_rsqrt launches = norms x 2 with block remat, x
+   steps); ms/step,
    tokens/s, peak memory, a profiled step's device-busy and adam shares;
    the loss finite and, on the first batch, lower after the steps; one
    step's update on the kernel route bit-identical to the same update on
@@ -97,6 +99,27 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    prompts, then reused slots) token-identical alone in the pool; the
    first two tokens of every request equal to batch-1 ``solo_generate``;
    makespan and tok/s beside ``run_static_baseline``'s.
+
+14. faults and ladders, run right after phase 13: (a) the faulted E2AFS
+   datapath on the card bit-identical to the CPU's on every fp16 and bf16
+   pattern and the fp32 grid (both sites, a hashed and a pinned bit, rates
+   1e-2 and 1.0), the fault hash's words equal, and the kernel route under
+   faults: one launch, the output-register flip of the clean kernel output,
+   equal to the plain faulted route wherever the clean output is normal;
+   (b) phase 4a's model with the ladder ("e2afs", "esas", "exact"):
+   ``decode_slots_scan`` over its 8 slots, 32 steps at levels [0, 1, 2, 0,
+   1, 2, 0, 2], every row bit-identical to a run with all slots at its
+   level, the all-"exact" run to ``exact_twin``, the all-0 run within phase
+   4a's limits of the clean fused route; no RMSNorm launch under levels, 36
+   decode-attention launches a step; ms a step eager; (c) the same model
+   under ``sqrt_faults`` (sqrt_man 1e-3) and ``logits_hook`` (logit_nan
+   1e-4): two runs bit-identical, rate 0 bit-identical to the clean route,
+   the NaN positions the CPU's ``corrupt_logits``, and an ``Engine`` on the
+   faulted config replaying its captured chunk bit-identical to the eager
+   one; (d) after phase 12, phase 11's model and batch through one forward
+   and backward with remat "block", "minimal" and "none" under torch's
+   deterministic algorithms: identical loss and gradients, peak memory and
+   ms of each.
 
 Before the last line it prints the card's name and power limit and one JSON
 line of kernels; the last line is ``{"ok": true, "device": {...}}``.  Without
@@ -264,6 +287,25 @@ def ulp_of(r):
     man_bits = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23}[r.dtype]
     _, e = torch.frexp(r.float())
     return torch.ldexp(torch.ones_like(r, dtype=torch.float32), e - 1 - man_bits)
+
+
+def same_bits(a, b):
+    """Elementwise: the same bits, or NaN in both."""
+    import torch
+
+    ib = {2: torch.int16, 4: torch.int32}[a.element_size()]
+    return (a.view(ib) == b.view(ib)) | (torch.isnan(a) & torch.isnan(b))
+
+
+def normal_mask(y):
+    """Elementwise: a normal number in y's format."""
+    import torch
+
+    man_bits = {torch.bfloat16: 7, torch.float16: 10, torch.float32: 23}[y.dtype]
+    exp_bits = {torch.bfloat16: 8, torch.float16: 5, torch.float32: 8}[y.dtype]
+    ib = {2: torch.int16, 4: torch.int32}[y.element_size()]
+    exp = (y.view(ib).to(torch.int64) >> man_bits) & ((1 << exp_bits) - 1)
+    return (exp > 0) & (exp < (1 << exp_bits) - 1)
 
 
 class Smoke:
@@ -1014,30 +1056,7 @@ class Smoke:
             raise AssertionError("the decode chunk was not captured")
 
         # a replay against the eager chunk, from one pool state
-        for slot in range(slots):
-            eng._admit(reqs[slot], slot, 0.0)
-        start = [t.clone() for t in lm.pool_tensors(eng.pool)]
-
-        def restore():
-            for t, s0 in zip(lm.pool_tensors(eng.pool), start):
-                t.copy_(s0)
-
-        def outcome(run):
-            restore()
-            run()
-            self.sync()
-            return [t.clone() for t in lm.pool_tensors(eng.pool)] + [eng._packed.clone()]
-
-        eager = outcome(eng._chunk_eager)
-        graphed = outcome(eng._decode_chunk)
-        differ = [i for i, (a, b) in enumerate(zip(graphed, eager))
-                  if not torch.equal(a.view(torch.uint8) if a.is_floating_point() else a,
-                                     b.view(torch.uint8) if b.is_floating_point() else b)]
-        print(f"  replayed chunk vs eager chunk from one pool state: {len(differ)} of "
-              f"{len(eager)} tensors differ (tokens, emitted, tok, pos, active, remaining, "
-              f"every cache tensor)")
-        if differ:
-            raise AssertionError(f"the graphed chunk differs from the eager one: tensors {differ}")
+        restore = self.replay_equals_eager(eng, reqs[:slots])
 
         # ms a step: replays (CUDA events) and eager chunks (host clock)
         restore()
@@ -1131,6 +1150,382 @@ class Smoke:
               f"{n_requests} requests; {equal} of {total} tokens equal ({equal / total:.3f})")
         if first != n_requests:
             raise AssertionError("first two tokens differ from batch-1 solo runs")
+
+    def replay_equals_eager(self, eng, reqs):
+        """Admit ``reqs`` (one a slot) into the engine's pool, then run one
+        chunk eagerly and one replay of its captured graph from that pool
+        state: every pool tensor and the packed tokens bit-identical, or
+        the phase fails.  Returns a function that restores the state."""
+        torch = self.torch
+        from repro_torch.models import lm
+
+        for slot, req in enumerate(reqs):
+            eng._admit(req, slot, 0.0)
+        start = [t.clone() for t in lm.pool_tensors(eng.pool)]
+
+        def restore():
+            for t, s0 in zip(lm.pool_tensors(eng.pool), start):
+                t.copy_(s0)
+
+        def outcome(run):
+            restore()
+            run()
+            self.sync()
+            return [t.clone() for t in lm.pool_tensors(eng.pool)] + [eng._packed.clone()]
+
+        eager = outcome(eng._chunk_eager)
+        graphed = outcome(eng._decode_chunk)
+        differ = [i for i, (a, b) in enumerate(zip(graphed, eager))
+                  if not torch.equal(a.view(torch.uint8) if a.is_floating_point() else a,
+                                     b.view(torch.uint8) if b.is_floating_point() else b)]
+        print(f"  replayed chunk vs eager chunk from one pool state: {len(differ)} of "
+              f"{len(eager)} tensors differ (tokens, emitted, tok, pos, active, remaining, "
+              f"every cache tensor)")
+        if differ:
+            raise AssertionError(f"the graphed chunk differs from the eager one: tensors {differ}")
+        return restore
+
+    # -- phase 14 ----------------------------------------------------------
+    def p14a_fault_datapath(self):
+        """The seeded fault model on the card: the faulted E2AFS datapath
+        bit-identical to the CPU's (every fp16 and bf16 pattern, the float32
+        grid; both sites, a hashed and a pinned bit, rates 1e-2 and 1.0),
+        the hash's words equal, and the kernel route under faults: one
+        launch, the output-register flip of the clean kernel output, equal
+        to the plain faulted route wherever the clean output is normal."""
+        torch = self.torch
+        from repro_torch.core import e2afs, faults, get_unit
+        from repro_torch.core.metrics import sampled_normal_values
+        from repro_torch.kernels import dispatch
+
+        specials = torch.tensor([0.0, -0.0, float("inf"), -float("inf"), float("nan"), -2.0,
+                                 1e-40, -1e-40])
+        inputs = {
+            "fp16": torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.float16),
+            "bf16": torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(torch.bfloat16),
+            "fp32 grid": torch.cat([sampled_normal_values(), specials]),
+        }
+        cases = [("sqrt_man", 1e-2, None), ("sqrt_man", 1.0, 3), ("sqrt_exp", 1e-2, None),
+                 ("sqrt_exp", 1.0, 2)]
+        for label, x in inputs.items():
+            xd = x.to(self.dev)
+            for op in ("sqrt", "rsqrt"):
+                fn = getattr(e2afs, f"e2afs_{op}")
+                bad = struck = 0
+                for site, rate, bit in cases:
+                    cfg = faults.FaultConfig(site, rate, seed=2**33 + 7, bit=bit)
+                    cpu = fn(x, faults=cfg)
+                    bad += int((~same_bits(fn(xd, faults=cfg).cpu(), cpu)).sum())
+                    struck += int((~same_bits(cpu, fn(x))).sum())
+                print(f"  faulted e2afs {op:5s} {label:9s} n={x.numel()}, {len(cases)} fault "
+                      f"cases: {bad} patterns differ from the CPU ({struck} struck)")
+                if bad or not struck:
+                    raise AssertionError(f"faulted e2afs {op} {label}: {bad} differ, {struck} struck")
+
+        words = torch.randint(-2**31, 2**31, (1 << 20,), generator=torch.Generator().manual_seed(0),
+                              dtype=torch.int64).to(torch.int32)
+        bad = int((faults._mix32(words.to(torch.int64).to(self.dev) & 0xFFFFFFFF).cpu()
+                   != faults._mix32(words.to(torch.int64) & 0xFFFFFFFF)).sum())
+        for seed in (0, 7, 2**32 + 5, -3):
+            bad += int((faults._entropy(words.to(self.dev), seed).cpu()
+                        != faults._entropy(words, seed)).sum())
+            bad += int((faults.fault_mask(words.to(self.dev), 0.3, seed).cpu()
+                        != faults.fault_mask(words, 0.3, seed)).sum())
+        print(f"  fault hash: _mix32, per-element entropy and fault_mask over 2^20 words and 4 "
+              f"seeds: {bad} words differ from the CPU")
+        if bad:
+            raise AssertionError(f"the fault hash differs on the card: {bad} words")
+
+        for label, x in inputs.items():
+            xd = x.to(self.dev)
+            for op in ("sqrt", "rsqrt"):
+                launches, flip_bad, normal_bad, normals = [], 0, 0, 0
+                for site, rate, bit in cases:
+                    cfg = faults.FaultConfig(site, rate, seed=5, bit=bit)
+                    dispatch.reset_launch_counts()
+                    y = getattr(get_unit("e2afs", kernel=True, faults=cfg), op)(xd)
+                    launches.append(dispatch.launch_counts()[f"e2afs_{op}"])
+                    clean = getattr(get_unit("e2afs", kernel=True), op)(xd)
+                    flip_bad += int((~same_bits(y, faults.flip_float_bits(clean, cfg))).sum())
+                    normal = normal_mask(clean)
+                    plain = getattr(get_unit("e2afs", faults=cfg), op)(xd)
+                    normal_bad += int((~same_bits(y[normal], plain[normal])).sum())
+                    normals += int(normal.sum())
+                print(f"  kernel route under faults, {op:5s} {label:9s}: launches {launches}; "
+                      f"{flip_bad} differ from flip_float_bits of the clean kernel output; "
+                      f"{normal_bad} of {normals} with a normal clean output differ from the "
+                      f"plain faulted route")
+                if flip_bad or normal_bad or (not self.rehearsal and launches != [1] * len(cases)):
+                    raise AssertionError(f"kernel route under faults, {op} {label}")
+
+    def slot_decode(self, model, cfg, cache, tok, start, steps, *, levels=None, hook=None):
+        """``lm.decode_slots_scan`` over a copy of a prefilled cache (every
+        slot live at ``start``, a budget of ``steps``), timed by the host
+        clock with synchronize.  ``hook`` wraps the step's logits hook; the
+        float32 logits after it are recorded.  Returns (tokens, logits
+        (b, steps, vocab), cache, ms a step)."""
+        torch = self.torch
+        from repro_torch.models import lm
+
+        cache = {k: v.clone() for k, v in cache.items()}
+        b, dev = tok.shape[0], tok.device
+        logits = []
+
+        def record(lg):
+            lg = hook(lg) if hook is not None else lg
+            logits.append(lg.clone())
+            return lg
+
+        args = (tok.clone(), torch.full((b,), start, dtype=torch.int32, device=dev),
+                torch.ones(b, dtype=torch.bool, device=dev),
+                torch.full((b,), steps, dtype=torch.int32, device=dev))
+        self.sync()
+        t0 = time.perf_counter()
+        toks = lm.decode_slots_scan(model, cfg, cache, *args, steps, unit_levels=levels,
+                                    logits_hook=record)[0]
+        self.sync()
+        return toks, torch.stack(logits, 1), cache, (time.perf_counter() - t0) / steps * 1e3
+
+    def launches_a_step(self, model, cfg, cache, tok, pos, levels=None):
+        """Device kernels one eager decode step launches (a profiled
+        ``decode_step`` on a copy of the cache), and their device ms."""
+        from repro_torch.models import lm
+
+        cache = {k: v.clone() for k, v in cache.items()}
+        _, rows = self.profiled(lambda: lm.decode_step(model, cfg, cache, tok, pos,
+                                                       unit_levels=levels), 1)
+        return sum(r[1] for r in rows), sum(r[0] for r in rows) / 1e3
+
+    def p14b_ladder(self):
+        """The accuracy-SLO ladder ("e2afs", "esas", "exact") on phase 4a's
+        model: ``decode_slots_scan`` over its 8 slots from one prefilled
+        cache, 32 steps at levels [0, 1, 2, 0, 1, 2, 0, 2], held row by row
+        against runs with every slot at one level; the all-"exact" run
+        against ``exact_twin``; the all-0 run against the clean fused route;
+        launch counts and ms a decode step eager."""
+        torch = self.torch
+        from repro_torch.kernels import dispatch
+        from repro_torch.models import lm
+
+        cfg, model, prompt, _, batch, prompt_len, cache_len = self.serving
+        steps = 4 if self.rehearsal else 32
+        lcfg = cfg.replace(sqrt_ladder=("e2afs", "esas", "exact")).validate()
+        levels = torch.tensor([0, 1, 2, 0, 1, 2, 0, 2][:batch], dtype=torch.int32,
+                              device=self.dev)
+        cache = lm.init_cache(cfg, batch, cache_len, device=self.dev)
+        logits, cache = lm.prefill(model, cfg, cache, prompt, last_logit_only=True)
+        tok = logits[:, -1:].argmax(-1).to(torch.int32)
+        self.slot_decode(model, lcfg, cache, tok, prompt_len, 2, levels=levels)  # warm-up
+        dispatch.reset_launch_counts()
+        mixed = self.slot_decode(model, lcfg, cache, tok, prompt_len, steps, levels=levels)
+        counts = dispatch.launch_counts()
+        uniform = [self.slot_decode(model, lcfg, cache, tok, prompt_len, steps,
+                                    levels=torch.full_like(levels, lv)) for lv in range(3)]
+        twin = self.slot_decode(model, lm.exact_twin(lcfg), cache, tok, prompt_len, steps)
+        clean = self.slot_decode(model, cfg, cache, tok, prompt_len, steps)
+        per_step = {k: v / steps for k, v in counts.items() if v}
+        want = {"rmsnorm": 0, "decode_attention": cfg.n_layers,
+                "e2afs_rsqrt": 4 * cfg.n_layers + 1}
+        print(f"  {cfg.name}, batch {batch}, prompt {prompt_len}, {steps} steps, levels "
+              f"{levels.tolist()}: launches a step {per_step} (want {want}: no RMSNorm kernel "
+              f"under levels; the e2afs rung's rsqrt on its kernel route, one a norm)")
+        pos = torch.full((batch,), prompt_len, dtype=torch.int32, device=self.dev)
+        k_ladder, ms_ladder = self.launches_a_step(model, lcfg, cache, tok, pos, levels)
+        k_clean, ms_clean = self.launches_a_step(model, cfg, cache, tok, pos)
+        print(f"  device kernels a decode step: ladder {k_ladder} ({ms_ladder:.3f} device ms), "
+              f"clean fused {k_clean} ({ms_clean:.3f} device ms)")
+        print(f"  ms a decode step eager (host clock with synchronize; {self.card}): mixed "
+              f"levels {mixed[3]:.2f}, all 0 {uniform[0][3]:.2f}, all 1 {uniform[1][3]:.2f}, "
+              f"all 2 {uniform[2][3]:.2f}, exact_twin {twin[3]:.2f}, clean fused {clean[3]:.2f}")
+        leaks = []
+        for i, lv in enumerate(levels.tolist()):
+            want_row = uniform[lv]
+            if not (torch.equal(mixed[0][i], want_row[0][i])
+                    and bool(same_bits(mixed[1][i], want_row[1][i]).all())
+                    and all(bool(same_bits(mixed[2][k][:, i], want_row[2][k][:, i]).all())
+                            for k in cache)):
+                leaks.append(i)
+        twin_same = (torch.equal(twin[0], uniform[2][0])
+                     and bool(same_bits(twin[1], uniform[2][1]).all())
+                     and all(bool(same_bits(twin[2][k], uniform[2][2][k]).all()) for k in cache))
+        first = clean[1][:, 0]
+        diff = float((uniform[0][1][:, 0] - first).abs().max())
+        top = first.abs().max()
+        limit = 4 * float(ulp_of(top.reshape(1).to(getattr(torch, cfg.act_dtype))))
+        agree = [int((uniform[0][0][:, i] == clean[0][:, i]).sum()) for i in (1, 2)]
+        print(f"  rows vs all-one-level runs: {batch - len(leaks)} of {batch} rows bit-identical "
+              f"(tokens, logits, cache); all-2 run vs exact_twin: "
+              f"{'bit-identical' if twin_same else 'DIFFERENT'}; all-0 run vs the clean fused "
+              f"route: first-step logits max |diff| {diff:.4g} (limit {limit:.4g}: 4 ulps at "
+              f"max |logit| {float(top):.4g}), first two tokens agree {agree} of {batch}, "
+              f"{float((uniform[0][0] == clean[0]).float().mean()):.3f} of all tokens")
+        if not self.rehearsal and per_step != {k: float(v) for k, v in want.items() if v}:
+            raise AssertionError(f"ladder launches {per_step}, want {want}")
+        if leaks or not twin_same:
+            raise AssertionError(f"rows leak across levels: {leaks}; exact_twin same: {twin_same}")
+        if diff > limit or agree != [batch, batch]:
+            raise AssertionError("the all-0 ladder run parts from the clean fused route")
+
+    def p14c_faults(self):
+        """Seeded faults on phase 4a's model: ``sqrt_faults=FaultConfig(
+        "sqrt_man", 1e-3, seed=7)`` in every norm's E2AFS datapath (prefill
+        and decode) and NaN logits from ``logits_hook(FaultConfig(
+        "logit_nan", 1e-4, seed=3))``: two runs bit-identical, rate 0
+        bit-identical to the clean fused route, the NaN positions the CPU's
+        ``corrupt_logits`` of the pre-hook logits; then an ``Engine`` on the
+        faulted config, its replayed chunk bit-identical to the eager one."""
+        torch = self.torch
+        from repro_torch.core import faults
+        from repro_torch.kernels import dispatch
+        from repro_torch.launch.engine import Engine, Request
+        from repro_torch.models import lm
+
+        cfg, model, prompt, _, batch, prompt_len, cache_len = self.serving
+        steps = 4 if self.rehearsal else 32
+        # the rehearsal's tiny model needs higher rates for a strike to land
+        sqrt_rate, nan_rate = (5e-2, 1e-2) if self.rehearsal else (1e-3, 1e-4)
+        fcfg = cfg.replace(sqrt_faults=faults.FaultConfig("sqrt_man", sqrt_rate,
+                                                          seed=7)).validate()
+        hook_cfg = faults.FaultConfig("logit_nan", nan_rate, seed=3)
+        hook = faults.logits_hook(hook_cfg)
+
+        def run(c, h):
+            pre = []
+
+            def spy(lg):
+                pre.append(lg.clone())
+                return h(lg) if h is not None else lg
+
+            cache = lm.init_cache(c, batch, cache_len, device=self.dev)
+            self.sync()
+            t0 = time.perf_counter()
+            logits, cache = lm.prefill(model, c, cache, prompt, last_logit_only=True)
+            self.sync()
+            pf_ms = (time.perf_counter() - t0) * 1e3
+            tok = logits[:, -1:].argmax(-1).to(torch.int32)
+            out = self.slot_decode(model, c, cache, tok, prompt_len, steps, hook=spy)
+            return out + (torch.stack(pre, 1), logits, pf_ms)
+
+        run(fcfg, hook)  # warm-up
+        dispatch.reset_launch_counts()
+        first = run(fcfg, hook)
+        counts = {k: v for k, v in dispatch.launch_counts().items() if v}
+        again = run(fcfg, hook)
+        zero = run(cfg.replace(sqrt_faults=faults.FaultConfig("sqrt_man", 0.0, seed=7)), None)
+        clean = run(cfg, None)
+        replay = (torch.equal(first[0], again[0]) and bool(same_bits(first[1], again[1]).all())
+                  and all(bool(same_bits(first[2][k], again[2][k]).all()) for k in first[2])
+                  and bool(same_bits(first[5], again[5]).all()))
+        rate0 = (torch.equal(zero[0], clean[0]) and bool(same_bits(zero[1], clean[1]).all())
+                 and all(bool(same_bits(zero[2][k], clean[2][k]).all()) for k in clean[2]))
+        pre = first[4].cpu()
+        want_nan = torch.stack([torch.isnan(faults.corrupt_logits(pre[:, i], hook_cfg))
+                                for i in range(steps)], 1)
+        got_nan = torch.isnan(first[1].cpu())
+        nan_bad = int((want_nan != got_nan).sum())
+        struck_prefill = float((first[5].float() - clean[5].float()).abs().max())
+        print(f"  {cfg.name} under sqrt_man {sqrt_rate} (seed 7) and logit_nan {nan_rate} (seed 3), "
+              f"batch "
+              f"{batch}, prompt {prompt_len}, {steps} steps: launches {counts} (no RMSNorm "
+              f"kernel and no e2afs launch: every norm on the faulted datapath)")
+        print(f"  two runs bit-identical: {replay}; rate 0 vs clean fused route bit-identical: "
+              f"{rate0}; NaN positions vs the CPU's corrupt_logits of the pre-hook logits: "
+              f"{nan_bad} of {got_nan.numel()} differ ({int(got_nan.sum())} NaN); faults move "
+              f"the prefill logits by up to {struck_prefill:.4g}; tokens equal to the clean "
+              f"run's {float((first[0] == clean[0]).float().mean()):.3f}")
+        print(f"  ms (host clock with synchronize; {self.card}): prefill faulted "
+              f"{first[6]:.1f}, clean {clean[6]:.1f}; a decode step faulted {first[3]:.2f}, "
+              f"clean {clean[3]:.2f}")
+        if not (replay and rate0) or nan_bad or not int(got_nan.sum()):
+            raise AssertionError("faults are not replayable, or rate 0 is not the clean route, "
+                                 "or NaN positions differ")
+        if not self.rehearsal and (counts.get("rmsnorm") or counts.get("e2afs_rsqrt")
+                                   or counts.get("decode_attention") != cfg.n_layers * steps):
+            raise AssertionError(f"faulted route launches {counts}")
+
+        eng = Engine(model, fcfg, num_slots=batch, cache_len=cache_len, chunk=8)
+        eng.warmup(prompt_lens=(prompt_len,))
+        if not self.rehearsal and eng._graph is None:
+            raise AssertionError("the faulted decode chunk was not captured")
+        reqs = [Request(uid=i, prompt=prompt[i].cpu().numpy().astype("int32"),
+                        max_new_tokens=steps) for i in range(batch)]
+        self.replay_equals_eager(eng, reqs)
+
+    def p14d_remat(self):
+        """Phase 11's training model and first batch (qwen3-4b, 8 layers, bf16,
+        e2afs norms) through one forward and backward with remat "block",
+        "minimal" and "none", under torch's deterministic algorithms: the
+        loss and every gradient bit-identical across the three (the
+        embedding's scattered gradient, if not, within one bf16 ulp); peak
+        memory, ms and e2afs launches of each."""
+        torch = self.torch
+        from repro_torch.configs import get_config, get_smoke_config
+        from repro_torch.data import DataConfig, SyntheticLM
+        from repro_torch.kernels import dispatch
+        from repro_torch.launch.steps import loss_fn
+        from repro_torch.models import lm
+
+        kw = dict(n_layers=8, sqrt_unit="e2afs")
+        if self.rehearsal:
+            cfg, batch, seq = get_smoke_config("qwen3-4b", **kw), 2, 64
+        else:
+            cfg, batch, seq = get_config("qwen3-4b", **kw), 4, 2048
+            torch.cuda.empty_cache()
+        model = lm.init(cfg, self.gen(0), device=self.dev, trainable=True)
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0))
+        b = {k: torch.from_numpy(a).to(self.dev) for k, a in data.batch(0).items()}
+        params = dict(model.named_parameters())
+
+        def step(c):
+            for p in params.values():
+                p.grad = None
+            total, _ = loss_fn(model, c, b)
+            total.backward()
+            return total.detach()
+
+        ref, bad, near = None, [], []
+        prev = torch.are_deterministic_algorithms_enabled()
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for mode in ("block", "minimal", "none"):
+                c = cfg.replace(remat=mode)
+                step(c)  # warm-up
+                self.sync()
+                base = torch.cuda.memory_allocated() if not self.rehearsal else 0
+                if not self.rehearsal:
+                    torch.cuda.reset_peak_memory_stats()
+                dispatch.reset_launch_counts()
+                t0 = time.perf_counter()
+                loss = step(c)
+                self.sync()
+                ms = (time.perf_counter() - t0) * 1e3
+                counts = {k: v for k, v in dispatch.launch_counts().items() if v}
+                peak = (torch.cuda.max_memory_allocated() - base) / 2**30 if not self.rehearsal \
+                    else float("nan")
+                print(f"  remat {mode:7s}: loss {float(loss):.6f}, {ms:.1f} ms a forward and "
+                      f"backward (host clock with synchronize), peak {peak:.2f} GiB above the "
+                      f"{base / 2**30:.2f} GiB of parameters and gradients held; launches "
+                      f"{counts}; {self.card}")
+                grads = {n: p.grad.detach().cpu() for n, p in params.items()}
+                if ref is None:
+                    ref = (loss.cpu(), grads)
+                    continue
+                if not torch.equal(loss.cpu().view(torch.int32), ref[0].view(torch.int32)):
+                    bad.append(f"{mode}: loss")
+                for n, g in grads.items():
+                    if torch.equal(g.view(torch.int32), ref[1][n].view(torch.int32)):
+                        continue
+                    off = float(((g - ref[1][n]).abs() / ulp_of(ref[1][n].to(
+                        torch.bfloat16)).float().clamp_min(1e-45)).max())
+                    (near if n == "embed" and off <= 1.0 else bad).append(f"{mode}: {n}")
+        finally:
+            torch.use_deterministic_algorithms(prev)
+            for p in params.values():
+                p.grad = None
+        print(f"  against remat block: {len(bad)} leaves or losses differ "
+              f"({bad[:4]}); within one bf16 ulp, not bit-identical: {near}")
+        if bad:
+            raise AssertionError(f"remat modes give other gradients: {bad[:8]}")
 
     # -- phase 5 -----------------------------------------------------------
     def p5_times(self):
@@ -1810,6 +2205,17 @@ class Smoke:
               f"synchronize; {self.card})")
         if not self.rehearsal and counts["adam"] != n_tensors * timed:
             raise AssertionError(f"adam launches {counts['adam']}, want {n_tensors} x {timed}")
+        # every norm of the forward (2 a layer, the qk-norms, ln_f) runs its
+        # rsqrt on the e2afs kernel route, and block remat runs each layer's
+        # norms again in the backward
+        per_layer = 2 + 2 * cfg.qk_norm
+        want_rsqrt = (2 * per_layer * cfg.n_layers + 1) * timed
+        self.rows["e2afs_rsqrt"][f"train_{launches_key}"] = counts["e2afs_rsqrt"]
+        print(f"  e2afs_rsqrt launches of the unfused training norms: {counts['e2afs_rsqrt']} "
+              f"(want {want_rsqrt}: ({per_layer} x {cfg.n_layers} x 2 + 1) x {timed} steps)")
+        if not self.rehearsal and (counts["e2afs_rsqrt"] != want_rsqrt or counts["rmsnorm"]):
+            raise AssertionError(f"training norm launches {counts}, want {want_rsqrt} "
+                                 f"e2afs_rsqrt and no rmsnorm")
 
         # a profiled step: device-busy share and the adam kernels' share
         _, rows = self.profiled(lambda: step(1 + timed), 1)
@@ -1948,6 +2354,9 @@ def main(argv=None) -> int:
     smoke.phase("6 profile", smoke.p6_profile)
     smoke.phase("13a engine qwen3-4b", smoke.p13a_engine)  # on phase 4a's model
     smoke.phase("13b engine gemma3-1b", smoke.p13b_engine_gemma)  # on phase 4d's model
+    smoke.phase("14a fault datapath", smoke.p14a_fault_datapath)
+    smoke.phase("14b ladder qwen3-4b", smoke.p14b_ladder)  # on phase 4a's model
+    smoke.phase("14c faults qwen3-4b", smoke.p14c_faults)  # on phase 4a's model
     smoke.phase("7 sobel", smoke.p7_sobel)
     smoke.phase("8 kmeans_assign", smoke.p8_kmeans)
     smoke.phase("9 paper", smoke.p9_paper)
@@ -1955,6 +2364,7 @@ def main(argv=None) -> int:
     smoke.phase("11 train qwen3-4b", smoke.p11_train)
     smoke.phase("11b train gemma3-1b", smoke.p11b_train_gemma)
     smoke.phase("12 train_loop resume", smoke.p12_resume)
+    smoke.phase("14d remat", smoke.p14d_remat)
     if smoke.failed:
         print(f"FAILED phases: {smoke.failed}", file=sys.stderr)
         return 1

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import numerics
+from repro_torch.core.faults import flip_fields
 from repro_torch.core.numerics import FloatFormat, format_of
 
 __all__ = [
@@ -105,13 +106,27 @@ def e2afs_sqrt_positive(x: torch.Tensor) -> torch.Tensor:
     return torch.where(zero, torch.zeros_like(res), res)
 
 
-def e2afs_sqrt(x: torch.Tensor, *, ftz: bool = True) -> torch.Tensor:
-    """Approximate sqrt via the E2AFS datapath.  Same dtype in/out."""
+def e2afs_sqrt(x: torch.Tensor, *, ftz: bool = True, faults=None) -> torch.Tensor:
+    """Approximate sqrt via the E2AFS datapath.  Same dtype in/out.
+
+    ``faults`` (a :class:`~repro_torch.core.faults.FaultConfig` targeting a
+    sqrt site) strikes the output fields between the datapath and compose;
+    special inputs still route through ``apply_specials`` unfaulted, as a
+    datapath-internal upset would behave.
+    """
     fmt = format_of(x.dtype)
     sign, exp, man = numerics.decompose(x, fmt)
     exp_out, man_out = _e2afs_mantissa_exponent(exp, man, fmt)
+    exp_out, man_out = _maybe_fault(exp_out, man_out, fmt, faults)
     result = numerics.compose(torch.zeros_like(sign), exp_out, man_out, fmt)
     return numerics.apply_specials(result, x, sign, exp, man, fmt, ftz=ftz)
+
+
+def _maybe_fault(exp_out, man_out, fmt: FloatFormat, faults):
+    if faults is None:
+        return exp_out, man_out
+    exp_out, man_out = flip_fields(exp_out, man_out, fmt, faults)
+    return exp_out & fmt.exp_mask, man_out & fmt.man_mask
 
 
 def _rsqrt_mantissa_exponent(exp, man, fmt: FloatFormat):
@@ -144,15 +159,17 @@ def _rsqrt_mantissa_exponent(exp, man, fmt: FloatFormat):
     return exp_out, man_out
 
 
-def e2afs_rsqrt(x: torch.Tensor, *, ftz: bool = True) -> torch.Tensor:
+def e2afs_rsqrt(x: torch.Tensor, *, ftz: bool = True, faults=None) -> torch.Tensor:
     """Approximate rsqrt via the E2AFS-R datapath.
 
     rsqrt(0) = +inf and rsqrt(+inf) = 0.  Under ftz a positive subnormal is
     zero to the datapath and also gives +inf; negative subnormals keep NaN.
+    ``faults`` as in :func:`e2afs_sqrt`.
     """
     fmt = format_of(x.dtype)
     sign, exp, man = numerics.decompose(x, fmt)
     exp_out, man_out = _rsqrt_mantissa_exponent(exp, man, fmt)
+    exp_out, man_out = _maybe_fault(exp_out, man_out, fmt, faults)
     result = numerics.compose(torch.zeros_like(sign), exp_out, man_out, fmt)
     out = numerics.apply_specials(result, x, sign, exp, man, fmt, ftz=ftz)
     is_zero = (exp == 0) & (man == 0)

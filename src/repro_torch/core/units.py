@@ -15,6 +15,15 @@ The approximate units carry a gradient taken at the approximate value
 on the kernel route alike, as the reference's ``custom_jvp`` rules do; the
 kernel route's backward is plain elementwise torch and launches no kernel.
 "exact" uses torch's own autograd.
+
+Fault injection: ``get_unit(name, faults=cfg)`` returns a unit whose
+sqrt/rsqrt strike seeded bit flips (:mod:`repro_torch.core.faults`), on the
+reference's routes: e2afs in its datapath's output fields before compose
+(the raw datapath, no gradient: injection is for inference), the kernel
+route and every other unit at the output register (``flip_float_bits``);
+a composed rsqrt under faults is ``1 / sqrt`` of the faulted sqrt.
+:func:`resolve_ladder` resolves an approximate -> exact ladder, faults on
+rung 0 only.
 """
 from __future__ import annotations
 
@@ -25,9 +34,10 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import cwaha, e2afs, esas, exact
+from repro_torch.core.faults import FaultConfig, flip_float_bits
 from repro_torch.kernels.dispatch import make_differentiable_rsqrt, make_differentiable_sqrt
 
-__all__ = ["SqrtUnit", "available_units", "get_unit"]
+__all__ = ["SqrtUnit", "available_units", "get_unit", "resolve_ladder"]
 
 
 def _kernel_sqrt(x, **kw):
@@ -66,6 +76,9 @@ class SqrtUnit:
     _kernel_sqrt: Optional[Callable] = None
     _kernel_rsqrt: Optional[Callable] = None
     kernel_default: bool = False  # route through the kernel unless overridden
+    faults: Optional[FaultConfig] = None  # seeded datapath fault schedule
+    _fault_sqrt: Optional[Callable] = None  # raw datapath with a faults= hook
+    _fault_rsqrt: Optional[Callable] = None
 
     def _use_kernel(self, kernel: Optional[bool]) -> bool:
         use = self.kernel_default if kernel is None else kernel
@@ -73,14 +86,28 @@ class SqrtUnit:
             raise ValueError(f"unit {self.name!r} has no kernel route")
         return use
 
+    def _fault_active(self) -> bool:
+        return self.faults is not None and self.faults.targets_sqrt and self.faults.rate > 0.0
+
     def sqrt(self, x: torch.Tensor, *, kernel: Optional[bool] = None, **kw) -> torch.Tensor:
         if self._use_kernel(kernel):
-            return self._kernel_sqrt(x, **kw)
+            y = self._kernel_sqrt(x, **kw)
+            return flip_float_bits(y, self.faults) if self._fault_active() else y
+        if self._fault_active():
+            if self._fault_sqrt is not None:
+                return self._fault_sqrt(x, faults=self.faults, **kw)
+            return flip_float_bits(self._sqrt(x, **kw), self.faults)
         return self._sqrt(x, **kw)
 
     def rsqrt(self, x: torch.Tensor, *, kernel: Optional[bool] = None, **kw) -> torch.Tensor:
         if self._use_kernel(kernel):
-            return self._kernel_rsqrt(x, **kw)
+            y = self._kernel_rsqrt(x, **kw)
+            return flip_float_bits(y, self.faults) if self._fault_active() else y
+        if self._fault_active():
+            if self._fault_rsqrt is not None:
+                return self._fault_rsqrt(x, faults=self.faults, **kw)
+            # composed rsqrt: the sqrt stage is faulted, then the exact reciprocal
+            return 1.0 / self.sqrt(x, kernel=kernel, **kw)
         if self._rsqrt is None:
             return _Reciprocal.apply(self._sqrt(x, **kw))
         return self._rsqrt(x, **kw)
@@ -95,6 +122,8 @@ _REGISTRY = {
         "paper's dual-level shift-add datapath",
         _kernel_sqrt=_kernel_sqrt,
         _kernel_rsqrt=_kernel_rsqrt,
+        _fault_sqrt=e2afs.e2afs_sqrt,
+        _fault_rsqrt=e2afs.e2afs_rsqrt,
     ),
     "esas": SqrtUnit("esas", make_differentiable_sqrt(esas.esas_sqrt), None,
                      "reconstructed ESAS (level-1 series)"),
@@ -105,7 +134,8 @@ _REGISTRY = {
 }
 
 
-def get_unit(name: str, *, kernel: bool = False) -> SqrtUnit:
+def get_unit(name: str, *, kernel: bool = False,
+             faults: Optional[FaultConfig] = None) -> SqrtUnit:
     try:
         unit = _REGISTRY[name]
     except KeyError:
@@ -113,8 +143,23 @@ def get_unit(name: str, *, kernel: bool = False) -> SqrtUnit:
     if kernel:
         unit._use_kernel(True)  # validate the route exists
         unit = dataclasses.replace(unit, kernel_default=True)
+    if faults is not None and faults.targets_sqrt:
+        unit = dataclasses.replace(unit, faults=faults)
     return unit
 
 
 def available_units():
     return tuple(_REGISTRY)
+
+
+def resolve_ladder(names, *, faults: Optional[FaultConfig] = None):
+    """Resolve an accuracy-SLO demotion ladder (approximate -> exact) into
+    units: rung 0 is the serving datapath and the only rung that sees
+    ``faults``, so demotion moves a row off the faulty datapath; the last
+    rung must be "exact"."""
+    names = tuple(names)
+    if len(names) < 2:
+        raise ValueError(f"ladder needs >= 2 rungs (approx -> exact), got {names!r}")
+    if names[-1] != "exact":
+        raise ValueError(f"ladder must end at 'exact', got {names!r}")
+    return tuple(get_unit(n, faults=faults if i == 0 else None) for i, n in enumerate(names))

@@ -1,10 +1,13 @@
-"""The paper's evaluation on the port: Table 3 (error metrics), Table 4
-(Sobel edge detection) and Fig. 5 (K-means colour quantisation), printed
-beside the paper's values.
+"""The paper's evaluation on the port: Table 3 (its left half, the unit-gate
+hardware proxies; its right half, the error metrics), Table 4 (Sobel edge
+detection) and Fig. 5 (K-means colour quantisation), printed beside the
+paper's values.
 
-    python -m repro_torch.launch.paper [--only table3|table4|fig5] [--device cpu]
+    python -m repro_torch.launch.paper [--only table3_hw|table3|table4|fig5] [--device cpu]
 
-The work runs on the card unless ``--device cpu`` is given.  The E2AFS rows
+The work runs on the card unless ``--device cpu`` is given (the hardware
+proxies are arithmetic on the netlists of ``core/hw_model.py`` and run on
+the host either way).  The E2AFS rows
 of Table 4 and Fig. 5 go through the fused ``sobel`` and ``kmeans_assign``
 kernels (on the CPU: their plain versions); the other units run their plain
 datapaths.  Fig. 5 runs at the paper's 256 x 256.  The images are the
@@ -20,9 +23,10 @@ import numpy as np
 from repro_torch.apps import kmeans, sobel
 from repro_torch.apps.images import IMAGE_NAMES, rgb_test_image, test_image
 from repro_torch.apps.metrics_img import psnr, ssim
-from repro_torch.core import error_metrics, get_unit
+from repro_torch.core import error_metrics, get_unit, hw_model
 
-__all__ = ["UNITS", "PAPER_TABLE3", "PAPER_TABLE4_AVG", "table3", "table4", "fig5", "main"]
+__all__ = ["UNITS", "PAPER_TABLE3", "PAPER_TABLE4_AVG", "table3_hw", "table3", "table4", "fig5",
+           "main"]
 
 UNITS = ("esas", "cwaha4", "cwaha8", "e2afs")
 
@@ -46,6 +50,24 @@ def md_table(headers, rows) -> str:
     out = ["| " + " | ".join(headers) + " |", "|" + "|".join("---" for _ in headers) + "|"]
     out += ["| " + " | ".join(str(c) for c in r) + " |" for r in rows]
     return "\n".join(out)
+
+
+def table3_hw() -> dict:
+    """Table 3's left half: the unit-gate proxies of each design, calibrated
+    on the E2AFS row, beside the paper's Artix-7 figures."""
+    t = hw_model.calibrated_table()
+    rows = []
+    for name in UNITS:
+        c, p = t[name], hw_model.PAPER_TABLE3[name]
+        rows.append([name, f"{c['luts_proxy']:.0f} ({p['luts']})",
+                     f"{c['dp_mw_proxy']:.2f} ({p['dp_mw']})",
+                     f"{c['cpd_ns_proxy']:.2f} ({p['cpd_ns']})",
+                     f"{c['pdp_pj_proxy']:.1f} ({p['pdp_pj']})"])
+    print("\n== Table 3 (hardware proxies, calibrated on the E2AFS row) ==")
+    print(md_table(["design", "LUT proxy (paper)", "DP mW proxy (paper)",
+                    "CPD ns proxy (paper)", "PDP pJ proxy (paper)"], rows))
+    print("(baseline netlists are reconstructions)")
+    return t
 
 
 def table3(device=None) -> dict:
@@ -109,7 +131,8 @@ def fig5(device=None, n: int = 256, k: int = 20, iters: int = 12) -> dict:
     return out
 
 
-PARTS = {"table3": table3, "table4": table4, "fig5": fig5}
+PARTS = {"table3_hw": lambda device: table3_hw(), "table3": table3, "table4": table4,
+         "fig5": fig5}
 
 
 def main(argv=None):

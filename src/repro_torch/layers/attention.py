@@ -16,8 +16,9 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
-from repro_torch.layers.norms import rmsnorm
+from repro_torch.layers.norms import rmsnorm_cfg
 from repro_torch.layers.param import parameter
 from repro_torch.layers.rope import rope_tables, rotate
 
@@ -48,10 +49,6 @@ class Attention(nn.Module):
             self.k_norm = parameter((hd,), dtype, device)
 
 
-def _qk_norm(scale, x, cfg, fused):
-    return rmsnorm(scale, x, sqrt_unit=cfg.sqrt_unit, fused=fused and cfg.sqrt_unit == "e2afs")
-
-
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one contiguous matmul."""
     b, s, d = x.shape
@@ -59,13 +56,13 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def _project_qkv(p: Attention, cfg, xq, xkv, q_positions, kv_positions, *, use_rope,
-                 fused_norm=True):
+                 fused_norm=True, norm_levels=None):
     q = _project(xq, p.wq)
     k = _project(xkv, p.wk)
     v = _project(xkv, p.wv)
     if cfg.qk_norm:
-        q = _qk_norm(p.q_norm, q, cfg, fused_norm)
-        k = _qk_norm(p.k_norm, k, cfg, fused_norm)
+        q = rmsnorm_cfg(p.q_norm, q, cfg, fused=fused_norm, levels=norm_levels)
+        k = rmsnorm_cfg(p.k_norm, k, cfg, fused=fused_norm, levels=norm_levels)
     if use_rope:
         q_tables = rope_tables(q_positions, q.shape[-1], theta=cfg.rope_theta)
         kv_tables = q_tables if kv_positions is q_positions else rope_tables(
@@ -123,16 +120,27 @@ class _Softmax(torch.autograd.Function):
         return c - y * c.sum(dim=-1, keepdim=True)
 
 
-def _scored_attention(q, k, v, mask, scale, sdt, out_dtype):
+def _scores(q, k, mask, scale, sdt):
+    """Attention scores in ``sdt`` times the exact ``scale``, plus the mask
+    (the tensor the reference names "attn_scores")."""
+    scores = torch.einsum("bshk,bthk->bhst", q, _expand_kv(k, q.shape[2])).to(sdt) * scale
+    return scores + mask.to(sdt)[None, None]
+
+
+def _scored_attention(q, k, v, mask, scale, sdt, out_dtype, *, remat_scores=False):
     """The training block (the reference's ``_gqa_scores`` ->
-    ``_softmax_scores`` -> ``_gqa_out``): scores in ``sdt`` times the exact
-    ``scale``, plus the mask, softmax, weights cast to ``out_dtype`` before
-    the V product.  q: (b, sq, h, hd); k/v: (b, t, kv, hd); mask: (sq, t)."""
-    h = q.shape[2]
-    scores = torch.einsum("bshk,bthk->bhst", q, _expand_kv(k, h)).to(sdt) * scale
-    scores = scores + mask.to(sdt)[None, None]
+    ``_softmax_scores`` -> ``_gqa_out``): :func:`_scores`, softmax, weights
+    cast to ``out_dtype`` before the V product.  q: (b, sq, h, hd); k/v:
+    (b, t, kv, hd); mask: (sq, t).  ``remat_scores`` (selective remat,
+    ``remat="minimal"``) recomputes the scores in the backward pass instead
+    of keeping what their computation saves, as the reference's policy
+    keeps every residual but "attn_scores"."""
+    if remat_scores:
+        scores = checkpoint(_scores, q, k, mask, scale, sdt, use_reentrant=False)
+    else:
+        scores = _scores(q, k, mask, scale, sdt)
     w = _Softmax.apply(scores).to(out_dtype)
-    return torch.einsum("bhst,bthk->bshk", w, _expand_kv(v, h))
+    return torch.einsum("bhst,bthk->bshk", w, _expand_kv(v, q.shape[2]))
 
 
 def attention_train(p: Attention, cfg, x, *, mode: str = "causal",
@@ -154,9 +162,10 @@ def attention_train(p: Attention, cfg, x, *, mode: str = "causal",
                            fused_norm=False)
     scale = cfg.d_head**-0.5
     sdt = getattr(torch, cfg.scores_dtype)
+    remat = cfg.remat == "minimal"
     if s <= q_chunk or s % q_chunk:
         return _out_proj(_scored_attention(q, k, v, _mask(mode, pos, pos, window), scale, sdt,
-                                           x.dtype), p.wo)
+                                           x.dtype, remat_scores=remat), p.wo)
     kp = pos
     banded = mode == "window" and window is not None
     if banded:  # in padded coordinates chunk i's band is [i * q_chunk, i * q_chunk + band)
@@ -170,7 +179,7 @@ def attention_train(p: Attention, cfg, x, *, mode: str = "causal",
         kv_sl = slice(i * q_chunk, i * q_chunk + band) if banded else slice(None)
         chunks.append(_scored_attention(q[:, sl], k[:, kv_sl], v[:, kv_sl],
                                         _mask(mode, pos[sl], kp[kv_sl], window), scale, sdt,
-                                        x.dtype))
+                                        x.dtype, remat_scores=remat))
     return _out_proj(torch.cat(chunks, dim=1), p.wo)
 
 
@@ -312,7 +321,7 @@ def attention_prefill(p: Attention, cfg, x, cache, positions, *, window: Optiona
 
 
 def attention_decode(p: Attention, cfg, x, cache, pos, *, window: Optional[int] = None,
-                     layer_idx=None, kernel: Optional[str] = None):
+                     layer_idx=None, kernel: Optional[str] = None, norm_levels=None):
     """Single-token decode.  x: (b, 1, d); the cache holds ``cache_len`` slots
     and is written in place.
 
@@ -324,7 +333,9 @@ def attention_decode(p: Attention, cfg, x, cache, pos, *, window: Optional[int] 
     ``kernel`` routes the scored-attention block (defaults to
     ``cfg.decode_kernel``): "fused" runs the decode-attention kernel through
     the dispatch layer (the CUDA kernel for CUDA tensors); None (the inline
-    path) and "reference" run its plain version.  Returns (out, cache).
+    path) and "reference" run its plain version.  ``norm_levels`` ((b,)
+    int32, accuracy-SLO decode): each row's qk-norm rsqrt through its rung of
+    ``cfg.sqrt_ladder``.  Returns (out, cache).
     """
     b, s, _ = x.shape
     if s != 1:
@@ -342,7 +353,8 @@ def attention_decode(p: Attention, cfg, x, cache, pos, *, window: Optional[int] 
     else:
         rope_pos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
         slot = pos % cache_len
-    q, k_new, v_new = _project_qkv(p, cfg, x, x, rope_pos, rope_pos, use_rope=cfg.pos == "rope")
+    q, k_new, v_new = _project_qkv(p, cfg, x, x, rope_pos, rope_pos, use_rope=cfg.pos == "rope",
+                                   norm_levels=norm_levels)
 
     k_scale = v_scale = None
     if quantized:

@@ -1,32 +1,114 @@
-"""RMSNorm with a pluggable sqrt unit (torch port of
-``repro.layers.norms.rmsnorm``).
+"""Normalization layers with a pluggable sqrt unit (torch port of
+``repro.layers.norms``): RMSNorm and LayerNorm, each with a per-row
+accuracy-SLO ladder variant.
 
 ``x * rsqrt(ms + eps)`` is computed through the configured SqrtUnit; the
 reduction is float32 whatever the activation dtype.  ``fused=True`` routes
-the whole norm through the RMSNorm kernel (the CUDA kernel for a CUDA
+the whole RMSNorm through the RMSNorm kernel (the CUDA kernel for a CUDA
 tensor, its plain version for a CPU tensor); only "e2afs" has a fused
-datapath.  The fused and unfused routes compute the same function: in the
-reference they are bit-identical, and here only the order of the float32
-sum differs.
+datapath, and it has no fault-injection hook.  Unfused, a clean "e2afs"
+rsqrt takes the unit's kernel route (``get_unit("e2afs", kernel=True)``:
+one ``e2afs_sqrt`` launch on a CUDA tensor, the plain datapath on a CPU
+one, the same bits and gradient either way); a faulted one keeps the
+datapath's in-field injection, and every other unit its plain datapath.
+The fused and unfused routes compute the same function: in the reference
+they are bit-identical, and here only the order of the float32 sum differs.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.rmsnorm.ref import ref_rmsnorm
+from repro_torch.core import get_unit, resolve_ladder
 
-__all__ = ["rmsnorm"]
+__all__ = ["rmsnorm", "rmsnorm_select", "rmsnorm_cfg", "layernorm", "layernorm_select"]
+
+
+def _rsqrt(unit, v: torch.Tensor) -> torch.Tensor:
+    """The unit's rsqrt of ``v``, on the e2afs kernel route when clean."""
+    return unit.rsqrt(v, kernel=unit.name == "e2afs" and not unit._fault_active())
+
+
+def _select_inv(v, levels, ladder, faults, ndim):
+    """rsqrt of ``v`` through every ladder rung, selected per row by
+    ``levels`` ((b,) over the leading axis).  A row at level 0 takes
+    exactly rung 0's output, bit-identical to the single-unit route;
+    faults ride rung 0 only."""
+    units = resolve_ladder(ladder, faults=faults)
+    invs = [_rsqrt(u, v) for u in units]
+    lv = levels.reshape((levels.shape[0],) + (1,) * (ndim - 1))
+    inv = invs[-1]
+    for j in range(len(units) - 2, -1, -1):
+        inv = torch.where(lv == j, invs[j], inv)
+    return inv
+
+
+def _mean_square(xf: torch.Tensor) -> torch.Tensor:
+    """fp32 mean of x^2 over the last axis: a sum divided by d, as
+    ``jnp.mean``."""
+    return (xf * xf).sum(dim=-1, keepdim=True) / xf.shape[-1]
+
+
+def _centred(xf: torch.Tensor):
+    mu = xf.sum(dim=-1, keepdim=True) / xf.shape[-1]
+    c = xf - mu
+    return c, (c * c).sum(dim=-1, keepdim=True) / xf.shape[-1]
 
 
 def rmsnorm(scale: torch.Tensor, x: torch.Tensor, *, sqrt_unit: str = "exact",
-            eps: float = 1e-6, fused: bool = False) -> torch.Tensor:
+            eps: float = 1e-6, fused: bool = False, faults=None) -> torch.Tensor:
     """Normalise the last axis of ``x``; ``scale`` (d,) is applied as
     ``1 + scale`` (zero-initialised, gemma convention).  Scale first, as in
-    the reference."""
+    the reference.  ``faults`` threads a seeded sqrt-site
+    :class:`~repro_torch.core.faults.FaultConfig` into the unit."""
+    unit = get_unit(sqrt_unit, faults=faults)
     if fused:
         if sqrt_unit != "e2afs":
             raise ValueError(f"fused rmsnorm requires sqrt_unit='e2afs', got {sqrt_unit!r}")
+        if unit._fault_active():
+            raise ValueError("fused rmsnorm has no fault-injection hook; use fused=False")
         from repro_torch.kernels.rmsnorm.ops import rmsnorm as rmsnorm_kernel
 
         return rmsnorm_kernel(x, scale.to(x.dtype), eps=eps)
-    return ref_rmsnorm(x, scale, sqrt_unit=sqrt_unit, eps=eps)
+    xf = x.float()
+    inv = _rsqrt(unit, _mean_square(xf) + eps)
+    return (xf * inv).to(x.dtype) * (1.0 + scale.to(x.dtype))
+
+
+def rmsnorm_select(scale: torch.Tensor, x: torch.Tensor, levels: torch.Tensor, *, ladder,
+                   eps: float = 1e-6, faults=None) -> torch.Tensor:
+    """Per-row ladder variant of :func:`rmsnorm` for accuracy-SLO decode: row
+    ``i`` takes its rsqrt from ``ladder[levels[i]]``.  The mean square is
+    computed once; only the rsqrt runs per rung."""
+    xf = x.float()
+    inv = _select_inv(_mean_square(xf) + eps, levels, ladder, faults, x.ndim)
+    return (xf * inv).to(x.dtype) * (1.0 + scale.to(x.dtype))
+
+
+def rmsnorm_cfg(scale: torch.Tensor, x: torch.Tensor, cfg, *, fused: bool = True,
+                levels=None) -> torch.Tensor:
+    """An RMSNorm of the model under its config: with ``levels`` ((b,),
+    accuracy-SLO decode) each row through its rung of ``cfg.sqrt_ladder``;
+    else through ``cfg.sqrt_unit`` and ``cfg.sqrt_faults``, on the fused
+    kernel where ``fused`` asks and the kernel computes the norm ("e2afs",
+    no sqrt fault active)."""
+    if levels is not None:
+        return rmsnorm_select(scale, x, levels, ladder=cfg.sqrt_ladder, faults=cfg.sqrt_faults)
+    clean = not get_unit(cfg.sqrt_unit, faults=cfg.sqrt_faults)._fault_active()
+    return rmsnorm(scale, x, sqrt_unit=cfg.sqrt_unit, faults=cfg.sqrt_faults,
+                   fused=fused and cfg.sqrt_unit == "e2afs" and clean)
+
+
+def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor, *,
+              sqrt_unit: str = "exact", eps: float = 1e-5, faults=None) -> torch.Tensor:
+    c, var = _centred(x.float())
+    inv = _rsqrt(get_unit(sqrt_unit, faults=faults), var + eps)
+    return (c * inv).to(x.dtype) * scale.to(x.dtype) + bias.to(x.dtype)
+
+
+def layernorm_select(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
+                     levels: torch.Tensor, *, ladder, eps: float = 1e-5,
+                     faults=None) -> torch.Tensor:
+    """Per-row ladder variant of :func:`layernorm` (see :func:`rmsnorm_select`)."""
+    c, var = _centred(x.float())
+    inv = _select_inv(var + eps, levels, ladder, faults, x.ndim)
+    return (c * inv).to(x.dtype) * scale.to(x.dtype) + bias.to(x.dtype)

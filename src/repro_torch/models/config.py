@@ -1,16 +1,22 @@
 """Architecture configuration (the port's own copy of
 ``repro.models.config``, with the same fields).
 
-:meth:`ModelConfig.validate` also rejects what the port does not run yet:
-mixture-of-experts, SSM and RG-LRU blocks, encoder-decoder models, vision
-tokens, non-RoPE positions, LayerNorm, the accuracy-SLO ladder, fault
-injection and selective remat ("minimal").  Patterns that mix "global" and
-"window" blocks run (gemma3-1b's 5:1).
+:meth:`ModelConfig.validate` checks the reference's rules (an accuracy-SLO
+ladder has at least two rungs, rung 0 equal to ``sqrt_unit``, the last
+"exact") as ``ValueError``s, and also rejects what the port does not run
+yet: mixture-of-experts, SSM and RG-LRU blocks, encoder-decoder models,
+vision tokens, non-RoPE positions and LayerNorm.  Every sqrt unit runs
+("exact", "e2afs", "esas", "cwaha4", "cwaha8"), with seeded datapath faults
+(``sqrt_faults``) and a ladder, and remat "none", "block" or "minimal";
+patterns that mix "global" and "window" blocks run (gemma3-1b's 5:1).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
+
+from repro_torch.core.faults import FaultConfig
+from repro_torch.core.units import available_units
 
 __all__ = ["ModelConfig", "MoESpec", "SSMSpec", "RGLRUSpec", "EncoderSpec"]
 
@@ -70,7 +76,12 @@ class ModelConfig:
     act_dtype: str = "bfloat16"
     scores_dtype: str = "float32"
     sqrt_unit: str = "exact"
-    sqrt_faults: Optional[Any] = None
+    # seeded fault schedule for the sqrt datapath (core/faults.py); None = clean
+    sqrt_faults: Optional[FaultConfig] = None
+    # accuracy-SLO demotion ladder: decode entry points then take a per-row
+    # ``unit_levels`` vector and route each row's norm rsqrt through
+    # ladder[level]; rung 0 is ``sqrt_unit`` (the only rung that sees
+    # ``sqrt_faults``), the last "exact".  None = one datapath
     sqrt_ladder: Optional[Tuple[str, ...]] = None
     remat: str = "block"  # "none" | "block" | "minimal"
     # decode-attention route: None = inline PyTorch path; "fused" = the CUDA
@@ -112,12 +123,26 @@ class ModelConfig:
         if self.decode_kernel not in (None, "fused", "reference"):
             raise ValueError(f"unknown decode kernel {self.decode_kernel!r}; "
                              f"expected None, 'fused' or 'reference'")
-        if self.sqrt_unit not in ("exact", "e2afs"):
-            raise ValueError(f"the port has sqrt units 'exact' and 'e2afs', "
-                             f"got {self.sqrt_unit!r}")
-        if self.remat not in ("none", "block"):
-            raise ValueError(f"the port runs remat 'none' or 'block'; selective remat "
-                             f"{self.remat!r} (attention scores only) is not ported yet")
+        units = available_units()
+        if self.sqrt_unit not in units:
+            raise ValueError(f"unknown sqrt unit {self.sqrt_unit!r}; expected one of {units}")
+        if self.sqrt_ladder is not None:
+            ladder = tuple(self.sqrt_ladder)
+            if len(ladder) < 2:
+                raise ValueError(f"a sqrt ladder needs >= 2 rungs (approx -> exact), got {ladder}")
+            if ladder[0] != self.sqrt_unit:
+                raise ValueError(f"sqrt ladder rung 0 must be sqrt_unit {self.sqrt_unit!r}, "
+                                 f"got {ladder}")
+            if ladder[-1] != "exact":
+                raise ValueError(f"sqrt ladder must end at 'exact', got {ladder}")
+            unknown = [n for n in ladder if n not in units]
+            if unknown:
+                raise ValueError(f"sqrt ladder {ladder}: unknown units {unknown}")
+        if self.sqrt_faults is not None and not isinstance(self.sqrt_faults, FaultConfig):
+            raise ValueError(f"sqrt_faults must be a FaultConfig, got {self.sqrt_faults!r}")
+        if self.remat not in ("none", "block", "minimal"):
+            raise ValueError(f"unknown remat {self.remat!r}; expected 'none', 'block' or "
+                             f"'minimal'")
         if self.act_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"the port runs bfloat16 or float32 activations, "
                              f"got {self.act_dtype!r}")
@@ -129,8 +154,6 @@ class ModelConfig:
             "vision tokens": self.vision_tokens != 0,
             "positions other than RoPE": self.pos != "rope",
             "LayerNorm": self.norm != "rmsnorm",
-            "the accuracy-SLO ladder": self.sqrt_ladder is not None,
-            "fault injection": self.sqrt_faults is not None,
         }
         found = [what for what, bad in unsupported.items() if bad]
         if found:

@@ -24,12 +24,16 @@ of the window).  Prefill and decode update it IN PLACE (the reference is
 functional and returns a new cache; here the returned cache is the one
 passed in).
 
-Serving runs every norm through ``layers.norms.rmsnorm``: with
-``sqrt_unit="e2afs"`` on its fused route (the RMSNorm kernel on CUDA, its
-plain version on the CPU; the reference's unfused call computes the same
-function), with "exact" through ``torch.rsqrt``.  The training forward runs
-every norm unfused, through the unit's differentiable datapath, as the
-reference's does (the RMSNorm kernel has no backward in either package).
+Serving runs every norm through ``layers.norms.rmsnorm_cfg``: with
+``sqrt_unit="e2afs"`` and no sqrt fault active on its fused route (the
+RMSNorm kernel on CUDA, its plain version on the CPU; the reference's
+unfused call computes the same function), otherwise unfused through the
+configured unit (``cfg.sqrt_faults`` struck into its datapath).  Decode
+entry points take ``unit_levels`` ((b,) int32, with ``cfg.sqrt_ladder``):
+every norm rsqrt of row ``i`` then runs through ``ladder[unit_levels[i]]``
+(``layers.norms.rmsnorm_select``).  The training forward runs every norm
+unfused, through the unit's differentiable route, as the reference's does
+(the RMSNorm kernel has no backward in either package).
 """
 from __future__ import annotations
 
@@ -39,26 +43,30 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.core.faults import _M32, _mix32
 from repro_torch.device import resolve_device
 from repro_torch.layers import attention as attn
 from repro_torch.layers.mlp import MLP, mlp_apply
-from repro_torch.layers.norms import rmsnorm
+from repro_torch.layers.norms import rmsnorm_cfg as _norm
 from repro_torch.layers.param import parameter, truncated_normal
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["LM", "init", "init_cache", "forward", "decode_step", "prefill", "generate_scan",
            "param_count", "init_pool_state", "pool_tensors", "slot_rows_like",
            "insert_cache_slots", "prefill_into_slots", "sample_tokens", "decode_slots_step",
-           "decode_slots_scan"]
+           "decode_slots_scan", "exact_twin"]
 
 
 def act_dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.act_dtype)
 
 
-def _norm(scale, x, cfg, *, fused=True):
-    return rmsnorm(scale, x, sqrt_unit=cfg.sqrt_unit,
-                   fused=fused and cfg.sqrt_unit == "e2afs")
+def exact_twin(cfg: ModelConfig) -> ModelConfig:
+    """The exact-datapath, fault-free twin of a config: the bottom rung of
+    the approximate -> exact degradation ladder."""
+    if cfg.sqrt_unit == "exact" and cfg.sqrt_faults is None and cfg.sqrt_ladder is None:
+        return cfg
+    return cfg.replace(sqrt_unit="exact", sqrt_faults=None, sqrt_ladder=None)
 
 
 class Block(nn.Module):
@@ -169,7 +177,9 @@ def forward(model: LM, cfg: ModelConfig, batch: dict, *, return_hidden: bool = F
     does; with ``return_hidden`` the unembed product is left to the caller
     (the loss computes it in sequence chunks): ((x, unembed), aux).
     ``cfg.remat == "block"`` recomputes each layer's forward in the backward
-    pass (``torch.utils.checkpoint``), keeping only the layer inputs.
+    pass (``torch.utils.checkpoint``), keeping only the layer inputs;
+    ``"minimal"`` recomputes only the attention scores (the reference keeps
+    every residual but "attn_scores"; see ``attention._scored_attention``).
     ``aux["moe_aux"]`` is 0: dense layers have no router loss."""
     dt = act_dtype(cfg)
     tokens = batch["tokens"]
@@ -192,32 +202,46 @@ def _window(cfg, block):
     return cfg.window if block == "window" else None
 
 
-def _logits(model: LM, cfg, x):
-    x = _norm(model.ln_f, x, cfg)
+def _logits(model: LM, cfg, x, levels=None):
+    x = _norm(model.ln_f, x, cfg, levels=levels)
     logits = x @ model.unembed_matrix().to(x.dtype)
     return logits[..., : cfg.vocab]
 
 
+def _levels(cfg, unit_levels, device):
+    """``unit_levels`` as a (b,) int32 tensor on ``device``, checked against
+    the config as the reference checks it; None stays None."""
+    if unit_levels is None:
+        return None
+    if cfg.sqrt_ladder is None:
+        raise ValueError("unit_levels requires cfg.sqrt_ladder to be set")
+    return torch.as_tensor(unit_levels, dtype=torch.int32, device=device)
+
+
 @torch.no_grad()
-def decode_step(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, pos):
+def decode_step(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, pos, *,
+                unit_levels=None):
     """One decode forward (a single token per batch row) over the cache (a
     stacked dict or a per-layer list, as :func:`init_cache` gives it).
 
     tokens: (b, 1) integer; pos: the position of this token, an int
     (lock-step batch) or a (b,) tensor (one position per row).  Writes one
     token line per layer into ``cache`` in place; a window layer writes its
-    ring at ``pos % window`` and attends with ``wrap``.  Returns
-    (logits (b, 1, vocab), cache).
+    ring at ``pos % window`` and attends with ``wrap``.  ``unit_levels``
+    ((b,) int32, requires ``cfg.sqrt_ladder``): every norm rsqrt of row
+    ``i``, qk-norm and final norm included, through ladder rung
+    ``unit_levels[i]``.  Returns (logits (b, 1, vocab), cache).
     """
+    levels = _levels(cfg, unit_levels, tokens.device)
     x = model.embed[tokens]
     for i, (layer, block) in enumerate(zip(model.layers, cfg.blocks)):
         c, idx = _layer_cache(cache, i)
-        h = _norm(layer.ln1, x, cfg)
-        h, _ = attn.attention_decode(layer.attn, cfg, h, c, pos,
-                                     window=_window(cfg, block), layer_idx=idx)
+        h = _norm(layer.ln1, x, cfg, levels=levels)
+        h, _ = attn.attention_decode(layer.attn, cfg, h, c, pos, window=_window(cfg, block),
+                                     layer_idx=idx, norm_levels=levels)
         x = x + h
-        x = x + mlp_apply(layer.mlp, cfg, _norm(layer.ln2, x, cfg))
-    return _logits(model, cfg, x), cache
+        x = x + mlp_apply(layer.mlp, cfg, _norm(layer.ln2, x, cfg, levels=levels))
+    return _logits(model, cfg, x, levels), cache
 
 
 @torch.no_grad()
@@ -368,24 +392,6 @@ def prefill_into_slots(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor,
     return logits, insert_cache_slots(cfg, cache, rows, slots)
 
 
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2^32 for int64 x in [0, 2^32) and a 32-bit constant c,
-    with every product below 2^49 (no int64 overflow on any device)."""
-    return (x * (c & 0xFFFF) + (((x * (c >> 16)) & 0xFFFF) << 16)) & _M32
-
-
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """A bijection of 32-bit words held in int64 (the "lowbias32" hash)."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x7FEB352D)
-    x = x ^ (x >> 15)
-    x = _mul32(x, 0x846CA68B)
-    return x ^ (x >> 16)
-
-
 def _stream_bits(keys: torch.Tensor, pos: torch.Tensor, vocab: int) -> torch.Tensor:
     """(b, vocab) 32-bit words (in int64) of a counter-based hash of (seed,
     request id, position, vocab index): integer ops only, so the same bits
@@ -426,7 +432,8 @@ def sample_tokens(logits: torch.Tensor, pos: torch.Tensor, keys: Optional[torch.
 @torch.no_grad()
 def decode_slots_step(model: LM, cfg: ModelConfig, pool: dict, toks: torch.Tensor,
                       emitted: torch.Tensor, i: int, *, eos_id: Optional[int] = None,
-                      temperature: float = 0.0, top_k: int = 0) -> None:
+                      temperature: float = 0.0, top_k: int = 0, unit_levels=None,
+                      logits_hook=None) -> None:
     """One slot-scheduled decode step over ``pool`` (an
     :func:`init_pool_state` dict), every row an independent request.
 
@@ -436,11 +443,18 @@ def decode_slots_step(model: LM, cfg: ModelConfig, pool: dict, toks: torch.Tenso
     budget is spent or the token it just emitted is ``eos_id`` (the EOS is
     emitted).  Inactive slots re-feed their last token at a frozen position:
     their logits are discarded and row-wise math keeps them from touching
-    live rows.  Updates the pool in place and reads nothing back to the
-    host, so a run of steps can be captured in a CUDA graph."""
+    live rows.  ``unit_levels`` as in :func:`decode_step` (a (b,) int32
+    tensor on the pool's device); ``logits_hook`` (float32 logits -> float32
+    logits, e.g. ``core.faults.logits_hook``) is applied to each step's
+    last-position logits before sampling.  Updates the pool in place and
+    reads nothing back to the host, so a run of steps can be captured in a
+    CUDA graph."""
     tok, pos, active, remaining = pool["tok"], pool["pos"], pool["active"], pool["remaining"]
-    logits, _ = decode_step(model, cfg, pool["cache"], tok, pos)
-    nxt = sample_tokens(logits[:, -1].float(), pos, pool["keys"], temperature, top_k)
+    logits, _ = decode_step(model, cfg, pool["cache"], tok, pos, unit_levels=unit_levels)
+    lg = logits[:, -1].float()
+    if logits_hook is not None:
+        lg = logits_hook(lg)
+    nxt = sample_tokens(lg, pos, pool["keys"], temperature, top_k)
     fed = tok[:, 0]
     toks[:, i] = fed
     emitted[:, i] = active
@@ -457,20 +471,24 @@ def decode_slots_step(model: LM, cfg: ModelConfig, pool: dict, toks: torch.Tenso
 @torch.no_grad()
 def decode_slots_scan(model: LM, cfg: ModelConfig, cache, tok, pos, active, remaining,
                       n_steps: int, *, eos_id: Optional[int] = None, temperature: float = 0.0,
-                      top_k: int = 0, keys: Optional[torch.Tensor] = None):
+                      top_k: int = 0, keys: Optional[torch.Tensor] = None, unit_levels=None,
+                      logits_hook=None):
     """``n_steps`` of :func:`decode_slots_step`: a Python loop with no host
     synchronisation (the reference's ``lax.scan``).
 
     tok (b, 1) int32, pos (b,) int32, active (b,) bool, remaining (b,) int32
     and the cache are updated IN PLACE; keys (b, 2) uint32 request-derived
-    stream words, required when ``temperature`` > 0.  Returns (toks
-    (b, n_steps) int32, emitted (b, n_steps) bool, tok, pos, active,
-    remaining, cache), the reference's order."""
+    stream words, required when ``temperature`` > 0.  ``unit_levels`` ((b,),
+    requires ``cfg.sqrt_ladder``) and ``logits_hook`` as in
+    :func:`decode_slots_step`.  Returns (toks (b, n_steps) int32, emitted
+    (b, n_steps) bool, tok, pos, active, remaining, cache), the reference's
+    order."""
     if temperature and keys is None:
         raise ValueError(
             "temperature sampling needs per-request keys (a (b, 2) keys tensor); "
             "slot-index defaults would tie a request's samples to its slot"
         )
+    levels = _levels(cfg, unit_levels, tok.device)
     pool = {"cache": cache, "tok": tok, "pos": pos, "active": active,
             "remaining": remaining, "keys": keys}
     b = tok.shape[0]
@@ -478,5 +496,6 @@ def decode_slots_scan(model: LM, cfg: ModelConfig, cache, tok, pos, active, rema
     emitted = torch.zeros((b, n_steps), dtype=torch.bool, device=tok.device)
     for i in range(n_steps):
         decode_slots_step(model, cfg, pool, toks, emitted, i, eos_id=eos_id,
-                          temperature=temperature, top_k=top_k)
+                          temperature=temperature, top_k=top_k, unit_levels=levels,
+                          logits_hook=logits_hook)
     return toks, emitted, tok, pos, active, remaining, cache

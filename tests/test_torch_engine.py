@@ -509,3 +509,9 @@ def test_sampling_draws_the_gumbel_max_law():
         assert float((freq - torch.softmax(lg, dim=0)).abs().max()) < 0.01, (top_k, freq)
     greedy = lm.sample_tokens(torch.tensor([[1.0, 3.0, 3.0]]), pos[:1], None, 0.0, 0)
     assert greedy.tolist() == [1]  # the first index on ties, as jnp.argmax
+    # the stream's words, pinned (the hash is core.faults._mix32, the fault model's)
+    keys = torch.tensor([[3, 7], [0xFFFFFFFF, 0x7FFFFFFF]], dtype=torch.int64).to(torch.uint32)
+    words = lm._stream_bits(keys, torch.tensor([0, 2_000_000_000], dtype=torch.int32), 6)
+    assert words.tolist() == [
+        [2867087696, 1138866074, 703359632, 939383032, 22083434, 1822093297],
+        [1316949154, 1845148630, 617509348, 1537871161, 3938082606, 3756077568]]

@@ -728,3 +728,190 @@ def test_sampling_on_the_card(cuda_device):
     cpu = lm._stream_bits(keys, pos, cfg.padded_vocab)
     assert torch.equal(lm._stream_bits(keys.to(cuda_device), pos.to(cuda_device),
                                        cfg.padded_vocab).cpu(), cpu)
+
+
+# ---------------------------------------------------------------------------
+# Seeded faults and accuracy-SLO ladders on the card
+# ---------------------------------------------------------------------------
+
+_FAULT_CASES = [("sqrt_man", 1e-2, None), ("sqrt_man", 1.0, 3), ("sqrt_exp", 1e-2, None),
+                ("sqrt_exp", 1.0, 2)]
+
+
+def _fault_inputs(dtype):
+    """Every fp16/bf16 pattern, or the float32 grid with the specials."""
+    if dtype == torch.float32:
+        return torch.cat([sampled_normal_values(), torch.tensor(
+            [0.0, -0.0, float("inf"), -float("inf"), float("nan"), -2.0, 1e-40, -1e-40])])
+    return torch.arange(1 << 16, dtype=torch.int32).to(torch.int16).view(dtype)
+
+
+def _normal(y):
+    """Elementwise: a normal number in y's format."""
+    exp_bits = {torch.float16: 5, torch.bfloat16: 8, torch.float32: 8}[y.dtype]
+    man_bits = _MAN_BITS[y.dtype]
+    bits = y.view(_INT[y.dtype]).to(torch.int64)
+    exp = (bits >> man_bits) & ((1 << exp_bits) - 1)
+    return (exp > 0) & (exp < (1 << exp_bits) - 1)
+
+
+@pytest.mark.parametrize("op", ["sqrt", "rsqrt"])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+def test_faulted_datapath_on_the_card_equals_the_cpu(cuda_device, dtype, op):
+    """The e2afs datapath under every fault case (both sites, a hashed and a
+    pinned bit, rates 1e-2 and 1.0) gives the CPU's bits on the card."""
+    from repro_torch.core import e2afs, faults
+
+    x = _fault_inputs(dtype)
+    fn = getattr(e2afs, f"e2afs_{op}")
+    for site, rate, bit in _FAULT_CASES:
+        cfg = faults.FaultConfig(site, rate, seed=2**33 + 7, bit=bit)
+        cpu = fn(x, faults=cfg)
+        card = fn(x.to(cuda_device), faults=cfg).cpu()
+        assert _same_bits(card, cpu), (site, rate, bit)
+        assert not _same_bits(cpu, fn(x))  # the faults struck
+
+
+def test_fault_hash_words_on_the_card_equal_the_cpu(cuda_device):
+    from repro_torch.core import faults
+
+    w = torch.randint(-2**31, 2**31, (4096,), generator=torch.Generator().manual_seed(0),
+                      dtype=torch.int64).to(torch.int32).reshape(64, 64)
+    for seed in (0, 7, 2**32 + 5, -3):
+        assert torch.equal(faults._entropy(w.to(cuda_device), seed).cpu(),
+                           faults._entropy(w, seed))
+        assert torch.equal(faults.fault_mask(w.to(cuda_device), 0.3, seed).cpu(),
+                           faults.fault_mask(w, 0.3, seed))
+    words = w.to(torch.int64) & 0xFFFFFFFF
+    assert torch.equal(faults._mix32(words.to(cuda_device)).cpu(), faults._mix32(words))
+
+
+@pytest.mark.parametrize("op", ["sqrt", "rsqrt"])
+@pytest.mark.parametrize("dtype", [torch.float16, torch.bfloat16, torch.float32])
+def test_kernel_route_under_faults(cuda_device, dtype, op):
+    """``get_unit("e2afs", kernel=True, faults=)`` launches the kernel once
+    and flips its output register: it equals ``flip_float_bits`` of the
+    clean kernel output everywhere, and the plain faulted route (the flip
+    inside the datapath) wherever the clean output is a normal number."""
+    from repro_torch.core import faults, get_unit
+
+    x = _fault_inputs(dtype).to(cuda_device)
+    for site, rate, bit in _FAULT_CASES:
+        cfg = faults.FaultConfig(site, rate, seed=5, bit=bit)
+        dispatch.reset_launch_counts()
+        y = getattr(get_unit("e2afs", kernel=True, faults=cfg), op)(x)
+        assert dispatch.launch_counts()[f"e2afs_{op}"] == 1
+        clean = getattr(get_unit("e2afs", kernel=True), op)(x)
+        assert _same_bits(y, faults.flip_float_bits(clean, cfg))
+        plain = getattr(get_unit("e2afs", faults=cfg), op)(x)
+        normal = _normal(clean)
+        assert _same_bits(y[normal], plain[normal]), (site, rate, bit)
+
+
+_LADDER = ("e2afs", "esas", "exact")
+_LEVELS = [0, 1, 2, 0, 1, 2, 0, 2]
+
+
+def _decode_from(model, cfg, cache, tok, start, steps, levels=None, hook=None):
+    """``decode_slots_scan`` from a copy of a prefilled cache; returns
+    (tokens, every step's float32 logits (b, steps, vocab), the cache)."""
+    cache = {k: v.clone() for k, v in cache.items()}
+    b = tok.shape[0]
+    dev = tok.device
+    logits = []
+
+    def record(lg):
+        logits.append(lg.clone())
+        return lg
+
+    toks = lm.decode_slots_scan(
+        model, cfg, cache, tok.clone(), torch.full((b,), start, dtype=torch.int32, device=dev),
+        torch.ones(b, dtype=torch.bool, device=dev),
+        torch.full((b,), steps, dtype=torch.int32, device=dev), steps,
+        unit_levels=levels, logits_hook=record)[0]
+    return toks, torch.stack(logits, 1), cache
+
+
+def test_ladder_rows_are_independent(cuda_device):
+    """Smoke width, bf16, 8 slots at rungs [0, 1, 2, 0, 1, 2, 0, 2] of
+    ("e2afs", "esas", "exact"): every row's tokens, logits and cache are
+    bit-identical to the same row of a run with all slots at its rung; the
+    all-"exact" run is ``exact_twin``'s; no RMSNorm launch under levels,
+    the decode-attention kernel on every step."""
+    cfg = get_smoke_config("qwen3-4b", sqrt_unit="e2afs", decode_kernel="fused",
+                           sqrt_ladder=_LADDER)
+    model = lm.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    b, s, steps = len(_LEVELS), 12, 6
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator(
+        device=cuda_device).manual_seed(1), device=cuda_device)
+    cache = lm.init_cache(cfg, b, s + steps, device=cuda_device)
+    logits, cache = lm.prefill(model, cfg, cache, prompt, last_logit_only=True)
+    tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    levels = torch.tensor(_LEVELS, dtype=torch.int32, device=cuda_device)
+    dispatch.reset_launch_counts()
+    mixed = _decode_from(model, cfg, cache, tok, s, steps, levels)
+    counts = dispatch.launch_counts()
+    assert counts["rmsnorm"] == 0
+    assert counts["decode_attention"] == cfg.n_layers * steps
+    assert counts["e2afs_rsqrt"] == (4 * cfg.n_layers + 1) * steps  # the e2afs rung's route
+    uniform = [_decode_from(model, cfg, cache, tok, s, steps, torch.full_like(levels, lv))
+               for lv in range(len(_LADDER))]
+    for i, lv in enumerate(_LEVELS):
+        want = uniform[lv]
+        assert torch.equal(mixed[0][i], want[0][i]), i
+        assert _same_bits(mixed[1][i], want[1][i]), i
+        for key in cache:
+            assert _same_bits(mixed[2][key][:, i], want[2][key][:, i]), (i, key)
+    twin = _decode_from(model, lm.exact_twin(cfg), cache, tok, s, steps)
+    assert torch.equal(twin[0], uniform[2][0]) and _same_bits(twin[1], uniform[2][1])
+
+
+def test_ladder_and_faulted_steps_capture_in_a_cuda_graph(cuda_device):
+    """``decode_slots_step`` with ``unit_levels`` (a device tensor), sqrt
+    faults and a NaN ``logits_hook`` reads nothing back to the host: two
+    steps captured as one CUDA graph replay bit-identical to the same steps
+    run eagerly from one pool state."""
+    from repro_torch.core import faults
+
+    cfg = get_smoke_config("qwen3-4b", sqrt_unit="e2afs", decode_kernel="fused",
+                           sqrt_ladder=_LADDER,
+                           sqrt_faults=faults.FaultConfig("sqrt_man", 0.05, seed=7))
+    model = lm.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    b, s = len(_LEVELS), 12
+    pool = lm.init_pool_state(cfg, b, s + 8, device=cuda_device)
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator(
+        device=cuda_device).manual_seed(1), device=cuda_device)
+    logits, _ = lm.prefill_into_slots(model, cfg, pool["cache"], prompt,
+                                      torch.arange(b, device=cuda_device))
+    pool["tok"].copy_(logits[:, -1:].argmax(-1))
+    pool["pos"].fill_(s)
+    pool["active"].fill_(True)
+    pool["remaining"].fill_(8)
+    levels = torch.tensor(_LEVELS, dtype=torch.int32, device=cuda_device)
+    hook = faults.logits_hook(faults.FaultConfig("logit_nan", 0.01, seed=3))
+    toks = torch.zeros((b, 2), dtype=torch.int32, device=cuda_device)
+    emitted = torch.zeros((b, 2), dtype=torch.bool, device=cuda_device)
+    start = [t.clone() for t in lm.pool_tensors(pool)]
+
+    def steps():
+        for i in range(2):
+            lm.decode_slots_step(model, cfg, pool, toks, emitted, i, unit_levels=levels,
+                                 logits_hook=hook)
+
+    def outcome(run):
+        for t, s0 in zip(lm.pool_tensors(pool), start):
+            t.copy_(s0)
+        run()
+        torch.cuda.synchronize()
+        return [t.clone() for t in lm.pool_tensors(pool)] + [toks.clone(), emitted.clone()]
+
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        eager = outcome(steps)
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with dispatch.capture_launches(), torch.cuda.graph(graph):
+        steps()
+    replayed = outcome(graph.replay)
+    assert _pool_bits_equal(replayed, eager)

@@ -21,10 +21,12 @@ import pytest
 import torch
 
 from repro.configs import get_smoke_config as jax_smoke_config
+from repro.core import faults as jax_faults
 from repro.layers import attention as jax_attn
 from repro.models import lm as jax_lm
 from repro.models.config import MoESpec
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core import faults
 from repro_torch.kernels import dispatch
 from repro_torch.launch import serve
 from repro_torch.layers import attention as attn
@@ -313,8 +315,8 @@ def test_full_width_config_mirrors_reference():
     ({"moe": MoESpec(4, 2, 32)}, "mixture-of-experts"),
     ({"block_pattern": ("ssd",)}, "SSM"),
     ({"kind": "encdec"}, "encoder-decoder"),
-    ({"sqrt_ladder": ("e2afs", "exact")}, "ladder"),
-    ({"sqrt_faults": object()}, "fault injection"),
+    ({"sqrt_ladder": ("exact", "esas")}, "ladder"),  # the last rung is not "exact"
+    ({"sqrt_ladder": ("e2afs", "exact")}, "ladder"),  # rung 0 is not sqrt_unit ("exact")
     ({"decode_kernel": "flash"}, "unknown decode kernel"),
 ])
 def test_validate_rejects_what_the_port_does_not_run(override, match):
@@ -499,3 +501,124 @@ def test_serve_generate_gemma3_scan_matches_loop():
                              device="cpu")
     assert tuple(scan.shape) == (2, 12 + 16)
     assert torch.equal(scan, loop)
+
+
+# ---------------------------------------------------------------------------
+# Accuracy-SLO ladders and seeded faults through the slot-pool decode
+# ---------------------------------------------------------------------------
+
+LADDER = ("e2afs", "esas", "exact")
+LEVELS = np.array([0, 1, 2], dtype=np.int32)  # one slot at each rung
+SLOT_S, SLOT_STEPS = 10, 12
+
+
+@pytest.fixture(scope="module")
+def ladder_trees():
+    """The reference's float32 weights per arch, as (params, numpy tree)."""
+    trees = {}
+
+    def get(arch):
+        if arch not in trees:
+            params, _ = jax_lm.init(jax_smoke_config(arch, act_dtype="float32",
+                                                     sqrt_unit="e2afs"), jax.random.key(0))
+            trees[arch] = (params, jax.tree.map(np.asarray, params))
+        return trees[arch]
+
+    return get
+
+
+def _slot_runs(ladder_trees, arch, *, sqrt_faults, unit_levels, hook=None, record=None):
+    """Prefill 3 slots, then ``decode_slots_scan`` in both packages from the
+    same weights and prompt; returns (port tokens, reference tokens)."""
+    params, tree = ladder_trees(arch)
+    kw = dict(act_dtype="float32", sqrt_unit="e2afs", sqrt_ladder=LADDER)
+    jcfg = jax_smoke_config(arch, sqrt_faults=sqrt_faults and jax_faults.FaultConfig(
+        *sqrt_faults), **kw)  # (site, rate, seed, bit)
+    tcfg = get_smoke_config(arch, sqrt_faults=sqrt_faults and faults.FaultConfig(*sqrt_faults),
+                            **kw)
+    b = len(LEVELS)
+    prompt = np.random.default_rng(5).integers(0, jcfg.vocab, (b, SLOT_S)).astype(np.int32)
+    cache_len = SLOT_S + SLOT_STEPS
+    pos, active = np.full(b, SLOT_S, np.int32), np.ones(b, bool)
+    remaining = np.full(b, SLOT_STEPS, np.int32)
+
+    jcache, _ = jax_lm.init_cache(jcfg, b, cache_len)
+    jlog, jcache = jax_lm.prefill(params, jcfg, jcache, jnp.asarray(prompt))
+    jtok = jnp.argmax(jlog[:, -1:], axis=-1).astype(jnp.int32)
+    jhook = hook and jax_faults.logits_hook(jax_faults.FaultConfig(*hook))
+    jt = jax_lm.decode_slots_scan(params, jcfg, jcache, jtok, pos, active, remaining, SLOT_STEPS,
+                                  unit_levels=None if unit_levels is None else
+                                  jnp.asarray(unit_levels), logits_hook=jhook)[0]
+
+    model = convert.params_from_numpy(tcfg, tree, device="cpu")
+    tcache = lm.init_cache(tcfg, b, cache_len, device="cpu")
+    tlog, tcache = lm.prefill(model, tcfg, tcache, torch.from_numpy(prompt))
+    ttok = tlog[:, -1:].argmax(dim=-1).to(torch.int32)
+    thook = hook and faults.logits_hook(faults.FaultConfig(*hook))
+    if record is not None:
+        inner = thook
+
+        def thook(lg):
+            record.append((lg.clone(), inner(lg)))
+            return record[-1][1]
+
+    tt = lm.decode_slots_scan(model, tcfg, tcache, ttok, torch.from_numpy(pos),
+                              torch.from_numpy(active), torch.from_numpy(remaining), SLOT_STEPS,
+                              unit_levels=None if unit_levels is None else
+                              torch.from_numpy(unit_levels), logits_hook=thook)[0]
+    return tt.numpy(), np.asarray(jt)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-4b", "gemma3-1b"])
+def test_ladder_and_faults_decode_slots_scan_tokens_identical(ladder_trees, arch):
+    """Float32, three slots at rungs 0, 1 and 2 of ("e2afs", "esas",
+    "exact"), the prompt and rung 0 under sqrt_man faults: greedy tokens
+    identical to the JAX package's, and the faults and the rungs change
+    them.  The schedule strikes every rsqrt in mantissa bit 20 (rate 1.0,
+    a pinned bit): a partial-rate schedule hashes the datapath's output
+    bits, which follow the float32 mean square, and the two frameworks sum
+    it in another order (ROADMAP C.17); ``test_torch_faults.py`` holds that
+    schedule bit for bit on every pattern."""
+    ours, ref = _slot_runs(ladder_trees, arch, sqrt_faults=("sqrt_man", 1.0, 7, 20),
+                           unit_levels=LEVELS)
+    np.testing.assert_array_equal(ours, ref)
+    clean, clean_ref = _slot_runs(ladder_trees, arch, sqrt_faults=None,
+                                  unit_levels=np.zeros_like(LEVELS))
+    np.testing.assert_array_equal(clean, clean_ref)
+    assert not np.array_equal(ours, clean)
+
+
+def test_logits_hook_nan_positions_match_the_reference(ladder_trees):
+    """NaN logits from ``logits_hook`` at rate 1e-2 in the port's
+    ``decode_slots_scan``: every step's NaN positions are the reference's
+    ``corrupt_logits`` of the port's pre-hook logits, and the greedy tokens
+    are taken from the struck logits (the first NaN of a struck row)."""
+    record = []
+    ours, _ = _slot_runs(ladder_trees, "qwen3-4b", sqrt_faults=None, unit_levels=None,
+                         hook=("logit_nan", 1e-2, 3), record=record)
+    assert len(record) == SLOT_STEPS
+    struck = 0
+    for i, (pre, post) in enumerate(record):
+        want = np.asarray(jax_faults.corrupt_logits(jnp.asarray(pre.numpy()),
+                                                    jax_faults.FaultConfig("logit_nan", 1e-2, 3)))
+        np.testing.assert_array_equal(np.isnan(post.numpy()), np.isnan(want))
+        np.testing.assert_array_equal(post.numpy()[~np.isnan(want)], want[~np.isnan(want)])
+        if i + 1 < SLOT_STEPS:
+            np.testing.assert_array_equal(ours[:, i + 1], post.argmax(dim=-1).numpy())
+        struck += int(np.isnan(want).sum())
+    assert struck > 0
+
+
+def test_decode_step_levels_need_a_ladder(jax_params):
+    _, tcfg, _, model, prompt, _, tcache = _both(jax_params)
+    with pytest.raises(ValueError, match="unit_levels requires cfg.sqrt_ladder"):
+        lm.decode_step(model, tcfg, tcache, torch.from_numpy(prompt[:, :1]), 0,
+                       unit_levels=torch.zeros(B, dtype=torch.int32))
+
+
+def test_exact_twin_is_the_clean_exact_config():
+    cfg = get_smoke_config("qwen3-4b", sqrt_unit="e2afs", sqrt_ladder=LADDER,
+                           sqrt_faults=faults.FaultConfig("sqrt_man", 0.1))
+    twin = lm.exact_twin(cfg)
+    assert (twin.sqrt_unit, twin.sqrt_faults, twin.sqrt_ladder) == ("exact", None, None)
+    assert lm.exact_twin(twin) is twin

@@ -20,8 +20,11 @@ Tolerances, with their reasons:
   the reference's list of layers, the window layers on the banded query
   chunks), e2afs within 2e-4, the sensitivity of one leaf of the
   reference itself (see the test);
-* ``remat="block"`` against ``"none"`` in the port: equal gradients (the
-  recomputed forward is the same arithmetic);
+* ``remat="block"`` and ``"minimal"`` against ``"none"`` in the port: equal
+  gradients (the recomputed forward is the same arithmetic; at s = 256
+  under torch's deterministic algorithms, which fix the order of the
+  embedding's scattered sum); "minimal" against the reference's within the
+  e2afs limit above;
 * checkpoints: bit-identical, bfloat16 included, in both directions, for
   stacked and list-of-layers trees.
 """
@@ -245,6 +248,41 @@ def test_remat_block_equals_none():
         assert torch.equal(grads[0][name], grads[1][name]), name
 
 
+@pytest.fixture
+def deterministic():
+    """torch's deterministic algorithms for the test: the embedding's
+    scattered gradient (``index_put_`` with accumulation) otherwise sums
+    its duplicate tokens in a varying order on the CPU at s = 256."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(prev)
+
+
+def test_remat_minimal_equals_none_and_the_reference(jax_tree, small_chunks, deterministic):
+    """``remat="minimal"`` (the attention scores recomputed in the backward,
+    through both chunk loops at s = 256) gives the port's "none" gradients
+    bit for bit, and the reference's "minimal" gradients within this file's
+    e2afs limit."""
+    params, tree = jax_tree
+    batch = _batch(jax_smoke_config("qwen3-4b").vocab, 2, S_LONG, seed=2)
+    grads = {}
+    for remat in ("none", "minimal"):
+        cfg = get_smoke_config("qwen3-4b", act_dtype="float32", sqrt_unit="e2afs", remat=remat)
+        total, _, grads[remat] = _port_grads(cfg, tree, batch)
+    flat_none, tree_none = jax.tree_util.tree_flatten_with_path(grads["none"])
+    flat_min, tree_min = jax.tree_util.tree_flatten_with_path(grads["minimal"])
+    assert tree_none == tree_min
+    for (path, a), (_, b) in zip(flat_none, flat_min):
+        np.testing.assert_array_equal(a, b, err_msg=str(path))
+    jcfg = jax_smoke_config("qwen3-4b", act_dtype="float32", sqrt_unit="e2afs", remat="minimal")
+    (j_total, _), j_grads = jax.value_and_grad(jax_steps.loss_fn, has_aux=True)(
+        params, jcfg, {k: jnp.asarray(v) for k, v in batch.items()})
+    np.testing.assert_allclose(total, float(j_total), rtol=1e-6)
+    worst = _gradient_errors(j_grads, grads["minimal"])
+    assert max(worst.values()) <= 5e-5, worst
+
+
 def test_forward_returns_the_padded_vocab_and_trains_float32_masters():
     cfg = get_smoke_config("qwen3-4b", sqrt_unit="e2afs", vocab=250)  # padded to 256
     model = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu", trainable=True)
@@ -257,9 +295,10 @@ def test_forward_returns_the_padded_vocab_and_trains_float32_masters():
     assert all(p.dtype == torch.bfloat16 and not p.requires_grad for p in serving.parameters())
 
 
-def test_validate_rejects_selective_remat():
-    with pytest.raises(ValueError, match="minimal"):
-        get_smoke_config("qwen3-4b", remat="minimal")
+def test_validate_rejects_an_unknown_remat():
+    assert get_smoke_config("qwen3-4b", remat="minimal").remat == "minimal"
+    with pytest.raises(ValueError, match="unknown remat 'selective'"):
+        get_smoke_config("qwen3-4b", remat="selective")
 
 
 def test_params_round_trip_through_the_reference_layout(jax_tree):
