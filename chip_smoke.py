@@ -121,6 +121,29 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    deterministic algorithms: identical loss and gradients, peak memory and
    ms of each.
 
+15. the engine's robustness layers, run right after phase 14c on phase 4a's
+   model with phase 13a's engine shape (8 slots of 576 lines, chunks of 8)
+   and draw: (a) detectors on: a replay with the health columns
+   bit-identical to the eager chunk, ms a replayed step with and without
+   detectors in turns, 8 requests token-identical to the engine without
+   them (the launch counts set to 0 just before and read just after);
+   (b) ``logit_nan`` 3e-7 with one quarantine retry on 8 requests of 16
+   tokens: ok or degraded, the ok ones token-identical to (a)'s, the
+   degraded ones to ``solo_generate`` on ``exact_twin``, the counters
+   agreeing; ``sqrt_exp`` bit 7 at 0.3 on 4: at least one degraded; (c)
+   phase 14c's captured engine (``sqrt_man`` 1e-3): ms a step replayed,
+   kernels and device time of a profiled replay; (d) ``dispatch`` 0.4:
+   tokens identical, every fault retried, an outage before a replay
+   raising ``DispatchFault`` with the pool untouched, then ``reset()`` and
+   the same engine serving again; (e) 12 requests with a journal and
+   ``snapshot_every_chunks=2``, killed at chunk 3 and resumed by
+   ``Engine.resume``: every uid finished exactly once with the
+   uninterrupted run's tokens, ms to write the 679 MB snapshot and to
+   resume, and the captured engine of (a) restored in place replaying
+   bit-identical to its eager chunk; (f) ``python -m
+   repro_torch.launch.kill_resume`` on the card, in two processes started
+   before (b) and joined after it: a real SIGKILL at smoke width.
+
 Before the last line it prints the card's name and power limit and one JSON
 line of kernels; the last line is ``{"ok": true, "device": {...}}``.  Without
 a card, or outside a checkout of the repository, it exits non-zero and
@@ -134,6 +157,7 @@ import functools
 import itertools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -308,6 +332,18 @@ def normal_mask(y):
     return (exp > 0) & (exp < (1 << exp_bits) - 1)
 
 
+def trace(cfg, n, prompts, budgets):
+    """n requests from seed 0, all arriving at 0: prompt lengths and budgets
+    drawn from the given sets (phases 13 and 15 share the draw)."""
+    import numpy as np
+
+    from repro_torch.launch.engine import Request
+
+    rng = np.random.default_rng(0)
+    return [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(rng.choice(prompts))).astype(
+                np.int32), max_new_tokens=int(rng.choice(budgets))) for i in range(n)]
+
+
 class Smoke:
     def __init__(self, rehearsal: bool):
         import torch
@@ -321,6 +357,8 @@ class Smoke:
         self.card = "rehearsal on the CPU: no card"
         self.training = {}
         self.serving = self.gemma = None
+        # phase 14c's faulted engine, phase 15a's engines, phase 15f's process
+        self.faulted_engine = self.robust = self.sigkill = None
 
     # -- helpers -----------------------------------------------------------
     def phase(self, name, fn):
@@ -1037,9 +1075,7 @@ class Smoke:
         from repro_torch.launch.engine import Engine, Request, run_static_baseline, solo_generate
         from repro_torch.models import lm
 
-        rng = np.random.default_rng(0)
-        reqs = [Request(uid=i, prompt=rng.integers(0, cfg.vocab, int(rng.choice(prompts))).astype(
-                    np.int32), max_new_tokens=int(rng.choice(budgets))) for i in range(n_requests)]
+        reqs = trace(cfg, n_requests, prompts, budgets)
         windows = cfg.blocks.count("window")
         per_forward = 4 * cfg.n_layers + 1  # RMSNorm launches: 2 norms + qk-norms a layer, ln_f
         print(f"  {cfg.name}: {slots} slots of {cache_len} lines, chunks of {chunk} steps; "
@@ -1151,10 +1187,11 @@ class Smoke:
         if first != n_requests:
             raise AssertionError("first two tokens differ from batch-1 solo runs")
 
-    def replay_equals_eager(self, eng, reqs):
+    def replay_equals_eager(self, eng, reqs=()):
         """Admit ``reqs`` (one a slot) into the engine's pool, then run one
         chunk eagerly and one replay of its captured graph from that pool
-        state: every pool tensor and the packed tokens bit-identical, or
+        state: every pool tensor and the packed buffer (tokens, emission,
+        liveness, and with detectors the health columns) bit-identical, or
         the phase fails.  Returns a function that restores the state."""
         torch = self.torch
         from repro_torch.models import lm
@@ -1180,7 +1217,7 @@ class Smoke:
                                      b.view(torch.uint8) if b.is_floating_point() else b)]
         print(f"  replayed chunk vs eager chunk from one pool state: {len(differ)} of "
               f"{len(eager)} tensors differ (tokens, emitted, tok, pos, active, remaining, "
-              f"every cache tensor)")
+              f"every cache tensor{', health' if eng.detectors else ''})")
         if differ:
             raise AssertionError(f"the graphed chunk differs from the eager one: tensors {differ}")
         return restore
@@ -1449,7 +1486,336 @@ class Smoke:
             raise AssertionError("the faulted decode chunk was not captured")
         reqs = [Request(uid=i, prompt=prompt[i].cpu().numpy().astype("int32"),
                         max_new_tokens=steps) for i in range(batch)]
-        self.replay_equals_eager(eng, reqs)
+        self.faulted_engine = (eng, self.replay_equals_eager(eng, reqs), reqs)
+
+    # -- phase 15 ----------------------------------------------------------
+    def robust_shape(self):
+        """Phase 15's engine: phase 13a's shape (8 slots of 576 lines, chunks
+        of 8, its trace's prompt lengths and budgets), or the rehearsal's."""
+        if self.rehearsal:
+            return dict(slots=4, cache_len=40, prompts=(3, 5, 12), budgets=(2, 4, 7))
+        return dict(slots=8, cache_len=576, prompts=(128, 256, 512), budgets=(16, 32, 64))
+
+    def robust_engine(self, **kw):
+        from repro_torch.launch.engine import Engine
+
+        cfg, model = self.serving[:2]
+        sh = self.robust_shape()
+        return Engine(model, cfg, num_slots=sh["slots"], cache_len=sh["cache_len"], chunk=8, **kw)
+
+    def p15a_detectors(self):
+        """Detectors on, no faults, on phase 4a's model: a replay with the
+        health columns bit-identical to the eager chunk; ms a replayed step
+        with and without detectors, in turns; phase 13a's first 8 requests
+        served with the launch counts set to 0 just before and read just
+        after, token-identical to the same engine without detectors."""
+        import numpy as np
+
+        from repro_torch.kernels import dispatch
+
+        cfg = self.serving[0]
+        sh = self.robust_shape()
+        reqs = trace(cfg, 8, sh["prompts"], sh["budgets"])
+        engines = {"on": self.robust_engine(), "off": self.robust_engine(detectors=False)}
+        restore = {}
+        for name, eng in engines.items():
+            eng.warmup(prompt_lens=sh["prompts"])
+            if not self.rehearsal and eng._graph is None:
+                raise AssertionError(f"detectors {name}: the decode chunk was not captured")
+            print(f"  detectors {name}:")
+            restore[name] = self.replay_equals_eager(eng, reqs[:sh["slots"]])
+        ms = {"on": [], "off": []}
+        for name in ("on", "off", "off", "on"):
+            restore[name]()
+            t = self.time_ms(engines[name]._decode_chunk, iters=4)
+            ms[name].append(round(t / 8, 4) if t is not None else None)
+        print(f"  ms a replayed decode step (CUDA events around 4 replays, in turns on, off, "
+              f"off, on; {self.card}): detectors on {ms['on']}, off {ms['off']}")
+        done, counts = {}, None
+        for name, eng in engines.items():
+            eng.reset()
+            self.sync()
+            dispatch.reset_launch_counts()
+            done[name] = eng.run(reqs)
+            if name == "on":
+                counts, stats = dispatch.launch_counts(), dict(eng.stats)
+        steps = stats["decode_chunks"] * 8
+        want = {"rmsnorm": (4 * cfg.n_layers + 1) * (len(reqs) + steps),
+                "decode_attention": cfg.n_layers * steps}
+        self.rows["rmsnorm"]["engine_detectors_launches"] = counts["rmsnorm"]
+        self.rows["decode_attention"]["engine_detectors_launches"] = counts["decode_attention"]
+        same = sum(np.array_equal(done["on"][r.uid].tokens, done["off"][r.uid].tokens)
+                   for r in reqs)
+        print(f"  Engine.run with detectors, {len(reqs)} requests: {stats['n_ok']} ok, "
+              f"faults_detected {stats['faults_detected']}, makespan {stats['makespan_s']:.3f} s, "
+              f"{stats['tok_s']:.1f} tok/s; launches rmsnorm {counts['rmsnorm']}, "
+              f"decode_attention {counts['decode_attention']} (want {want}); {same} of "
+              f"{len(reqs)} requests token-identical to the engine without detectors")
+        if not self.rehearsal and any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"launch counts {counts}, want {want}")
+        if same != len(reqs) or stats["n_ok"] != len(reqs) or stats["faults_detected"]:
+            raise AssertionError("detectors changed the tokens or tripped without faults")
+        self.robust = (reqs, done["on"], engines["on"])
+
+    def p15b_logit_faults(self):
+        """NaN logits (``logit_nan``, seed 1, one quarantine retry) on phase
+        15a's 8 requests at budgets of 16: every request ok or degraded, the
+        ok ones token-identical to phase 15a's, the degraded ones to
+        ``solo_generate`` on ``exact_twin``, the counters agreeing with the
+        statuses; then ``sqrt_exp`` faults (bit 7, rate 0.3) on 4 of them: at
+        least one degraded, token-identical to the exact solo run."""
+        import numpy as np
+
+        from repro_torch.core.faults import FaultConfig
+        from repro_torch.launch.engine import Request, solo_generate
+        from repro_torch.models import lm
+
+        cfg, model = self.serving[:2]
+        sh = self.robust_shape()
+        clean_reqs, clean, _ = self.robust
+        budget = 4 if self.rehearsal else 16
+        reqs = [Request(uid=r.uid, prompt=r.prompt, max_new_tokens=budget) for r in clean_reqs]
+        # a request trips with about 1 - exp(-vocab x budget x rate): half at 3e-7
+        rate = 0.73 / (cfg.vocab * budget) if self.rehearsal else 3e-7
+        ecfg = lm.exact_twin(cfg)
+
+        def exact_solo(r):
+            return solo_generate(model, ecfg, r.prompt, r.max_new_tokens,
+                                 cache_len=sh["cache_len"])
+
+        eng = self.robust_engine(faults=FaultConfig("logit_nan", rate, seed=1),
+                                 quarantine_retries=1)
+        eng.warmup(prompt_lens=sh["prompts"])
+        t0 = time.perf_counter()
+        done = eng.run(reqs)
+        run_s = time.perf_counter() - t0
+        st = eng.stats
+        degraded = [r for r in reqs if done[r.uid].status == "degraded"]
+        ok = [r for r in reqs if done[r.uid].status == "ok"]
+        exact_same = sum(np.array_equal(exact_solo(r), done[r.uid].tokens) for r in degraded)
+        ok_same = 0
+        for r in ok:
+            n = min(len(done[r.uid].tokens), len(clean[r.uid].tokens))
+            ok_same += int(np.array_equal(done[r.uid].tokens[:n], clean[r.uid].tokens[:n]))
+        trips = sum(c.trips for c in done.values())
+        print(f"  logit_nan rate {rate:.3g} (seed 1; a request trips with about "
+              f"{1 - math.exp(-cfg.vocab * budget * rate):.2f}), quarantine_retries 1, "
+              f"{len(reqs)} requests of {budget}: statuses "
+              f"{[(u, c.status, c.trips) for u, c in sorted(done.items())]}; faults_detected "
+              f"{st['faults_detected']}, quarantine_retries {st['quarantine_retries']}, "
+              f"exact_fallbacks {st['exact_fallbacks']}; {ok_same} of {len(ok)} ok requests "
+              f"token-identical to phase 15a's, {exact_same} of {len(degraded)} degraded ones to "
+              f"the exact solo run; {run_s:.2f} s")
+        if (any(c.status not in ("ok", "degraded") for c in done.values())
+                or exact_same != len(degraded) or ok_same != len(ok)
+                or st["faults_detected"] != trips
+                or st["exact_fallbacks"] != len(degraded)
+                or st["quarantine_retries"] != trips - len(degraded)
+                or st["n_ok"] + st["n_degraded"] != len(reqs)):
+            raise AssertionError(f"logit faults: {st}")
+        if not trips:
+            raise AssertionError("the seeded schedule tripped no request")
+        del eng
+
+        eng = self.robust_engine(faults=FaultConfig("sqrt_exp", rate=0.3, seed=2, bit=7))
+        t0 = time.perf_counter()
+        done = eng.run(reqs[:4])
+        run_s = time.perf_counter() - t0
+        degraded = [r for r in reqs[:4] if done[r.uid].status == "degraded"]
+        exact_same = sum(np.array_equal(exact_solo(r), done[r.uid].tokens) for r in degraded)
+        print(f"  sqrt_exp rate 0.3 bit 7 (seed 2), 4 requests: statuses "
+              f"{[(u, c.status, c.trips) for u, c in sorted(done.items())]}; {exact_same} of "
+              f"{len(degraded)} degraded ones token-identical to the exact solo run; {run_s:.2f} s "
+              f"(the faulted chunk's eager run and capture included)")
+        if (not degraded or exact_same != len(degraded)
+                or any(c.status not in ("ok", "degraded") for c in done.values())):
+            raise AssertionError(f"sqrt_exp faults: {eng.stats}")
+
+    def p15c_faulted_replay(self):
+        """Phase 14c's captured engine (``sqrt_man`` 1e-3, seed 7, in every
+        norm): ms a decode step replayed, beside phase 14c's eager step; the
+        kernels and device time of one step from the same engine with chunks
+        of one step, its captured step bit-identical to the eager one and
+        profiled (reading a profile of the 8-step replay, 238,560 kernel
+        events, took about 25 s)."""
+        from repro_torch.launch.engine import Engine
+
+        if self.faulted_engine is None:
+            raise AssertionError("phase 14c built no faulted engine")
+        eng, restore, reqs = self.faulted_engine
+        self.faulted_engine = None
+        restore()
+        ms = self.time_ms(eng._decode_chunk, iters=4)
+        step = (ms if ms is not None else float("nan")) / eng.chunk
+        one = Engine(eng.model, eng.cfg, num_slots=eng.num_slots, cache_len=eng.cache_len,
+                     chunk=1)
+        del eng, restore
+        one.warmup(prompt_lens=(len(reqs[0].prompt),))
+        self.replay_equals_eager(one, reqs)()
+        wall_us, rows = self.profiled(one._decode_chunk, 1, every_launch=True)
+        busy = sum(r[0] for r in rows)
+        launches = sum(r[1] for r in rows)
+        print(f"  {one.cfg.name} under {one.cfg.sqrt_faults}, {one.num_slots} slots: "
+              f"{step:.3f} ms a decode step replayed (CUDA events around 4 replays of 8 steps); "
+              f"a profiled one-step replay: {launches} kernels, device busy {busy / 1e3:.3f} ms "
+              f"({busy / launches if launches else 0:.2f} us a kernel), idle share "
+              f"{1 - busy / (step * 1e3):.3f} of the 8-step replay's step; {self.card}")
+        for dev_us, count, name in rows[:6]:
+            print(f"    {dev_us / 1e3:9.4f} ms  {count:7d} calls  {name[:90]}")
+
+    def p15d_dispatch(self):
+        """Dispatch faults at rate 0.4 (seed 5) on phase 15a's requests:
+        tokens identical to phase 15a's, every fault retried; an outage
+        (rate 1.0, ``max_dispatch_retries=2``) struck before a replay raises
+        ``DispatchFault`` with every pool tensor untouched; after ``reset()``
+        the same engine serves the trace again, with the same counters."""
+        import numpy as np
+
+        from repro_torch.core.faults import DispatchFault, DispatchFaultInjector, FaultConfig
+        from repro_torch.models import lm
+
+        sh = self.robust_shape()
+        reqs, clean, _ = self.robust
+        eng = self.robust_engine(faults=FaultConfig("dispatch", rate=0.4, seed=5))
+        eng.warmup(prompt_lens=sh["prompts"])
+
+        def serve():
+            done = eng.run(reqs)
+            same = sum(np.array_equal(done[r.uid].tokens, clean[r.uid].tokens) for r in reqs)
+            return same, eng.stats["dispatch_faults"], eng.stats["dispatch_retries"]
+
+        first = serve()
+        for slot, r in enumerate(reqs[:sh["slots"]]):
+            eng._admit(r, slot, 0.0)
+        eng._decode_chunk()
+        self.sync()
+        before = [t.clone() for t in lm.pool_tensors(eng.pool)] + [eng._packed.clone()]
+        schedule, eng._injector = eng._injector, DispatchFaultInjector(
+            FaultConfig("dispatch", rate=1.0))
+        eng.max_dispatch_retries = 2
+        try:
+            eng._decode_chunk()
+            raised = None
+        except DispatchFault as e:
+            raised = str(e)
+        self.sync()
+        after = list(lm.pool_tensors(eng.pool)) + [eng._packed]
+        untouched = all(bool(same_bits(a, b).all()) if a.is_floating_point() else
+                        self.torch.equal(a, b) for a, b in zip(after, before))
+        eng._injector, eng.max_dispatch_retries = schedule, 3
+        eng.reset()
+        again = serve()
+        print(f"  dispatch rate 0.4 (seed 5): {first[0]} of {len(reqs)} requests token-identical "
+              f"to phase 15a's, dispatch_faults {first[1]}, dispatch_retries {first[2]}; an "
+              f"outage before a replay raised {raised!r}, pool untouched: {untouched}; after "
+              f"reset(): {again[0]} of {len(reqs)} identical, faults {again[1]}, retries "
+              f"{again[2]}")
+        if (first[0] != len(reqs) or not first[1] or first[1] != first[2] or raised is None
+                or not untouched or again != first):
+            raise AssertionError("dispatch faults changed the result or the pool")
+
+    def p15e_kill_resume(self):
+        """A 12-request trace of phase 13a's draw with a journal and
+        ``snapshot_every_chunks=2``, killed at ``max_chunks=3`` and resumed
+        into a new engine by ``Engine.resume``: every uid finished exactly
+        once, tokens identical to the uninterrupted run; ms to write the
+        full-width snapshot and to resume, and a captured engine restored in
+        place replaying bit-identical to the eager chunk."""
+        import tempfile
+
+        import numpy as np
+
+        from repro_torch.launch.engine import Engine
+        from repro_torch.launch.kill_resume import audit
+        from repro_torch.models import lm
+
+        cfg, model = self.serving[:2]
+        sh = self.robust_shape()
+        # the rehearsal's short budgets end within a chunk: more requests there
+        reqs = trace(cfg, 20 if self.rehearsal else 12, sh["prompts"], sh["budgets"])
+        warm = self.robust[2]  # phase 15a's engine, its chunk captured
+        self.robust = None
+        warm.reset()
+        full = warm.run(reqs)
+        with tempfile.TemporaryDirectory(prefix="engine-snapshot-") as tmp:
+            snap, jpath = Path(tmp) / "snap", Path(tmp) / "journal.jsonl"
+            eng = self.robust_engine(snapshot_dir=snap, snapshot_every_chunks=2, journal=jpath)
+            write, write_ms = eng.snapshot, []
+
+            def timed_snapshot(*args, **kw):
+                self.sync()
+                t0 = time.perf_counter()
+                path = write(*args, **kw)
+                write_ms.append((time.perf_counter() - t0) * 1e3)
+                return path
+
+            eng.snapshot = timed_snapshot
+            seg1 = eng.run(reqs, max_chunks=3)
+            killed = eng.stats["killed"]
+            pool_bytes = sum(t.numel() * t.element_size() for t in lm.pool_tensors(eng.pool))
+            disk_bytes = sum(f.stat().st_size for f in (snap / "step-2").iterdir())
+            del eng
+            self.sync()
+            t0 = time.perf_counter()
+            eng = Engine.resume(model, cfg, snap, journal=jpath)
+            self.sync()
+            resume_ms = (time.perf_counter() - t0) * 1e3
+            restored = sum(o is not None for o in eng._owner)
+            seg2 = eng.run([])
+            failures = audit(jpath, reqs, {u: c.tokens for u, c in full.items()})
+            print(f"  {len(reqs)} requests, killed at chunk 3 ({killed}; {len(seg1)} finished "
+                  f"before), the snapshot of chunk 2 resumed with {restored} slots in flight and "
+                  f"{eng.stats['journal_replays']} journal replays, {len(seg2)} finished after; "
+                  f"against the uninterrupted run, every uid finished exactly once with its "
+                  f"tokens: {failures or 'yes'}")
+            print(f"  snapshot write {write_ms} ms for {pool_bytes} pool bytes ({disk_bytes} on "
+                  f"disk); Engine.resume (a new engine, the restore and the journal replay) "
+                  f"{resume_ms:.1f} ms (host clock with synchronize; {self.card})")
+            if not killed or failures or len(write_ms) != 1:
+                raise AssertionError("kill and resume is not exactly-once and token-identical")
+            del eng
+            warm.reset()
+            self.sync()
+            t0 = time.perf_counter()
+            warm._restore_snapshot(snap, 2, Engine._read_snapshot_meta(snap, 2))
+            self.sync()
+            restore_ms = (time.perf_counter() - t0) * 1e3
+            print(f"  restore in place into phase 15a's captured engine: {restore_ms:.1f} ms")
+            self.replay_equals_eager(warm)
+        del warm
+        if not self.rehearsal:
+            self.torch.cuda.empty_cache()
+
+    def p15f_start(self):
+        """Start ``python -m repro_torch.launch.kill_resume`` on this device
+        in the background: a child process serving at smoke width is
+        SIGKILLed mid-serve and resumed in its parent.  It runs beside phase
+        15b, whose checks are token equalities (its two processes' start
+        would add about 18 s alone); phase 15f joins it before 15c times
+        anything."""
+        env = dict(os.environ, PYTHONPATH=str(SRC) + (
+            os.pathsep + os.environ["PYTHONPATH"] if os.environ.get("PYTHONPATH") else ""))
+        self.sigkill = (time.perf_counter(), subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.kill_resume", "--device", self.dev.type],
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+
+    def p15f_sigkill(self):
+        """Join the SIGKILL smoke of :meth:`p15f_start`: exactly once and
+        token-identical in the parent, or the phase fails."""
+        t0, proc = self.sigkill
+        self.sigkill = None
+        try:
+            out, _ = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for line in out.splitlines():
+            print(f"  {line}")
+        print(f"  exit code {proc.returncode} {time.perf_counter() - t0:.1f} s after its start "
+              f"(two processes, beside phase 15b)")
+        if proc.returncode != 0:
+            raise AssertionError("the SIGKILL smoke failed")
 
     def p14d_remat(self):
         """Phase 11's training model and first batch (qwen3-4b, 8 layers, bf16,
@@ -2357,6 +2723,13 @@ def main(argv=None) -> int:
     smoke.phase("14a fault datapath", smoke.p14a_fault_datapath)
     smoke.phase("14b ladder qwen3-4b", smoke.p14b_ladder)  # on phase 4a's model
     smoke.phase("14c faults qwen3-4b", smoke.p14c_faults)  # on phase 4a's model
+    smoke.phase("15a detectors qwen3-4b", smoke.p15a_detectors)  # on phase 4a's model
+    smoke.phase("15f SIGKILL smoke started", smoke.p15f_start)  # runs beside 15b
+    smoke.phase("15b logit faults qwen3-4b", smoke.p15b_logit_faults)
+    smoke.phase("15f SIGKILL smoke", smoke.p15f_sigkill)
+    smoke.phase("15c faulted replay qwen3-4b", smoke.p15c_faulted_replay)  # 14c's engine
+    smoke.phase("15d dispatch faults qwen3-4b", smoke.p15d_dispatch)
+    smoke.phase("15e kill and resume qwen3-4b", smoke.p15e_kill_resume)
     smoke.phase("7 sobel", smoke.p7_sobel)
     smoke.phase("8 kmeans_assign", smoke.p8_kmeans)
     smoke.phase("9 paper", smoke.p9_paper)

@@ -1,6 +1,6 @@
 """Continuous-batching serving engine: slot-scheduled decode over a KV-cache
-pool with per-request positions (torch port of the plain path of
-``repro.launch.engine``).
+pool with per-request positions (torch port of ``repro.launch.engine``, all
+but its mesh, accuracy-SLO, telemetry and speculation options).
 
 * a **slot pool** (:func:`lm.init_pool_state`): one KV cache of
   ``num_slots`` batch rows, each row an independent request with its own
@@ -13,41 +13,98 @@ pool with per-request positions (torch port of the plain path of
   one captured CUDA graph over the pool's tensors, replayed once a chunk
   (the counterpart of the reference's one jitted ``lax.scan``); on the CPU
   the same steps run eagerly.  A chunk ends in ONE device-to-host copy:
-  tokens, emission mask and liveness together;
+  tokens, emission mask, liveness and the health signals together;
 * per-slot EOS / budget early exit, global and per-request deadlines, and
   per-request sampling streams (greedy by default).
 
+Fault tolerance: with ``detectors=True`` (default) the chunk also latches
+two per-slot health signals (a non-finite logit latch and a max-|logit|
+sentinel), zeroed by the chunk's first op so every replay starts clean.  A
+tripped slot is quarantined: its request is re-queued for up to
+``quarantine_retries`` approximate-path attempts, then served alone on the
+exact datapath (``lm.exact_twin``; status ``degraded``, or ``failed`` if
+even that gives non-finite logits).  Injected dispatch failures
+(``faults=`` with ``site="dispatch"``) raise before the device call, never
+inside a replay, and are retried with exponential backoff.
+
+Crash consistency and overload: :meth:`Engine.snapshot` writes the whole
+serving state (the pool and the host's request records) through
+``checkpoint.save``'s atomic commit in the reference's format;
+``snapshot_every_chunks=`` autosaves at the chunk boundary.
+:meth:`Engine.resume` writes the latest snapshot into the new engine's pool
+tensors in place and reconciles the write-ahead journal
+(``launch/journal.py``): finished requests are never served again, accepted
+ones missing from the snapshot are replayed.  ``max_queue=`` bounds the
+due-request queue and ``shed_policy`` picks what is turned away (status
+``rejected``).
+
 A request decoded in a staggered slot emits the tokens of the same request
 alone in a pool of the same size (greedy); on the CPU they equal a solo
-``prefill`` + ``generate_scan`` run (:func:`solo_generate`).  Health
-detectors, canaries and SLO ladders, snapshots and the journal, overload
-shedding and speculation are not ported yet (ROADMAP A.5).
+``prefill`` + ``generate_scan`` run (:func:`solo_generate`).
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
 from collections import deque
+from pathlib import Path
 from typing import Optional
 
 import numpy as np
 import torch
 
+from repro_torch import checkpoint
+from repro_torch.core.faults import DispatchFault, DispatchFaultInjector, FaultConfig
+from repro_torch.core.faults import logits_hook as _make_logits_hook
 from repro_torch.kernels import dispatch
+from repro_torch.launch.journal import RequestJournal, read_journal, replay_plan
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
 __all__ = ["Request", "Completion", "Engine", "run_static_baseline", "solo_generate",
-           "STATUSES"]
+           "STATUSES", "SHED_POLICIES"]
 
-# Completion.status values:
-#   ok      -- served to its budget or its EOS
-#   evicted -- deadline expiry (global or per-request); tokens are partial
-STATUSES = ("ok", "evicted")
+# Completion.status values, in degradation order:
+#   ok       -- served on the configured (possibly approximate) datapath
+#   degraded -- health detectors tripped; served alone on the exact datapath
+#   evicted  -- deadline expiry (global or per-request); tokens are partial
+#   failed   -- the exact datapath itself produced non-finite logits
+#   rejected -- shed by admission control before taking a slot (overload)
+STATUSES = ("ok", "degraded", "evicted", "failed", "rejected")
+
+# Admission-control shed policies (active only with ``max_queue=`` set):
+#   reject-new            -- shed from the queue tail: the most recent
+#                            arrival is turned away first
+#   evict-latest-deadline -- shed the queued request whose effective
+#                            deadline (arrival + deadline_s; none = infinity)
+#                            is furthest away
+#   shed-by-slo           -- shed the queued request with the smallest
+#                            deadline slack now; deadline-free requests shed
+#                            newest first
+SHED_POLICIES = ("reject-new", "evict-latest-deadline", "shed-by-slo")
+
+# snapshot meta-blob layout version (the reference's)
+_SNAPSHOT_FORMAT = 1
 
 
 def _device_of(model: lm.LM) -> torch.device:
     return model.embed.device
+
+
+@torch.no_grad()
+def _prefill_alone(model: lm.LM, cfg: ModelConfig, prompt, *, cache_len: int,
+                   quantized_kv: bool):
+    """One request's prompt through a batch-1 :func:`lm.prefill` on the
+    model's device.  Returns (last logits (1, 1, vocab), cache, prompt
+    length)."""
+    dev = _device_of(model)
+    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int32, device=dev)
+    if prompt.ndim == 1:
+        prompt = prompt[None]
+    cache = lm.init_cache(cfg, 1, cache_len, quantized=quantized_kv, device=dev)
+    logits, cache = lm.prefill(model, cfg, cache, prompt, last_logit_only=True)
+    return logits, cache, prompt.shape[1]
 
 
 @torch.no_grad()
@@ -56,14 +113,10 @@ def solo_generate(model: lm.LM, cfg: ModelConfig, prompt, max_new_tokens: int, *
     """The parity reference: one request alone, batch 1, on the model's
     device (prefill + greedy :func:`lm.generate_scan`).  Returns its
     ``max_new_tokens`` tokens."""
-    dev = _device_of(model)
-    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int32, device=dev)
-    if prompt.ndim == 1:
-        prompt = prompt[None]
-    cache = lm.init_cache(cfg, 1, cache_len, quantized=quantized_kv, device=dev)
-    logits, cache = lm.prefill(model, cfg, cache, prompt, last_logit_only=True)
-    toks, _, _ = lm.generate_scan(model, cfg, cache, logits[:, -1:].argmax(dim=-1),
-                                  prompt.shape[1], max_new_tokens)
+    logits, cache, s = _prefill_alone(model, cfg, prompt, cache_len=cache_len,
+                                      quantized_kv=quantized_kv)
+    toks, _, _ = lm.generate_scan(model, cfg, cache, logits[:, -1:].argmax(dim=-1), s,
+                                  max_new_tokens)
     return toks[0].cpu().numpy()
 
 
@@ -85,8 +138,10 @@ class Request:
 @dataclasses.dataclass
 class Completion:
     """A finished request: its emitted tokens and its timeline (arrival,
-    admission into a slot, finish; seconds from trace start).  A request
-    evicted from the queue (never admitted) has ``admitted_s=-1.0`` and no
+    admission into a slot, finish; seconds from trace start).  ``status`` is
+    one of :data:`STATUSES`; ``trips`` counts how many times the health
+    detectors quarantined the request.  A request that never took a slot
+    (evicted or rejected from the queue) has ``admitted_s=-1.0`` and no
     tokens."""
 
     uid: int
@@ -96,11 +151,44 @@ class Completion:
     admitted_s: float
     finished_s: float
     status: str = "ok"
+    trips: int = 0
 
     @property
     def latency_s(self) -> float:
         """End-to-end request latency: arrival to final token, seconds."""
         return self.finished_s - self.arrival_s
+
+
+@dataclasses.dataclass
+class _Ticket:
+    """A queue entry: the request and its quarantine count so far."""
+
+    req: Request
+    trips: int = 0
+
+
+def _ticket_record(t: _Ticket) -> dict:
+    """A JSON record of one queued or in-flight request: the fields of the
+    journal's ``accepted`` record, and its trips."""
+    r = t.req
+    return {
+        "uid": int(r.uid),
+        "prompt": [int(x) for x in np.asarray(r.prompt)],
+        "max_new_tokens": int(r.max_new_tokens),
+        "arrival_s": float(r.arrival_s),
+        "deadline_s": None if r.deadline_s is None else float(r.deadline_s),
+        "trips": int(t.trips),
+    }
+
+
+def _ticket_from_record(rec: dict, *, arrival_s: float = 0.0) -> _Ticket:
+    """A queue ticket from a snapshot or journal record.  The dead run's
+    clock means nothing here: a restored request is due at once
+    (``arrival_s=0``) and its ``deadline_s`` window restarts at resume."""
+    req = Request(uid=int(rec["uid"]), prompt=np.asarray(rec["prompt"], np.int32),
+                  max_new_tokens=int(rec["max_new_tokens"]), arrival_s=arrival_s,
+                  deadline_s=rec.get("deadline_s"))
+    return _Ticket(req, trips=int(rec.get("trips", 0)))
 
 
 class Engine:
@@ -116,17 +204,42 @@ class Engine:
     chunk (in :meth:`warmup`, or else in :meth:`run`) runs eagerly on a side
     stream and is then captured as one CUDA graph over the pool's tensors;
     every later chunk is one replay.  A capture or replay that fails raises.
+
+    The reference's ``mesh=``/``rules=`` (ROADMAP A.7), ``slo=``/
+    ``telemetry=`` (A.5c) and ``spec=``/``draft_model=`` (A.5d) are not
+    ported.
     """
 
     def __init__(self, model: lm.LM, cfg: ModelConfig, *, num_slots: int = 4,
                  cache_len: int = 64, quantized_kv: bool = False, chunk: int = 8,
                  eos_id: Optional[int] = None, temperature: float = 0.0, top_k: int = 0,
-                 seed: int = 0):
+                 seed: int = 0, faults: Optional[FaultConfig] = None, detectors: bool = True,
+                 logit_sentinel: float = 1e4, quarantine_retries: int = 0,
+                 max_dispatch_retries: int = 3, dispatch_backoff_s: float = 0.001,
+                 max_queue: Optional[int] = None, shed_policy: str = "reject-new",
+                 snapshot_dir=None, snapshot_every_chunks: Optional[int] = None,
+                 journal=None):
         if num_slots < 1 or cache_len < 2 or chunk < 1:
             raise ValueError(
                 f"need num_slots >= 1, cache_len >= 2, chunk >= 1 "
                 f"(got {num_slots}, {cache_len}, {chunk})"
             )
+        if shed_policy not in SHED_POLICIES:
+            raise ValueError(f"shed_policy must be one of {SHED_POLICIES} (got {shed_policy!r})")
+        if max_queue is not None and max_queue < 1:
+            raise ValueError(f"max_queue must be >= 1 when set (got {max_queue})")
+        if snapshot_every_chunks is not None:
+            if snapshot_every_chunks < 1:
+                raise ValueError(f"snapshot_every_chunks must be >= 1 when set "
+                                 f"(got {snapshot_every_chunks})")
+            if snapshot_dir is None:
+                raise ValueError("snapshot_every_chunks needs snapshot_dir= (nowhere to "
+                                 "commit the autosaves)")
+        # sqrt-site fault schedules ride the serving config; activation faults
+        # become a logits hook inside the decode chunk; dispatch faults stay
+        # on the host.  The exact fallback strips all of them (exact_twin).
+        if faults is not None and faults.targets_sqrt:
+            cfg = cfg.replace(sqrt_faults=faults)
         self.model = model
         self.cfg = cfg
         self.num_slots = num_slots
@@ -137,14 +250,34 @@ class Engine:
         self.temperature = float(temperature)
         self.top_k = int(top_k)
         self.seed = int(seed)
+        self.max_queue = max_queue
+        self.shed_policy = shed_policy
+        self.snapshot_dir = None if snapshot_dir is None else Path(snapshot_dir)
+        self.snapshot_every_chunks = snapshot_every_chunks
+        self._journal = (journal if journal is None or isinstance(journal, RequestJournal)
+                         else RequestJournal(journal))
+        self.faults = faults
+        self.detectors = detectors
+        self.logit_sentinel = float(logit_sentinel)
+        self.quarantine_retries = int(quarantine_retries)
+        self.max_dispatch_retries = int(max_dispatch_retries)
+        self.dispatch_backoff_s = float(dispatch_backoff_s)
+        self._injector = (DispatchFaultInjector(faults)
+                          if faults is not None and faults.targets_dispatch else None)
+        self._hook = _make_logits_hook(faults)
         self.device = _device_of(model)
         self.pool = lm.init_pool_state(cfg, num_slots, cache_len, quantized=quantized_kv,
                                        device=self.device)
         self._slots = torch.arange(num_slots, device=self.device)
-        # what a chunk hands to the host in one copy: tokens fed (b, chunk),
-        # emission mask (b, chunk) and liveness after the chunk (b,), int32
-        self._packed = torch.zeros((num_slots, 2 * chunk + 1), dtype=torch.int32,
-                                   device=self.device)
+        # the health latches (bad, mx) of the chunk, zeroed by its first op
+        self._health = ((torch.zeros(num_slots, dtype=torch.bool, device=self.device),
+                         torch.zeros(num_slots, dtype=torch.float32, device=self.device))
+                        if detectors else None)
+        # what a chunk hands to the host in one copy, int32: tokens fed
+        # (b, chunk), emission mask (b, chunk), liveness after the chunk (b,),
+        # and with detectors bad (b,) and mx's float32 bits (b,)
+        self._packed = torch.zeros((num_slots, 2 * chunk + 1 + 2 * detectors),
+                                   dtype=torch.int32, device=self.device)
         self._graph: Optional[torch.cuda.CUDAGraph] = None
         self._graph_launches: Optional[dispatch.Launches] = None
         self.reset()
@@ -152,26 +285,220 @@ class Engine:
     # -- pool state ---------------------------------------------------------
 
     def reset(self):
-        """Zero the pool in place (all slots free) and empty the queues.  The
-        pool keeps its tensors, so a captured chunk stays valid."""
+        """Zero the pool in place (all slots free), empty the queues and
+        rewind the dispatch fault schedule.  The pool keeps its tensors, so
+        a captured chunk stays valid.  The lifetime chunk counter (the
+        default snapshot step) survives, so autosaves never collide."""
         for t in lm.pool_tensors(self.pool):
             t.zero_()
         b = self.num_slots
         self._owner: list = [None] * b
         self._emitted: list = [[] for _ in range(b)]
         self._admitted_s = [0.0] * b
-        self._queue: deque = deque()  # due requests waiting for a slot
-        self._arrivals: deque = deque()  # accepted requests not yet due
+        self._trips = [0] * b
+        self._queue: deque = deque()  # due tickets waiting for a slot
+        self._arrivals: deque = deque()  # accepted tickets not yet due
+        self._dispatch_faults = 0
+        self._dispatch_retries = 0
+        self._snapshots_written = 0
+        self._journal_replays = 0
+        self._chunks_total = getattr(self, "_chunks_total", 0)
+        if self._injector is not None:
+            self._injector.reset()
 
     def warmup(self, prompt_lens):
         """Admit one request of each prompt length and run one decode chunk
         (on the card: the chunk's eager run and its capture), off the serving
-        clock, then reset the pool."""
+        clock, then reset the pool.  The reset wipes restored state: warm an
+        engine up before restoring into it, not after :meth:`resume`."""
         for s in sorted(set(int(s) for s in prompt_lens)):
             self._admit(Request(uid=-1, prompt=np.zeros(s, np.int32), max_new_tokens=1),
                         slot=0, now=0.0)
         self._decode_chunk()
         self.reset()
+
+    # -- crash consistency: snapshot / resume / journal replay --------------
+
+    def snapshot(self, ckpt_dir=None, *, step: Optional[int] = None) -> Path:
+        """Write the whole live serving state through ``checkpoint.save``'s
+        atomic commit and return the committed directory: the pool as
+        ``{"pool": ...}`` (every cache leaf and the per-slot vectors, under
+        the reference's leaf names) and the host's records as a JSON
+        ``"meta"`` blob (per-slot requests with their emitted tokens and
+        trips, the pending queue, the engine's shape), in the reference's
+        snapshot format 1.  ``step`` defaults to the lifetime chunk count."""
+        ckpt_dir = ckpt_dir if ckpt_dir is not None else self.snapshot_dir
+        if ckpt_dir is None:
+            raise ValueError("snapshot needs a directory: pass ckpt_dir= or "
+                             "construct the Engine with snapshot_dir=")
+        step = self._chunks_total if step is None else int(step)
+        slots_meta = []
+        for slot in range(self.num_slots):
+            req = self._owner[slot]
+            if req is None:
+                slots_meta.append(None)
+                continue
+            rec = _ticket_record(_Ticket(req, self._trips[slot]))
+            rec["emitted"] = [int(x) for x in self._emitted[slot]]
+            slots_meta.append(rec)
+        meta = {
+            "format": _SNAPSHOT_FORMAT,
+            "engine": {
+                "num_slots": self.num_slots,
+                "cache_len": self.cache_len,
+                "quantized_kv": self.quantized_kv,
+                "chunk": self.chunk,
+                "eos_id": self.eos_id,
+                "temperature": self.temperature,
+                "top_k": self.top_k,
+                "seed": self.seed,
+                "max_queue": self.max_queue,
+                "shed_policy": self.shed_policy,
+                "slo": None,
+                "spec": None,
+            },
+            "chunks_total": int(self._chunks_total),
+            "slots": slots_meta,
+            # pending work in service order: the due queue, then future
+            # arrivals; all of it is due at once after a resume
+            "queue": [_ticket_record(t) for t in self._queue]
+            + [_ticket_record(t) for t in self._arrivals],
+        }
+        blob = np.frombuffer(json.dumps(meta).encode("utf-8"), np.uint8)
+        path = checkpoint.save(ckpt_dir, step, {"pool": self.pool, "meta": blob})
+        self._snapshots_written += 1
+        if self._journal is not None:
+            self._journal.snapshot(step)
+        return path
+
+    @staticmethod
+    def _read_snapshot_meta(ckpt_dir, step: int) -> dict:
+        """The host-metadata blob of a committed snapshot alone (the pool's
+        shape depends on it)."""
+        final = Path(ckpt_dir) / f"step-{step}"
+        man_path = final / "manifest.json"
+        if not man_path.exists():
+            raise checkpoint.CheckpointError(f"no committed engine snapshot at {final}")
+        manifest = json.loads(man_path.read_text())
+        entry = next((leaf for leaf in manifest["leaves"] if leaf["name"] == "meta"), None)
+        if entry is None:
+            raise checkpoint.CheckpointError(
+                f"snapshot {final} has no 'meta' leaf — not an engine snapshot")
+        meta = json.loads(np.load(final / entry["file"]).tobytes().decode("utf-8"))
+        if meta.get("format") != _SNAPSHOT_FORMAT:
+            raise checkpoint.CheckpointError(
+                f"snapshot {final} has format {meta.get('format')!r}; this "
+                f"build reads format {_SNAPSHOT_FORMAT}")
+        return meta
+
+    @classmethod
+    def resume(cls, model: lm.LM, cfg: ModelConfig, ckpt_dir=None, *, step: Optional[int] = None,
+               journal=None, mesh=None, rules=None, **overrides) -> "Engine":
+        """Rebuild a crashed engine: restore the latest committed snapshot
+        under ``ckpt_dir`` (if any), then reconcile the write-ahead journal
+        on top.  Restored in-flight slots continue decoding and restored
+        queue entries are served first, ahead of new requests passed to
+        :meth:`run`.
+
+        * Journal reconciliation: uids journaled ``finished`` are dropped
+          from the restored state; ``accepted`` uids with no finished record
+          and no place in the snapshot are replayed from their journal
+          fields (the ``journal_replays`` stat).
+        * Overrides: scheduling options (``chunk``, ``detectors``,
+          ``max_queue``, ``snapshot_every_chunks``, ...) may be overridden;
+          the pool's shape (``num_slots``, ``cache_len``, ``quantized_kv``)
+          is part of the snapshot and cannot change.
+        * With no snapshot committed, the engine is built from
+          ``overrides`` alone and recovery is journal replay only.
+        * A snapshot the JAX package wrote restores too (the same format);
+          the sampling words of its occupied slots are rebuilt from (seed,
+          uid), the port's stream (ROADMAP C.15, C.18).
+
+        Resuming onto a mesh (``mesh=``, ``rules=``) is not ported.  Do not
+        call :meth:`warmup` on the result (it resets the pool)."""
+        if mesh is not None or rules is not None:
+            raise NotImplementedError("Engine.resume onto a mesh (mesh=, rules=) is not "
+                                      "ported (ROADMAP A.7)")
+        if step is None and ckpt_dir is not None:
+            step = checkpoint.latest_step(ckpt_dir)
+        meta = None
+        if step is not None:
+            meta = cls._read_snapshot_meta(ckpt_dir, step)
+            e = meta["engine"]
+            for name, item in (("slo", "A.5c"), ("spec", "A.5d")):
+                if e.get(name) is not None:
+                    raise NotImplementedError(f"the snapshot's engine has {name}= set, which "
+                                              f"the port does not take yet (ROADMAP {item})")
+            kw = {k: e[k] for k in ("num_slots", "cache_len", "quantized_kv", "chunk",
+                                    "eos_id", "temperature", "top_k", "seed")}
+            kw["max_queue"] = e.get("max_queue")
+            kw["shed_policy"] = e.get("shed_policy", "reject-new")
+            for frozen in ("num_slots", "cache_len", "quantized_kv"):
+                if frozen in overrides and overrides[frozen] != kw[frozen]:
+                    raise ValueError(
+                        f"resume cannot change {frozen}: the snapshot pool "
+                        f"was shaped with {kw[frozen]!r} (got "
+                        f"{overrides[frozen]!r}); the pool shape is part of "
+                        f"the serialized state"
+                    )
+            kw.update(overrides)
+        else:
+            kw = dict(overrides)
+        if journal is not None:
+            kw.setdefault("journal", journal)
+        if ckpt_dir is not None:
+            kw.setdefault("snapshot_dir", ckpt_dir)
+        eng = cls(model, cfg, **kw)
+        if step is not None:
+            eng._restore_snapshot(ckpt_dir, step, meta)
+        eng._replay_journal()
+        return eng
+
+    def _restore_snapshot(self, ckpt_dir, step: int, meta: dict) -> None:
+        """Install a committed snapshot: its pool written into this engine's
+        pool tensors in place (a graph captured on them stays valid), and
+        the host's slot and queue records."""
+        restored = checkpoint.restore(ckpt_dir, step, {"pool": self.pool})["pool"]
+        for t, r in zip(lm.pool_tensors(self.pool), lm.pool_tensors(restored)):
+            t.copy_(r)
+        del restored
+        for slot, rec in enumerate(meta["slots"]):
+            if rec is None:
+                continue
+            t = _ticket_from_record(rec)
+            self._owner[slot] = t.req
+            self._emitted[slot] = [int(x) for x in rec.get("emitted", [])]
+            self._admitted_s[slot] = 0.0  # clocks restart at resume
+            self._trips[slot] = t.trips
+            self._set_stream(slot, t.req.uid)
+        self._queue = deque(_ticket_from_record(r) for r in meta["queue"])
+        self._chunks_total = int(meta["chunks_total"])
+
+    def _replay_journal(self) -> None:
+        """Reconcile the write-ahead journal with the restored state:
+        finished uids are done exactly once (dropped everywhere); accepted
+        uids neither queued nor in a slot are replayed."""
+        if self._journal is None:
+            return
+        records = read_journal(self._journal.path)
+        if not records:
+            return
+        finished, accepted = replay_plan(records)
+        for slot in range(self.num_slots):
+            owner = self._owner[slot]
+            if owner is not None and owner.uid in finished:
+                # free the slot and clear its liveness (the row decays
+                # harmlessly, as in quarantine)
+                self._owner[slot] = None
+                self._emitted[slot] = []
+                self.pool["active"][slot] = False
+        self._queue = deque(t for t in self._queue if t.req.uid not in finished)
+        present = ({t.req.uid for t in self._queue}
+                   | {o.uid for o in self._owner if o is not None})
+        for uid, rec in accepted.items():
+            if uid not in present:
+                self._queue.append(_ticket_from_record({**rec, "trips": 0}))
+                self._journal_replays += 1
 
     # -- admission ----------------------------------------------------------
 
@@ -214,18 +541,42 @@ class Engine:
                 f"({self.cache_len}); allocate a larger pool"
             )
 
-    def _admit(self, req: Request, slot: int, now: float):
+    def _dispatch(self, fn, *args):
+        """Run a device step under the dispatch fault schedule: an injected
+        failure raises BEFORE the call (the pool tensors stay untouched), is
+        retried with exponential backoff up to ``max_dispatch_retries``, and
+        only then escalates as :class:`DispatchFault`."""
+        if self._injector is None:
+            return fn(*args)
+        attempts = 0
+        while self._injector.should_fail():
+            attempts += 1
+            self._dispatch_faults += 1
+            if attempts > self.max_dispatch_retries:
+                raise DispatchFault(
+                    f"dispatch failed {attempts} consecutive times "
+                    f"(max_dispatch_retries={self.max_dispatch_retries})"
+                )
+            self._dispatch_retries += 1
+            time.sleep(self.dispatch_backoff_s * (2 ** (attempts - 1)))
+        return fn(*args)
+
+    def _set_stream(self, slot: int, uid: int):
+        """The slot's sampling words: the request's stream (seed, uid),
+        keyed by uid, not by slot."""
+        self.pool["keys"][slot, 0] = self.seed & 0xFFFFFFFF
+        self.pool["keys"][slot, 1] = uid & 0x7FFFFFFF
+
+    def _admit_device(self, req: Request, slot: int):
         """Prefill ``req`` into ``slot`` of the live pool and draw its first
-        token from the request's own stream (seed, uid), at the position of
-        the prompt's last token, as every later token draws at its own."""
-        self._validate(req)
+        token from the request's own stream, at the position of the prompt's
+        last token, as every later token draws at its own."""
         pool, dev = self.pool, self.device
         prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int32, device=dev)[None]
         s = prompt.shape[1]
         logits, _ = lm.prefill_into_slots(self.model, self.cfg, pool["cache"], prompt,
                                           self._slots[slot:slot + 1])
-        pool["keys"][slot, 0] = self.seed & 0xFFFFFFFF
-        pool["keys"][slot, 1] = req.uid & 0x7FFFFFFF  # the stream is keyed by uid, not slot
+        self._set_stream(slot, req.uid)
         last_pos = torch.full((1,), s - 1, dtype=torch.int32, device=dev)
         pool["tok"][slot] = lm.sample_tokens(logits[:, -1].float(), last_pos,
                                              pool["keys"][slot:slot + 1], self.temperature,
@@ -233,22 +584,34 @@ class Engine:
         pool["pos"][slot] = s
         pool["active"][slot] = True
         pool["remaining"][slot] = int(req.max_new_tokens)
+
+    def _admit(self, req: Request, slot: int, now: float, trips: int = 0):
+        self._validate(req)
+        self._dispatch(self._admit_device, req, slot)
         self._owner[slot] = req
         self._emitted[slot] = []
         self._admitted_s[slot] = now
+        self._trips[slot] = trips
 
     # -- the decode chunk ---------------------------------------------------
 
     def _chunk_eager(self):
         """``chunk`` decode steps over the pool, eagerly, into the packed
-        buffer."""
+        buffer; with detectors the health latches are zeroed first."""
         c = self.chunk
+        if self._health is not None:
+            for t in self._health:
+                t.zero_()
         toks, emitted = self._packed[:, :c], self._packed[:, c:2 * c]
         for i in range(c):
             lm.decode_slots_step(self.model, self.cfg, self.pool, toks, emitted, i,
                                  eos_id=self.eos_id, temperature=self.temperature,
-                                 top_k=self.top_k)
+                                 top_k=self.top_k, logits_hook=self._hook, health=self._health)
         self._packed[:, 2 * c] = self.pool["active"]
+        if self._health is not None:
+            bad, mx = self._health
+            self._packed[:, 2 * c + 1] = bad
+            self._packed[:, 2 * c + 2] = mx.view(torch.int32)
 
     def _capture(self):
         """This chunk eagerly on a side stream (it loads every kernel, plans
@@ -266,9 +629,7 @@ class Engine:
             self._chunk_eager()
         self._graph, self._graph_launches = graph, launches
 
-    def _decode_chunk(self):
-        """Advance the pool one chunk.  Returns numpy (tokens fed (b, chunk),
-        emitted (b, chunk) bool, active (b,) bool), read in one copy."""
+    def _run_chunk(self):
         if self.device.type != "cuda":
             self._chunk_eager()
         elif self._graph is None:
@@ -276,38 +637,127 @@ class Engine:
         else:
             self._graph.replay()
             dispatch.replay_launches(self._graph_launches)
+
+    def _decode_chunk(self):
+        """Advance the pool one chunk.  Returns numpy (tokens fed (b, chunk),
+        emitted (b, chunk) bool, active (b,) bool, bad (b,) bool, mx (b,)
+        float32), read in one copy; without detectors bad and mx are
+        zeros."""
+        self._dispatch(self._run_chunk)
         packed = self._packed.cpu().numpy()
-        c = self.chunk
-        return packed[:, :c], packed[:, c:2 * c].astype(bool), packed[:, 2 * c].astype(bool)
+        c, b = self.chunk, self.num_slots
+        if self._health is not None:
+            bad = packed[:, 2 * c + 1].astype(bool)
+            mx = np.ascontiguousarray(packed[:, 2 * c + 2]).view(np.float32)
+        else:
+            bad, mx = np.zeros(b, bool), np.zeros(b, np.float32)
+        return (packed[:, :c], packed[:, c:2 * c].astype(bool), packed[:, 2 * c].astype(bool),
+                bad, mx)
+
+    # -- degradation and overload -------------------------------------------
+
+    def _exact_fallback(self, req: Request):
+        """The bottom rung of the degradation ladder: serve one request alone
+        on the exact, fault-free datapath (greedy, batch 1).  Returns
+        (tokens, healthy): ``healthy=False`` when even the exact path gives
+        non-finite logits (status ``failed``)."""
+        ecfg = lm.exact_twin(self.cfg)
+        logits, cache, s = _prefill_alone(self.model, ecfg, req.prompt, cache_len=self.cache_len,
+                                          quantized_kv=self.quantized_kv)
+        if not bool(torch.isfinite(logits[:, -1].float()).all()):
+            return np.zeros(0, np.int32), False
+        toks, _, _ = lm.generate_scan(self.model, ecfg, cache, logits[:, -1:].argmax(dim=-1), s,
+                                      req.max_new_tokens)
+        out = toks[0].cpu().numpy()
+        if self.eos_id is not None:  # the slot path's rule: EOS emitted, then stop
+            hits = np.nonzero(out == self.eos_id)[0]
+            if hits.size:
+                out = out[: hits[0] + 1]
+        return out.astype(np.int32), True
+
+    def _shed_victim(self, now: float) -> _Ticket:
+        """The queued ticket admission control drops, per ``shed_policy``
+        (see :data:`SHED_POLICIES`)."""
+        q = self._queue
+        if self.shed_policy == "reject-new":
+            return q[-1]
+        if self.shed_policy == "evict-latest-deadline":
+            def effective_deadline(t):
+                r = t.req
+                dl = float("inf") if r.deadline_s is None else r.arrival_s + r.deadline_s
+                return (dl, r.arrival_s, r.uid)
+            return max(q, key=effective_deadline)
+
+        # shed-by-slo: the smallest deadline slack loses; deadline-free
+        # requests have infinite slack and shed newest first
+        def slack(t):
+            r = t.req
+            s = float("inf") if r.deadline_s is None else (r.arrival_s + r.deadline_s) - now
+            return (s, -r.arrival_s, -r.uid)
+        return min(q, key=slack)
 
     # -- the serve loop -----------------------------------------------------
 
-    def run(self, requests=(), *, deadline_s: float = 600.0) -> dict:
+    def run(self, requests=(), *, deadline_s: float = 600.0,
+            max_chunks: Optional[int] = None) -> dict:
         """Serve ``requests`` (admitted no earlier than their ``arrival_s``,
         on the wall clock from call start; equal arrivals in uid order) until
-        all complete.  Returns {uid: Completion}; aggregate stats go to
-        ``self.stats``.
+        all complete.  Returns {uid: Completion}, one per request with a
+        structured ``status``; aggregate stats and fault counters go to
+        ``self.stats``.  Nothing raises mid-batch but an exhausted dispatch
+        retry budget.  On an engine built by :meth:`resume`, restored work is
+        served first (``requests`` may be empty).  The whole trace is
+        validated before serving starts.
 
-        Deadlines evict instead of raising: when the global ``deadline_s``
-        expires, in-flight requests are evicted with their partial tokens and
-        queued ones with none (``admitted_s=-1.0``).  A request's own
-        ``deadline_s`` (from its arrival) evicts just that request.  The
-        whole trace is validated before serving starts."""
+        Deadlines evict: when the global ``deadline_s`` expires, in-flight
+        requests are evicted with their partial tokens and queued ones with
+        none (``admitted_s=-1.0``).  A request's own ``deadline_s`` (from its
+        arrival) evicts just that request.
+
+        With detectors on, a slot whose chunk tripped them (a non-finite
+        logit, or max |logit| above ``logit_sentinel``) is quarantined: its
+        emissions are discarded and the request re-queued at the front for
+        up to ``quarantine_retries`` approximate-path attempts, after which
+        it is served on the exact datapath (``degraded``; ``failed`` if even
+        that is unhealthy).
+
+        Overload: with ``max_queue=`` the due-request queue is bounded; past
+        the bound ``shed_policy`` picks the tickets turned away (status
+        ``rejected``, no tokens, ``admitted_s=-1.0``).
+
+        Crash consistency: with a ``journal``, every request's ``accepted``
+        record is fsynced before any device work and every terminal status
+        writes a ``finished`` record; ``snapshot_every_chunks=`` autosaves.
+        ``max_chunks=`` is the chaos hook: stop dead at that chunk boundary,
+        with no draining and no terminal records for in-flight work, as a
+        SIGKILL leaves it (``stats["killed"]``)."""
         requests = list(requests)
         for req in requests:
             self._validate(req)
-        self._arrivals.extend(sorted(requests, key=lambda r: (r.arrival_s, r.uid)))
+        ordered = sorted(requests, key=lambda r: (r.arrival_s, r.uid))
+        if self._journal is not None:
+            for req in ordered:  # write-ahead: durable before any slot work
+                self._journal.accepted(req)
+        self._arrivals.extend(_Ticket(r) for r in ordered)
         queue, arrivals = self._queue, self._arrivals
         done: dict = {}
+        counters = {"faults_detected": 0, "quarantine_retries": 0, "exact_fallbacks": 0,
+                    "deadline_evictions": 0, "shed_rejections": 0}
         t0 = time.perf_counter()
         decode_chunks = 0
+        peak_queue_depth = len(queue)
+        queue_depth_sum = 0
+        queue_depth_samples = 0
         expired = False
+        killed = False
 
-        def finish(req, tokens, status, now, admitted_s):
+        def finish(req, tokens, status, now, admitted_s, trips=0):
             done[req.uid] = Completion(uid=req.uid, prompt_len=len(req.prompt),
                                        tokens=np.asarray(tokens, np.int32),
                                        arrival_s=req.arrival_s, admitted_s=admitted_s,
-                                       finished_s=now, status=status)
+                                       finished_s=now, status=status, trips=trips)
+            if self._journal is not None:
+                self._journal.finished(req.uid, status, done[req.uid].tokens)
 
         def overdue(req, now):
             return req.deadline_s is not None and now > req.arrival_s + req.deadline_s
@@ -317,41 +767,100 @@ class Engine:
             if now > deadline_s:
                 expired = True
                 break
-            while arrivals and arrivals[0].arrival_s <= now:
+            if max_chunks is not None and decode_chunks >= max_chunks:
+                killed = True  # chaos hook: die at the chunk boundary
+                break
+            while arrivals and arrivals[0].req.arrival_s <= now:
                 queue.append(arrivals.popleft())
             # evict overdue queued requests before they can take a slot
-            for req in [r for r in queue if overdue(r, now)]:
-                queue.remove(req)
-                finish(req, [], "evicted", now, -1.0)
+            if any(overdue(t.req, now) for t in queue):
+                kept = deque()
+                for t in queue:
+                    if overdue(t.req, now):
+                        counters["deadline_evictions"] += 1
+                        finish(t.req, [], "evicted", now, -1.0, t.trips)
+                    else:
+                        kept.append(t)
+                queue.clear()
+                queue.extend(kept)
             for slot in range(self.num_slots):
                 if self._owner[slot] is None and queue:
-                    self._admit(queue.popleft(), slot, now)
+                    t = queue.popleft()
+                    self._admit(t.req, slot, now, trips=t.trips)
+                    if self._journal is not None:
+                        self._journal.admitted(t.req.uid, slot)
+            # admission control: what could not take a slot waits in a
+            # bounded queue; past the bound the shed policy turns work away
+            while self.max_queue is not None and len(queue) > self.max_queue:
+                victim = self._shed_victim(now)
+                queue.remove(victim)
+                counters["shed_rejections"] += 1
+                finish(victim.req, [], "rejected", now, -1.0, victim.trips)
+            depth = len(queue)
+            peak_queue_depth = max(peak_queue_depth, depth)
+            queue_depth_sum += depth
+            queue_depth_samples += 1
             if not any(o is not None for o in self._owner):
                 if arrivals:  # pool idle: sleep until the next arrival or the deadline
-                    time.sleep(max(0.0, min(arrivals[0].arrival_s, deadline_s) - now))
+                    time.sleep(max(0.0, min(arrivals[0].req.arrival_s, deadline_s) - now))
                 continue
-            toks, emitted, active = self._decode_chunk()
+            toks, emitted, active, bad, mx = self._decode_chunk()
             decode_chunks += 1
+            self._chunks_total += 1
             now = time.perf_counter() - t0
             for slot in range(self.num_slots):
                 req = self._owner[slot]
                 if req is None:
                     continue
+                # a NaN mx compares False, but `bad` has latched then
+                if self.detectors and (bool(bad[slot]) or float(mx[slot]) > self.logit_sentinel):
+                    # quarantine: free the slot (its device row decays
+                    # harmlessly: row isolation and budget exhaustion) and
+                    # discard every emission; a retry starts clean
+                    counters["faults_detected"] += 1
+                    trips = self._trips[slot] + 1
+                    self._owner[slot] = None
+                    if trips <= self.quarantine_retries:
+                        counters["quarantine_retries"] += 1
+                        queue.appendleft(_Ticket(req, trips))
+                    else:
+                        counters["exact_fallbacks"] += 1
+                        tokens, healthy = self._exact_fallback(req)
+                        now = time.perf_counter() - t0
+                        finish(req, tokens, "degraded" if healthy else "failed", now,
+                               self._admitted_s[slot], trips)
+                    continue
                 self._emitted[slot].extend(toks[slot][emitted[slot]].tolist())
                 if not active[slot]:  # finished: free the slot for reuse
-                    finish(req, self._emitted[slot], "ok", now, self._admitted_s[slot])
+                    finish(req, self._emitted[slot], "ok", now, self._admitted_s[slot],
+                           self._trips[slot])
                     self._owner[slot] = None
                 elif overdue(req, now):  # per-request deadline: partial tokens
-                    finish(req, self._emitted[slot], "evicted", now, self._admitted_s[slot])
+                    counters["deadline_evictions"] += 1
+                    finish(req, self._emitted[slot], "evicted", now, self._admitted_s[slot],
+                           self._trips[slot])
                     self._owner[slot] = None
+            if self._journal is not None:
+                live = [(o.uid, len(self._emitted[s])) for s, o in enumerate(self._owner)
+                        if o is not None]
+                if live:
+                    self._journal.progress(live)
+            # autosave at the chunk boundary, after the host bookkeeping: the
+            # durable cut exactly-once recovery is proved against
+            if (self.snapshot_every_chunks is not None
+                    and decode_chunks % self.snapshot_every_chunks == 0):
+                self.snapshot()
         if expired:
             now = time.perf_counter() - t0
             for slot, req in enumerate(self._owner):
                 if req is not None:
-                    finish(req, self._emitted[slot], "evicted", now, self._admitted_s[slot])
+                    counters["deadline_evictions"] += 1
+                    finish(req, self._emitted[slot], "evicted", now, self._admitted_s[slot],
+                           self._trips[slot])
                     self._owner[slot] = None
-            for req in list(queue) + list(arrivals):
-                finish(req, [], "evicted", now, -1.0)
+            for t in list(queue) + list(arrivals):
+                counters["deadline_evictions"] += 1
+                finish(t.req, [], "evicted", now, -1.0, t.trips)
             queue.clear()
             arrivals.clear()
         makespan = time.perf_counter() - t0
@@ -363,6 +872,15 @@ class Engine:
             "decode_chunks": decode_chunks,
             "n_requests": len(done),
             "deadline_expired": expired,
+            "killed": killed,
+            "dispatch_faults": self._dispatch_faults,
+            "dispatch_retries": self._dispatch_retries,
+            "peak_queue_depth": peak_queue_depth,
+            "mean_queue_depth": (queue_depth_sum / queue_depth_samples
+                                 if queue_depth_samples else 0.0),
+            "snapshots_written": self._snapshots_written,
+            "journal_replays": self._journal_replays,
+            **counters,
             **{f"n_{s}": sum(c.status == s for c in done.values()) for s in STATUSES},
         }
         return done

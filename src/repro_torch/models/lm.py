@@ -433,7 +433,7 @@ def sample_tokens(logits: torch.Tensor, pos: torch.Tensor, keys: Optional[torch.
 def decode_slots_step(model: LM, cfg: ModelConfig, pool: dict, toks: torch.Tensor,
                       emitted: torch.Tensor, i: int, *, eos_id: Optional[int] = None,
                       temperature: float = 0.0, top_k: int = 0, unit_levels=None,
-                      logits_hook=None) -> None:
+                      logits_hook=None, health=None) -> None:
     """One slot-scheduled decode step over ``pool`` (an
     :func:`init_pool_state` dict), every row an independent request.
 
@@ -446,14 +446,22 @@ def decode_slots_step(model: LM, cfg: ModelConfig, pool: dict, toks: torch.Tenso
     live rows.  ``unit_levels`` as in :func:`decode_step` (a (b,) int32
     tensor on the pool's device); ``logits_hook`` (float32 logits -> float32
     logits, e.g. ``core.faults.logits_hook``) is applied to each step's
-    last-position logits before sampling.  Updates the pool in place and
-    reads nothing back to the host, so a run of steps can be captured in a
-    CUDA graph."""
+    last-position logits before sampling.  ``health`` ((b,) bool ``bad``,
+    (b,) float32 ``mx``, owned by the caller) latches the reference's two
+    per-slot health signals in place over the logits sampling sees: ``bad
+    |= active & ~isfinite(lg).all(-1)`` and ``mx = max(mx, where(active,
+    max |lg|, 0))`` (a NaN row makes ``mx`` NaN; ``bad`` has latched then).
+    Updates the pool in place and reads nothing back to the host, so a run
+    of steps can be captured in a CUDA graph."""
     tok, pos, active, remaining = pool["tok"], pool["pos"], pool["active"], pool["remaining"]
     logits, _ = decode_step(model, cfg, pool["cache"], tok, pos, unit_levels=unit_levels)
     lg = logits[:, -1].float()
     if logits_hook is not None:
         lg = logits_hook(lg)
+    if health is not None:
+        bad, mx = health
+        bad |= active & ~torch.isfinite(lg).all(dim=-1)
+        torch.maximum(mx, torch.where(active, lg.abs().amax(dim=-1), 0.0), out=mx)
     nxt = sample_tokens(lg, pos, pool["keys"], temperature, top_k)
     fed = tok[:, 0]
     toks[:, i] = fed
@@ -472,7 +480,7 @@ def decode_slots_step(model: LM, cfg: ModelConfig, pool: dict, toks: torch.Tenso
 def decode_slots_scan(model: LM, cfg: ModelConfig, cache, tok, pos, active, remaining,
                       n_steps: int, *, eos_id: Optional[int] = None, temperature: float = 0.0,
                       top_k: int = 0, keys: Optional[torch.Tensor] = None, unit_levels=None,
-                      logits_hook=None):
+                      logits_hook=None, with_health: bool = False):
     """``n_steps`` of :func:`decode_slots_step`: a Python loop with no host
     synchronisation (the reference's ``lax.scan``).
 
@@ -482,7 +490,8 @@ def decode_slots_scan(model: LM, cfg: ModelConfig, cache, tok, pos, active, rema
     requires ``cfg.sqrt_ladder``) and ``logits_hook`` as in
     :func:`decode_slots_step`.  Returns (toks (b, n_steps) int32, emitted
     (b, n_steps) bool, tok, pos, active, remaining, cache), the reference's
-    order."""
+    order; ``with_health`` appends the chunk's health signals (bad (b,)
+    bool, mx (b,) float32; see :func:`decode_slots_step`)."""
     if temperature and keys is None:
         raise ValueError(
             "temperature sampling needs per-request keys (a (b, 2) keys tensor); "
@@ -494,8 +503,10 @@ def decode_slots_scan(model: LM, cfg: ModelConfig, cache, tok, pos, active, rema
     b = tok.shape[0]
     toks = torch.zeros((b, n_steps), dtype=torch.int32, device=tok.device)
     emitted = torch.zeros((b, n_steps), dtype=torch.bool, device=tok.device)
+    health = ((torch.zeros(b, dtype=torch.bool, device=tok.device),
+               torch.zeros(b, dtype=torch.float32, device=tok.device)) if with_health else None)
     for i in range(n_steps):
         decode_slots_step(model, cfg, pool, toks, emitted, i, eos_id=eos_id,
                           temperature=temperature, top_k=top_k, unit_levels=levels,
-                          logits_hook=logits_hook)
-    return toks, emitted, tok, pos, active, remaining, cache
+                          logits_hook=logits_hook, health=health)
+    return (toks, emitted, tok, pos, active, remaining, cache) + (health or ())

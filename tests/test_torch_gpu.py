@@ -915,3 +915,128 @@ def test_ladder_and_faulted_steps_capture_in_a_cuda_graph(cuda_device):
         steps()
     replayed = outcome(graph.replay)
     assert _pool_bits_equal(replayed, eager)
+
+
+# ---------------------------------------------------------------------------
+# The engine's robustness layers on the card: health signals in the
+# captured chunk, a restore in place, dispatch failures
+# ---------------------------------------------------------------------------
+
+
+def _poison_slot(eng, slot):
+    """NaN in every cache line of one slot: its logits go NaN from the next
+    step on, and its neighbours must not see it."""
+    layers = eng.pool["cache"] if isinstance(eng.pool["cache"], list) else [eng.pool["cache"]]
+    ax = 1 if isinstance(eng.pool["cache"], dict) else 0
+    for layer in layers:
+        for name, leaf in layer.items():
+            if leaf.is_floating_point() and name in ("k", "v"):
+                leaf.select(ax, slot).fill_(float("nan"))
+
+
+@pytest.mark.parametrize("act_dtype", ["bfloat16", "float32"])
+def test_graphed_chunk_with_health_equals_the_eager_chunk(cuda_device, act_dtype):
+    """Detectors on, one of three slots poisoned with NaN: a replay of the
+    captured chunk and the same chunk eagerly give bit-identical pool
+    tensors and packed buffer, the health columns included; only the
+    poisoned slot latches ``bad``, and the next replay from a clean pool
+    latches nothing (the latches are zeroed inside the graph) and gives
+    the neighbours the tokens they had beside the poisoned slot."""
+    cfg, eng = _engine(cuda_device, "qwen3-4b", act_dtype, False)
+    assert eng.detectors
+    eng.warmup(prompt_lens={3, 5, 12})
+    assert eng._graph is not None
+    for slot, req in enumerate(_trace(cfg)[:3]):
+        eng._admit(req, slot, 0.0)
+    clean = [t.clone() for t in lm.pool_tensors(eng.pool)]
+    _poison_slot(eng, 1)
+    start = [t.clone() for t in lm.pool_tensors(eng.pool)]
+
+    def chunk(run, state):
+        for t, s0 in zip(lm.pool_tensors(eng.pool), state):
+            t.copy_(s0)
+        out = run()
+        torch.cuda.synchronize()
+        return [t.clone() for t in lm.pool_tensors(eng.pool)] + [eng._packed.clone()], out
+
+    eager, _ = chunk(eng._chunk_eager, start)
+    graphed, host = chunk(eng._decode_chunk, start)
+    assert _pool_bits_equal(graphed, eager)
+    bad, mx = host[3], host[4]
+    assert bad.tolist() == [False, True, False] and np.isnan(mx[1])
+    assert np.isfinite(mx[[0, 2]]).all() and (mx[[0, 2]] > 0).all()
+    assert int(eng.pool["tok"][1, 0]) in range(cfg.vocab)  # the argmax of a NaN row
+    _, again = chunk(eng._decode_chunk, clean)
+    assert not again[3].any() and np.isfinite(again[4]).all()
+    np.testing.assert_array_equal(again[0][[0, 2]], host[0][[0, 2]])
+
+
+@pytest.mark.parametrize("arch,quantized", [("qwen3-4b", False), ("qwen3-4b", True),
+                                            ("gemma3-1b", False)])
+def test_restore_in_place_keeps_the_captured_graph(cuda_device, tmp_path, arch, quantized):
+    """A snapshot of a live pool (bf16 or int8 cache, bool ``active``,
+    uint32 ``keys``) restores bit for bit into another engine whose chunk
+    was captured before, in place: the tensors keep their addresses, and a
+    replay from the restored state equals the same chunk run eagerly."""
+    cfg, eng = _engine(cuda_device, arch, "bfloat16", quantized)
+    eng.warmup(prompt_lens={3, 5, 12})
+    for slot, req in enumerate(_trace(cfg)[:3]):
+        eng._admit(req, slot, 0.0)
+    eng._decode_chunk()
+    eng.snapshot(tmp_path, step=1)
+    saved = [t.clone() for t in lm.pool_tensors(eng.pool)]
+
+    _, other = _engine(cuda_device, arch, "bfloat16", quantized)
+    other.warmup(prompt_lens={3, 5, 12})
+    addresses = [t.data_ptr() for t in lm.pool_tensors(other.pool)]
+    other._restore_snapshot(tmp_path, 1, Engine._read_snapshot_meta(tmp_path, 1))
+    assert [t.data_ptr() for t in lm.pool_tensors(other.pool)] == addresses
+    assert _pool_bits_equal(list(lm.pool_tensors(other.pool)), saved)
+    restored = [t.clone() for t in lm.pool_tensors(other.pool)]
+
+    def chunk(run):
+        for t, s0 in zip(lm.pool_tensors(other.pool), restored):
+            t.copy_(s0)
+        run()
+        torch.cuda.synchronize()
+        return [t.clone() for t in lm.pool_tensors(other.pool)] + [other._packed.clone()]
+
+    assert _pool_bits_equal(chunk(other._decode_chunk), chunk(other._chunk_eager))
+
+
+def test_dispatch_exhaustion_leaves_the_pool_unchanged(cuda_device):
+    """Dispatch faults at rate 0.4 are retried around admissions and
+    replays; an outage (every dispatch failing) struck before a replay
+    raises DispatchFault after the retry budget with every pool tensor as
+    the last chunk left it; after ``reset()`` the same engine serves the
+    trace with the clean engine's tokens."""
+    from repro_torch.core.faults import DispatchFault, DispatchFaultInjector, FaultConfig
+
+    cfg, clean = _engine(cuda_device, "qwen3-4b", "bfloat16", False)
+    clean.warmup(prompt_lens={3, 5, 12})
+    reqs = _trace(cfg)[:4]
+    want = clean.run([Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+                      for r in reqs])
+    _, eng = _engine(cuda_device, "qwen3-4b", "bfloat16", False,
+                     faults=FaultConfig("dispatch", rate=0.4, seed=5), dispatch_backoff_s=1e-4)
+    eng.warmup(prompt_lens={3, 5, 12})
+    assert eng._graph is not None
+    for slot, req in enumerate(reqs[:3]):
+        eng._admit(req, slot, 0.0)
+    eng._decode_chunk()
+    torch.cuda.synchronize()
+    before = [t.clone() for t in lm.pool_tensors(eng.pool)] + [eng._packed.clone()]
+    schedule, eng._injector = eng._injector, DispatchFaultInjector(
+        FaultConfig("dispatch", rate=1.0))
+    eng.max_dispatch_retries = 2
+    with pytest.raises(DispatchFault, match="max_dispatch_retries=2"):
+        eng._decode_chunk()
+    torch.cuda.synchronize()
+    assert _pool_bits_equal(list(lm.pool_tensors(eng.pool)) + [eng._packed], before)
+    eng._injector, eng.max_dispatch_retries = schedule, 3
+    eng.reset()
+    done = eng.run([Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+                    for r in reqs])
+    for r in reqs:
+        np.testing.assert_array_equal(done[r.uid].tokens, want[r.uid].tokens)
+    assert eng.stats["dispatch_retries"] == eng.stats["dispatch_faults"] > 0
