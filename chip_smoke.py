@@ -109,9 +109,10 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    (b) phase 4a's model with the ladder ("e2afs", "esas", "exact"):
    ``decode_slots_scan`` over its 8 slots, 32 steps at levels [0, 1, 2, 0,
    1, 2, 0, 2], every row bit-identical to a run with all slots at its
-   level, the all-"exact" run to ``exact_twin``, the all-0 run within phase
-   4a's limits of the clean fused route; no RMSNorm launch under levels, 36
-   decode-attention launches a step; ms a step eager; (c) the same model
+   level, the all-"exact" run to ``exact_twin``, the all-0 run to the clean
+   fused route (tokens, logits and cache: rung 0 runs the fused RMSNorm
+   kernel); 145 RMSNorm and 36 decode-attention launches a step; ms a step
+   eager; (c) the same model
    under ``sqrt_faults`` (sqrt_man 1e-3) and ``logits_hook`` (logit_nan
    1e-4): two runs bit-identical, rate 0 bit-identical to the clean route,
    the NaN positions the CPU's ``corrupt_logits``, and an ``Engine`` on the
@@ -142,7 +143,18 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    resume, and the captured engine of (a) restored in place replaying
    bit-identical to its eager chunk; (f) ``python -m
    repro_torch.launch.kill_resume`` on the card, in two processes started
-   before (b) and joined after it: a real SIGKILL at smoke width.
+   before (b) and joined after it: a real SIGKILL at smoke width; (g) after
+   (e), the accuracy SLO (``Engine(slo=AccuracySLO(...), telemetry=)``):
+   canary stride None serving (a)'s 8 requests token-identical to (a)'s
+   engine; stride 8 with budgets that never trip token-identical to that,
+   canaries counted; a replay with canaries and mixed rungs bit-identical
+   to the eager chunk, packed buffer included; under ``sqrt_man`` bit 21
+   at rate 1.0 with stride 2 every slot demoted to "exact" and fresh
+   requests in the demoted slots token-identical to each alone on
+   ``exact_twin`` in a pool of the engine's shape; one telemetry record a
+   chunk; ms a replayed step without an SLO and at strides None, 32 and 8,
+   kernels a step of each graph, replay against eager with mixed rungs,
+   capture ms a graph.
 
 Before the last line it prints the card's name and power limit and one JSON
 line of kernels; the last line is ``{"ok": true, "device": {...}}``.  Without
@@ -359,6 +371,7 @@ class Smoke:
         self.serving = self.gemma = None
         # phase 14c's faulted engine, phase 15a's engines, phase 15f's process
         self.faulted_engine = self.robust = self.sigkill = None
+        self.anchor = None  # phase 15a's requests and tokens
 
     # -- helpers -----------------------------------------------------------
     def phase(self, name, fn):
@@ -1087,8 +1100,8 @@ class Smoke:
         eng.warmup(prompt_lens=prompts)
         self.sync()
         print(f"  warmup (one admission a prompt length, one chunk eagerly and its capture): "
-              f"{time.perf_counter() - t0:.2f} s; graph captured: {eng._graph is not None}")
-        if not self.rehearsal and eng._graph is None:
+              f"{time.perf_counter() - t0:.2f} s; graph captured: {bool(eng._graphs)}")
+        if not self.rehearsal and not eng._graphs:
             raise AssertionError("the decode chunk was not captured")
 
         # a replay against the eager chunk, from one pool state
@@ -1217,7 +1230,8 @@ class Smoke:
                                      b.view(torch.uint8) if b.is_floating_point() else b)]
         print(f"  replayed chunk vs eager chunk from one pool state: {len(differ)} of "
               f"{len(eager)} tensors differ (tokens, emitted, tok, pos, active, remaining, "
-              f"every cache tensor{', health' if eng.detectors else ''})")
+              f"every cache tensor{', health' if eng.detectors else ''}"
+              f"{', canaries' if eng._canary is not None else ''})")
         if differ:
             raise AssertionError(f"the graphed chunk differs from the eager one: tensors {differ}")
         return restore
@@ -1338,8 +1352,9 @@ class Smoke:
         model: ``decode_slots_scan`` over its 8 slots from one prefilled
         cache, 32 steps at levels [0, 1, 2, 0, 1, 2, 0, 2], held row by row
         against runs with every slot at one level; the all-"exact" run
-        against ``exact_twin``; the all-0 run against the clean fused route;
-        launch counts and ms a decode step eager."""
+        against ``exact_twin``; the all-0 run bit-identical to the clean
+        fused route (rung 0 is that route); launch counts and ms a decode
+        step eager."""
         torch = self.torch
         from repro_torch.kernels import dispatch
         from repro_torch.models import lm
@@ -1361,11 +1376,10 @@ class Smoke:
         twin = self.slot_decode(model, lm.exact_twin(lcfg), cache, tok, prompt_len, steps)
         clean = self.slot_decode(model, cfg, cache, tok, prompt_len, steps)
         per_step = {k: v / steps for k, v in counts.items() if v}
-        want = {"rmsnorm": 0, "decode_attention": cfg.n_layers,
-                "e2afs_rsqrt": 4 * cfg.n_layers + 1}
+        want = {"rmsnorm": 4 * cfg.n_layers + 1, "decode_attention": cfg.n_layers}
         print(f"  {cfg.name}, batch {batch}, prompt {prompt_len}, {steps} steps, levels "
-              f"{levels.tolist()}: launches a step {per_step} (want {want}: no RMSNorm kernel "
-              f"under levels; the e2afs rung's rsqrt on its kernel route, one a norm)")
+              f"{levels.tolist()}: launches a step {per_step} (want {want}: rung 0 of every "
+              f"norm on the fused RMSNorm kernel, the other rungs unfused)")
         pos = torch.full((batch,), prompt_len, dtype=torch.int32, device=self.dev)
         k_ladder, ms_ladder = self.launches_a_step(model, lcfg, cache, tok, pos, levels)
         k_clean, ms_clean = self.launches_a_step(model, cfg, cache, tok, pos)
@@ -1382,26 +1396,21 @@ class Smoke:
                     and all(bool(same_bits(mixed[2][k][:, i], want_row[2][k][:, i]).all())
                             for k in cache)):
                 leaks.append(i)
-        twin_same = (torch.equal(twin[0], uniform[2][0])
-                     and bool(same_bits(twin[1], uniform[2][1]).all())
-                     and all(bool(same_bits(twin[2][k], uniform[2][2][k]).all()) for k in cache))
-        first = clean[1][:, 0]
-        diff = float((uniform[0][1][:, 0] - first).abs().max())
-        top = first.abs().max()
-        limit = 4 * float(ulp_of(top.reshape(1).to(getattr(torch, cfg.act_dtype))))
-        agree = [int((uniform[0][0][:, i] == clean[0][:, i]).sum()) for i in (1, 2)]
+        def same_run(a, b):
+            return (torch.equal(a[0], b[0]) and bool(same_bits(a[1], b[1]).all())
+                    and all(bool(same_bits(a[2][k], b[2][k]).all()) for k in cache))
+
+        twin_same = same_run(twin, uniform[2])
+        clean_same = same_run(uniform[0], clean)
         print(f"  rows vs all-one-level runs: {batch - len(leaks)} of {batch} rows bit-identical "
               f"(tokens, logits, cache); all-2 run vs exact_twin: "
               f"{'bit-identical' if twin_same else 'DIFFERENT'}; all-0 run vs the clean fused "
-              f"route: first-step logits max |diff| {diff:.4g} (limit {limit:.4g}: 4 ulps at "
-              f"max |logit| {float(top):.4g}), first two tokens agree {agree} of {batch}, "
-              f"{float((uniform[0][0] == clean[0]).float().mean()):.3f} of all tokens")
+              f"route: {'bit-identical' if clean_same else 'DIFFERENT'}")
         if not self.rehearsal and per_step != {k: float(v) for k, v in want.items() if v}:
             raise AssertionError(f"ladder launches {per_step}, want {want}")
-        if leaks or not twin_same:
-            raise AssertionError(f"rows leak across levels: {leaks}; exact_twin same: {twin_same}")
-        if diff > limit or agree != [batch, batch]:
-            raise AssertionError("the all-0 ladder run parts from the clean fused route")
+        if leaks or not twin_same or not clean_same:
+            raise AssertionError(f"rows leak across levels: {leaks}; exact_twin same: "
+                                 f"{twin_same}; all-0 same as the clean route: {clean_same}")
 
     def p14c_faults(self):
         """Seeded faults on phase 4a's model: ``sqrt_faults=FaultConfig(
@@ -1482,7 +1491,7 @@ class Smoke:
 
         eng = Engine(model, fcfg, num_slots=batch, cache_len=cache_len, chunk=8)
         eng.warmup(prompt_lens=(prompt_len,))
-        if not self.rehearsal and eng._graph is None:
+        if not self.rehearsal and not eng._graphs:
             raise AssertionError("the faulted decode chunk was not captured")
         reqs = [Request(uid=i, prompt=prompt[i].cpu().numpy().astype("int32"),
                         max_new_tokens=steps) for i in range(batch)]
@@ -1520,7 +1529,7 @@ class Smoke:
         restore = {}
         for name, eng in engines.items():
             eng.warmup(prompt_lens=sh["prompts"])
-            if not self.rehearsal and eng._graph is None:
+            if not self.rehearsal and not eng._graphs:
                 raise AssertionError(f"detectors {name}: the decode chunk was not captured")
             print(f"  detectors {name}:")
             restore[name] = self.replay_equals_eager(eng, reqs[:sh["slots"]])
@@ -1556,6 +1565,7 @@ class Smoke:
         if same != len(reqs) or stats["n_ok"] != len(reqs) or stats["faults_detected"]:
             raise AssertionError("detectors changed the tokens or tripped without faults")
         self.robust = (reqs, done["on"], engines["on"])
+        self.anchor = (reqs, done["on"])  # phase 15g's reference tokens
 
     def p15b_logit_faults(self):
         """NaN logits (``logit_nan``, seed 1, one quarantine retry) on phase
@@ -1783,6 +1793,207 @@ class Smoke:
             print(f"  restore in place into phase 15a's captured engine: {restore_ms:.1f} ms")
             self.replay_equals_eager(warm)
         del warm
+        if not self.rehearsal:
+            self.torch.cuda.empty_cache()
+
+    def p15g_slo(self):
+        """The accuracy SLO on phase 4a's model, phase 13a's engine shape (8
+        slots of 576 lines, chunks of 8) and phase 15a's 8 requests:
+
+        * (a) ``canary_stride=None``: tokens identical to phase 15a's engine;
+        * (b) stride 8, budgets that never trip: tokens identical to (a)'s,
+          canaries counted, the launch counts set to 0 just before and read
+          just after (RMSNorm: every admission and step; decode attention:
+          every step and canary step); (e) one telemetry record a chunk;
+        * (c) a replay with canaries and rungs [0, 1, ...] bit-identical to
+          the eager chunk, the packed buffer included, and its ms against
+          the eager chunk's;
+        * ms a replayed step without an SLO and at strides None, 32 and 8
+          (CUDA events around the lifetime clock's 4-chunk cycle, in turns),
+          kernels a step of each graph (a profiled replay each), capture
+          ms a graph and the graphs captured;
+        * (d) ``sqrt_man`` bit 21 at rate 1.0 with stride 2 and no
+          promotion: every slot demotes to "exact" in its first chunk, and
+          fresh requests in the demoted slots are token-identical to each
+          alone in a pool of the engine's shape on ``exact_twin``."""
+        import tempfile
+
+        import numpy as np
+
+        from repro_torch.core.faults import FaultConfig
+        from repro_torch.kernels import dispatch
+        from repro_torch.launch.engine import AccuracySLO, Engine, Request
+        from repro_torch.launch.telemetry import read_telemetry
+        from repro_torch.models import lm
+
+        if self.anchor is None:
+            raise AssertionError("phase 15a left no reference tokens")
+        reqs, anchor = self.anchor
+        self.anchor = None
+        cfg, model = self.serving[:2]
+        sh = self.robust_shape()
+        slots, chunk = sh["slots"], 8
+        per_forward = 4 * cfg.n_layers + 1
+        quiet = dict(rel_err_budget=1e9, divergence_budget=None, promote_after=None)
+        capture_ms = []
+
+        def build(warm=True, **kw):
+            eng = self.robust_engine(**kw)
+            capture = eng._capture
+
+            def timed(fire):
+                self.sync()
+                t0 = time.perf_counter()
+                capture(fire)
+                self.sync()
+                capture_ms.append(round((time.perf_counter() - t0) * 1e3, 1))
+
+            eng._capture = timed
+            if warm:
+                eng.warmup(prompt_lens=sh["prompts"])
+            return eng
+
+        def tokens_same(a, b, uids):
+            return sum(np.array_equal(a[u].tokens, b[u].tokens) for u in uids)
+
+        uids = [r.uid for r in reqs]
+        with tempfile.TemporaryDirectory(prefix="engine-telemetry-") as tmp:
+            tpath = Path(tmp) / "telemetry.jsonl"
+            engines = {"no SLO": build(),
+                       "stride None": build(slo=AccuracySLO(canary_stride=None)),
+                       "stride 32": build(slo=AccuracySLO(canary_stride=32, **quiet)),
+                       "stride 8": build(slo=AccuracySLO(canary_stride=8, **quiet),
+                                         telemetry=tpath)}
+            graphs = {name: sorted(e._graphs) for name, e in engines.items()}
+            print(f"  graphs captured by warmup (firing patterns): {graphs}; capture ms a graph "
+                  f"(its eager chunk on a side stream and the capture, host clock) {capture_ms}")
+            want_graphs = {"no SLO": [()], "stride None": [()], "stride 32": [(), (0,)],
+                           "stride 8": [(0,)]}
+            if not self.rehearsal and graphs != want_graphs:
+                raise AssertionError(f"graphs {graphs}, want {want_graphs}")
+
+            # (a) the anchor, (b) read-only canaries with the launch counts
+            done_a = engines["stride None"].run(reqs)
+            same_a = tokens_same(done_a, anchor, uids)
+            e8 = engines["stride 8"]
+            self.sync()
+            dispatch.reset_launch_counts()
+            done_b = e8.run(reqs)
+            counts = dispatch.launch_counts()
+            st = dict(e8.stats)
+            same_b = tokens_same(done_b, done_a, uids)
+            chunks = st["decode_chunks"]
+            want = {"rmsnorm": per_forward * (len(reqs) + chunks * chunk),
+                    "decode_attention": cfg.n_layers * (chunks * chunk + chunks)}
+            self.rows["rmsnorm"]["engine_slo_launches"] = counts["rmsnorm"]
+            self.rows["decode_attention"]["engine_slo_launches"] = counts["decode_attention"]
+            recs = read_telemetry(tpath)
+        print(f"  (a) stride None: {same_a} of {len(reqs)} requests token-identical to phase "
+              f"15a's engine; (b) stride 8: {same_b} of {len(reqs)} token-identical to (a), "
+              f"{st['canary_checks']} canaries, {st['canary_divergences']} divergences, max "
+              f"relative logit error {st['canary_max_rel_err']:.4g}, {st['demotions']} "
+              f"demotions; {chunks} chunks, launches rmsnorm {counts['rmsnorm']}, "
+              f"decode_attention {counts['decode_attention']} (want {want}: step 0 of every "
+              f"chunk fires); (e) {len(recs)} telemetry records, "
+              f"{sum(r['tokens'] for r in recs)} tokens, "
+              f"{sum(r['canary_checks'] for r in recs)} canaries in them")
+        if same_a != len(reqs) or same_b != len(reqs):
+            raise AssertionError("the SLO engine's tokens part from the SLO-free engine's")
+        if not st["canary_checks"] or st["demotions"]:
+            raise AssertionError(f"read-only canaries: {st}")
+        if not self.rehearsal and any(counts[k] != v for k, v in want.items()):
+            raise AssertionError(f"launch counts {counts}, want {want}")
+        if (len(recs) != chunks or sum(r["tokens"] for r in recs) != st["total_tokens"]
+                or sum(r["canary_checks"] for r in recs) != st["canary_checks"]):
+            raise AssertionError("the telemetry stream does not add up to the run")
+
+        # (c) a replay with canaries and mixed rungs against the eager chunk
+        for slot in range(slots):
+            e8._set_level(slot, slot % 2)
+        e8._write_levels()
+        restore = self.replay_equals_eager(e8, reqs[:slots])
+        restore()
+        self.sync()
+        t0 = time.perf_counter()
+        e8._chunk_eager()
+        self.sync()
+        eager_ms = (time.perf_counter() - t0) * 1e3
+        restore()
+        replay_ms = self.time_ms(e8._decode_chunk, iters=4)
+        if replay_ms is not None:
+            print(f"  rungs {e8.unit_levels}: an eager chunk {eager_ms / chunk:.3f} ms a step "
+                  f"(host clock), replayed {replay_ms / chunk:.3f} (CUDA events around 4 "
+                  f"replays): {eager_ms / replay_ms:.1f}x")
+
+        # ms a replayed step and kernels a step, from one admitted pool state
+        restores = {}
+        for name, eng in engines.items():
+            eng.reset()
+            for slot, r in enumerate(reqs[:slots]):
+                eng._admit(r, slot, 0.0)
+            start = [t.clone() for t in lm.pool_tensors(eng.pool)]
+            restores[name] = lambda eng=eng, start=start: [
+                t.copy_(s0) for t, s0 in zip(lm.pool_tensors(eng.pool), start)]
+
+        def cycle(eng):
+            """The chunks of the lifetime clock's cycle: 4 (stride 32), or one
+            chunk where every chunk fires alike."""
+            n = 4 if len(eng._patterns()) > 1 else 1
+
+            def run():
+                for k in range(n):
+                    eng._chunks_total = k
+                    eng._decode_chunk()
+            return run, n
+
+        ms = {name: [] for name in engines}
+        for name in list(engines) + list(engines)[::-1]:
+            restores[name]()
+            run, n = cycle(engines[name])
+            t = self.time_ms(run, iters=4 // n)
+            ms[name].append(round(t / (n * chunk), 4) if t is not None else None)
+        print(f"  ms a replayed decode step (CUDA events around 4 chunks, stride 32's over the "
+              f"lifetime clock's 4-chunk cycle, in turns; {self.card}): {ms}")
+        for name, eng in engines.items():
+            for fire in eng._patterns():
+                restores[name]()
+                eng._chunks_total = next(k for k in range(4) if eng._firing(k) == fire)
+                _, rows = self.profiled(eng._decode_chunk, 1, every_launch=True)
+                print(f"  {name}, canary steps {list(fire)}: "
+                      f"{sum(r[1] for r in rows) / chunk:.1f} kernels a step, device busy "
+                      f"{sum(r[0] for r in rows) / chunk / 1e3:.3f} ms a step (a profiled replay)")
+        del engines, restores, e8
+
+        # (d) demotion under pressure, then fresh requests on the exact rung
+        ed = build(warm=False, faults=FaultConfig("sqrt_man", 1.0, seed=7, bit=21),
+                   slo=AccuracySLO(canary_stride=2, rel_err_budget=0.05, divergence_budget=0,
+                                   promote_after=None))
+        t0 = time.perf_counter()
+        ed.run([Request(uid=100 + i, prompt=r.prompt, max_new_tokens=chunk)
+                for i, r in enumerate(reqs[:slots])])
+        first = dict(ed.stats)
+        probes = [Request(uid=200 + i, prompt=r.prompt, max_new_tokens=2 * chunk)
+                  for i, r in enumerate(reqs[:slots])]
+        done_d = ed.run(probes)
+        run_s = time.perf_counter() - t0
+        names = ed.unit_names
+        ex = Engine(model, lm.exact_twin(ed.cfg), num_slots=slots, cache_len=sh["cache_len"],
+                    chunk=chunk)
+        del ed
+        same_d = 0
+        for r in probes:
+            ex.reset()
+            alone = ex.run([Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)])
+            same_d += int(np.array_equal(alone[r.uid].tokens, done_d[r.uid].tokens))
+        print(f"  (d) sqrt_man bit 21 at rate 1.0, stride 2: {first['demotions']} demotions, "
+              f"{first['canary_checks']} canaries, max relative error "
+              f"{first['canary_max_rel_err']:.4g} in the first {first['decode_chunks']} chunks; "
+              f"rungs {names}; {same_d} of {len(probes)} fresh requests in the demoted slots "
+              f"token-identical to each alone on exact_twin; {run_s:.2f} s (the faulted "
+              f"chunk's capture included)")
+        if names != ("exact",) * slots or first["demotions"] != slots or same_d != len(probes):
+            raise AssertionError(f"demotion under pressure: {first}")
+        del ex
         if not self.rehearsal:
             self.torch.cuda.empty_cache()
 
@@ -2730,6 +2941,7 @@ def main(argv=None) -> int:
     smoke.phase("15c faulted replay qwen3-4b", smoke.p15c_faulted_replay)  # 14c's engine
     smoke.phase("15d dispatch faults qwen3-4b", smoke.p15d_dispatch)
     smoke.phase("15e kill and resume qwen3-4b", smoke.p15e_kill_resume)
+    smoke.phase("15g accuracy SLO qwen3-4b", smoke.p15g_slo)  # on phase 4a's model
     smoke.phase("7 sobel", smoke.p7_sobel)
     smoke.phase("8 kmeans_assign", smoke.p8_kmeans)
     smoke.phase("9 paper", smoke.p9_paper)

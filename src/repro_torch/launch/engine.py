@@ -1,6 +1,6 @@
 """Continuous-batching serving engine: slot-scheduled decode over a KV-cache
 pool with per-request positions (torch port of ``repro.launch.engine``, all
-but its mesh, accuracy-SLO, telemetry and speculation options).
+but its mesh and speculation options).
 
 * a **slot pool** (:func:`lm.init_pool_state`): one KV cache of
   ``num_slots`` batch rows, each row an independent request with its own
@@ -38,6 +38,20 @@ ones missing from the snapshot are replayed.  ``max_queue=`` bounds the
 due-request queue and ``shed_policy`` picks what is turned away (status
 ``rejected``).
 
+Accuracy SLO (``slo=AccuracySLO(...)``): every slot decodes on a rung of a
+datapath ladder (approximate -> exact; rung 0 the configured unit), its
+rung a (b,) int32 device tensor beside the pool that the captured chunk
+reads.  Every ``canary_stride`` steps of the engine's lifetime step clock a
+shadow-exact canary recomputes the step on ``lm.exact_twin`` and compares
+logits; a slot whose canaries blow the budgets demotes one rung, and climbs
+back after ``promote_after`` clean canaries.  The rung is slot-scoped and
+sticky: a request admitted into a demoted slot prefills on its rung.
+Which steps of a chunk fire is known on the host before the chunk, so on
+the card each firing pattern is a graph of its own (at most ``stride /
+gcd(stride, chunk)``), sharing one memory pool; a step that fires no
+canary computes nothing for it.  ``telemetry=`` streams one JSONL record
+a chunk (``launch/telemetry.py``).
+
 A request decoded in a staggered slot emits the tokens of the same request
 alone in a pool of the same size (greedy); on the CPU they equal a solo
 ``prefill`` + ``generate_scan`` run (:func:`solo_generate`).
@@ -46,6 +60,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import time
 from collections import deque
 from pathlib import Path
@@ -57,13 +72,16 @@ import torch
 from repro_torch import checkpoint
 from repro_torch.core.faults import DispatchFault, DispatchFaultInjector, FaultConfig
 from repro_torch.core.faults import logits_hook as _make_logits_hook
+from repro_torch.core.units import resolve_ladder
 from repro_torch.kernels import dispatch
-from repro_torch.launch.journal import RequestJournal, read_journal, replay_plan
+from repro_torch.launch.journal import (RequestJournal, read_journal, replay_plan,
+                                        replay_unit_levels)
+from repro_torch.launch.telemetry import Telemetry
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["Request", "Completion", "Engine", "run_static_baseline", "solo_generate",
-           "STATUSES", "SHED_POLICIES"]
+__all__ = ["AccuracySLO", "Request", "Completion", "Engine", "run_static_baseline",
+           "solo_generate", "STATUSES", "SHED_POLICIES"]
 
 # Completion.status values, in degradation order:
 #   ok       -- served on the configured (possibly approximate) datapath
@@ -86,6 +104,51 @@ SHED_POLICIES = ("reject-new", "evict-latest-deadline", "shed-by-slo")
 
 # snapshot meta-blob layout version (the reference's)
 _SNAPSHOT_FORMAT = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class AccuracySLO:
+    """Accuracy service-level objective for :class:`Engine` (``slo=``).
+
+    * ``ladder``: datapath rung names, approximate -> exact.  None resolves
+      to ``(cfg.sqrt_unit, "exact")``.  Rung 0 must be the serving config's
+      ``sqrt_unit`` and the last rung ``"exact"``; only rung 0 sees
+      injected sqrt faults, so one demotion steps out of a fault schedule.
+    * ``canary_stride``: one shadow-exact canary per slot every this many
+      decode steps of the engine's lifetime step clock (the cadence
+      survives chunk boundaries, resets and resume).  None: never canary;
+      the ladder still routes, and served tokens equal an SLO-free engine's.
+    * ``rel_err_budget``: demote a slot one rung when a chunk's worst canary
+      max relative logit error (max|served - exact| / max|exact|) exceeds
+      this.
+    * ``divergence_budget``: demote when more than this many canary argmax
+      divergences accumulate at the slot's current rung (0: the first
+      divergent token demotes).  None disables the divergence trigger.
+    * ``promote_after``: promote one rung back after this many consecutive
+      clean canaries (hysteresis).  None: demotions stick for the engine's
+      lifetime.
+    """
+
+    ladder: Optional[tuple] = None
+    canary_stride: Optional[int] = 32
+    rel_err_budget: float = 0.25
+    divergence_budget: Optional[int] = 0
+    promote_after: Optional[int] = 4
+
+    def __post_init__(self):
+        if self.ladder is not None:
+            object.__setattr__(self, "ladder", tuple(self.ladder))
+        if self.canary_stride is not None and self.canary_stride < 1:
+            raise ValueError(f"canary_stride must be >= 1 when set (None = never canary); "
+                             f"got {self.canary_stride}")
+        if not self.rel_err_budget > 0:
+            raise ValueError(f"rel_err_budget must be positive, got {self.rel_err_budget}")
+        if self.divergence_budget is not None and self.divergence_budget < 0:
+            raise ValueError(f"divergence_budget must be >= 0 when set, "
+                             f"got {self.divergence_budget}")
+        if self.promote_after is not None and self.promote_after < 1:
+            raise ValueError(f"promote_after must be >= 1 when set (None = demotions "
+                             f"stick), got {self.promote_after}")
 
 
 def _device_of(model: lm.LM) -> torch.device:
@@ -142,7 +205,14 @@ class Completion:
     one of :data:`STATUSES`; ``trips`` counts how many times the health
     detectors quarantined the request.  A request that never took a slot
     (evicted or rejected from the queue) has ``admitted_s=-1.0`` and no
-    tokens."""
+    tokens.
+
+    With an accuracy SLO the request also carries its canary audit trail:
+    ``unit_final`` names the rung its slot sat on when it finished,
+    ``canary_checks``/``canary_divergences`` count the canaries (and argmax
+    disagreements) run against it, and ``unit_trips`` holds every demotion
+    and promotion while it held the slot.  Without an SLO (or for a request
+    that never took a slot) they keep their defaults."""
 
     uid: int
     prompt_len: int
@@ -152,6 +222,10 @@ class Completion:
     finished_s: float
     status: str = "ok"
     trips: int = 0
+    unit_final: Optional[str] = None
+    canary_checks: int = 0
+    canary_divergences: int = 0
+    unit_trips: tuple = ()
 
     @property
     def latency_s(self) -> float:
@@ -204,10 +278,13 @@ class Engine:
     chunk (in :meth:`warmup`, or else in :meth:`run`) runs eagerly on a side
     stream and is then captured as one CUDA graph over the pool's tensors;
     every later chunk is one replay.  A capture or replay that fails raises.
+    With canaries, each firing pattern of a chunk has its graph, captured
+    the first time it comes (:meth:`warmup` captures them all).
 
-    The reference's ``mesh=``/``rules=`` (ROADMAP A.7), ``slo=``/
-    ``telemetry=`` (A.5c) and ``spec=``/``draft_model=`` (A.5d) are not
-    ported.
+    ``slo=`` takes an :class:`AccuracySLO` and ``telemetry=`` a path or a
+    :class:`~repro_torch.launch.telemetry.Telemetry`.  The reference's
+    ``mesh=``/``rules=`` (ROADMAP A.7) and ``spec=``/``draft_model=`` (A.5d)
+    are not ported.
     """
 
     def __init__(self, model: lm.LM, cfg: ModelConfig, *, num_slots: int = 4,
@@ -218,7 +295,7 @@ class Engine:
                  max_dispatch_retries: int = 3, dispatch_backoff_s: float = 0.001,
                  max_queue: Optional[int] = None, shed_policy: str = "reject-new",
                  snapshot_dir=None, snapshot_every_chunks: Optional[int] = None,
-                 journal=None):
+                 journal=None, slo: Optional[AccuracySLO] = None, telemetry=None):
         if num_slots < 1 or cache_len < 2 or chunk < 1:
             raise ValueError(
                 f"need num_slots >= 1, cache_len >= 2, chunk >= 1 "
@@ -240,6 +317,25 @@ class Engine:
         # on the host.  The exact fallback strips all of them (exact_twin).
         if faults is not None and faults.targets_sqrt:
             cfg = cfg.replace(sqrt_faults=faults)
+        if slo is not None and not isinstance(slo, AccuracySLO):
+            raise TypeError(f"slo must be an AccuracySLO (got {type(slo)!r})")
+        self.slo = slo
+        self._ladder: Optional[tuple] = None
+        if slo is not None:
+            ladder = slo.ladder if slo.ladder is not None else (cfg.sqrt_unit, "exact")
+            if ladder[0] != cfg.sqrt_unit:
+                raise ValueError(
+                    f"slo.ladder rung 0 must be the serving config's sqrt_unit "
+                    f"{cfg.sqrt_unit!r} (got {ladder[0]!r}): the ladder demotes from the "
+                    f"configured datapath")
+            resolve_ladder(ladder)  # names and shape, before any device work
+            self._ladder = tuple(ladder)
+            # the ladder rides the config: decode then takes the rung vector
+            cfg = cfg.replace(sqrt_ladder=self._ladder)
+        self._canary_stride = (0 if slo is None or slo.canary_stride is None
+                               else int(slo.canary_stride))
+        self._telemetry = (telemetry if telemetry is None or isinstance(telemetry, Telemetry)
+                           else Telemetry(telemetry))
         self.model = model
         self.cfg = cfg
         self.num_slots = num_slots
@@ -269,26 +365,42 @@ class Engine:
         self.pool = lm.init_pool_state(cfg, num_slots, cache_len, quantized=quantized_kv,
                                        device=self.device)
         self._slots = torch.arange(num_slots, device=self.device)
-        # the health latches (bad, mx) of the chunk, zeroed by its first op
-        self._health = ((torch.zeros(num_slots, dtype=torch.bool, device=self.device),
-                         torch.zeros(num_slots, dtype=torch.float32, device=self.device))
-                        if detectors else None)
+        dev = self.device
+
+        def zeros(dtype):
+            return torch.zeros(num_slots, dtype=dtype, device=dev)
+
+        # the health latches (bad, mx) and the canary stats (checks,
+        # divergences, max and summed relative error) of the chunk, zeroed
+        # by its first op
+        self._health = (zeros(torch.bool), zeros(torch.float32)) if detectors else None
+        self._canary = (tuple(zeros(dt) for dt in (torch.int32, torch.int32, torch.float32,
+                                                   torch.float32))
+                        if self._canary_stride else None)
+        # the per-slot ladder rungs the chunk reads; the host writes them in
+        # place at a chunk boundary after a rung changed
+        self._levels = zeros(torch.int32) if slo is not None else None
         # what a chunk hands to the host in one copy, int32: tokens fed
         # (b, chunk), emission mask (b, chunk), liveness after the chunk (b,),
-        # and with detectors bad (b,) and mx's float32 bits (b,)
-        self._packed = torch.zeros((num_slots, 2 * chunk + 1 + 2 * detectors),
-                                   dtype=torch.int32, device=self.device)
-        self._graph: Optional[torch.cuda.CUDAGraph] = None
-        self._graph_launches: Optional[dispatch.Launches] = None
+        # with detectors bad (b,) and mx's float32 bits (b,), with canaries
+        # their checks, divergences and the float32 bits of the max and
+        # summed relative errors (4 x (b,))
+        cols = 2 * chunk + 1 + 2 * detectors + 4 * (self._canary is not None)
+        self._packed = torch.zeros((num_slots, cols), dtype=torch.int32, device=dev)
+        # the captured chunk, one graph a firing pattern of canary steps:
+        # {pattern: (graph, the launches a replay adds)}
+        self._graphs: dict = {}
+        self._restored_step: Optional[int] = None  # the snapshot step a resume restored
         self.reset()
 
     # -- pool state ---------------------------------------------------------
 
     def reset(self):
-        """Zero the pool in place (all slots free), empty the queues and
-        rewind the dispatch fault schedule.  The pool keeps its tensors, so
-        a captured chunk stays valid.  The lifetime chunk counter (the
-        default snapshot step) survives, so autosaves never collide."""
+        """Zero the pool in place (all slots free, every rung 0), empty the
+        queues and rewind the dispatch fault schedule.  The pool keeps its
+        tensors, so a captured chunk stays valid.  The lifetime chunk
+        counter (the default snapshot step and the canaries' clock)
+        survives, so autosaves never collide."""
         for t in lm.pool_tensors(self.pool):
             t.zero_()
         b = self.num_slots
@@ -303,18 +415,54 @@ class Engine:
         self._snapshots_written = 0
         self._journal_replays = 0
         self._chunks_total = getattr(self, "_chunks_total", 0)
+        # accuracy-SLO slot state (inert without slo=): the rung each slot
+        # decodes at, the promotion streak, divergences at the current rung,
+        # and the occupant's canary audit (reset at admission; the rung
+        # itself is slot-scoped and sticky)
+        self._unit_levels = np.zeros(b, np.int32)
+        self._levels_stale = False
+        if self._levels is not None:
+            self._levels.zero_()
+        self._clean_streak = np.zeros(b, np.int32)
+        self._rung_div = np.zeros(b, np.int32)
+        self._slot_canary_checks = np.zeros(b, np.int64)
+        self._slot_canary_div = np.zeros(b, np.int64)
+        self._slot_events: list = [[] for _ in range(b)]
         if self._injector is not None:
             self._injector.reset()
 
+    @property
+    def unit_levels(self) -> tuple:
+        """Per-slot ladder rungs (0: the serving datapath); empty without an
+        accuracy SLO."""
+        if self._ladder is None:
+            return ()
+        return tuple(int(x) for x in self._unit_levels)
+
+    @property
+    def unit_names(self) -> tuple:
+        """Per-slot datapath names at the current rungs; empty without an
+        accuracy SLO."""
+        if self._ladder is None:
+            return ()
+        return tuple(self._ladder[int(x)] for x in self._unit_levels)
+
+    def _set_level(self, slot: int, level: int) -> None:
+        self._unit_levels[slot] = level
+        self._levels_stale = True
+
     def warmup(self, prompt_lens):
         """Admit one request of each prompt length and run one decode chunk
-        (on the card: the chunk's eager run and its capture), off the serving
-        clock, then reset the pool.  The reset wipes restored state: warm an
-        engine up before restoring into it, not after :meth:`resume`."""
+        (on the card: each firing pattern's eager run and capture), off the
+        serving clock, then reset the pool.  The reset wipes restored state:
+        warm an engine up before restoring into it, not after
+        :meth:`resume`."""
         for s in sorted(set(int(s) for s in prompt_lens)):
             self._admit(Request(uid=-1, prompt=np.zeros(s, np.int32), max_new_tokens=1),
                         slot=0, now=0.0)
-        self._decode_chunk()
+        patterns = self._patterns() if self.device.type == "cuda" else [self._firing()]
+        for fire in patterns:
+            self._dispatch(self._run_chunk, fire)
         self.reset()
 
     # -- crash consistency: snapshot / resume / journal replay --------------
@@ -354,7 +502,7 @@ class Engine:
                 "seed": self.seed,
                 "max_queue": self.max_queue,
                 "shed_policy": self.shed_policy,
-                "slo": None,
+                "slo": None if self.slo is None else dataclasses.asdict(self.slo),
                 "spec": None,
             },
             "chunks_total": int(self._chunks_total),
@@ -364,6 +512,17 @@ class Engine:
             "queue": [_ticket_record(t) for t in self._queue]
             + [_ticket_record(t) for t in self._arrivals],
         }
+        if self._ladder is not None:
+            # additive key (the format is unchanged): the ladder state; the
+            # journal's demoted/promoted records are its flushed shadow
+            meta["slo"] = {
+                "unit_levels": [int(x) for x in self._unit_levels],
+                "clean_streak": [int(x) for x in self._clean_streak],
+                "rung_div": [int(x) for x in self._rung_div],
+                "canary_checks": [int(x) for x in self._slot_canary_checks],
+                "canary_divergences": [int(x) for x in self._slot_canary_div],
+                "events": [list(e) for e in self._slot_events],
+            }
         blob = np.frombuffer(json.dumps(meta).encode("utf-8"), np.uint8)
         path = checkpoint.save(ckpt_dir, step, {"pool": self.pool, "meta": blob})
         self._snapshots_written += 1
@@ -425,14 +584,15 @@ class Engine:
         if step is not None:
             meta = cls._read_snapshot_meta(ckpt_dir, step)
             e = meta["engine"]
-            for name, item in (("slo", "A.5c"), ("spec", "A.5d")):
-                if e.get(name) is not None:
-                    raise NotImplementedError(f"the snapshot's engine has {name}= set, which "
-                                              f"the port does not take yet (ROADMAP {item})")
+            if e.get("spec") is not None:
+                raise NotImplementedError("the snapshot's engine has spec= set, which the "
+                                          "port does not take yet (ROADMAP A.5d)")
             kw = {k: e[k] for k in ("num_slots", "cache_len", "quantized_kv", "chunk",
                                     "eos_id", "temperature", "top_k", "seed")}
             kw["max_queue"] = e.get("max_queue")
             kw["shed_policy"] = e.get("shed_policy", "reject-new")
+            if e.get("slo") is not None:
+                kw["slo"] = AccuracySLO(**e["slo"])
             for frozen in ("num_slots", "cache_len", "quantized_kv"):
                 if frozen in overrides and overrides[frozen] != kw[frozen]:
                     raise ValueError(
@@ -473,6 +633,18 @@ class Engine:
             self._set_stream(slot, t.req.uid)
         self._queue = deque(_ticket_from_record(r) for r in meta["queue"])
         self._chunks_total = int(meta["chunks_total"])
+        self._restored_step = int(step)
+        s = meta.get("slo")
+        if s is not None and self._ladder is not None:
+            top = len(self._ladder) - 1
+            self._unit_levels = np.clip(np.asarray(s["unit_levels"], np.int64), 0,
+                                        top).astype(np.int32)
+            self._levels_stale = True
+            self._clean_streak = np.asarray(s["clean_streak"], np.int32)
+            self._rung_div = np.asarray(s["rung_div"], np.int32)
+            self._slot_canary_checks = np.asarray(s["canary_checks"], np.int64)
+            self._slot_canary_div = np.asarray(s["canary_divergences"], np.int64)
+            self._slot_events = [list(e) for e in s["events"]]
 
     def _replay_journal(self) -> None:
         """Reconcile the write-ahead journal with the restored state:
@@ -499,6 +671,20 @@ class Engine:
             if uid not in present:
                 self._queue.append(_ticket_from_record({**rec, "trips": 0}))
                 self._journal_replays += 1
+        if self._ladder is not None:
+            # ladder trips journaled after the restored snapshot override its
+            # rungs; with no snapshot the whole trail rebuilds them, so a
+            # crash in degraded mode resumes degraded either way
+            recs = records
+            if self._restored_step is not None:
+                marks = [i for i, r in enumerate(records)
+                         if r.get("kind") == "snapshot" and r.get("step") == self._restored_step]
+                if marks:
+                    recs = records[marks[-1] + 1:]
+            top = len(self._ladder) - 1
+            for slot, lv in replay_unit_levels(recs).items():
+                if 0 <= slot < self.num_slots:
+                    self._set_level(slot, min(max(int(lv), 0), top))
 
     # -- admission ----------------------------------------------------------
 
@@ -567,14 +753,26 @@ class Engine:
         self.pool["keys"][slot, 0] = self.seed & 0xFFFFFFFF
         self.pool["keys"][slot, 1] = uid & 0x7FFFFFFF
 
+    def _rung_cfg(self, level: int) -> ModelConfig:
+        """The config a slot on ladder rung ``level`` prefills with: the
+        serving config at rung 0, else the rung's unit, fault-free and
+        ladder-free (the KV cache depends on the datapath through the
+        qk-norm, so a demoted slot prefills on its rung too)."""
+        if level == 0:
+            return self.cfg
+        return self.cfg.replace(sqrt_unit=self._ladder[level], sqrt_faults=None,
+                                sqrt_ladder=None)
+
     def _admit_device(self, req: Request, slot: int):
-        """Prefill ``req`` into ``slot`` of the live pool and draw its first
-        token from the request's own stream, at the position of the prompt's
-        last token, as every later token draws at its own."""
+        """Prefill ``req`` into ``slot`` of the live pool on the slot's rung
+        and draw its first token from the request's own stream, at the
+        position of the prompt's last token, as every later token draws at
+        its own."""
         pool, dev = self.pool, self.device
         prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int32, device=dev)[None]
         s = prompt.shape[1]
-        logits, _ = lm.prefill_into_slots(self.model, self.cfg, pool["cache"], prompt,
+        cfg = self._rung_cfg(int(self._unit_levels[slot]))
+        logits, _ = lm.prefill_into_slots(self.model, cfg, pool["cache"], prompt,
                                           self._slots[slot:slot + 1])
         self._set_stream(slot, req.uid)
         last_pos = torch.full((1,), s - 1, dtype=torch.int32, device=dev)
@@ -592,67 +790,163 @@ class Engine:
         self._emitted[slot] = []
         self._admitted_s[slot] = now
         self._trips[slot] = trips
+        # the occupant's canary audit resets; the rung is the slot's
+        self._slot_canary_checks[slot] = 0
+        self._slot_canary_div[slot] = 0
+        self._slot_events[slot] = []
 
     # -- the decode chunk ---------------------------------------------------
 
-    def _chunk_eager(self):
+    def _firing(self, chunks: Optional[int] = None) -> tuple:
+        """The steps of a chunk that fire a canary, from the lifetime clock:
+        the chunk after ``chunks`` chunks (default: the coming one)."""
+        chunks = self._chunks_total if chunks is None else chunks
+        return lm.canary_steps(self.chunk, self._canary_stride, chunks * self.chunk)
+
+    def _patterns(self) -> list:
+        """Every firing pattern the lifetime clock gives a chunk: the clock
+        comes back to the same phase after ``stride / gcd(stride, chunk)``
+        chunks."""
+        n = self._canary_stride // math.gcd(self._canary_stride, self.chunk) or 1
+        return sorted({self._firing(k) for k in range(n)})
+
+    def _chunk_eager(self, fire: Optional[tuple] = None):
         """``chunk`` decode steps over the pool, eagerly, into the packed
-        buffer; with detectors the health latches are zeroed first."""
+        buffer, the canary on the steps in ``fire`` (default: the coming
+        chunk's); the health latches and canary stats are zeroed first."""
         c = self.chunk
-        if self._health is not None:
-            for t in self._health:
-                t.zero_()
+        fire = self._firing() if fire is None else fire
+        latches = (self._health or ()) + (self._canary or ())
+        for t in latches:
+            t.zero_()
         toks, emitted = self._packed[:, :c], self._packed[:, c:2 * c]
         for i in range(c):
             lm.decode_slots_step(self.model, self.cfg, self.pool, toks, emitted, i,
                                  eos_id=self.eos_id, temperature=self.temperature,
-                                 top_k=self.top_k, logits_hook=self._hook, health=self._health)
+                                 top_k=self.top_k, unit_levels=self._levels,
+                                 logits_hook=self._hook, health=self._health,
+                                 canary=i in fire, canary_stats=self._canary)
         self._packed[:, 2 * c] = self.pool["active"]
-        if self._health is not None:
-            bad, mx = self._health
-            self._packed[:, 2 * c + 1] = bad
-            self._packed[:, 2 * c + 2] = mx.view(torch.int32)
+        for j, t in enumerate(latches):
+            self._packed[:, 2 * c + 1 + j] = t.view(torch.int32) if t.is_floating_point() else t
 
-    def _capture(self):
+    def _capture(self, fire: tuple):
         """This chunk eagerly on a side stream (it loads every kernel, plans
         each launch and warms the allocator), then the same steps captured as
-        one CUDA graph over the pool's tensors and the packed buffer.  The
-        capture launches nothing: the launches it counts become what each
-        replay adds."""
+        one CUDA graph over the pool's tensors and the packed buffer, in the
+        memory pool of the graphs captured before.  The capture launches
+        nothing: the launches it counts become what each replay adds."""
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
-            self._chunk_eager()
+            self._chunk_eager(fire)
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        with dispatch.capture_launches() as launches, torch.cuda.graph(graph):
-            self._chunk_eager()
-        self._graph, self._graph_launches = graph, launches
+        mempool = next(iter(self._graphs.values()))[0].pool() if self._graphs else None
+        with dispatch.capture_launches() as launches, torch.cuda.graph(graph, pool=mempool):
+            self._chunk_eager(fire)
+        self._graphs[fire] = (graph, launches)
 
-    def _run_chunk(self):
+    def _write_levels(self):
+        """Write the host's rungs into the device tensor the chunk reads, in
+        place, if one changed since the last write (never inside a chunk:
+        a graph holds the tensor's address, not a host copy)."""
+        if self._levels_stale:
+            self._levels.copy_(torch.from_numpy(self._unit_levels))
+            self._levels_stale = False
+
+    def _run_chunk(self, fire: tuple):
+        self._write_levels()
         if self.device.type != "cuda":
-            self._chunk_eager()
-        elif self._graph is None:
-            self._capture()
+            self._chunk_eager(fire)
+        elif fire not in self._graphs:
+            self._capture(fire)
         else:
-            self._graph.replay()
-            dispatch.replay_launches(self._graph_launches)
+            graph, launches = self._graphs[fire]
+            graph.replay()
+            dispatch.replay_launches(launches)
 
     def _decode_chunk(self):
         """Advance the pool one chunk.  Returns numpy (tokens fed (b, chunk),
         emitted (b, chunk) bool, active (b,) bool, bad (b,) bool, mx (b,)
-        float32), read in one copy; without detectors bad and mx are
+        float32, canary checks (b,) int32, divergences (b,) int32, max
+        relative error (b,) float32, summed relative error (b,) float32),
+        read in one copy; without detectors or canaries their columns are
         zeros."""
-        self._dispatch(self._run_chunk)
+        self._dispatch(self._run_chunk, self._firing())
         packed = self._packed.cpu().numpy()
         c, b = self.chunk, self.num_slots
-        if self._health is not None:
-            bad = packed[:, 2 * c + 1].astype(bool)
-            mx = np.ascontiguousarray(packed[:, 2 * c + 2]).view(np.float32)
-        else:
-            bad, mx = np.zeros(b, bool), np.zeros(b, np.float32)
+        col = 2 * c + 1
+
+        def take(n):
+            nonlocal col
+            out = packed[:, col:col + n]
+            col += n
+            return out
+
+        bad, mx = (take(2).T if self._health is not None
+                   else (np.zeros(b, np.int32), np.zeros(b, np.int32)))
+        cc, cd, cmr, crs = take(4).T if self._canary is not None else (np.zeros(b, np.int32),) * 4
+
+        def f32(bits):
+            return np.ascontiguousarray(bits).view(np.float32)
+
         return (packed[:, :c], packed[:, c:2 * c].astype(bool), packed[:, 2 * c].astype(bool),
-                bad, mx)
+                bad.astype(bool), f32(mx), cc, cd, f32(cmr), f32(crs))
+
+    def _slo_update(self, cc, cd, cmr, counters) -> None:
+        """Apply one chunk's canary stats to the per-slot ladder: demote a
+        slot one rung when it blew a budget this chunk, promote one rung
+        after ``promote_after`` consecutive clean canaries.  Runs before the
+        chunk's finish bookkeeping, so a request that ends this chunk sees
+        its final rung and whole canary trail in its Completion."""
+        slo, ladder = self.slo, self._ladder
+        top = len(ladder) - 1
+        for slot in range(self.num_slots):
+            n = int(cc[slot])
+            if n == 0:
+                continue  # no canary fired for this slot this chunk
+            dv, mr = int(cd[slot]), float(cmr[slot])
+            counters["canary_checks"] += n
+            counters["canary_divergences"] += dv
+            counters["canary_max_rel_err"] = max(counters["canary_max_rel_err"], mr)
+            self._slot_canary_checks[slot] += n
+            self._slot_canary_div[slot] += dv
+            self._rung_div[slot] += dv
+            level = int(self._unit_levels[slot])
+            owner = self._owner[slot]
+            uid = None if owner is None else owner.uid
+            over_div = (slo.divergence_budget is not None
+                        and int(self._rung_div[slot]) > slo.divergence_budget)
+            if over_div or mr > slo.rel_err_budget:
+                self._clean_streak[slot] = 0
+                if level < top:
+                    level += 1
+                    self._set_level(slot, level)
+                    self._rung_div[slot] = 0
+                    counters["demotions"] += 1
+                    self._slot_events[slot].append({
+                        "event": "demoted", "level": level, "unit": ladder[level],
+                        "chunk": int(self._chunks_total), "max_rel_err": mr,
+                        "divergences": dv})
+                    if self._journal is not None:
+                        self._journal.demoted(slot, uid, level, ladder[level])
+            elif dv:
+                self._clean_streak[slot] = 0  # divergent within budget: the streak restarts
+            elif level > 0:
+                self._clean_streak[slot] += n
+                if (slo.promote_after is not None
+                        and int(self._clean_streak[slot]) >= slo.promote_after):
+                    level -= 1
+                    self._set_level(slot, level)
+                    self._clean_streak[slot] = 0
+                    self._rung_div[slot] = 0
+                    counters["promotions"] += 1
+                    self._slot_events[slot].append({
+                        "event": "promoted", "level": level, "unit": ladder[level],
+                        "chunk": int(self._chunks_total)})
+                    if self._journal is not None:
+                        self._journal.promoted(slot, uid, level, ladder[level])
 
     # -- degradation and overload -------------------------------------------
 
@@ -742,20 +1036,29 @@ class Engine:
         queue, arrivals = self._queue, self._arrivals
         done: dict = {}
         counters = {"faults_detected": 0, "quarantine_retries": 0, "exact_fallbacks": 0,
-                    "deadline_evictions": 0, "shed_rejections": 0}
+                    "deadline_evictions": 0, "shed_rejections": 0, "canary_checks": 0,
+                    "canary_divergences": 0, "canary_max_rel_err": 0.0, "demotions": 0,
+                    "promotions": 0}
         t0 = time.perf_counter()
         decode_chunks = 0
         peak_queue_depth = len(queue)
         queue_depth_sum = 0
         queue_depth_samples = 0
+        telemetry_tokens = 0
         expired = False
         killed = False
 
-        def finish(req, tokens, status, now, admitted_s, trips=0):
+        def finish(req, tokens, status, now, admitted_s, trips=0, slot=None):
+            audit = {}
+            if slot is not None and self._ladder is not None:
+                audit = dict(unit_final=self._ladder[int(self._unit_levels[slot])],
+                             canary_checks=int(self._slot_canary_checks[slot]),
+                             canary_divergences=int(self._slot_canary_div[slot]),
+                             unit_trips=tuple(self._slot_events[slot]))
             done[req.uid] = Completion(uid=req.uid, prompt_len=len(req.prompt),
                                        tokens=np.asarray(tokens, np.int32),
                                        arrival_s=req.arrival_s, admitted_s=admitted_s,
-                                       finished_s=now, status=status, trips=trips)
+                                       finished_s=now, status=status, trips=trips, **audit)
             if self._journal is not None:
                 self._journal.finished(req.uid, status, done[req.uid].tokens)
 
@@ -804,10 +1107,14 @@ class Engine:
                 if arrivals:  # pool idle: sleep until the next arrival or the deadline
                     time.sleep(max(0.0, min(arrivals[0].req.arrival_s, deadline_s) - now))
                 continue
-            toks, emitted, active, bad, mx = self._decode_chunk()
+            toks, emitted, active, bad, mx, cc, cd, cmr, _ = self._decode_chunk()
             decode_chunks += 1
             self._chunks_total += 1
             now = time.perf_counter() - t0
+            if self._canary is not None:
+                # the ladder first: a request finishing this chunk carries
+                # its final rung and canary trail
+                self._slo_update(cc, cd, cmr, counters)
             for slot in range(self.num_slots):
                 req = self._owner[slot]
                 if req is None:
@@ -828,23 +1135,28 @@ class Engine:
                         tokens, healthy = self._exact_fallback(req)
                         now = time.perf_counter() - t0
                         finish(req, tokens, "degraded" if healthy else "failed", now,
-                               self._admitted_s[slot], trips)
+                               self._admitted_s[slot], trips, slot)
                     continue
                 self._emitted[slot].extend(toks[slot][emitted[slot]].tolist())
                 if not active[slot]:  # finished: free the slot for reuse
                     finish(req, self._emitted[slot], "ok", now, self._admitted_s[slot],
-                           self._trips[slot])
+                           self._trips[slot], slot)
                     self._owner[slot] = None
                 elif overdue(req, now):  # per-request deadline: partial tokens
                     counters["deadline_evictions"] += 1
                     finish(req, self._emitted[slot], "evicted", now, self._admitted_s[slot],
-                           self._trips[slot])
+                           self._trips[slot], slot)
                     self._owner[slot] = None
             if self._journal is not None:
                 live = [(o.uid, len(self._emitted[s])) for s, o in enumerate(self._owner)
                         if o is not None]
                 if live:
                     self._journal.progress(live)
+            if self._telemetry is not None:
+                chunk_tokens = int(emitted.sum())
+                telemetry_tokens += chunk_tokens
+                self._emit_telemetry(now, depth, chunk_tokens, telemetry_tokens / max(now, 1e-9),
+                                     cc, cd, cmr)
             # autosave at the chunk boundary, after the host bookkeeping: the
             # durable cut exactly-once recovery is proved against
             if (self.snapshot_every_chunks is not None
@@ -856,7 +1168,7 @@ class Engine:
                 if req is not None:
                     counters["deadline_evictions"] += 1
                     finish(req, self._emitted[slot], "evicted", now, self._admitted_s[slot],
-                           self._trips[slot])
+                           self._trips[slot], slot)
                     self._owner[slot] = None
             for t in list(queue) + list(arrivals):
                 counters["deadline_evictions"] += 1
@@ -880,10 +1192,29 @@ class Engine:
                                  if queue_depth_samples else 0.0),
             "snapshots_written": self._snapshots_written,
             "journal_replays": self._journal_replays,
+            "telemetry": None if self._telemetry is None else str(self._telemetry.path),
             **counters,
             **{f"n_{s}": sum(c.status == s for c in done.values()) for s in STATUSES},
         }
         return done
+
+    def _emit_telemetry(self, now, depth, tokens, tok_s, cc, cd, cmr):
+        """One ``kind="chunk"`` record from what the chunk's host copy
+        brought back (``launch/telemetry.py``)."""
+        n_active = sum(o is not None for o in self._owner)
+        if self._ladder is not None:
+            hist: dict = {}
+            for name in self.unit_names:
+                hist[name] = hist.get(name, 0) + 1
+        else:
+            hist = {self.cfg.sqrt_unit: self.num_slots}
+        self._telemetry.emit({
+            "kind": "chunk", "t": now, "chunk": int(self._chunks_total),
+            "active_slots": n_active, "slot_occupancy": n_active / self.num_slots,
+            "queue_depth": depth, "tokens": tokens, "tok_s": tok_s,
+            "canary_checks": int(np.sum(cc)), "canary_divergences": int(np.sum(cd)),
+            "canary_max_rel": float(np.max(cmr)) if len(cmr) else 0.0,
+            "unit_levels": hist})
 
 
 def run_static_baseline(model: lm.LM, cfg: ModelConfig, requests, *, num_slots: int = 4,

@@ -13,6 +13,8 @@ one, the same bits and gradient either way); a faulted one keeps the
 datapath's in-field injection, and every other unit its plain datapath.
 The fused and unfused routes compute the same function: in the reference
 they are bit-identical, and here only the order of the float32 sum differs.
+So a ladder's rung 0 takes the single-unit route itself (fused for a clean
+"e2afs"): a row at level 0 is bit-identical to the norm without levels.
 """
 from __future__ import annotations
 
@@ -28,18 +30,25 @@ def _rsqrt(unit, v: torch.Tensor) -> torch.Tensor:
     return unit.rsqrt(v, kernel=unit.name == "e2afs" and not unit._fault_active())
 
 
+def _pick(lv, values, first: int = 0):
+    """Per row, ``values[lv - first]`` (``lv`` broadcast over the rows)."""
+    out = values[-1]
+    for j in range(len(values) - 2, -1, -1):
+        out = torch.where(lv == first + j, values[j], out)
+    return out
+
+
+def _row_levels(levels, ndim):
+    return levels.reshape((levels.shape[0],) + (1,) * (ndim - 1))
+
+
 def _select_inv(v, levels, ladder, faults, ndim):
     """rsqrt of ``v`` through every ladder rung, selected per row by
     ``levels`` ((b,) over the leading axis).  A row at level 0 takes
     exactly rung 0's output, bit-identical to the single-unit route;
     faults ride rung 0 only."""
     units = resolve_ladder(ladder, faults=faults)
-    invs = [_rsqrt(u, v) for u in units]
-    lv = levels.reshape((levels.shape[0],) + (1,) * (ndim - 1))
-    inv = invs[-1]
-    for j in range(len(units) - 2, -1, -1):
-        inv = torch.where(lv == j, invs[j], inv)
-    return inv
+    return _pick(_row_levels(levels, ndim), [_rsqrt(u, v) for u in units])
 
 
 def _mean_square(xf: torch.Tensor) -> torch.Tensor:
@@ -75,24 +84,35 @@ def rmsnorm(scale: torch.Tensor, x: torch.Tensor, *, sqrt_unit: str = "exact",
 
 
 def rmsnorm_select(scale: torch.Tensor, x: torch.Tensor, levels: torch.Tensor, *, ladder,
-                   eps: float = 1e-6, faults=None) -> torch.Tensor:
+                   eps: float = 1e-6, faults=None, fused: bool = True) -> torch.Tensor:
     """Per-row ladder variant of :func:`rmsnorm` for accuracy-SLO decode: row
-    ``i`` takes its rsqrt from ``ladder[levels[i]]``.  The mean square is
-    computed once; only the rsqrt runs per rung."""
+    ``i`` is normalised through ``ladder[levels[i]]``.  Rung 0 runs the
+    route :func:`rmsnorm_cfg` takes for the single-unit config (the fused
+    kernel for a clean "e2afs" where ``fused`` asks, else unfused with the
+    faults), so a level-0 row is bit-identical to the norm without levels.
+    The other rungs run unfused: the mean square once, one rsqrt a rung,
+    selected per row."""
+    units = resolve_ladder(ladder, faults=faults)
+    first = rmsnorm(scale, x, sqrt_unit=ladder[0], eps=eps, faults=faults,
+                    fused=fused and ladder[0] == "e2afs" and not units[0]._fault_active())
+    lv = _row_levels(levels, x.ndim)
     xf = x.float()
-    inv = _select_inv(_mean_square(xf) + eps, levels, ladder, faults, x.ndim)
-    return (xf * inv).to(x.dtype) * (1.0 + scale.to(x.dtype))
+    ms = _mean_square(xf) + eps
+    inv = _pick(lv, [_rsqrt(u, ms) for u in units[1:]], first=1)
+    rest = (xf * inv).to(x.dtype) * (1.0 + scale.to(x.dtype))
+    return torch.where(lv == 0, first, rest)
 
 
 def rmsnorm_cfg(scale: torch.Tensor, x: torch.Tensor, cfg, *, fused: bool = True,
                 levels=None) -> torch.Tensor:
     """An RMSNorm of the model under its config: with ``levels`` ((b,),
-    accuracy-SLO decode) each row through its rung of ``cfg.sqrt_ladder``;
-    else through ``cfg.sqrt_unit`` and ``cfg.sqrt_faults``, on the fused
-    kernel where ``fused`` asks and the kernel computes the norm ("e2afs",
-    no sqrt fault active)."""
+    accuracy-SLO decode) each row through its rung of ``cfg.sqrt_ladder``
+    (:func:`rmsnorm_select`); else through ``cfg.sqrt_unit`` and
+    ``cfg.sqrt_faults``, on the fused kernel where ``fused`` asks and the
+    kernel computes the norm ("e2afs", no sqrt fault active)."""
     if levels is not None:
-        return rmsnorm_select(scale, x, levels, ladder=cfg.sqrt_ladder, faults=cfg.sqrt_faults)
+        return rmsnorm_select(scale, x, levels, ladder=cfg.sqrt_ladder, faults=cfg.sqrt_faults,
+                              fused=fused)
     clean = not get_unit(cfg.sqrt_unit, faults=cfg.sqrt_faults)._fault_active()
     return rmsnorm(scale, x, sqrt_unit=cfg.sqrt_unit, faults=cfg.sqrt_faults,
                    fused=fused and cfg.sqrt_unit == "e2afs" and clean)

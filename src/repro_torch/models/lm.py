@@ -15,7 +15,7 @@ Slot-pool serving (the continuous-batching engine's primitives):
     init_pool_state(cfg, num_slots, cache_len)   -> pool dict
     slot_rows_like / insert_cache_slots / prefill_into_slots
     sample_tokens(logits, pos, keys, temperature, top_k)
-    decode_slots_step / decode_slots_scan
+    decode_slots_step / decode_slots_scan (health latches, shadow-exact canaries)
 
 As in the reference, a uniform stack's cache is one dict of stacked
 ``(L, b, t, kv, hd)`` tensors, and a mixed stack's is a list of per-layer
@@ -54,7 +54,7 @@ from repro_torch.models.config import ModelConfig
 __all__ = ["LM", "init", "init_cache", "forward", "decode_step", "prefill", "generate_scan",
            "param_count", "init_pool_state", "pool_tensors", "slot_rows_like",
            "insert_cache_slots", "prefill_into_slots", "sample_tokens", "decode_slots_step",
-           "decode_slots_scan", "exact_twin"]
+           "decode_slots_scan", "canary_steps", "exact_twin"]
 
 
 def act_dtype(cfg) -> torch.dtype:
@@ -429,11 +429,31 @@ def sample_tokens(logits: torch.Tensor, pos: torch.Tensor, keys: Optional[torch.
     return (lg + _gumbel(keys, pos, lg.shape[-1])).argmax(dim=-1).to(torch.int32)
 
 
+def _canary_update(served: torch.Tensor, exact: torch.Tensor, active: torch.Tensor,
+                   stats) -> None:
+    """Fold one canary into the per-slot stats ``(cc, cd, cmr, crs)`` in
+    place, over the active rows: checks, argmax divergences, the max
+    relative logit error max|served - exact| / max|exact| and the sum of the
+    mean relative error |served - exact| / |exact| (a NaN served row makes
+    ``cmr`` NaN; the health latch is the signal there)."""
+    cc, cd, cmr, crs = stats
+    agree = served.argmax(dim=-1) == exact.argmax(dim=-1)
+    err = (served - exact).abs()
+    ref = exact.abs()
+    rel = err.amax(dim=-1) / ref.amax(dim=-1).clamp_min(1e-20)
+    red = (err / ref.clamp_min(1e-20)).mean(dim=-1)
+    cc += active.to(torch.int32)
+    cd += (active & ~agree).to(torch.int32)
+    torch.maximum(cmr, torch.where(active, rel, 0.0), out=cmr)
+    crs += torch.where(active, red, 0.0)
+
+
 @torch.no_grad()
 def decode_slots_step(model: LM, cfg: ModelConfig, pool: dict, toks: torch.Tensor,
                       emitted: torch.Tensor, i: int, *, eos_id: Optional[int] = None,
                       temperature: float = 0.0, top_k: int = 0, unit_levels=None,
-                      logits_hook=None, health=None) -> None:
+                      logits_hook=None, health=None, canary: bool = False,
+                      canary_stats=None) -> None:
     """One slot-scheduled decode step over ``pool`` (an
     :func:`init_pool_state` dict), every row an independent request.
 
@@ -451,13 +471,27 @@ def decode_slots_step(model: LM, cfg: ModelConfig, pool: dict, toks: torch.Tenso
     per-slot health signals in place over the logits sampling sees: ``bad
     |= active & ~isfinite(lg).all(-1)`` and ``mx = max(mx, where(active,
     max |lg|, 0))`` (a NaN row makes ``mx`` NaN; ``bad`` has latched then).
+
+    ``canary`` (a Python bool, fixed when a chunk is built) runs the
+    shadow-exact canary of this step: the same step through
+    :func:`exact_twin` (no hook, no levels) from the pre-step cache, its
+    logits compared with the served ones after the hook, folded into
+    ``canary_stats`` ((b,) int32 ``cc``, ``cd``, (b,) float32 ``cmr``,
+    ``crs``, owned by the caller; see :func:`_canary_update`).  The shadow
+    runs first and writes the K/V lines (and int8 scales) the served step
+    then overwrites, so no shadow state survives the step.
+
     Updates the pool in place and reads nothing back to the host, so a run
     of steps can be captured in a CUDA graph."""
     tok, pos, active, remaining = pool["tok"], pool["pos"], pool["active"], pool["remaining"]
+    if canary:
+        exact, _ = decode_step(model, exact_twin(cfg), pool["cache"], tok, pos)
     logits, _ = decode_step(model, cfg, pool["cache"], tok, pos, unit_levels=unit_levels)
     lg = logits[:, -1].float()
     if logits_hook is not None:
         lg = logits_hook(lg)
+    if canary:
+        _canary_update(lg, exact[:, -1].float(), active, canary_stats)
     if health is not None:
         bad, mx = health
         bad |= active & ~torch.isfinite(lg).all(dim=-1)
@@ -476,11 +510,21 @@ def decode_slots_step(model: LM, cfg: ModelConfig, pool: dict, toks: torch.Tenso
     active.copy_(still)
 
 
+def canary_steps(n_steps: int, stride: Optional[int], offset: int = 0) -> tuple:
+    """The steps of a run of ``n_steps`` that fire a canary: those whose
+    lifetime index ``offset + i`` is a multiple of ``stride`` (none when
+    ``stride`` is 0 or None)."""
+    if not stride:
+        return ()
+    return tuple(i for i in range(n_steps) if (offset + i) % stride == 0)
+
+
 @torch.no_grad()
 def decode_slots_scan(model: LM, cfg: ModelConfig, cache, tok, pos, active, remaining,
                       n_steps: int, *, eos_id: Optional[int] = None, temperature: float = 0.0,
                       top_k: int = 0, keys: Optional[torch.Tensor] = None, unit_levels=None,
-                      logits_hook=None, with_health: bool = False):
+                      logits_hook=None, with_health: bool = False,
+                      canary_stride: Optional[int] = None, canary_offset: int = 0):
     """``n_steps`` of :func:`decode_slots_step`: a Python loop with no host
     synchronisation (the reference's ``lax.scan``).
 
@@ -491,7 +535,14 @@ def decode_slots_scan(model: LM, cfg: ModelConfig, cache, tok, pos, active, rema
     :func:`decode_slots_step`.  Returns (toks (b, n_steps) int32, emitted
     (b, n_steps) bool, tok, pos, active, remaining, cache), the reference's
     order; ``with_health`` appends the chunk's health signals (bad (b,)
-    bool, mx (b,) float32; see :func:`decode_slots_step`)."""
+    bool, mx (b,) float32; see :func:`decode_slots_step`).
+
+    ``canary_stride=N`` (0 or None: off) runs the shadow-exact canary on
+    every step whose lifetime index ``canary_offset + i`` is a multiple of
+    N (:func:`canary_steps`; a step that does not fire computes nothing for
+    it) and appends the four per-slot stats: canary checks (b,) int32,
+    argmax divergences (b,) int32, the max relative logit error (b,)
+    float32 and the sum of the mean relative errors (b,) float32."""
     if temperature and keys is None:
         raise ValueError(
             "temperature sampling needs per-request keys (a (b, 2) keys tensor); "
@@ -500,13 +551,18 @@ def decode_slots_scan(model: LM, cfg: ModelConfig, cache, tok, pos, active, rema
     levels = _levels(cfg, unit_levels, tok.device)
     pool = {"cache": cache, "tok": tok, "pos": pos, "active": active,
             "remaining": remaining, "keys": keys}
-    b = tok.shape[0]
-    toks = torch.zeros((b, n_steps), dtype=torch.int32, device=tok.device)
-    emitted = torch.zeros((b, n_steps), dtype=torch.bool, device=tok.device)
-    health = ((torch.zeros(b, dtype=torch.bool, device=tok.device),
-               torch.zeros(b, dtype=torch.float32, device=tok.device)) if with_health else None)
+    b, dev = tok.shape[0], tok.device
+    toks = torch.zeros((b, n_steps), dtype=torch.int32, device=dev)
+    emitted = torch.zeros((b, n_steps), dtype=torch.bool, device=dev)
+    health = ((torch.zeros(b, dtype=torch.bool, device=dev),
+               torch.zeros(b, dtype=torch.float32, device=dev)) if with_health else None)
+    stats = (tuple(torch.zeros(b, dtype=dt, device=dev) for dt in (torch.int32, torch.int32,
+                                                                   torch.float32, torch.float32))
+             if canary_stride else None)
+    fire = canary_steps(n_steps, canary_stride, int(canary_offset))
     for i in range(n_steps):
         decode_slots_step(model, cfg, pool, toks, emitted, i, eos_id=eos_id,
                           temperature=temperature, top_k=top_k, unit_levels=levels,
-                          logits_hook=logits_hook, health=health)
-    return (toks, emitted, tok, pos, active, remaining, cache) + (health or ())
+                          logits_hook=logits_hook, health=health, canary=i in fire,
+                          canary_stats=stats)
+    return (toks, emitted, tok, pos, active, remaining, cache) + (health or ()) + (stats or ())

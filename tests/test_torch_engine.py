@@ -378,12 +378,12 @@ def test_engine_validation_names_request_and_field(qwen):
 
 def test_engine_takes_only_the_plain_options(qwen):
     """The pool shape is checked, and an option of the reference's layers
-    not ported yet (mesh, accuracy SLO, telemetry, speculation) is refused
-    as an unknown keyword; the statuses are the reference's five."""
+    not ported yet (mesh, speculation) is refused as an unknown keyword; the
+    statuses are the reference's five."""
     cfg, model = qwen
     with pytest.raises(ValueError, match="num_slots"):
         Engine(model, cfg, num_slots=0, cache_len=24)
-    for option in ("mesh", "rules", "slo", "telemetry", "spec", "draft_model"):
+    for option in ("mesh", "rules", "spec", "draft_model"):
         with pytest.raises(TypeError):
             Engine(model, cfg, num_slots=1, cache_len=24, **{option: None})
     assert engine.STATUSES == ("ok", "degraded", "evicted", "failed", "rejected")

@@ -279,12 +279,6 @@ def test_every_request_gets_a_structured_status(setup):
 # 5a against the JAX Engine
 # ---------------------------------------------------------------------------
 
-# the reference's stats keys that belong to options the port does not take
-# (slo=, telemetry=: ROADMAP A.5c)
-_UNPORTED_STATS = {"canary_checks", "canary_divergences", "canary_max_rel_err", "demotions",
-                   "promotions", "telemetry"}
-
-
 @pytest.fixture(scope="module")
 def jax_runs(setup, tmp_path_factory):
     """The JAX Engine on one trace of five requests: (a) every logit NaN
@@ -319,8 +313,7 @@ def test_fault_and_dispatch_counters_equal_the_reference(setup, jax_runs):
     quarantine retries, statuses, trips and every counter equal the JAX
     Engine's, and the degraded tokens' first two are its; under dispatch
     faults at rate 0.4, the dispatch counters and the tokens equal its.  The
-    port's stats keys are the reference's but those of its unported
-    options."""
+    port's stats keys are the reference's."""
     _, _, cfg, model = setup
     reqs = _port_reqs(jax_runs["reqs"])
     for name, faults, extra in (("nan", FaultConfig("logit_nan", rate=1.0, seed=3),
@@ -330,7 +323,7 @@ def test_fault_and_dispatch_counters_equal_the_reference(setup, jax_runs):
         jdone, jstats = jax_runs[name]
         eng = _engine(model, cfg, faults=faults, **extra)
         done = eng.run(_fresh(reqs))
-        assert set(eng.stats) == set(jstats) - _UNPORTED_STATS
+        assert set(eng.stats) == set(jstats)
         for key in eng.stats:
             if key not in ("makespan_s", "tok_s", "mean_queue_depth"):
                 assert eng.stats[key] == jstats[key], (name, key)

@@ -666,7 +666,7 @@ def test_graphed_chunk_equals_the_eager_chunk(cuda_device, arch, act_dtype, quan
     launches, by kernel and by variant."""
     cfg, eng = _engine(cuda_device, arch, act_dtype, quantized)
     eng.warmup(prompt_lens={3, 5, 12})
-    assert eng._graph is not None
+    assert list(eng._graphs) == [()]
     for slot, req in enumerate(_trace(cfg)[:3]):
         eng._admit(req, slot, 0.0)
     start = [t.clone() for t in lm.pool_tensors(eng.pool)]
@@ -836,8 +836,9 @@ def test_ladder_rows_are_independent(cuda_device):
     """Smoke width, bf16, 8 slots at rungs [0, 1, 2, 0, 1, 2, 0, 2] of
     ("e2afs", "esas", "exact"): every row's tokens, logits and cache are
     bit-identical to the same row of a run with all slots at its rung; the
-    all-"exact" run is ``exact_twin``'s; no RMSNorm launch under levels,
-    the decode-attention kernel on every step."""
+    all-"exact" run is ``exact_twin``'s; rung 0 of every norm on the RMSNorm
+    kernel (the clean e2afs route), the decode-attention kernel on every
+    step."""
     cfg = get_smoke_config("qwen3-4b", sqrt_unit="e2afs", decode_kernel="fused",
                            sqrt_ladder=_LADDER)
     model = lm.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
@@ -850,10 +851,9 @@ def test_ladder_rows_are_independent(cuda_device):
     levels = torch.tensor(_LEVELS, dtype=torch.int32, device=cuda_device)
     dispatch.reset_launch_counts()
     mixed = _decode_from(model, cfg, cache, tok, s, steps, levels)
-    counts = dispatch.launch_counts()
-    assert counts["rmsnorm"] == 0
-    assert counts["decode_attention"] == cfg.n_layers * steps
-    assert counts["e2afs_rsqrt"] == (4 * cfg.n_layers + 1) * steps  # the e2afs rung's route
+    counts = {k: v for k, v in dispatch.launch_counts().items() if v}
+    assert counts == {"rmsnorm": (4 * cfg.n_layers + 1) * steps,
+                      "decode_attention": cfg.n_layers * steps}
     uniform = [_decode_from(model, cfg, cache, tok, s, steps, torch.full_like(levels, lv))
                for lv in range(len(_LADDER))]
     for i, lv in enumerate(_LEVELS):
@@ -945,7 +945,7 @@ def test_graphed_chunk_with_health_equals_the_eager_chunk(cuda_device, act_dtype
     cfg, eng = _engine(cuda_device, "qwen3-4b", act_dtype, False)
     assert eng.detectors
     eng.warmup(prompt_lens={3, 5, 12})
-    assert eng._graph is not None
+    assert eng._graphs
     for slot, req in enumerate(_trace(cfg)[:3]):
         eng._admit(req, slot, 0.0)
     clean = [t.clone() for t in lm.pool_tensors(eng.pool)]
@@ -1020,7 +1020,7 @@ def test_dispatch_exhaustion_leaves_the_pool_unchanged(cuda_device):
     _, eng = _engine(cuda_device, "qwen3-4b", "bfloat16", False,
                      faults=FaultConfig("dispatch", rate=0.4, seed=5), dispatch_backoff_s=1e-4)
     eng.warmup(prompt_lens={3, 5, 12})
-    assert eng._graph is not None
+    assert eng._graphs
     for slot, req in enumerate(reqs[:3]):
         eng._admit(req, slot, 0.0)
     eng._decode_chunk()
@@ -1040,3 +1040,134 @@ def test_dispatch_exhaustion_leaves_the_pool_unchanged(cuda_device):
     for r in reqs:
         np.testing.assert_array_equal(done[r.uid].tokens, want[r.uid].tokens)
     assert eng.stats["dispatch_retries"] == eng.stats["dispatch_faults"] > 0
+
+
+# ---------------------------------------------------------------------------
+# The accuracy SLO on the card: level-0 rows on the fused route, canaries and
+# rungs inside the captured chunk, one graph a firing pattern
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_level_0_rows_take_the_fused_route(cuda_device, dtype):
+    """A clean e2afs ladder on CUDA tensors: a row at level 0 of
+    ``rmsnorm_select`` is bit for bit the RMSNorm kernel's output (the route
+    without levels, one launch), a row at level 1 the exact norm; and a
+    smoke model's ``decode_slots_scan`` with every slot at level 0 gives the
+    tokens, logits and cache of the same decode without levels."""
+    from repro_torch.layers import norms
+
+    cfg = get_smoke_config("qwen3-4b", act_dtype="bfloat16" if dtype == torch.bfloat16
+                           else "float32", sqrt_unit="e2afs", decode_kernel="fused")
+    lcfg = cfg.replace(sqrt_ladder=("e2afs", "exact"))
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x = torch.randn((6, 3, 2560), generator=g, device=cuda_device).to(dtype)
+    scale = (0.1 * torch.randn(2560, generator=g, device=cuda_device)).to(dtype)
+    levels = torch.tensor([0, 1, 0, 1, 1, 0], dtype=torch.int32, device=cuda_device)
+    dispatch.reset_launch_counts()
+    got = norms.rmsnorm_cfg(scale, x, lcfg, levels=levels)
+    assert dispatch.launch_counts()["rmsnorm"] == 1
+    fused = norms.rmsnorm_cfg(scale, x, cfg)
+    exact = norms.rmsnorm(scale, x, sqrt_unit="exact")
+    for i, lv in enumerate(levels.tolist()):
+        assert _same_bits(got[i], (fused if lv == 0 else exact)[i]), (i, lv)
+
+    model = lm.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    b, s, steps = 4, 12, 6
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator(
+        device=cuda_device).manual_seed(1), device=cuda_device)
+    cache = lm.init_cache(cfg, b, s + steps, device=cuda_device)
+    logits, cache = lm.prefill(model, cfg, cache, prompt, last_logit_only=True)
+    tok = logits[:, -1:].argmax(-1).to(torch.int32)
+    plain = _decode_from(model, cfg, cache, tok, s, steps)
+    zeros = _decode_from(model, lcfg, cache, tok, s, steps,
+                         torch.zeros(b, dtype=torch.int32, device=cuda_device))
+    assert torch.equal(plain[0], zeros[0]) and _same_bits(plain[1], zeros[1])
+    assert all(_same_bits(plain[2][k], zeros[2][k]) for k in cache)
+
+
+def _slo_engine(dev, stride, **kw):
+    from repro_torch.launch.engine import AccuracySLO
+
+    return _engine(dev, "qwen3-4b", "bfloat16", False, slo=AccuracySLO(
+        canary_stride=stride, rel_err_budget=1e9, divergence_budget=None, promote_after=None),
+        **kw)
+
+
+def test_graphed_chunk_with_canaries_and_levels_equals_the_eager_chunk(cuda_device):
+    """Canaries every 8 steps over chunks of 4 (two firing patterns, two
+    graphs in one memory pool) and rungs [1, 0, 1]: from one pool state
+    each pattern's replay and the same chunk run eagerly give bit-identical
+    pool tensors and packed buffer, the canary columns included; the firing
+    chunk counts its canaries and runs one more decode-attention launch a
+    layer, the other none."""
+    cfg, eng = _slo_engine(cuda_device, 8)
+    eng.warmup(prompt_lens={3, 5, 12})
+    assert sorted(eng._graphs) == [(), (0,)]
+    for slot, level in enumerate((1, 0, 1)):
+        eng._set_level(slot, level)
+    eng._write_levels()
+    for slot, req in enumerate(_trace(cfg)[:3]):
+        eng._admit(req, slot, 0.0)
+    start = [t.clone() for t in lm.pool_tensors(eng.pool)]
+
+    def chunk(run):
+        for t, s0 in zip(lm.pool_tensors(eng.pool), start):
+            t.copy_(s0)
+        dispatch.reset_launch_counts()
+        out = run()
+        torch.cuda.synchronize()
+        return ([t.clone() for t in lm.pool_tensors(eng.pool)] + [eng._packed.clone()],
+                dispatch.launch_counts(), out)
+
+    for k, fire in ((0, (0,)), (1, ())):
+        eng._chunks_total = k
+        eager, eager_counts, _ = chunk(eng._chunk_eager)
+        graphed, graph_counts, host = chunk(eng._decode_chunk)
+        assert _pool_bits_equal(graphed, eager), fire
+        assert graph_counts == eager_counts
+        assert graph_counts["decode_attention"] == cfg.n_layers * (eng.chunk + len(fire))
+        assert graph_counts["rmsnorm"] == (4 * cfg.n_layers + 1) * eng.chunk
+        checks = host[5]
+        assert checks.tolist() == ([1, 1, 1] if fire else [0, 0, 0])
+        if fire:  # the exact rung's rows equal the shadow; the e2afs row does not
+            assert host[7][[0, 2]].tolist() == [0.0, 0.0] and host[7][1] > 0
+
+
+@pytest.mark.parametrize("stride", [None, 2, 3, 8])
+def test_one_graph_per_firing_pattern(cuda_device, stride):
+    """``warmup`` captures one graph for each firing pattern of the lifetime
+    clock (chunks of 4: stride None and 2 one each, 3 three, 8 two), and
+    the engine replays the coming chunk's: a run of three requests serves
+    the tokens of the SLO-free engine."""
+    cfg, eng = _slo_engine(cuda_device, stride)
+    eng.warmup(prompt_lens={3, 5, 12})
+    want = {None: [()], 2: [(0, 2)], 3: [(0, 3), (1,), (2,)], 8: [(), (0,)]}[stride]
+    assert sorted(eng._graphs) == want == eng._patterns()
+    _, plain = _engine(cuda_device, "qwen3-4b", "bfloat16", False)
+    plain.warmup(prompt_lens={3, 5, 12})
+    reqs = _trace(cfg)[:3]
+    fresh = [Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens) for r in reqs]
+    done, want_done = eng.run(reqs), plain.run(fresh)
+    for r in reqs:
+        np.testing.assert_array_equal(done[r.uid].tokens, want_done[r.uid].tokens)
+    assert len(eng._graphs) == len(want)
+
+
+def test_slo_none_keeps_the_plain_chunk(cuda_device, monkeypatch):
+    """Without ``slo=`` the chunk is the plain engine's: one graph, no rung
+    tensor, no canary columns, one decode forward a step in the capture,
+    and a replay's launches those of ``chunk`` plain steps."""
+    cfg, eng = _engine(cuda_device, "qwen3-4b", "bfloat16", False)
+    forwards = []
+    step = lm.decode_step
+    monkeypatch.setattr(lm, "decode_step", lambda *a, **k: forwards.append(1) or step(*a, **k))
+    eng.warmup(prompt_lens={3})
+    assert list(eng._graphs) == [()] and eng._levels is None and eng._canary is None
+    assert eng._packed.shape[1] == 2 * eng.chunk + 3
+    assert len(forwards) == 2 * eng.chunk  # the eager run on the side stream, the capture
+    dispatch.reset_launch_counts()
+    eng._decode_chunk()
+    counts = {k: v for k, v in dispatch.launch_counts().items() if v}
+    assert counts == {"rmsnorm": (4 * cfg.n_layers + 1) * eng.chunk,
+                      "decode_attention": cfg.n_layers * eng.chunk}
