@@ -154,7 +154,21 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    ``exact_twin`` in a pool of the engine's shape; one telemetry record a
    chunk; ms a replayed step without an SLO and at strides None, 32 and 8,
    kernels a step of each graph, replay against eager with mixed rungs,
-   capture ms a graph.
+   capture ms a graph; (h) after (g), speculative decoding
+   (``Engine(spec=SpecConfig(k=4))``, n-gram drafting) on phase 4a's model
+   with phase 13a's shape and 24 requests: whether each projection of the
+   verify block (8 slots x 5 rows) gives every row the 8-row product's bits
+   (else it runs row by row) and the RMSNorm kernel's rows those of 8 rows;
+   a replayed spec chunk bit-identical to the eager one, history included;
+   ms a replayed spec step and kernels a step; the trace served with the
+   launch counts set to 0 just before and read just after (decode attention
+   36 x 5 a spec step), every request token-identical to 13a's engine, the
+   tokens committed a slot's step, the acceptance rate, ms a committed
+   token against 13a's ms a step, makespan and tok/s; then model drafting
+   at k = 3 (qwen3-4b's config cut to 4 layers, weights from seed 1) on
+   13a's first 8 requests, token-identical to 13a's, the draft model's
+   launches counted; (i) the same on phase 4d's gemma3-1b with 13b's shape
+   and 12 requests (the 512-line rings wrap and roll back), n-gram at k = 4.
 
 Before the last line it prints the card's name and power limit and one JSON
 line of kernels; the last line is ``{"ok": true, "device": {...}}``.  Without
@@ -372,6 +386,8 @@ class Smoke:
         # phase 14c's faulted engine, phase 15a's engines, phase 15f's process
         self.faulted_engine = self.robust = self.sigkill = None
         self.anchor = None  # phase 15a's requests and tokens
+        self.engine_runs = {}  # phases 13a's and 13b's traces, tokens and replayed ms a step
+        self.spec_routes, self.spec_runs = {}, {}  # phases 15h/15i: GEMM routes, spec steps
 
     # -- helpers -----------------------------------------------------------
     def phase(self, name, fn):
@@ -1199,29 +1215,35 @@ class Smoke:
               f"{n_requests} requests; {equal} of {total} tokens equal ({equal / total:.3f})")
         if first != n_requests:
             raise AssertionError("first two tokens differ from batch-1 solo runs")
+        self.engine_runs[key] = dict(reqs=reqs, done=done, stats=stats,
+                                     step_ms=replay_us / chunk / 1e3, shape=dict(
+                                         slots=slots, cache_len=cache_len, chunk=chunk,
+                                         prompts=prompts))
 
     def replay_equals_eager(self, eng, reqs=()):
         """Admit ``reqs`` (one a slot) into the engine's pool, then run one
         chunk eagerly and one replay of its captured graph from that pool
-        state: every pool tensor and the packed buffer (tokens, emission,
-        liveness, and with detectors the health columns) bit-identical, or
-        the phase fails.  Returns a function that restores the state."""
+        state: every pool tensor (with speculation, the history and the
+        draft cache too) and the packed buffer (tokens, emission, liveness,
+        and with detectors the health columns) bit-identical, or the phase
+        fails.  Returns a function that restores the state."""
         torch = self.torch
         from repro_torch.models import lm
 
         for slot, req in enumerate(reqs):
             eng._admit(req, slot, 0.0)
-        start = [t.clone() for t in lm.pool_tensors(eng.pool)]
+        state = lm.pool_tensors(eng.pool) + eng._spec_tensors()
+        start = [t.clone() for t in state]
 
         def restore():
-            for t, s0 in zip(lm.pool_tensors(eng.pool), start):
+            for t, s0 in zip(state, start):
                 t.copy_(s0)
 
         def outcome(run):
             restore()
             run()
             self.sync()
-            return [t.clone() for t in lm.pool_tensors(eng.pool)] + [eng._packed.clone()]
+            return [t.clone() for t in state] + [eng._packed.clone()]
 
         eager = outcome(eng._chunk_eager)
         graphed = outcome(eng._decode_chunk)
@@ -1231,7 +1253,9 @@ class Smoke:
         print(f"  replayed chunk vs eager chunk from one pool state: {len(differ)} of "
               f"{len(eager)} tensors differ (tokens, emitted, tok, pos, active, remaining, "
               f"every cache tensor{', health' if eng.detectors else ''}"
-              f"{', canaries' if eng._canary is not None else ''})")
+              f"{', canaries' if eng._canary is not None else ''}"
+              f"{', history, accepted drafts, spec steps' if eng.spec is not None else ''}"
+              f"{', draft cache' if eng._dcache is not None else ''})")
         if differ:
             raise AssertionError(f"the graphed chunk differs from the eager one: tensors {differ}")
         return restore
@@ -2454,6 +2478,198 @@ class Smoke:
         pix = self.torch.as_tensor(rgb.reshape(-1, 3)).to(self.dev, self.torch.float32)
         return pix.contiguous(), init_centroids(pix, seed, k).contiguous()
 
+    # -- phase 15h/15i: speculative decoding ------------------------------
+    def p15h_spec(self):
+        """Speculative decoding on phase 4a's model, phase 13a's engine shape
+        and trace (n-gram drafting, k = 4), then model drafting at k = 3 on
+        13a's first 8 requests, the draft qwen3-4b's config cut to 4 layers
+        with random weights from seed 1 (see :meth:`spec_phase`)."""
+        from repro_torch.models import lm
+
+        cfg, model = self.serving[:2]
+        dcfg = cfg.replace(n_layers=1 if self.rehearsal else 4)
+        self.spec_phase(cfg, model, "engine_qwen3_4b_launches", k=4,
+                        draft=(lm.init(dcfg, self.gen(1), device=self.dev), dcfg))
+
+    def p15i_spec_gemma(self):
+        """The same on phase 4d's gemma3-1b with phase 13b's shape and trace
+        (prompts past the 512-line window: the rings wrap and roll back),
+        n-gram drafting at k = 4."""
+        self.spec_phase(*self.gemma, "engine_gemma3_1b_launches", k=4)
+
+    def gemm_rows(self, cfg, model, b, sq):
+        """For each projection of a verify block of ``sq`` rows over ``b``
+        slots (QKV, ``wo``, the MLP's three, the unembed), whether one
+        ``b * sq``-row product gives every row the bits of the ``b``-row
+        product (``layers.rowwise``: where not, the verify multiplies row by
+        row); and the RMSNorm kernel's rows over ``b * sq`` rows against
+        ``b`` rows, at the layer norms' and the qk-norms' widths."""
+        torch = self.torch
+        from repro_torch.layers import rowwise
+        from repro_torch.layers.norms import rmsnorm_cfg
+
+        layer, dt = model.layers[0], model.embed.dtype
+        d, h, hd = cfg.d_model, cfg.n_heads, cfg.d_head
+        weights = {"wq": layer.attn.wq.reshape(d, -1), "wk": layer.attn.wk.reshape(d, -1),
+                   "wv": layer.attn.wv.reshape(d, -1), "wo": layer.attn.wo.reshape(h * hd, -1),
+                   "wi_gate": layer.mlp.wi_gate, "wi_up": layer.mlp.wi_up,
+                   "mlp wo": layer.mlp.wo, "unembed": model.unembed_matrix()}
+        gen = self.gen(7)
+        out = {}
+        for name, w in weights.items():
+            x = torch.randn((b, sq, w.shape[0]), generator=gen, device=self.dev).to(dt)
+            out[name] = rowwise.batched_rows_equal(x, w)
+        norms = {}
+        for name, shape, scale in (("ln", (b, sq, d), layer.ln1),
+                                   ("qk-norm", (b, sq, h, hd), layer.attn.q_norm)):
+            x = torch.randn(shape, generator=gen, device=self.dev).to(dt)
+            whole = rmsnorm_cfg(scale, x, cfg)
+            rows = torch.stack([rmsnorm_cfg(scale, x[:, j].contiguous(), cfg)
+                                for j in range(sq)], dim=1)
+            norms[name] = bool(torch.equal(whole.view(torch.int16 if dt == torch.bfloat16
+                                                      else torch.int32),
+                                           rows.view(torch.int16 if dt == torch.bfloat16
+                                                     else torch.int32)))
+        print(f"  GEMM row bits at b = {b}, {sq} rows a slot ({dt}; True: the batched rows "
+              f"equal the {b}-row product, one product a projection; False: row by row): "
+              f"{out}; RMSNorm kernel rows of {b * sq} equal to rows of {b}: {norms}")
+        if not all(norms.values()):
+            raise AssertionError(f"the RMSNorm kernel's rows depend on the row count: {norms}")
+        return out
+
+    def spec_phase(self, cfg, model, key, *, k, draft=None):
+        """``Engine(spec=SpecConfig(k=k))`` on phase 13's engine shape and
+        trace (``key`` names the non-speculative run):
+
+        * the GEMM row-bits check of the verify's projections
+          (:meth:`gemm_rows`);
+        * a replayed spec chunk bit-identical to the eager one from one pool
+          state (history included), ms a replayed spec step (CUDA events)
+          and kernels a step (a profiled replay);
+        * the trace served with the launch counts set to 0 just before and
+          read just after: decode attention n_layers * (k+1) a spec step,
+          RMSNorm once a forward (every admission and spec step); every
+          request token-identical to phase 13's non-speculative engine;
+          mean tokens committed a slot's step, the acceptance rate, ms a
+          committed token against phase 13's ms a step, makespan and tok/s;
+        * with ``draft = (model, cfg)``: model drafting at k-1 on the
+          trace's first 8 requests, token-identical to phase 13's, the draft
+          model's launches counted too."""
+        import numpy as np
+
+        from repro_torch.kernels import dispatch
+        from repro_torch.launch.engine import Engine, SpecConfig
+
+        base = self.engine_runs.get(key)
+        if base is None:
+            raise AssertionError(f"phase 13 left no run under {key}")
+        reqs, sh = base["reqs"], base["shape"]
+        slots, chunk = sh["slots"], sh["chunk"]
+        per_forward = 4 * cfg.n_layers + 1
+        windows = cfg.blocks.count("window")
+        routes = self.gemm_rows(cfg, model, slots, k + 1)
+        self.spec_routes[cfg.name] = routes
+        eng = Engine(model, cfg, num_slots=slots, cache_len=sh["cache_len"], chunk=chunk,
+                     spec=SpecConfig(k=k))
+        t0 = time.perf_counter()
+        eng.warmup(prompt_lens=sh["prompts"])
+        self.sync()
+        print(f"  {cfg.name}, k = {k}, n-gram drafting: warmup (one admission a prompt length, "
+              f"a spec chunk eagerly and its capture) {time.perf_counter() - t0:.2f} s; graph "
+              f"captured: {bool(eng._graphs)}")
+        if not self.rehearsal and not eng._graphs:
+            raise AssertionError("the spec chunk was not captured")
+        restore = self.replay_equals_eager(eng, reqs[:slots])
+        restore()
+        replay_ms = self.time_ms(eng._decode_chunk, iters=4)
+        restore()
+        wall_us, rows = self.profiled(eng._decode_chunk, 1, every_launch=True)
+        kernels = sum(r[1] for r in rows) / chunk
+        busy = sum(r[0] for r in rows) / chunk / 1e3
+
+        eng.reset()
+        self.sync()
+        dispatch.reset_launch_counts()
+        done = eng.run(reqs)
+        counts, details = dispatch.launch_counts(), dispatch.launch_details()
+        st = eng.stats
+        steps = st["decode_chunks"] * chunk
+        want = {"rmsnorm": per_forward * (len(reqs) + steps),
+                "decode_attention": cfg.n_layers * (k + 1) * steps}
+        want_details = {"decode_attention wrap": windows * (k + 1) * steps} if windows else {}
+        if cfg.n_layers > windows:
+            want_details["decode_attention no wrap"] = (cfg.n_layers - windows) * (k + 1) * steps
+        name = key.replace("engine_", "engine_spec_")
+        self.rows["rmsnorm"][name] = counts["rmsnorm"]
+        self.rows["decode_attention"][name] = counts["decode_attention"]
+        same = sum(np.array_equal(done[r.uid].tokens, base["done"][r.uid].tokens) for r in reqs)
+        committed = 1 + st["accepted_per_step"]  # tokens a slot's spec step commits, mean
+        step_ms = replay_ms / chunk if replay_ms is not None else float("nan")
+        print(f"  ms a replayed spec step {step_ms:.3f} (CUDA events around 4 replays; "
+              f"phase 13's plain step {base['step_ms']:.3f}), {kernels:.0f} kernels a step, "
+              f"device busy {busy:.3f} ms a step (a profiled replay); {self.card}")
+        for dev_us, count, kname in rows[:8]:
+            print(f"    {dev_us / chunk / 1e3:9.4f} ms/step  {count / chunk:7.1f} calls/step  "
+                  f"{kname[:90]}")
+        print(f"  Engine.run: {len(reqs)} requests, {same} token-identical to phase 13's "
+              f"engine; {st['spec_steps']} slot spec steps, {st['spec_accepted']} drafts "
+              f"accepted: {committed:.3f} tokens committed a slot's step, acceptance rate "
+              f"{st['acceptance_rate']:.3f}; ms a committed token {step_ms / committed:.3f} "
+              f"against {base['step_ms']:.3f} a plain step; makespan {st['makespan_s']:.3f} s, "
+              f"{st['tok_s']:.1f} tok/s (phase 13: {base['stats']['makespan_s']:.3f} s, "
+              f"{base['stats']['tok_s']:.1f} tok/s); {st['decode_chunks']} chunks; launches "
+              f"rmsnorm {counts['rmsnorm']}, decode_attention {counts['decode_attention']} "
+              f"(want {want}), {details}")
+        if same != len(reqs) or st["n_ok"] != len(reqs):
+            raise AssertionError(f"speculative tokens differ from phase 13's: {same} of "
+                                 f"{len(reqs)} identical")
+        if not self.rehearsal and (any(counts[n] != v for n, v in want.items())
+                                   or details != want_details):
+            raise AssertionError(f"launch counts {counts} {details}, want {want} {want_details}")
+        self.spec_runs[cfg.name] = dict(step_ms=step_ms, plain_ms=base["step_ms"],
+                                        committed=committed, kernels=kernels)
+        del eng
+        if draft is None:
+            return
+
+        dmodel, dcfg = draft
+        kd, sub = k - 1, reqs[:8]
+        eng = Engine(model, cfg, num_slots=slots, cache_len=sh["cache_len"], chunk=chunk,
+                     spec=SpecConfig(k=kd, draft="model"), draft_model=draft)
+        eng.warmup(prompt_lens=sorted({len(r.prompt) for r in sub}))
+        self.sync()
+        restore = self.replay_equals_eager(eng, sub[:slots])
+        restore()
+        replay_ms = self.time_ms(eng._decode_chunk, iters=4)
+        eng.reset()
+        self.sync()
+        dispatch.reset_launch_counts()
+        done = eng.run(sub)
+        counts = dispatch.launch_counts()
+        st = eng.stats
+        steps = st["decode_chunks"] * chunk
+        d_forward = 4 * dcfg.n_layers + 1
+        want = {"rmsnorm": per_forward * (len(sub) + steps)
+                + d_forward * (len(sub) + steps * (kd + 1)),
+                "decode_attention": steps * (cfg.n_layers * (kd + 1)
+                                             + dcfg.n_layers * (2 * kd + 1))}
+        self.rows["rmsnorm"][name + "_draft_model"] = counts["rmsnorm"]
+        self.rows["decode_attention"][name + "_draft_model"] = counts["decode_attention"]
+        same = sum(np.array_equal(done[r.uid].tokens, base["done"][r.uid].tokens) for r in sub)
+        committed = 1 + st["accepted_per_step"]
+        step_ms = replay_ms / chunk if replay_ms is not None else float("nan")
+        print(f"  draft model ({dcfg.n_layers} layers, seed 1), k = {kd}, {len(sub)} requests: "
+              f"{same} token-identical to phase 13's engine; ms a replayed spec step "
+              f"{step_ms:.3f}, {committed:.3f} tokens committed a slot's step, acceptance rate "
+              f"{st['acceptance_rate']:.3f}, ms a committed token {step_ms / committed:.3f}; "
+              f"makespan {st['makespan_s']:.3f} s, {st['tok_s']:.1f} tok/s; launches rmsnorm "
+              f"{counts['rmsnorm']}, decode_attention {counts['decode_attention']} (want {want})")
+        if same != len(sub) or st["n_ok"] != len(sub):
+            raise AssertionError(f"draft-model tokens differ from phase 13's: {same} of "
+                                 f"{len(sub)} identical")
+        if not self.rehearsal and any(counts[n] != v for n, v in want.items()):
+            raise AssertionError(f"launch counts {counts}, want {want}")
+
     # -- phase 7 -----------------------------------------------------------
     def p7_sobel(self):
         torch = self.torch
@@ -2942,6 +3158,8 @@ def main(argv=None) -> int:
     smoke.phase("15d dispatch faults qwen3-4b", smoke.p15d_dispatch)
     smoke.phase("15e kill and resume qwen3-4b", smoke.p15e_kill_resume)
     smoke.phase("15g accuracy SLO qwen3-4b", smoke.p15g_slo)  # on phase 4a's model
+    smoke.phase("15h speculative qwen3-4b", smoke.p15h_spec)  # on phase 4a's model
+    smoke.phase("15i speculative gemma3-1b", smoke.p15i_spec_gemma)  # on phase 4d's model
     smoke.phase("7 sobel", smoke.p7_sobel)
     smoke.phase("8 kmeans_assign", smoke.p8_kmeans)
     smoke.phase("9 paper", smoke.p9_paper)

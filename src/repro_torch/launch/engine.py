@@ -1,6 +1,6 @@
 """Continuous-batching serving engine: slot-scheduled decode over a KV-cache
 pool with per-request positions (torch port of ``repro.launch.engine``, all
-but its mesh and speculation options).
+but its mesh option).
 
 * a **slot pool** (:func:`lm.init_pool_state`): one KV cache of
   ``num_slots`` batch rows, each row an independent request with its own
@@ -52,6 +52,17 @@ gcd(stride, chunk)``), sharing one memory pool; a step that fires no
 canary computes nothing for it.  ``telemetry=`` streams one JSONL record
 a chunk (``launch/telemetry.py``).
 
+Speculative decoding (``spec=SpecConfig(k=...)``, greedy only): each step
+of a chunk drafts ``k`` tokens a slot (prompt lookup over the slot's
+fed-token history ``hist``, or a small draft model, ``draft_model=``),
+verifies the block of ``k+1`` rows in one forward and commits the longest
+agreeing prefix, rolling the rejected rows' cache lines back
+(``lm.decode_slots_spec_step``).  The spec chunk is captured like the plain
+one, a graph a canary firing pattern; its host copy carries ``chunk *
+(k+1)`` token and emission columns and the per-slot accepted drafts and
+spec steps.  The tokens are the non-speculative engine's, token for token;
+a slot on a demoted rung accepts no draft.
+
 A request decoded in a staggered slot emits the tokens of the same request
 alone in a pool of the same size (greedy); on the CPU they equal a solo
 ``prefill`` + ``generate_scan`` run (:func:`solo_generate`).
@@ -80,8 +91,8 @@ from repro_torch.launch.telemetry import Telemetry
 from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 
-__all__ = ["AccuracySLO", "Request", "Completion", "Engine", "run_static_baseline",
-           "solo_generate", "STATUSES", "SHED_POLICIES"]
+__all__ = ["AccuracySLO", "SpecConfig", "Request", "Completion", "Engine",
+           "run_static_baseline", "solo_generate", "STATUSES", "SHED_POLICIES"]
 
 # Completion.status values, in degradation order:
 #   ok       -- served on the configured (possibly approximate) datapath
@@ -151,6 +162,31 @@ class AccuracySLO:
                              f"stick), got {self.promote_after}")
 
 
+@dataclasses.dataclass(frozen=True)
+class SpecConfig:
+    """Speculative-decoding config for :class:`Engine` (``spec=``).
+
+    * ``k``: drafts proposed a step; a step commits 1..k+1 tokens a slot
+      (the agreeing drafts and the verify's own next token).  A stack with
+      sliding-window layers needs ``k + 1 <= window``.
+    * ``draft``: ``"ngram"`` drafts from the slot's own fed-token history
+      (no extra model); ``"model"`` continues a small draft model given to
+      the engine as ``draft_model=(draft_model, draft_cfg)``, which keeps
+      its own slot cache in step with the committed tokens.
+
+    Correctness never depends on the drafts: row 0 of every verify block is
+    the committed token, so ``draft`` moves only the acceptance rate."""
+
+    k: int = 3
+    draft: str = "ngram"
+
+    def __post_init__(self):
+        if self.k < 1:
+            raise ValueError(f"spec.k must be >= 1 draft tokens, got {self.k}")
+        if self.draft not in ("ngram", "model"):
+            raise ValueError(f"spec.draft must be 'ngram' or 'model', got {self.draft!r}")
+
+
 def _device_of(model: lm.LM) -> torch.device:
     return model.embed.device
 
@@ -212,7 +248,11 @@ class Completion:
     ``canary_checks``/``canary_divergences`` count the canaries (and argmax
     disagreements) run against it, and ``unit_trips`` holds every demotion
     and promotion while it held the slot.  Without an SLO (or for a request
-    that never took a slot) they keep their defaults."""
+    that never took a slot) they keep their defaults.
+
+    With speculative decoding ``spec_steps`` counts the draft-and-verify
+    steps the request's slot ran while it held it and ``spec_accepted`` the
+    drafts they accepted; :attr:`accepted_per_step` is their ratio."""
 
     uid: int
     prompt_len: int
@@ -226,11 +266,19 @@ class Completion:
     canary_checks: int = 0
     canary_divergences: int = 0
     unit_trips: tuple = ()
+    spec_steps: int = 0
+    spec_accepted: int = 0
 
     @property
     def latency_s(self) -> float:
         """End-to-end request latency: arrival to final token, seconds."""
         return self.finished_s - self.arrival_s
+
+    @property
+    def accepted_per_step(self) -> float:
+        """Mean drafts accepted a speculative step for this request (0..k;
+        0.0 without speculation or for a request that never took a slot)."""
+        return self.spec_accepted / self.spec_steps if self.spec_steps else 0.0
 
 
 @dataclasses.dataclass
@@ -282,9 +330,10 @@ class Engine:
     the first time it comes (:meth:`warmup` captures them all).
 
     ``slo=`` takes an :class:`AccuracySLO` and ``telemetry=`` a path or a
-    :class:`~repro_torch.launch.telemetry.Telemetry`.  The reference's
-    ``mesh=``/``rules=`` (ROADMAP A.7) and ``spec=``/``draft_model=`` (A.5d)
-    are not ported.
+    :class:`~repro_torch.launch.telemetry.Telemetry`; ``spec=`` a
+    :class:`SpecConfig`, with ``draft_model=(model, cfg)`` for model
+    drafting.  The reference's ``mesh=``/``rules=`` (ROADMAP A.7) are not
+    ported.
     """
 
     def __init__(self, model: lm.LM, cfg: ModelConfig, *, num_slots: int = 4,
@@ -295,7 +344,8 @@ class Engine:
                  max_dispatch_retries: int = 3, dispatch_backoff_s: float = 0.001,
                  max_queue: Optional[int] = None, shed_policy: str = "reject-new",
                  snapshot_dir=None, snapshot_every_chunks: Optional[int] = None,
-                 journal=None, slo: Optional[AccuracySLO] = None, telemetry=None):
+                 journal=None, slo: Optional[AccuracySLO] = None, telemetry=None,
+                 spec: Optional[SpecConfig] = None, draft_model: Optional[tuple] = None):
         if num_slots < 1 or cache_len < 2 or chunk < 1:
             raise ValueError(
                 f"need num_slots >= 1, cache_len >= 2, chunk >= 1 "
@@ -312,6 +362,34 @@ class Engine:
             if snapshot_dir is None:
                 raise ValueError("snapshot_every_chunks needs snapshot_dir= (nowhere to "
                                  "commit the autosaves)")
+        if spec is not None:
+            if not isinstance(spec, SpecConfig):
+                raise TypeError(f"spec must be a SpecConfig (got {type(spec)!r})")
+            if temperature != 0.0 or top_k != 0:
+                raise ValueError("speculative decoding is greedy-only (the acceptance rule "
+                                 "compares argmaxes); drop temperature/top_k or spec=")
+            lm._validate_spec_cfg(cfg)
+            lm._validate_spec_k(cfg, spec.k)
+            if spec.k + 1 > cache_len:
+                raise ValueError(f"spec.k+1={spec.k + 1} exceeds cache_len ({cache_len})")
+            if spec.draft == "model":
+                if draft_model is None:
+                    raise ValueError("spec.draft='model' needs draft_model=(draft_model, "
+                                     "draft_cfg)")
+                dcfg = draft_model[1]
+                lm._validate_spec_cfg(dcfg, what="draft model")
+                if dcfg.vocab != cfg.vocab:
+                    raise ValueError(f"draft vocab {dcfg.vocab} != target vocab {cfg.vocab}")
+                if snapshot_dir is not None or snapshot_every_chunks is not None:
+                    raise ValueError("snapshots cover n-gram speculation only: the n-gram "
+                                     "history rebuilds from slot metadata at resume, but a "
+                                     "draft-model KV cache does not serialize in snapshot "
+                                     "format 1; use spec.draft='ngram' with snapshot_dir=")
+        elif draft_model is not None:
+            raise ValueError("draft_model= without spec= has no effect; pass "
+                             "spec=SpecConfig(draft='model')")
+        self.spec = spec
+        self._draft_model = draft_model if spec is not None and spec.draft == "model" else None
         # sqrt-site fault schedules ride the serving config; activation faults
         # become a logits hook inside the decode chunk; dispatch faults stay
         # on the host.  The exact fallback strips all of them (exact_twin).
@@ -380,12 +458,26 @@ class Engine:
         # the per-slot ladder rungs the chunk reads; the host writes them in
         # place at a chunk boundary after a rung changed
         self._levels = zeros(torch.int32) if slo is not None else None
+        # speculation: the fed-token history (the n-gram source), the draft
+        # model's slot cache, and the chunk's accepted drafts and spec steps
+        # a slot (zeroed by its first op); all cleared by reset()
+        self._hist = self._dcache = self._spec_counts = None
+        if spec is not None:
+            self._hist = torch.zeros((num_slots, cache_len), dtype=torch.int32, device=dev)
+            if self._draft_model is not None:
+                self._dcache = lm.init_cache(self._draft_model[1], num_slots, cache_len,
+                                             device=dev)
+            self._spec_counts = (zeros(torch.int32), zeros(torch.int32))
+        # the tokens a slot feeds in a chunk: one a step, k+1 a spec step
+        self._width = chunk * (spec.k + 1 if spec is not None else 1)
         # what a chunk hands to the host in one copy, int32: tokens fed
-        # (b, chunk), emission mask (b, chunk), liveness after the chunk (b,),
+        # (b, width), emission mask (b, width), liveness after the chunk (b,),
         # with detectors bad (b,) and mx's float32 bits (b,), with canaries
         # their checks, divergences and the float32 bits of the max and
-        # summed relative errors (4 x (b,))
-        cols = 2 * chunk + 1 + 2 * detectors + 4 * (self._canary is not None)
+        # summed relative errors (4 x (b,)), with speculation the accepted
+        # drafts and spec steps (2 x (b,))
+        cols = (2 * self._width + 1 + 2 * detectors + 4 * (self._canary is not None)
+                + 2 * (spec is not None))
         self._packed = torch.zeros((num_slots, cols), dtype=torch.int32, device=dev)
         # the captured chunk, one graph a firing pattern of canary steps:
         # {pattern: (graph, the launches a replay adds)}
@@ -401,7 +493,7 @@ class Engine:
         tensors, so a captured chunk stays valid.  The lifetime chunk
         counter (the default snapshot step and the canaries' clock)
         survives, so autosaves never collide."""
-        for t in lm.pool_tensors(self.pool):
+        for t in lm.pool_tensors(self.pool) + self._spec_tensors():
             t.zero_()
         b = self.num_slots
         self._owner: list = [None] * b
@@ -428,8 +520,21 @@ class Engine:
         self._slot_canary_checks = np.zeros(b, np.int64)
         self._slot_canary_div = np.zeros(b, np.int64)
         self._slot_events: list = [[] for _ in range(b)]
+        # speculation's counters: per occupant (reset at admission) and for
+        # the engine's lifetime
+        self._slot_spec_steps = np.zeros(b, np.int64)
+        self._slot_spec_acc = np.zeros(b, np.int64)
+        self._spec_steps_total = getattr(self, "_spec_steps_total", 0)
+        self._spec_acc_total = getattr(self, "_spec_acc_total", 0)
         if self._injector is not None:
             self._injector.reset()
+
+    def _spec_tensors(self) -> list:
+        """The speculation state beside the pool (the history and the draft
+        cache's leaves), never reallocated: a graph holds their addresses."""
+        if self.spec is None:
+            return []
+        return [self._hist] + (lm._cache_leaves(self._dcache) if self._dcache is not None else [])
 
     @property
     def unit_levels(self) -> tuple:
@@ -479,6 +584,9 @@ class Engine:
         if ckpt_dir is None:
             raise ValueError("snapshot needs a directory: pass ckpt_dir= or "
                              "construct the Engine with snapshot_dir=")
+        if self._draft_model is not None:
+            raise ValueError("snapshot covers n-gram speculation only (the draft-model KV "
+                             "cache does not serialize in snapshot format 1)")
         step = self._chunks_total if step is None else int(step)
         slots_meta = []
         for slot in range(self.num_slots):
@@ -503,7 +611,8 @@ class Engine:
                 "max_queue": self.max_queue,
                 "shed_policy": self.shed_policy,
                 "slo": None if self.slo is None else dataclasses.asdict(self.slo),
-                "spec": None,
+                # additive key: readers without speculation ignore it
+                "spec": None if self.spec is None else dataclasses.asdict(self.spec),
             },
             "chunks_total": int(self._chunks_total),
             "slots": slots_meta,
@@ -572,6 +681,10 @@ class Engine:
         * A snapshot the JAX package wrote restores too (the same format);
           the sampling words of its occupied slots are rebuilt from (seed,
           uid), the port's stream (ROADMAP C.15, C.18).
+        * A snapshot of a speculative engine restores its ``spec`` (unless
+          ``spec=`` overrides it, None turning speculation off); the n-gram
+          history, which the snapshot does not hold, is rebuilt from the
+          slots' prompts and emitted tokens.
 
         Resuming onto a mesh (``mesh=``, ``rules=``) is not ported.  Do not
         call :meth:`warmup` on the result (it resets the pool)."""
@@ -584,15 +697,14 @@ class Engine:
         if step is not None:
             meta = cls._read_snapshot_meta(ckpt_dir, step)
             e = meta["engine"]
-            if e.get("spec") is not None:
-                raise NotImplementedError("the snapshot's engine has spec= set, which the "
-                                          "port does not take yet (ROADMAP A.5d)")
             kw = {k: e[k] for k in ("num_slots", "cache_len", "quantized_kv", "chunk",
                                     "eos_id", "temperature", "top_k", "seed")}
             kw["max_queue"] = e.get("max_queue")
             kw["shed_policy"] = e.get("shed_policy", "reject-new")
             if e.get("slo") is not None:
                 kw["slo"] = AccuracySLO(**e["slo"])
+            if e.get("spec") is not None:
+                kw["spec"] = SpecConfig(**e["spec"])
             for frozen in ("num_slots", "cache_len", "quantized_kv"):
                 if frozen in overrides and overrides[frozen] != kw[frozen]:
                     raise ValueError(
@@ -634,6 +746,16 @@ class Engine:
         self._queue = deque(_ticket_from_record(r) for r in meta["queue"])
         self._chunks_total = int(meta["chunks_total"])
         self._restored_step = int(step)
+        if self.spec is not None:
+            # the history is not in the snapshot: hist[p] is the token fed at
+            # position p, the prompt then the emitted tokens, so a resumed
+            # slot drafts from what an uninterrupted run would hold
+            hist = np.zeros((self.num_slots, self.cache_len), np.int32)
+            for slot, rec in enumerate(meta["slots"]):
+                if rec is not None:
+                    fed = (list(rec["prompt"]) + rec.get("emitted", []))[:self.cache_len]
+                    hist[slot, :len(fed)] = fed
+            self._hist.copy_(torch.from_numpy(hist))
         s = meta.get("slo")
         if s is not None and self._ladder is not None:
             top = len(self._ladder) - 1
@@ -782,6 +904,15 @@ class Engine:
         pool["pos"][slot] = s
         pool["active"][slot] = True
         pool["remaining"][slot] = int(req.max_new_tokens)
+        if self.spec is not None:
+            # the prompt is the slot's fed history; what a previous occupant
+            # left past it stays masked (the drafter reads p < pos only)
+            w = min(s, self.cache_len)
+            self._hist[slot, :w] = prompt[0, :w]
+            if self._draft_model is not None:
+                dmodel, dcfg = self._draft_model
+                lm.prefill_into_slots(dmodel, dcfg, self._dcache, prompt,
+                                      self._slots[slot:slot + 1])
 
     def _admit(self, req: Request, slot: int, now: float, trips: int = 0):
         self._validate(req)
@@ -794,6 +925,8 @@ class Engine:
         self._slot_canary_checks[slot] = 0
         self._slot_canary_div[slot] = 0
         self._slot_events[slot] = []
+        self._slot_spec_steps[slot] = 0
+        self._slot_spec_acc[slot] = 0
 
     # -- the decode chunk ---------------------------------------------------
 
@@ -811,24 +944,36 @@ class Engine:
         return sorted({self._firing(k) for k in range(n)})
 
     def _chunk_eager(self, fire: Optional[tuple] = None):
-        """``chunk`` decode steps over the pool, eagerly, into the packed
-        buffer, the canary on the steps in ``fire`` (default: the coming
-        chunk's); the health latches and canary stats are zeroed first."""
-        c = self.chunk
+        """``chunk`` decode steps (speculative steps with ``spec=``) over the
+        pool, eagerly, into the packed buffer, the canary on the steps in
+        ``fire`` (default: the coming chunk's); the health latches, canary
+        stats and spec counters are zeroed first."""
+        c, w = self.chunk, self._width
         fire = self._firing() if fire is None else fire
-        latches = (self._health or ()) + (self._canary or ())
+        latches = (self._health or ()) + (self._canary or ()) + (self._spec_counts or ())
         for t in latches:
             t.zero_()
-        toks, emitted = self._packed[:, :c], self._packed[:, c:2 * c]
+        toks, emitted = self._packed[:, :w], self._packed[:, w:2 * w]
+        draft = None if self._dcache is None else (*self._draft_model, self._dcache)
+        # a slot on a demoted rung decodes one row a step: its row 0 is the
+        # sequential demoted step
+        demoted = None if self._levels is None or self.spec is None else self._levels > 0
         for i in range(c):
-            lm.decode_slots_step(self.model, self.cfg, self.pool, toks, emitted, i,
-                                 eos_id=self.eos_id, temperature=self.temperature,
-                                 top_k=self.top_k, unit_levels=self._levels,
-                                 logits_hook=self._hook, health=self._health,
-                                 canary=i in fire, canary_stats=self._canary)
-        self._packed[:, 2 * c] = self.pool["active"]
+            if self.spec is None:
+                lm.decode_slots_step(self.model, self.cfg, self.pool, toks, emitted, i,
+                                     eos_id=self.eos_id, temperature=self.temperature,
+                                     top_k=self.top_k, unit_levels=self._levels,
+                                     logits_hook=self._hook, health=self._health,
+                                     canary=i in fire, canary_stats=self._canary)
+                continue
+            lm.decode_slots_spec_step(
+                self.model, self.cfg, self.pool, self._hist, toks, emitted, i, k=self.spec.k,
+                counts=self._spec_counts, eos_id=self.eos_id, unit_levels=self._levels,
+                spec_disable=demoted, logits_hook=self._hook, health=self._health,
+                canary=i in fire, canary_stats=self._canary, draft=draft)
+        self._packed[:, 2 * w] = self.pool["active"]
         for j, t in enumerate(latches):
-            self._packed[:, 2 * c + 1 + j] = t.view(torch.int32) if t.is_floating_point() else t
+            self._packed[:, 2 * w + 1 + j] = t.view(torch.int32) if t.is_floating_point() else t
 
     def _capture(self, fire: tuple):
         """This chunk eagerly on a side stream (it loads every kernel, plans
@@ -867,16 +1012,18 @@ class Engine:
             dispatch.replay_launches(launches)
 
     def _decode_chunk(self):
-        """Advance the pool one chunk.  Returns numpy (tokens fed (b, chunk),
-        emitted (b, chunk) bool, active (b,) bool, bad (b,) bool, mx (b,)
+        """Advance the pool one chunk.  Returns numpy (tokens fed (b, width),
+        emitted (b, width) bool, active (b,) bool, bad (b,) bool, mx (b,)
         float32, canary checks (b,) int32, divergences (b,) int32, max
         relative error (b,) float32, summed relative error (b,) float32),
-        read in one copy; without detectors or canaries their columns are
-        zeros."""
+        read in one copy, ``width`` the chunk's steps times the rows a step
+        (k+1 with ``spec=``); without detectors or canaries their columns are
+        zeros.  With speculation the chunk's accepted drafts and spec steps
+        come in the same copy and are added to the slots' counters."""
         self._dispatch(self._run_chunk, self._firing())
         packed = self._packed.cpu().numpy()
-        c, b = self.chunk, self.num_slots
-        col = 2 * c + 1
+        w, b = self._width, self.num_slots
+        col = 2 * w + 1
 
         def take(n):
             nonlocal col
@@ -887,11 +1034,17 @@ class Engine:
         bad, mx = (take(2).T if self._health is not None
                    else (np.zeros(b, np.int32), np.zeros(b, np.int32)))
         cc, cd, cmr, crs = take(4).T if self._canary is not None else (np.zeros(b, np.int32),) * 4
+        if self.spec is not None:
+            acc, steps = take(2).T
+            self._slot_spec_acc += acc
+            self._slot_spec_steps += steps
+            self._spec_acc_total += int(acc.sum())
+            self._spec_steps_total += int(steps.sum())
 
         def f32(bits):
             return np.ascontiguousarray(bits).view(np.float32)
 
-        return (packed[:, :c], packed[:, c:2 * c].astype(bool), packed[:, 2 * c].astype(bool),
+        return (packed[:, :w], packed[:, w:2 * w].astype(bool), packed[:, 2 * w].astype(bool),
                 bad.astype(bool), f32(mx), cc, cd, f32(cmr), f32(crs))
 
     def _slo_update(self, cc, cd, cmr, counters) -> None:
@@ -1041,6 +1194,7 @@ class Engine:
                     "promotions": 0}
         t0 = time.perf_counter()
         decode_chunks = 0
+        spec0 = (self._spec_acc_total, self._spec_steps_total)
         peak_queue_depth = len(queue)
         queue_depth_sum = 0
         queue_depth_samples = 0
@@ -1055,6 +1209,9 @@ class Engine:
                              canary_checks=int(self._slot_canary_checks[slot]),
                              canary_divergences=int(self._slot_canary_div[slot]),
                              unit_trips=tuple(self._slot_events[slot]))
+            if slot is not None and self.spec is not None:
+                audit.update(spec_steps=int(self._slot_spec_steps[slot]),
+                             spec_accepted=int(self._slot_spec_acc[slot]))
             done[req.uid] = Completion(uid=req.uid, prompt_len=len(req.prompt),
                                        tokens=np.asarray(tokens, np.int32),
                                        arrival_s=req.arrival_s, admitted_s=admitted_s,
@@ -1196,6 +1353,14 @@ class Engine:
             **counters,
             **{f"n_{s}": sum(c.status == s for c in done.values()) for s in STATUSES},
         }
+        if self.spec is not None:
+            acc = self._spec_acc_total - spec0[0]
+            steps = self._spec_steps_total - spec0[1]
+            # drafts accepted a spec step (0..k), and as a share of the
+            # drafts proposed (0..1)
+            self.stats.update(spec_steps=steps, spec_accepted=acc,
+                              accepted_per_step=acc / max(steps, 1),
+                              acceptance_rate=acc / max(steps * self.spec.k, 1))
         return done
 
     def _emit_telemetry(self, now, depth, tokens, tok_s, cc, cd, cmr):

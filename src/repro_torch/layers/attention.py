@@ -27,7 +27,10 @@ __all__ = [
     "attention_train",
     "attention_prefill",
     "attention_decode",
+    "attention_verify",
+    "gather_verify_lines",
     "init_kv_cache",
+    "verify_cache_commit",
 ]
 
 NEG_INF = -2.0e38
@@ -49,17 +52,17 @@ class Attention(nn.Module):
             self.k_norm = parameter((hd,), dtype, device)
 
 
-def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk") as one contiguous matmul."""
+def _project(x: torch.Tensor, w: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") as one contiguous matmul (``mm``)."""
     b, s, d = x.shape
-    return (x @ w.to(x.dtype).reshape(d, -1)).view(b, s, w.shape[1], w.shape[2])
+    return mm(x, w.to(x.dtype).reshape(d, -1)).view(b, s, w.shape[1], w.shape[2])
 
 
 def _project_qkv(p: Attention, cfg, xq, xkv, q_positions, kv_positions, *, use_rope,
-                 fused_norm=True, norm_levels=None):
-    q = _project(xq, p.wq)
-    k = _project(xkv, p.wk)
-    v = _project(xkv, p.wv)
+                 fused_norm=True, norm_levels=None, mm=torch.matmul):
+    q = _project(xq, p.wq, mm)
+    k = _project(xkv, p.wk, mm)
+    v = _project(xkv, p.wv, mm)
     if cfg.qk_norm:
         q = rmsnorm_cfg(p.q_norm, q, cfg, fused=fused_norm, levels=norm_levels)
         k = rmsnorm_cfg(p.k_norm, k, cfg, fused=fused_norm, levels=norm_levels)
@@ -72,10 +75,10 @@ def _project_qkv(p: Attention, cfg, xq, xkv, q_positions, kv_positions, *, use_r
     return q, k, v
 
 
-def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+def _out_proj(out: torch.Tensor, wo: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
     """einsum("bshk,hkd->bsd")."""
     b, s, h, hd = out.shape
-    return out.reshape(b, s, h * hd) @ wo.to(out.dtype).reshape(h * hd, -1)
+    return mm(out.reshape(b, s, h * hd), wo.to(out.dtype).reshape(h * hd, -1))
 
 
 def _mask(mode, q_pos, kv_pos, window):
@@ -341,7 +344,6 @@ def attention_decode(p: Attention, cfg, x, cache, pos, *, window: Optional[int] 
     if s != 1:
         raise ValueError(f"attention_decode takes one token per row, got {s}")
     cache_len = _plane(cache["k"], layer_idx).shape[1]
-    quantized = cache["k"].dtype == torch.int8
     if isinstance(pos, torch.Tensor) and pos.ndim == 0:
         pos = int(pos)
     per_slot = isinstance(pos, torch.Tensor)
@@ -356,17 +358,29 @@ def attention_decode(p: Attention, cfg, x, cache, pos, *, window: Optional[int] 
     q, k_new, v_new = _project_qkv(p, cfg, x, x, rope_pos, rope_pos, use_rope=cfg.pos == "rope",
                                    norm_levels=norm_levels)
 
+    pos_b = pos if per_slot else torch.full((b,), pos, dtype=torch.int32, device=x.device)
+    out = _write_and_attend(cfg, cache, q[:, 0], k_new[:, 0], v_new[:, 0], pos_b, slot,
+                            window=window, layer_idx=layer_idx, kernel=kernel)
+    return _out_proj(out[:, None], p.wo), cache
+
+
+def _write_and_attend(cfg, cache, q, k_new, v_new, pos_b, slot, *, window, layer_idx, kernel):
+    """One decode step's cache write and attention: land each row's token
+    line (k_new/v_new (b, kv, hd); an int8 cache quantizes it first) at
+    ``slot`` in place, then attend q (b, h, hd) over the cache at the
+    per-row positions ``pos_b`` ((b,) int32).  ``kernel`` as in
+    :func:`attention_decode`.  Returns (b, h, hd)."""
     k_scale = v_scale = None
-    if quantized:
-        kq, ks = _quantize_kv(k_new[:, 0])
-        vq, vs = _quantize_kv(v_new[:, 0])
+    if cache["k"].dtype == torch.int8:
+        kq, ks = _quantize_kv(k_new)
+        vq, vs = _quantize_kv(v_new)
         for name, new in (("k", kq), ("v", vq), ("k_scale", ks), ("v_scale", vs)):
             _write_line(cache[name], new, slot, layer_idx)
         k_scale = _plane(cache["k_scale"], layer_idx)  # (b, t, kv)
         v_scale = _plane(cache["v_scale"], layer_idx)
     else:
-        _write_line(cache["k"], k_new[:, 0], slot, layer_idx)
-        _write_line(cache["v"], v_new[:, 0], slot, layer_idx)
+        _write_line(cache["k"], k_new, slot, layer_idx)
+        _write_line(cache["v"], v_new, slot, layer_idx)
     k = _plane(cache["k"], layer_idx)
     v = _plane(cache["v"], layer_idx)
 
@@ -378,7 +392,102 @@ def attention_decode(p: Attention, cfg, x, cache, pos, *, window: Optional[int] 
     # None (inline) and "reference" are the same plain block: the per-row
     # validity mask from pos fed to _fold_masked_attention
     fn = attn_kernel.decode_attention if kernel == "fused" else attn_kernel.ref_decode_attention
-    pos_b = pos if per_slot else torch.full((b,), pos, dtype=torch.int32, device=x.device)
-    out = fn(q[:, 0], k, v, pos_b, k_scale, v_scale, scale=cfg.d_head**-0.5,
-             wrap=bool(window))[:, None]
-    return _out_proj(out, p.wo), cache
+    return fn(q, k, v, pos_b, k_scale, v_scale, scale=cfg.d_head**-0.5, wrap=bool(window))
+
+
+# ---------------------------------------------------------------------------
+# Speculative decode: a verify block of k+1 rows, then commit or roll back
+# ---------------------------------------------------------------------------
+
+
+def _verify_slots(pos, sq, cache_len):
+    """(b, sq) ring slots ``(pos + j) % cache_len`` of a verify block's rows."""
+    offs = torch.arange(sq, dtype=torch.int32, device=pos.device)
+    return ((pos.to(torch.int32)[:, None] + offs[None, :]) % cache_len).long()
+
+
+def gather_verify_lines(cache, pos, sq: int, *, stacked: bool = False) -> dict:
+    """The lines (and int8 scales) a verify block of ``sq`` rows will
+    overwrite, copied out before anything of the step writes: per buffer
+    ``(b, sq, ...)`` at the ring slots ``(pos + j) % cache_len``, or
+    ``(L, b, sq, ...)`` for a stacked cache (every layer plane in one
+    gather).  :func:`verify_cache_commit` writes them back over the
+    rejected rows.  pos: (b,) int tensor."""
+    t_axis = 2 if stacked else 1
+    cache_len = cache["k"].shape[t_axis]
+    slots = _verify_slots(pos, sq, cache_len)
+    rows = torch.arange(slots.shape[0], device=slots.device)[:, None]
+    return {name: buf[:, rows, slots] if stacked else buf[rows, slots]
+            for name, buf in cache.items()}
+
+
+def attention_verify(p: Attention, cfg, x, cache, pos, *, window: Optional[int] = None,
+                     layer_idx=None, kernel: Optional[str] = None, norm_levels=None, mm=None):
+    """Draft-verify attention over a block of ``sq`` rows a slot (the
+    reference's ``attention_verify``), written IN PLACE as the sequential
+    steps would write it.
+
+    x: (b, sq, d), row ``j`` the token a slot feeds at ``pos[b] + j``; pos:
+    (b,) int tensor.  The projections, qk-norms and RoPE run once over all
+    ``b * sq`` rows (``mm`` the projection product, default ``@``; see
+    ``layers.rowwise``); RoPE's tables are built a row at a time, at the
+    sequential step's shape.  Then for ``j = 0..sq-1`` in turn row ``j``'s
+    line lands at its ring slot ``(pos + j) % cache_len`` and query row
+    ``j`` attends through :func:`_write_and_attend`, the sequential step's
+    own write and decode-attention launch (at the pool's ``b``).  So row
+    ``j`` reads exactly the cache the sequential step at ``pos + j`` reads
+    after feeding rows ``0..j-1``, and its output is that step's, bit for
+    bit, wherever the batched projections give each row the bits of the
+    ``b``-row product.  Every row's line stays written: copy the old lines
+    out first (:func:`gather_verify_lines`) and roll back the rejected rows
+    with :func:`verify_cache_commit`.  Needs ``sq <= cache_len`` (distinct
+    slots in a block).  Returns (out (b, sq, d), cache)."""
+    mm = torch.matmul if mm is None else mm
+    b, sq, _ = x.shape
+    cache_len = _plane(cache["k"], layer_idx).shape[1]
+    if sq > cache_len:
+        raise ValueError(f"verify block of {sq} rows exceeds cache_len {cache_len}; "
+                         f"speculation needs k+1 <= window for sliding-window layers")
+    pos = pos.to(device=x.device, dtype=torch.int32)
+    posr = pos[:, None] + torch.arange(sq, dtype=torch.int32, device=x.device)[None, :]
+    q, k_new, v_new = _project_qkv(p, cfg, x, x, None, None, use_rope=False,
+                                   norm_levels=norm_levels, mm=mm)
+    if cfg.pos == "rope":
+        tables = [rope_tables(posr[:, j:j + 1], q.shape[-1], theta=cfg.rope_theta)
+                  for j in range(sq)]
+        cos = torch.cat([c for c, _ in tables], dim=1)
+        sin = torch.cat([s for _, s in tables], dim=1)
+        q, k_new = rotate(q, cos, sin), rotate(k_new, cos, sin)
+    outs = []
+    for j in range(sq):
+        pj = posr[:, j].contiguous()
+        outs.append(_write_and_attend(cfg, cache, q[:, j].contiguous(), k_new[:, j], v_new[:, j],
+                                      pj, (pj % cache_len).long(), window=window,
+                                      layer_idx=layer_idx, kernel=kernel))
+    return _out_proj(torch.stack(outs, dim=1), p.wo, mm), cache
+
+
+def verify_cache_commit(cache, old: dict, pos, n_commit, *, stacked: bool = False):
+    """Commit the accepted prefix of a verify block (the reference's
+    ``verify_cache_commit``): rows ``j < n_commit[b]`` keep the lines
+    :func:`attention_verify` wrote, the rejected rows get the lines ``old``
+    held (from :func:`gather_verify_lines`, taken before the step wrote),
+    bit for bit, in place.  The cache then equals the sequential loop's fed
+    only the accepted tokens; ``n_commit = 0`` restores the pre-step cache.
+    pos, n_commit: (b,) int tensors.  Returns ``cache``."""
+    t_axis = 2 if stacked else 1
+    cache_len = cache["k"].shape[t_axis]
+    b, sq = old["k"].shape[t_axis - 1], old["k"].shape[t_axis]
+    slots = _verify_slots(pos, sq, cache_len)
+    rows = torch.arange(b, device=slots.device)[:, None]
+    offs = torch.arange(sq, dtype=torch.int32, device=slots.device)
+    keep = offs[None, :] < n_commit.to(torch.int32)[:, None]  # (b, sq)
+    for name, o in old.items():
+        buf = cache[name]
+        lead = (1,) if stacked else ()
+        kb = keep.reshape(lead + (b, sq) + (1,) * (o.ndim - 2 - len(lead)))
+        if stacked:
+            buf[:, rows, slots] = torch.where(kb, buf[:, rows, slots], o)
+        else:
+            buf[rows, slots] = torch.where(kb, buf[rows, slots], o)
+    return cache

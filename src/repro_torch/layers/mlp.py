@@ -26,12 +26,14 @@ class MLP(nn.Module):
         self.wo = parameter((f, d), dtype, device)
 
 
-def mlp_apply(p: MLP, cfg, x: torch.Tensor) -> torch.Tensor:
+def mlp_apply(p: MLP, cfg, x: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
+    """The block over x (..., d); ``mm`` is the product (a speculative
+    verify passes ``layers.rowwise.matmul``)."""
     dt = x.dtype
     if cfg.mlp_act == "swiglu":
-        g = x @ p.wi_gate.to(dt)
-        u = x @ p.wi_up.to(dt)
-        return (torch.nn.functional.silu(g) * u) @ p.wo.to(dt)
-    h = x @ p.wi_up.to(dt) + p.bi.to(dt)
+        g = mm(x, p.wi_gate.to(dt))
+        u = mm(x, p.wi_up.to(dt))
+        return mm(torch.nn.functional.silu(g) * u, p.wo.to(dt))
+    h = mm(x, p.wi_up.to(dt)) + p.bi.to(dt)
     h = torch.nn.functional.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-    return h @ p.wo.to(dt) + p.bo.to(dt)
+    return mm(h, p.wo.to(dt)) + p.bo.to(dt)

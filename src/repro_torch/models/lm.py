@@ -17,6 +17,11 @@ Slot-pool serving (the continuous-batching engine's primitives):
     sample_tokens(logits, pos, keys, temperature, top_k)
     decode_slots_step / decode_slots_scan (health latches, shadow-exact canaries)
 
+Speculative decoding over the slot pool (greedy draft-and-verify):
+    gather_verify_lines / decode_verify_step / commit_verify_cache
+    draft_ngram(hist, tok, pos, k)
+    decode_slots_spec_step / decode_slots_spec_scan
+
 As in the reference, a uniform stack's cache is one dict of stacked
 ``(L, b, t, kv, hd)`` tensors, and a mixed stack's is a list of per-layer
 dicts ``(b, t, kv, hd)``, each layer's ``t`` its own (a window layer's ring
@@ -46,6 +51,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.faults import _M32, _mix32
 from repro_torch.device import resolve_device
 from repro_torch.layers import attention as attn
+from repro_torch.layers import rowwise
 from repro_torch.layers.mlp import MLP, mlp_apply
 from repro_torch.layers.norms import rmsnorm_cfg as _norm
 from repro_torch.layers.param import parameter, truncated_normal
@@ -54,7 +60,9 @@ from repro_torch.models.config import ModelConfig
 __all__ = ["LM", "init", "init_cache", "forward", "decode_step", "prefill", "generate_scan",
            "param_count", "init_pool_state", "pool_tensors", "slot_rows_like",
            "insert_cache_slots", "prefill_into_slots", "sample_tokens", "decode_slots_step",
-           "decode_slots_scan", "canary_steps", "exact_twin"]
+           "decode_slots_scan", "canary_steps", "exact_twin", "gather_verify_lines",
+           "decode_verify_step", "commit_verify_cache", "draft_ngram", "decode_slots_spec_step",
+           "decode_slots_spec_scan"]
 
 
 def act_dtype(cfg) -> torch.dtype:
@@ -202,9 +210,9 @@ def _window(cfg, block):
     return cfg.window if block == "window" else None
 
 
-def _logits(model: LM, cfg, x, levels=None):
+def _logits(model: LM, cfg, x, levels=None, mm=torch.matmul):
     x = _norm(model.ln_f, x, cfg, levels=levels)
-    logits = x @ model.unembed_matrix().to(x.dtype)
+    logits = mm(x, model.unembed_matrix().to(x.dtype))
     return logits[..., : cfg.vocab]
 
 
@@ -566,3 +574,263 @@ def decode_slots_scan(model: LM, cfg: ModelConfig, cache, tok, pos, active, rema
                           logits_hook=logits_hook, health=health, canary=i in fire,
                           canary_stats=stats)
     return (toks, emitted, tok, pos, active, remaining, cache) + (health or ()) + (stats or ())
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding: draft-and-verify over the slot pool
+# ---------------------------------------------------------------------------
+
+
+def _validate_spec_cfg(cfg: ModelConfig, *, what: str = "speculative decode"):
+    """Speculation covers the cache families whose verify rows are exact
+    (dense, ring and int8 KV): attention-only decoder stacks, no MoE routing
+    (sequence-level capacity couples the rows) and no recurrent state (an
+    SSM or RG-LRU step cannot be verified position-parallel)."""
+    bad = [b for b in cfg.blocks if b not in ("global", "window")]
+    if bad or cfg.moe is not None or cfg.kind != "decoder":
+        raise ValueError(f"{what} supports attention-only decoder LMs (dense/ring/int8 KV "
+                         f"caches); got kind={cfg.kind!r}, blocks={tuple(cfg.blocks)!r}, "
+                         f"moe={cfg.moe is not None}")
+
+
+def _validate_spec_k(cfg: ModelConfig, k: int) -> None:
+    """k >= 1, and a verify block of k+1 rows within every ring."""
+    if k < 1:
+        raise ValueError(f"speculation needs k >= 1 draft tokens, got k={k}")
+    if "window" in cfg.blocks and k + 1 > cfg.window:
+        raise ValueError(f"verify block k+1={k + 1} exceeds the sliding window ({cfg.window}); "
+                         f"pick k <= window - 1")
+
+
+def gather_verify_lines(cfg: ModelConfig, cache, pos: torch.Tensor, sq: int):
+    """Every layer's lines at the ring slots of a verify block of ``sq``
+    rows (``attention.gather_verify_lines``), taken before anything of the
+    step writes: a stacked dict for a uniform stack, a per-layer list for a
+    mixed one.  The rollback source of :func:`commit_verify_cache`."""
+    if isinstance(cache, list):
+        return [attn.gather_verify_lines(c, pos, sq) for c in cache]
+    return attn.gather_verify_lines(cache, pos, sq, stacked=True)
+
+
+@torch.no_grad()
+def decode_verify_step(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor,
+                       pos: torch.Tensor, *, unit_levels=None, old=None):
+    """One draft-verify forward over ``sq = k+1`` rows a slot (the
+    reference's ``decode_verify_step``).
+
+    tokens: (b, sq) integer, column 0 the token each slot feeds at ``pos``
+    ((b,) int tensor), the rest its drafts.  The embedding, norms, projections,
+    MLP and unembed run once over the ``b * sq`` rows (the projections
+    through ``layers.rowwise.matmul``); the attention runs row by row in
+    every layer (``attention.attention_verify``), so row ``j``'s logits are
+    the sequential :func:`decode_step`'s at ``pos + j`` after feeding rows
+    ``0..j-1``, bit for bit.  Unlike the reference, which leaves the cache
+    untouched, every row's line is written in place; ``old`` holds the lines
+    the rows overwrote (:func:`gather_verify_lines`, taken here unless the
+    caller took them earlier), and :func:`commit_verify_cache` rolls the
+    rejected rows back.  ``unit_levels`` as in :func:`decode_step`, for every
+    row of a slot.  Returns (logits (b, sq, vocab), old)."""
+    _validate_spec_cfg(cfg, what="decode_verify_step")
+    pos = pos.to(device=tokens.device, dtype=torch.int32)
+    if old is None:
+        old = gather_verify_lines(cfg, cache, pos, tokens.shape[1])
+    levels = _levels(cfg, unit_levels, tokens.device)
+    mm = rowwise.matmul
+    x = model.embed[tokens]
+    for i, (layer, block) in enumerate(zip(model.layers, cfg.blocks)):
+        c, idx = _layer_cache(cache, i)
+        h = _norm(layer.ln1, x, cfg, levels=levels)
+        h, _ = attn.attention_verify(layer.attn, cfg, h, c, pos, window=_window(cfg, block),
+                                     layer_idx=idx, norm_levels=levels, mm=mm)
+        x = x + h
+        x = x + mlp_apply(layer.mlp, cfg, _norm(layer.ln2, x, cfg, levels=levels), mm=mm)
+    return _logits(model, cfg, x, levels, mm=mm), old
+
+
+def commit_verify_cache(cfg: ModelConfig, cache, old, pos: torch.Tensor, n_commit: torch.Tensor):
+    """Commit the accepted prefix of a verify block in every layer, in place:
+    rows ``j < n_commit[b]`` keep their lines, the rest get ``old``'s back
+    (``attention.verify_cache_commit``).  Returns ``cache``."""
+    if isinstance(cache, list):
+        for c, o in zip(cache, old):
+            attn.verify_cache_commit(c, o, pos, n_commit)
+        return cache
+    return attn.verify_cache_commit(cache, old, pos, n_commit, stacked=True)
+
+
+def draft_ngram(hist: torch.Tensor, tok: torch.Tensor, pos: torch.Tensor, k: int) -> torch.Tensor:
+    """Self-drafting by prompt lookup: the ``k`` tokens that followed the
+    most recent earlier occurrence of ``tok`` in the slot's fed history.
+    hist: (b, H) int32, ``hist[p]`` the token fed at position ``p`` for
+    ``p < pos``; tok: (b,) the token about to be fed at ``pos``.  Draft
+    positions past the written history, and slots with no match, repeat
+    ``tok``.  Device ops only.  Returns (b, k) int32."""
+    b, H = hist.shape
+    idx = torch.arange(H, device=hist.device)
+    cand = (hist == tok[:, None]) & (idx[None, :] < pos[:, None])
+    p_star = torch.where(cand, idx[None, :], -1).amax(dim=1)  # (b,), -1: none
+    didx = p_star[:, None] + torch.arange(1, k + 1, device=hist.device)[None, :]
+    drafts = hist.gather(1, didx.clamp(0, H - 1))
+    usable = (p_star[:, None] >= 0) & (didx < pos[:, None])
+    return torch.where(usable, drafts, tok[:, None]).to(torch.int32)
+
+
+@torch.no_grad()
+def decode_slots_spec_step(model: LM, cfg: ModelConfig, pool: dict, hist: torch.Tensor,
+                           toks: torch.Tensor, emitted: torch.Tensor, i: int, *, k: int,
+                           counts, eos_id: Optional[int] = None, unit_levels=None,
+                           spec_disable=None, logits_hook=None, health=None,
+                           canary: bool = False, canary_stats=None, draft=None) -> None:
+    """One draft-and-verify step over ``pool`` (an :func:`init_pool_state`
+    dict), committing 1..k+1 tokens an active slot, greedy.
+
+    Each slot drafts ``k`` tokens (:func:`draft_ngram` over ``hist``, or
+    ``draft = (model, cfg, cache)``: k greedy :func:`decode_step` s of a
+    draft model), verifies the block ``[tok, drafts]`` in one
+    :func:`decode_verify_step`, accepts the longest prefix of drafts equal
+    to the verify's argmaxes (cumprod), truncated by the budget and by the
+    first EOS, and commits those rows (:func:`commit_verify_cache`).  The
+    block goes to ``toks[:, i*(k+1):(i+1)*(k+1)]`` and the commit mask to
+    the same columns of ``emitted``: the tokens FED, the sequential
+    convention.  ``hist`` gets the committed tokens (writes past its width
+    go to a dump column and are dropped); ``counts = (accepted, steps)``
+    ((b,) int32) add the drafts accepted and the active steps.
+
+    ``spec_disable`` ((b,) bool, demoted slots) clamps acceptance to 0: row
+    0 is the sequential step.  ``health`` latches over the committed rows
+    only; the canary (``canary``, as in :func:`decode_slots_step`) runs on
+    row 0 from the pre-step cache.  The rollback lines are gathered before
+    the canary's shadow and the drafting write, so a slot that commits
+    nothing (an inactive one) gets its pre-step lines back.  The draft
+    model drafts in place from lines it then restores, and lands the
+    committed rows through its own verify and commit.  In place, no host
+    read: a run of steps can be captured in a CUDA graph."""
+    tok, pos, active, remaining = pool["tok"], pool["pos"], pool["active"], pool["remaining"]
+    accepted, steps = counts
+    sq = k + 1
+    dev = tok.device
+    offs = torch.arange(sq, dtype=torch.int32, device=dev)
+    old = gather_verify_lines(cfg, pool["cache"], pos, sq)
+    if draft is not None:
+        dmodel, dcfg, dcache = draft
+        dold = gather_verify_lines(dcfg, dcache, pos, sq)
+        t, cols = tok, []
+        for j in range(k):
+            dlg, _ = decode_step(dmodel, dcfg, dcache, t, pos + j)
+            t = dlg[:, -1].argmax(dim=-1).to(torch.int32)[:, None]
+            cols.append(t)
+        drafts = torch.cat(cols, dim=1)
+        commit_verify_cache(dcfg, dcache, dold, pos, torch.zeros_like(pos))
+    else:
+        drafts = draft_ngram(hist, tok[:, 0], pos, k)
+    block = torch.cat([tok, drafts], dim=1)  # (b, sq)
+    if canary:
+        exact, _ = decode_step(model, exact_twin(cfg), pool["cache"], tok, pos)
+    logits, _ = decode_verify_step(model, cfg, pool["cache"], block, pos,
+                                   unit_levels=unit_levels, old=old)
+    lg = logits.float()
+    if logits_hook is not None:  # a row at a time, as the sequential steps see it
+        lg = torch.stack([logits_hook(lg[:, j].contiguous()) for j in range(sq)], dim=1)
+    out_tok = lg.argmax(dim=-1).to(torch.int32)  # (b, sq)
+
+    agree = (drafts == out_tok[:, :-1]).to(torch.int32)
+    acc = agree.cumprod(dim=1).sum(dim=1).to(torch.int32)
+    if spec_disable is not None:
+        acc = torch.where(spec_disable, 0, acc)
+    n_flow = torch.minimum(acc + 1, remaining.clamp_min(1))
+    if eos_id is not None:
+        is_eos = block == eos_id
+        first = is_eos.to(torch.int32).argmax(dim=1).to(torch.int32)
+        n_flow = torch.where(is_eos.any(dim=1), torch.minimum(n_flow, first + 1), n_flow)
+    n_commit = torch.where(active, n_flow, 0).to(torch.int32)
+    commit = offs[None, :] < n_commit[:, None]  # (b, sq)
+
+    if canary:
+        _canary_update(lg[:, 0], exact[:, -1].float(), active, canary_stats)
+    if health is not None:
+        bad, mx = health
+        bad |= (commit & ~torch.isfinite(lg).all(dim=-1)).any(dim=1)
+        row_mx = torch.where(commit, lg.abs().amax(dim=-1), 0.0).amax(dim=1)
+        torch.maximum(mx, row_mx, out=mx)
+
+    commit_verify_cache(cfg, pool["cache"], old, pos, n_commit)
+    if draft is not None:
+        decode_verify_step(dmodel, dcfg, dcache, block, pos, old=dold)
+        commit_verify_cache(dcfg, dcache, dold, pos, n_commit)
+    H = hist.shape[1]
+    hidx = torch.where(commit, pos[:, None] + offs[None, :], H).clamp(max=H).long()
+    landed = torch.cat([hist, hist.new_zeros((hist.shape[0], 1))], dim=1)
+    landed.scatter_(1, hidx, block)  # the dump column H takes the uncommitted rows
+    hist.copy_(landed[:, :H])
+
+    last = (n_commit - 1).clamp(0, k).long()[:, None]
+    nxt = out_tok.gather(1, last)
+    fed_last = block.gather(1, last)[:, 0]
+    toks[:, i * sq:(i + 1) * sq] = block
+    emitted[:, i * sq:(i + 1) * sq] = commit
+    remaining.sub_(n_commit)
+    still = active & (remaining > 0)
+    if eos_id is not None:
+        still &= fed_last != eos_id
+    pos.add_(n_commit)
+    tok.copy_(torch.where(active[:, None], nxt, tok))
+    accepted.add_((n_commit - 1).clamp_min(0))
+    steps.add_(active.to(torch.int32))
+    active.copy_(still)
+
+
+@torch.no_grad()
+def decode_slots_spec_scan(model: LM, cfg: ModelConfig, cache, tok, pos, active, remaining,
+                           hist, n_steps: int, *, k: int, eos_id: Optional[int] = None,
+                           with_health: bool = False, logits_hook=None, unit_levels=None,
+                           spec_disable=None, canary_stride: Optional[int] = None,
+                           canary_offset: int = 0, draft_model: Optional[LM] = None,
+                           draft_cfg: Optional[ModelConfig] = None, draft_cache=None):
+    """``n_steps`` of :func:`decode_slots_spec_step` (the reference's
+    ``decode_slots_spec_scan``): a Python loop with no host read.
+
+    tok (b, 1), pos, active, remaining, hist (b, H) int32 and the cache (and
+    ``draft_cache``) are updated IN PLACE.  Drafting is the n-gram lookup
+    unless ``draft_model``, ``draft_cfg`` and ``draft_cache`` are given
+    together.  ``spec_disable`` ((b,) bool) clamps acceptance to 0 for its
+    slots; ``unit_levels``, ``logits_hook``, ``with_health`` and the canary
+    (on row 0, at the spec steps whose lifetime index ``canary_offset + i``
+    is a multiple of ``canary_stride``) as in :func:`decode_slots_scan`.
+    Greedy only: acceptance compares argmaxes, so the emitted stream is
+    :func:`decode_slots_scan`'s, token for token.
+
+    Returns (toks (b, n_steps*(k+1)), emitted (b, n_steps*(k+1)) bool, tok,
+    pos, active, remaining, cache, hist, accepted (b,) int32 drafts
+    accepted, spec_steps (b,) int32 active steps), then ``draft_cache`` when
+    drafting with a model, then the health and canary extras of
+    :func:`decode_slots_scan`: the reference's order."""
+    _validate_spec_cfg(cfg)
+    _validate_spec_k(cfg, k)
+    use_draft = draft_model is not None
+    if use_draft:
+        if draft_cfg is None or draft_cache is None:
+            raise ValueError("draft-model speculation needs draft_model, draft_cfg and "
+                             "draft_cache together")
+        _validate_spec_cfg(draft_cfg, what="draft model")
+        if draft_cfg.vocab != cfg.vocab:
+            raise ValueError(f"draft vocab {draft_cfg.vocab} != target vocab {cfg.vocab}")
+    levels = _levels(cfg, unit_levels, tok.device)
+    pool = {"cache": cache, "tok": tok, "pos": pos, "active": active, "remaining": remaining}
+    b, dev, sq = tok.shape[0], tok.device, k + 1
+    toks = torch.zeros((b, n_steps * sq), dtype=torch.int32, device=dev)
+    emitted = torch.zeros((b, n_steps * sq), dtype=torch.bool, device=dev)
+    counts = tuple(torch.zeros(b, dtype=torch.int32, device=dev) for _ in range(2))
+    health = ((torch.zeros(b, dtype=torch.bool, device=dev),
+               torch.zeros(b, dtype=torch.float32, device=dev)) if with_health else None)
+    stats = (tuple(torch.zeros(b, dtype=dt, device=dev) for dt in (torch.int32, torch.int32,
+                                                                   torch.float32, torch.float32))
+             if canary_stride else None)
+    fire = canary_steps(n_steps, canary_stride, int(canary_offset))
+    draft = (draft_model, draft_cfg, draft_cache) if use_draft else None
+    for i in range(n_steps):
+        decode_slots_spec_step(model, cfg, pool, hist, toks, emitted, i, k=k, counts=counts,
+                               eos_id=eos_id, unit_levels=levels, spec_disable=spec_disable,
+                               logits_hook=logits_hook, health=health, canary=i in fire,
+                               canary_stats=stats, draft=draft)
+    out = (toks, emitted, tok, pos, active, remaining, cache, hist) + counts
+    return out + ((draft_cache,) if use_draft else ()) + (health or ()) + (stats or ())

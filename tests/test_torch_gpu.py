@@ -15,8 +15,10 @@ sums within 1e-6 relative of a float64 sum of the same assignments (the
 kernel's fixed-order tree) and within 1e-5 of the plain version (cuBLAS
 sums of up to 262,144 terms in its own order), bit-identical from run to
 run; adam bit-identical (p, m and v; one training step on the kernel route
-against the plain route too).  Only the order of float32 sums differs
-between a kernel and its plain version.
+against the plain route too); speculative verify rows bit-identical to the
+sequential steps, replayed spec chunks to eager ones, spec tokens to the
+plain engine's.  Only the order of float32 sums differs between a kernel
+and its plain version.
 """
 import numpy as np
 import pytest
@@ -1171,3 +1173,120 @@ def test_slo_none_keeps_the_plain_chunk(cuda_device, monkeypatch):
     counts = {k: v for k, v in dispatch.launch_counts().items() if v}
     assert counts == {"rmsnorm": (4 * cfg.n_layers + 1) * eng.chunk,
                       "decode_attention": cfg.n_layers * eng.chunk}
+
+
+# ---------------------------------------------------------------------------
+# Speculative decoding on the card
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("arch,act_dtype,quantized", _ENGINE_CASES)
+def test_verify_rows_equal_sequential_steps_on_the_card(cuda_device, arch, act_dtype, quantized):
+    """A verify block of 4 rows on three slots (positions 5, 11, 12: past
+    gemma3-1b's window of 8, so its rings wrap inside the block): row j's
+    logits bit-identical to the sequential step at pos + j, through
+    ``decode_attention`` (4 launches a layer, at the pool's 3 rows), the
+    cache after an all-row commit the sequential loop's, and after a
+    zero-row commit the pre-step cache, bit for bit."""
+    cfg = get_smoke_config(arch, act_dtype=act_dtype, sqrt_unit="e2afs", decode_kernel="fused")
+    model = lm.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
+    b, sq, plens = 3, 4, (5, 11, 12)
+    cache = lm.init_cache(cfg, b, 40, quantized=quantized, device=cuda_device)
+    rng = np.random.default_rng(2)
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=cuda_device)
+    for slot, s in enumerate(plens):
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, s))).to(cuda_device)
+        logits, _ = lm.prefill_into_slots(model, cfg, cache, prompt,
+                                          torch.tensor([slot], device=cuda_device))
+        tok[slot] = logits[0, -1].argmax().to(torch.int32)
+    pos = torch.tensor(plens, dtype=torch.int32, device=cuda_device)
+    before = [t.clone() for t in lm._cache_leaves(cache)]
+    seq = lm.slot_rows_like(cfg, cache, b)
+    for dst, src in zip(lm._cache_leaves(seq), before):
+        dst.copy_(src)
+    fed, seq_logits, t = [tok], [], tok
+    for j in range(sq):
+        lg, _ = lm.decode_step(model, cfg, seq, t, pos + j)
+        seq_logits.append(lg[:, -1])
+        t = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        fed.append(t)
+    block = torch.cat(fed[:sq], dim=1)
+    dispatch.reset_launch_counts()
+    vlogits, old = lm.decode_verify_step(model, cfg, cache, block, pos)
+    torch.cuda.synchronize()
+    assert dispatch.launch_counts()["decode_attention"] == cfg.n_layers * sq
+    for j in range(sq):
+        assert _same_bits(vlogits[:, j], seq_logits[j]), j
+    assert _pool_bits_equal(lm._cache_leaves(cache), lm._cache_leaves(seq))
+    lm.commit_verify_cache(cfg, cache, old, pos, torch.zeros_like(pos))
+    assert _pool_bits_equal(lm._cache_leaves(cache), before)
+
+
+def _spec_engine(dev, arch, act_dtype, quantized, draft, **kw):
+    """``_engine``'s pool with speculation at k = 3: n-gram drafting, or a
+    draft model of the same config with other weights."""
+    from repro_torch.launch.engine import SpecConfig
+
+    if draft:
+        cfg = get_smoke_config(arch, act_dtype=act_dtype, sqrt_unit="e2afs",
+                               decode_kernel="fused")
+        dmodel = lm.init(cfg, torch.Generator(device=dev).manual_seed(1), device=dev)
+        kw["draft_model"] = (dmodel, cfg)
+    return _engine(dev, arch, act_dtype, quantized,
+                   spec=SpecConfig(k=3, draft="model" if draft else "ngram"), **kw)
+
+
+_SPEC_CASES = [(arch, act_dtype, quantized, False) for arch, act_dtype, quantized in _ENGINE_CASES
+               ] + [("qwen3-4b", "bfloat16", False, True), ("gemma3-1b", "bfloat16", False, True)]
+
+
+@pytest.mark.parametrize("arch,act_dtype,quantized,draft", _SPEC_CASES)
+def test_graphed_spec_chunk_equals_the_eager_chunk(cuda_device, arch, act_dtype, quantized,
+                                                   draft):
+    """From one pool state, a replay of the captured speculative chunk and
+    the same chunk run eagerly give bit-identical pool tensors, history,
+    draft cache and packed buffer (tokens and emission bits of chunk * 4
+    columns, the accepted drafts and spec steps); the verify runs
+    ``decode_attention`` k+1 times a layer a step, and with a draft model
+    k + k+1 times a draft layer more."""
+    cfg, eng = _spec_engine(cuda_device, arch, act_dtype, quantized, draft)
+    eng.warmup(prompt_lens={3, 5, 12})
+    assert list(eng._graphs) == [()]
+    for slot, req in enumerate(_trace(cfg)[:3]):
+        eng._admit(req, slot, 0.0)
+    state = lm.pool_tensors(eng.pool) + eng._spec_tensors()
+    start = [t.clone() for t in state]
+
+    def chunk(run):
+        for t, s0 in zip(state, start):
+            t.copy_(s0)
+        dispatch.reset_launch_counts()
+        run()
+        torch.cuda.synchronize()
+        return [t.clone() for t in state] + [eng._packed.clone()], dispatch.launch_counts()
+
+    eager, eager_counts = chunk(eng._chunk_eager)
+    graphed, graph_counts = chunk(eng._decode_chunk)
+    assert _pool_bits_equal(graphed, eager)
+    assert graph_counts == eager_counts
+    per_step = cfg.n_layers * 4 + (cfg.n_layers * (3 + 4) if draft else 0)
+    assert eager_counts["decode_attention"] == eng.chunk * per_step
+    assert eng._packed.shape[1] == 2 * eng.chunk * 4 + 1 + 2 + 2
+    assert int(eng._packed[:, -1].sum()) > 0  # spec steps ran
+
+
+@pytest.mark.parametrize("arch,act_dtype,quantized,draft", _SPEC_CASES)
+def test_spec_engine_equals_the_plain_engine_on_the_card(cuda_device, arch, act_dtype,
+                                                         quantized, draft):
+    """Five requests through three slots (staggered admissions, reused
+    slots, rings past the window, a late arrival): the speculative engine
+    serves the plain engine's tokens, and counts its steps and drafts."""
+    cfg, eng = _spec_engine(cuda_device, arch, act_dtype, quantized, draft)
+    _, plain = _engine(cuda_device, arch, act_dtype, quantized)
+    lens = {3, 4, 5, 8, 12}
+    eng.warmup(prompt_lens=lens)
+    plain.warmup(prompt_lens=lens)
+    done, want = eng.run(_trace(cfg)), plain.run(_trace(cfg))
+    for uid, c in want.items():
+        np.testing.assert_array_equal(done[uid].tokens, c.tokens)
+    assert eng.stats["spec_steps"] > 0 and 0.0 <= eng.stats["acceptance_rate"] <= 1.0
