@@ -7,7 +7,8 @@
 Phases, one line or more each; any failure makes the run exit non-zero:
 
 0. the card's name and power limit; builds the CUDA kernels from
-   ``src/repro_torch/csrc`` and prints nvcc's ``-Xptxas -v`` report;
+   ``src/repro_torch/csrc`` and prints nvcc's ``-Xptxas -v`` report, then
+   each decode-attention instantiation's registers and spills from it;
 1. e2afs sqrt/rsqrt kernel vs its plain version: bit-identical (NaN as NaN)
    over every fp16 and bf16 pattern and the fp32 grid, plus the paper's
    Table 2 example (0x785A -> 0 10110 1000100001); the lean sqrt of the
@@ -21,7 +22,8 @@ Phases, one line or more each; any failure makes the run exit non-zero:
 3. decode-attention kernel vs plain version at the serving widths, bf16 and
    fp32, float and int8 caches, wrap off and on, mixed per-row positions,
    t = 576 and 4096, and at gemma3-1b's (one KV head of 4 query heads,
-   head_dim 256, t = 512 and 2112), two calls bit-identical;
+   head_dim 256, t = 512 and 2112) and phase 16's groups (12 and 16 query
+   heads on 4 KV heads, 6 on 8, head_dim 128), two calls bit-identical;
 4. the main paths, each with the launch counts set to 0 just before and read
    just after: (a) qwen3-4b at full width serving batch 8 (prompt 512, 64
    greedy tokens, cache 576) on the kernels, held against the same weights
@@ -43,7 +45,9 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    device time per call (torch.profiler) and with CUDA events around
    back-to-back calls, beside the kernel's bound; RMSNorm also at every
    serving shape of phase 2 in bf16 beside F.rms_norm, and decode attention
-   also at t = 4096 beside SDPA, both at gemma3-1b's shapes as well; the e2afs kernel in float32, fp16 and bf16
+   also at t = 4096 beside SDPA, both at gemma3-1b's shapes as well, and
+   decode attention at G = 12, 6 and 16 (t = 576, b = 8, bf16) beside its
+   plain version, SDPA and the byte bound; the e2afs kernel in float32, fp16 and bf16
    at the unit path's 10,485,760 elements, each call on a rotation of
    inputs and outputs over four times the L2, beside its first design;
 6. times four full-width decode steps without and then under the profiler:
@@ -169,6 +173,26 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    13a's first 8 requests, token-identical to 13a's, the draft model's
    launches counted; (i) the same on phase 4d's gemma3-1b with 13b's shape
    and 12 requests (the 512-line rings wrap and roll back), n-gram at k = 4.
+
+16. the other families, run after 15i, one model on the card at a time
+   (freed before the next; each sub-phase's peak memory printed), each
+   with the counts set to 0 just before its main path and read just after:
+   (a) starcoder2-15b at full width and depth (LayerNorm, GELU MLP, 12
+   query heads a KV head), e2afs, batch 8, prompt 512, 64 greedy tokens,
+   cache 576, held to phase 4a's contract against the same weights on the
+   plain versions (81 x 65 e2afs_rsqrt launches, one a LayerNorm; 40 x 64
+   decode attention; no RMSNorm), prefill ms and ms a step beside the
+   weight-read floor; then an ``Engine`` at 13a's shape and draw: a replay
+   bit-identical to the eager chunk, its profile, the trace's launches, 8
+   requests token-identical each alone in the pool, makespan and tok/s;
+   (b) mixtral-8x22b at full width cut to 4 layers (8 experts of which 2,
+   a window stack of 576-line rings) and (c) qwen3-moe-235b-a22b cut to 4
+   layers (128 experts of which 8, qk-norm), the same contract held on one
+   routing (the plain versions take the kernel route's expert choices; the
+   flips of their own routing are printed), the prefill's drops and expert
+   load, and for (c) 13a's engine; (d) internvl2-76b at full width cut to 2
+   layers: ``forward`` over 1024 vision and 512 text tokens, batch 2, its
+   5 e2afs_rsqrt launches counted, logits within 4 ulps of the plain route.
 
 Before the last line it prints the card's name and power limit and one JSON
 line of kernels; the last line is ``{"ok": true, "device": {...}}``.  Without
@@ -330,6 +354,41 @@ def sass_per_pair(lib):
     return pairs, {op: c / pairs for op, c in sorted(collections.Counter(best).items())}
 
 
+def ptxas_summary(log):
+    """Registers and spills of each decode_attention_kernel instantiation,
+    read from nvcc's -Xptxas -v report: [{"kernel": "T, KV, G, NV", ...}]."""
+    import re
+
+    section = log.split("== nvcc decode_attention.cu", 1)[-1].split("== nvcc ", 1)[0]
+    names = {"13__nv_bfloat16": "bf16", "f": "f32", "a": "int8"}
+    rows, current = [], None
+    for line in section.splitlines():
+        m = re.search(r"Function properties for (\S*decode_attention_kernel\S*)", line)
+        if m:
+            t = re.search(r"decode_attention_kernelI(13__nv_bfloat16|f)(S\d*_|13__nv_bfloat16|f|a)"
+                          r"Li(\d+)ELi(\d+)E", m.group(1))
+            if t:  # a substitution (S<n>_) repeats T
+                kv = t.group(1) if t.group(2).startswith("S") else t.group(2)
+                current = {"kernel": f"{names[t.group(1)]}, {names.get(kv, kv)}, G={t.group(3)}, "
+                                     f"NV={t.group(4)}"}
+                rows.append(current)
+            else:
+                current = None
+            continue
+        if current is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", line)
+        if m:
+            current.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                           spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            current["registers"] = int(m.group(1))
+            current = None
+    return [r for r in rows if "registers" in r]
+
+
 def ulp_of(r):
     """One unit in the last place of each element of r, in r's own dtype."""
     import torch
@@ -388,6 +447,7 @@ class Smoke:
         self.anchor = None  # phase 15a's requests and tokens
         self.engine_runs = {}  # phases 13a's and 13b's traces, tokens and replayed ms a step
         self.spec_routes, self.spec_runs = {}, {}  # phases 15h/15i: GEMM routes, spec steps
+        self.family = {}  # phase 16: serving numbers by model
 
     # -- helpers -----------------------------------------------------------
     def phase(self, name, fn):
@@ -503,6 +563,12 @@ class Smoke:
         report = _build.build()
         print(report.log)
         print(f"build: {report.seconds:.1f} s into {report.directory}")
+        self.rows["decode_attention"]["ptxas"] = rows = ptxas_summary(report.log)
+        print("decode_attention instantiations (T, KV, G, NV): registers, spill stores/loads "
+              "bytes, from the -Xptxas -v report above:")
+        for r in rows:
+            print(f"  {r['kernel']}: {r['registers']} registers, {r['spill_stores']} / "
+                  f"{r['spill_loads']} bytes spilled, {r['stack']} bytes stack")
 
     # -- phase 1 -----------------------------------------------------------
     def p1_e2afs(self):
@@ -683,6 +749,29 @@ class Smoke:
                                      **ops.plan(*args[:2])))
                         self.check_attention(y, r, dtype, f"gemma3-1b kv=1 g=4 hd=256 t={t:5d} "
                                              f"int8={quant!s:5s} wrap={wrap!s:5s}{split}")
+        # the groups of phase 16's models at hd 128: starcoder2-15b's 12 and
+        # qwen3-moe-235b-a22b's 16 query heads on 4 KV heads, mixtral-8x22b's
+        # 6 on 8 (G = 6 and 12 shuffle each head, 16 halves them)
+        b, hd = (4, 32) if self.rehearsal else (8, 128)
+        for g, kv in ((12, 4), (6, 8), (16, 4)):
+            for dtype in (torch.bfloat16, torch.float32):
+                for t in lengths:
+                    for quant in (False, True):
+                        for wrap in (False, True):
+                            args = self.attn_inputs(b, g * kv, kv, hd, t, dtype, quant,
+                                                    t + g + quant)
+                            r = ops.ref_decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                            y = ops.decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                            again = ops.decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                            self.sync()
+                            if not torch.equal(y, again):
+                                raise AssertionError("decode attention: two calls differ")
+                            split = ("" if self.rehearsal else
+                                     " (S={chunks} of {chunk_lines} lines, {slots} slots a "
+                                     "launch)".format(**ops.plan(*args[:2])))
+                            self.check_attention(y, r, dtype, f"kv={kv} g={g:2d} hd={hd} "
+                                                 f"t={t:5d} int8={quant!s:5s} "
+                                                 f"wrap={wrap!s:5s}{split}")
 
     def check_attention(self, y, r, dtype, label):
         torch = self.torch
@@ -2349,6 +2438,53 @@ class Smoke:
                   f"call: kernel {at['ms']}, plain {at['plain_ms']}, SDPA {at['library_ms']}; "
                   f"events ms: kernel {at['events_ms']}; bound {bnd[0]:.6f} ms ({bnd[1]})")
 
+        # phase 16's groups at t = 576, b = 8, bf16, every line live: the
+        # kernel, its plain version and SDPA beside the byte bound
+        self.rows["decode_attention"]["wide_groups"] = []
+        b, hd, t = (2, 32, 24) if self.rehearsal else (8, 128, 576)
+        for model_name, g, kv in (("starcoder2-15b", 12, 4), ("mixtral-8x22b", 6, 8),
+                                  ("qwen3-moe-235b-a22b", 16, 4)):
+            h = g * kv
+            pos = torch.full((b,), t - 1, dtype=torch.int32, device=self.dev)
+            cache_bytes = 2 * b * t * kv * hd * 2
+            copies = 1 if self.rehearsal else max(1, -(-100_000_000 // cache_bytes))
+            sets = [self.attn_inputs(b, h, kv, hd, t, torch.bfloat16, False, 50 + i, pos=pos)
+                    for i in range(copies)]
+            it = {"i": 0}
+
+            def rotating(fn, sets=sets, it=it):
+                def call():
+                    a = sets[it["i"] % len(sets)]
+                    it["i"] += 1
+                    return fn(a)
+                return call
+
+            mask = torch.ones(b, 1, 1, t, dtype=torch.bool, device=self.dev)
+
+            def sdpa(a, mask=mask):
+                return F.scaled_dot_product_attention(a[0][:, :, None], a[1].transpose(1, 2),
+                                                      a[2].transpose(1, 2), attn_mask=mask,
+                                                      enable_gqa=True)
+
+            nbytes = (b * h * hd * 2) * 2 + cache_bytes + b * 4
+            bnd = bound(nbytes, 4 * b * h * t * hd, "bfloat16")
+            at = {"model": model_name, "g": g, "kv": kv, "b": b, "t": t, "hd": hd,
+                  "bound_ms": bnd[0], "bound_by": bnd[1],
+                  "ms": self.device_ms(rotating(
+                      lambda a: attn_ops.decode_attention(*a, scale=hd**-0.5))),
+                  "plain_ms": self.device_ms(rotating(
+                      lambda a: attn_ops.ref_decode_attention(*a, scale=hd**-0.5))),
+                  "library_ms": self.device_ms(rotating(sdpa))}
+            if not self.rehearsal:
+                plan = attn_ops.plan(sets[0][0], sets[0][1])
+                at.update(chunks=plan["chunks"], chunk_lines=plan["chunk_lines"])
+            self.rows["decode_attention"]["wide_groups"].append(at)
+            share = f"{bnd[0] / at['ms']:.3f}" if at["ms"] else "not measured"
+            print(f"  decode_attention {model_name} b={b} h={h} kv={kv} hd={hd} t={t} bfloat16 "
+                  f"(g={g}, {copies} cache copies, S={at.get('chunks')}): device ms per call: "
+                  f"kernel {at['ms']}, plain {at['plain_ms']}, SDPA {at['library_ms']}; bound "
+                  f"{bnd[0]:.6f} ms ({bnd[1]}); bound / kernel {share}")
+
         # sobel: a 2160 x 3840 frame.  No PyTorch call computes the E2AFS
         # magnitude: library_ms is None, and F.conv2d + torch.sqrt (another
         # function) is printed as a near-yardstick only.
@@ -2669,6 +2805,387 @@ class Smoke:
                                  f"{len(sub)} identical")
         if not self.rehearsal and any(counts[n] != v for n, v in want.items()):
             raise AssertionError(f"launch counts {counts}, want {want}")
+
+    # -- phase 16: the LayerNorm, MoE and vision families ------------------
+    def p16a_starcoder2(self):
+        """starcoder2-15b at full width and depth (LayerNorm, GELU MLP, 12
+        query heads a KV head) on the kernels, held to phase 4a's contract
+        against the plain versions; then an ``Engine`` at phase 13a's
+        shape and draw."""
+        from repro_torch.configs import get_config, get_smoke_config
+
+        kw = dict(sqrt_unit="e2afs", decode_kernel="fused")
+        cfg = (get_smoke_config if self.rehearsal else get_config)("starcoder2-15b", **kw)
+        self.family_phase(cfg, engine=True)
+
+    def p16b_mixtral(self):
+        """mixtral-8x22b at full width cut to 4 layers (8 experts of which 2,
+        a uniform window stack: rings of min(576, 4096) lines): phase 4a's
+        contract, the prefill's drops and expert load."""
+        from repro_torch.configs import get_config, get_smoke_config
+
+        kw = dict(sqrt_unit="e2afs", decode_kernel="fused")
+        cfg = (get_smoke_config("mixtral-8x22b", **kw) if self.rehearsal else
+               get_config("mixtral-8x22b", n_layers=4, **kw))
+        self.family_phase(cfg, engine=False)
+
+    def p16c_qwen3_moe(self):
+        """qwen3-moe-235b-a22b at full width cut to 4 layers (128 experts of
+        which 8, qk-norm): phase 4a's contract, the drops and load; then an
+        ``Engine`` at phase 13a's shape (the routing inside the captured
+        chunk)."""
+        from repro_torch.configs import get_config, get_smoke_config
+
+        kw = dict(sqrt_unit="e2afs", decode_kernel="fused")
+        cfg = (get_smoke_config("qwen3-moe-235b-a22b", **kw) if self.rehearsal else
+               get_config("qwen3-moe-235b-a22b", n_layers=4, **kw))
+        self.family_phase(cfg, engine=True)
+
+    def norm_launches(self, cfg):
+        """(kernel, launches a forward of one token position or prompt) of
+        the model's norms: RMSNorm kernels (two a layer, qk-norm two more,
+        the final norm), or for LayerNorm one e2afs_rsqrt a norm."""
+        if cfg.norm == "layernorm":
+            return "e2afs_rsqrt", 2 * cfg.n_layers + 1
+        return "rmsnorm", 2 * cfg.n_layers + 1 + (2 * cfg.n_layers if cfg.qk_norm else 0)
+
+    def free(self):
+        """Collect what a sub-phase dropped and return the card's cached
+        blocks (one model of phase 16 on the card at a time)."""
+        import gc
+
+        gc.collect()
+        if not self.rehearsal:
+            self.torch.cuda.empty_cache()
+
+    def family_phase(self, cfg, *, engine):
+        """Phase 4a's serving contract for one family at full width: batch 8,
+        prompt 512, 64 greedy tokens, cache 576 on the kernels; the launch
+        counts set to 0 just before and read just after and held to what
+        the code implies; first-step logits within 4 ulps at max |logit| of
+        the same weights on the plain versions and the first two tokens
+        equal in every slot; prefill ms and ms a step beside the
+        weight-read floor; with experts, the prefill's dropped choices and
+        expert load; with ``engine``, phase 13a's engine.  Peak memory."""
+        torch = self.torch
+        from repro_torch.kernels import dispatch
+        from repro_torch.layers import moe
+        from repro_torch.models import lm
+
+        batch, prompt_len, gen_len = (2, 16, 4) if self.rehearsal else (8, 512, 64)
+        cache_len = prompt_len + gen_len
+        if not self.rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        experts = (f", {cfg.moe.n_experts} experts of which {cfg.moe.top_k} (d_ff "
+                   f"{cfg.moe.d_ff_expert}, capacity factor {cfg.moe.capacity_factor})"
+                   if cfg.moe else f", d_ff {cfg.d_ff} ({cfg.mlp_act})")
+        print(f"  {cfg.name}: {cfg.n_layers} layers ({', '.join(sorted(set(cfg.blocks)))}"
+              f"{f' of {cfg.window}' if cfg.window else ''}), d {cfg.d_model}, heads "
+              f"{cfg.n_heads}/{cfg.n_kv_heads} (G = {cfg.n_heads // cfg.n_kv_heads}), {cfg.norm}"
+              f"{', qk-norm' if cfg.qk_norm else ''}{experts}, vocab {cfg.vocab}, "
+              f"{cfg.act_dtype}; batch {batch}, prompt {prompt_len}, {gen_len} new tokens, cache "
+              f"{cache_len}")
+        t0 = time.perf_counter()
+        model = lm.init(cfg, self.gen(0), device=self.dev)
+        self.sync()
+        weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+        print(f"  init: {lm.param_count(model) / 1e9:.4f} B parameters ({weight_bytes / 1e9:.2f} "
+              f"GB) in {time.perf_counter() - t0:.1f} s")
+        prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=self.gen(1),
+                               device=self.dev)
+
+        def run(c, n):
+            cache = lm.init_cache(c, batch, cache_len, device=self.dev)
+            self.sync()
+            t_a = time.perf_counter()
+            logits, cache = lm.prefill(model, c, cache, prompt, last_logit_only=True)
+            self.sync()
+            t_b = time.perf_counter()
+            toks, _, cache = lm.generate_scan(model, c, cache, logits[:, -1:].argmax(-1),
+                                              prompt_len, n)
+            self.sync()
+            return logits, toks, cache, t_b - t_a, time.perf_counter() - t_b
+
+        run(cfg, 2)  # warm-up
+        norm_kernel, per_forward = self.norm_launches(cfg)
+        dispatch.reset_launch_counts()
+        logits, toks, cache, pf_s, dec_s = run(cfg, gen_len)  # the main path
+        counts, details = dispatch.launch_counts(), dispatch.launch_details()
+        want = dict.fromkeys(dispatch.KNOWN, 0)
+        want.update({norm_kernel: per_forward * (1 + gen_len),
+                     "decode_attention": cfg.n_layers * gen_len})
+        key = cfg.name.replace("-", "_").replace(".", "_") + "_launches"
+        for name in (norm_kernel, "decode_attention"):
+            self.rows[name][key] = counts[name]
+        print(f"  main path launches: {counts} {details} (want {want})")
+        lines = (cache if isinstance(cache, list) else [cache])[0]["k"].shape[-3]
+        floor_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+        print(f"  prefill {pf_s * 1e3:.1f} ms; decode {dec_s / gen_len * 1e3:.3f} ms/step, "
+              f"{batch * gen_len / dec_s:.1f} tok/s; weight-read floor {floor_ms:.3f} ms/step "
+              f"({weight_bytes / 1e9:.2f} GB over {HBM_BYTES_PER_S / 1e12:.2f} TB/s); cache "
+              f"lines a layer {lines} (host clock with synchronize; {self.card})")
+        self.family[cfg.name] = {"prefill_ms": pf_s * 1e3, "ms_per_step": dec_s / gen_len * 1e3,
+                                 "tok_s": batch * gen_len / dec_s, "floor_ms": floor_ms}
+        def plain(record=None, replay=None):
+            """The plain versions' run; with experts, each call's choices
+            appended to ``record``, or taken in order from ``replay``."""
+            prev, plain_route = dispatch.set_backend("reference"), moe.route
+
+            def routed(router, x, k, cap, choices=None):
+                out = plain_route(router, x, k, cap, replay.pop(0) if replay else None)
+                if record is not None:
+                    record.append(out[2])
+                return out
+
+            moe.route = routed
+            dispatch.reset_launch_counts()
+            try:
+                out = run(cfg.replace(decode_kernel="reference"), gen_len)
+            finally:
+                dispatch.set_backend(prev)
+                moe.route = plain_route
+            if not self.rehearsal and any(dispatch.launch_counts().values()):
+                raise AssertionError(f"the plain-version run launched a kernel: "
+                                     f"{dispatch.launch_counts()}")
+            return out
+
+        flips = ""
+        if cfg.moe is None:
+            ref_logits, ref_toks, _, rpf_s, rdec_s = plain()
+        else:
+            # A routing choice between near-equal probabilities flips when a
+            # bf16 hidden state rounds one ulp apart (the fused RMSNorm sums
+            # in another order), and moves that token's output by whole
+            # units: the kernels are held against the plain versions on the
+            # kernel route's routing, and the free run's flips are printed.
+            kernel_choices, plain_choices = [], []
+            plain_route = moe.route
+
+            def recording(router, x, k, cap, choices=None):
+                out = plain_route(router, x, k, cap, choices)
+                kernel_choices.append(out[2])
+                return out
+
+            moe.route = recording
+            try:
+                again, again_toks, _, _, _ = run(cfg, gen_len)
+            finally:
+                moe.route = plain_route
+            if not (torch.equal(again, logits) and torch.equal(again_toks, toks)):
+                raise AssertionError("two runs of the kernel route differ")
+            free_logits, free_toks, _, _, _ = plain(record=plain_choices)
+            pre = cfg.n_layers  # the prefill's calls come first, one a layer
+            differ = sum(int((a != b).sum()) for a, b in zip(kernel_choices[:pre],
+                                                              plain_choices[:pre]))
+            total = sum(a.numel() for a in kernel_choices[:pre])
+            flips = (f"; the plain versions' own routing: {differ} of {total} prefill choices "
+                     f"differ, first-step logits max |diff| "
+                     f"{float((free_logits.float() - logits.float()).abs().max()):.4g}, greedy "
+                     f"token agreement {float((free_toks == toks).float().mean()):.3f}")
+            self.family[cfg.name]["prefill_flips"] = (differ, total)
+            pinned = list(kernel_choices)
+            ref_logits, ref_toks, _, rpf_s, rdec_s = plain(replay=pinned)
+            if pinned or len(kernel_choices) != cfg.n_layers * (1 + gen_len):
+                raise AssertionError(f"{len(kernel_choices)} routing calls recorded, "
+                                     f"{len(pinned)} not replayed")
+        print(f"  plain versions: prefill {rpf_s * 1e3:.1f} ms; decode "
+              f"{rdec_s / gen_len * 1e3:.3f} ms/step{flips}")
+        if not self.rehearsal and (counts != want):
+            raise AssertionError(f"launch counts {counts}, want {want}")
+        if lines != min(cache_len, cfg.window or cache_len):
+            raise AssertionError(f"{lines} cache lines a layer")
+        if tuple(logits.shape) != (batch, 1, cfg.vocab) or tuple(toks.shape) != (batch, gen_len):
+            raise AssertionError(f"shapes: logits {tuple(logits.shape)}, tokens "
+                                 f"{tuple(toks.shape)}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite first-step logits")
+        diff = float((logits.float() - ref_logits.float()).abs().max())
+        top = ref_logits.float().abs().max()
+        limit = 4 * float(ulp_of(top.reshape(1).to(ref_logits.dtype)))
+        first = [int((toks[:, i] == ref_toks[:, i]).sum()) for i in range(min(2, gen_len))]
+        print(f"  kernels vs plain versions{' on one routing' if cfg.moe else ''}: first-step "
+              f"logits max |diff| {diff:.4g} (limit "
+              f"{limit:.4g}: 4 {ref_logits.dtype} ulps at max |logit| {float(top):.4g}); first "
+              f"two generated tokens agree {first} of {batch}; greedy token agreement "
+              f"{float((toks == ref_toks).float().mean()):.3f} over {toks.numel()} tokens")
+        if diff > limit:
+            raise AssertionError(f"{cfg.name} logits disagree with the plain versions")
+        if first != [batch] * len(first):
+            raise AssertionError(f"first generated tokens disagree: {first} of {batch}")
+
+        if cfg.moe is not None:  # the prefill's routing, layer by layer, outside the counts
+            stats, plain_apply = [], lm.moe_apply
+
+            def counting(p, c, x, *, capacity_factor):
+                cap = moe.capacity(c, x.shape[1], capacity_factor)
+                _, _, idx, _, keep = moe.route(p.router, x, c.moe.top_k, cap)
+                load = torch.zeros(c.moe.n_experts, dtype=torch.int64, device=x.device)
+                load.index_add_(0, idx[keep].flatten(), torch.ones_like(idx[keep].flatten()))
+                stats.append((int((~keep).sum()), keep.numel(), cap, load.cpu()))
+                return plain_apply(p, c, x, capacity_factor=capacity_factor)
+
+            lm.moe_apply = counting
+            try:
+                lm.prefill(model, cfg, lm.init_cache(cfg, batch, cache_len, device=self.dev),
+                           prompt, last_logit_only=True)
+            finally:
+                lm.moe_apply = plain_apply
+            dropped = sum(s[0] for s in stats)
+            total = sum(s[1] for s in stats)
+            print(f"  prefill routing ({batch} rows of {prompt_len} tokens, capacity "
+                  f"{stats[0][2]} a row and expert): {dropped} of {total} choices dropped "
+                  f"({dropped / total:.4f})")
+            for i, (d, n, _, load) in enumerate(stats):
+                lf = load.float()
+                print(f"    layer {i}: dropped {d} of {n}; kept choices an expert: min "
+                      f"{int(load.min())}, max {int(load.max())}, mean {float(lf.mean()):.1f}, "
+                      f"cv {float(lf.std() / lf.mean()):.3f}, idle experts "
+                      f"{int((load == 0).sum())} of {cfg.moe.n_experts}")
+            self.family[cfg.name]["dropped"] = (dropped, total)
+        if engine:
+            self.family_engine(cfg, model, key)
+        peak = torch.cuda.max_memory_allocated() / 2**30 if not self.rehearsal else float("nan")
+        print(f"  peak memory of the sub-phase {peak:.2f} GiB ({self.card})")
+        del model, cache, logits, ref_logits
+        self.free()
+
+    def family_engine(self, cfg, model, key):
+        """Phase 13a's engine on a family's model: 8 slots of 576 lines,
+        chunks of 8, 13a's draw of 24 requests; a replay bit-identical to
+        the eager chunk from one pool state; the trace served with the
+        counts set to 0 just before and read just after (norm and
+        decode-attention launches what the admissions and chunks imply);
+        8 requests token-identical each alone in a pool of the engine's
+        shape; makespan and tok/s."""
+        import numpy as np
+
+        from repro_torch.kernels import dispatch
+        from repro_torch.launch.engine import Engine
+
+        if self.rehearsal:
+            slots, cache_len, n, prompts, budgets = 4, 40, 8, (3, 5, 12), (2, 4, 7)
+        else:
+            slots, cache_len, n, prompts, budgets = 8, 576, 24, (128, 256, 512), (16, 32, 64)
+        chunk = 8
+        reqs = trace(cfg, n, prompts, budgets)
+        eng = Engine(model, cfg, num_slots=slots, cache_len=cache_len, chunk=chunk)
+        t0 = time.perf_counter()
+        eng.warmup(prompt_lens=prompts)
+        self.sync()
+        print(f"  engine: {slots} slots of {cache_len} lines, chunks of {chunk}; warmup "
+              f"{time.perf_counter() - t0:.2f} s; graph captured: {bool(eng._graphs)}")
+        if not self.rehearsal and not eng._graphs:
+            raise AssertionError("the decode chunk was not captured")
+        restore = self.replay_equals_eager(eng, reqs[:slots])
+        restore()
+        replay_ms = self.time_ms(eng._decode_chunk, iters=4)
+        restore()
+        wall_us, rows = self.profiled(eng._decode_chunk, 1, every_launch=True)
+        busy = sum(r[0] for r in rows)
+        print(f"  ms a decode step replayed: "
+              f"{replay_ms / chunk if replay_ms else float('nan'):.3f} (CUDA events around 4 "
+              f"replays); a profiled replay: {sum(r[1] for r in rows) / chunk:.0f} kernels and "
+              f"{busy / chunk / 1e3:.3f} device ms a step ({self.card}); by kernel:")
+        for dev_us, count, name in rows[:10]:
+            print(f"    {dev_us / chunk / 1e3:9.4f} ms/step  {count / chunk:7.1f} calls/step  "
+                  f"{name[:90]}")
+        eng.reset()
+        self.sync()
+        norm_kernel, per_forward = self.norm_launches(cfg)
+        dispatch.reset_launch_counts()
+        done = eng.run(reqs)
+        counts = dispatch.launch_counts()
+        st = eng.stats
+        steps = st["decode_chunks"] * chunk
+        want = {norm_kernel: per_forward * (n + steps), "decode_attention": cfg.n_layers * steps}
+        got = {k: counts[k] for k in want}
+        self.rows["decode_attention"]["engine_" + key] = counts["decode_attention"]
+        self.rows[norm_kernel]["engine_" + key] = counts[norm_kernel]
+        print(f"  Engine.run: {n} requests, makespan {st['makespan_s']:.3f} s, "
+              f"{st['total_tokens']} tokens, {st['tok_s']:.1f} tok/s, {st['decode_chunks']} "
+              f"chunks; launches {got} (want {want}: {n} admissions + {steps} steps)")
+        self.family[cfg.name].update(engine_tok_s=st["tok_s"], makespan_s=st["makespan_s"],
+                                     replay_ms_per_step=replay_ms / chunk if replay_ms else None)
+        if not self.rehearsal and got != want:
+            raise AssertionError(f"engine launch counts {got}, want {want}")
+        if st["n_ok"] != n:
+            raise AssertionError(f"not every request completed: {st}")
+        longest = max(len(r.prompt) for r in reqs)
+        order = sorted(reqs, key=lambda r: (len(r.prompt) < longest, r.uid < slots, r.uid))
+        picked = order[:4] + [r for r in order[4:] if r.uid >= slots][:4]
+        chosen = {r.uid for r in picked}
+        picked += [r for r in order[4:] if r.uid not in chosen][:8 - len(picked)]
+        same = 0
+        for r in picked:
+            eng.reset()
+            same += int(np.array_equal(eng.run([r])[r.uid].tokens, done[r.uid].tokens))
+        print(f"  alone in the pool: {same} of {len(picked)} requests token-identical (uids "
+              f"{[r.uid for r in picked]})")
+        if same != len(picked) or len(picked) < min(8, n):
+            raise AssertionError("staggered requests differ from the same requests alone")
+
+    def p16d_internvl(self):
+        """internvl2-76b at full width cut to 2 layers: the training forward
+        over 1024 vision tokens and 512 text tokens, batch 2, e2afs, its
+        unfused norms on the e2afs_rsqrt kernel (5 launches) against the
+        plain route: logits within phase 4a's 4 ulps at max |logit|."""
+        torch = self.torch
+        from repro_torch.configs import get_config, get_smoke_config
+        from repro_torch.kernels import dispatch
+        from repro_torch.models import lm
+
+        if self.rehearsal:
+            cfg = get_smoke_config("internvl2-76b", sqrt_unit="e2afs")
+            batch, text = 2, 12
+        else:
+            cfg = get_config("internvl2-76b", n_layers=2, sqrt_unit="e2afs")
+            batch, text = 2, 512
+        if not self.rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        model = lm.init(cfg, self.gen(0), device=self.dev)
+        inputs = {"tokens": torch.randint(0, cfg.vocab, (batch, text), generator=self.gen(1),
+                                          device=self.dev),
+                  "vision": torch.randn(batch, cfg.vision_tokens, cfg.d_model,
+                                        generator=self.gen(2), device=self.dev).to(torch.bfloat16)}
+        print(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads {cfg.n_heads}/"
+              f"{cfg.n_kv_heads}, vocab {cfg.vocab}; {lm.param_count(model) / 1e9:.3f} B "
+              f"parameters; batch {batch}, {cfg.vision_tokens} vision + {text} text tokens")
+        with torch.no_grad():
+            lm.forward(model, cfg, inputs)  # warm-up
+            self.sync()
+            dispatch.reset_launch_counts()
+            t0 = time.perf_counter()
+            logits, _ = lm.forward(model, cfg, inputs)  # the main path
+            self.sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            counts = dispatch.launch_counts()
+            prev = dispatch.set_backend("reference")
+            try:
+                ref, _ = lm.forward(model, cfg, inputs)
+            finally:
+                dispatch.set_backend(prev)
+        want = dict.fromkeys(dispatch.KNOWN, 0)
+        want["e2afs_rsqrt"] = 2 * cfg.n_layers + 1
+        self.rows["e2afs_rsqrt"]["internvl2_76b_forward_launches"] = counts["e2afs_rsqrt"]
+        diff = float((logits.float() - ref.float()).abs().max())
+        top = ref.float().abs().max()
+        limit = 4 * float(ulp_of(top.reshape(1).to(ref.dtype)))
+        peak = torch.cuda.max_memory_allocated() / 2**30 if not self.rehearsal else float("nan")
+        print(f"  forward {ms:.1f} ms (host clock with synchronize); launches {counts} (want "
+              f"{want}); logits {tuple(logits.shape)} over the text positions; kernel route vs "
+              f"plain route max |diff| {diff:.4g} (limit {limit:.4g}: 4 {ref.dtype} ulps at max "
+              f"|logit| {float(top):.4g}; bit-identical: {bool(torch.equal(logits, ref))}); "
+              f"peak memory {peak:.2f} GiB ({self.card})")
+        if tuple(logits.shape) != (batch, text, cfg.padded_vocab):
+            raise AssertionError(f"logits {tuple(logits.shape)}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite logits")
+        if not self.rehearsal and counts != want:
+            raise AssertionError(f"launch counts {counts}, want {want}")
+        if diff > limit:
+            raise AssertionError("internvl2-76b's kernel route disagrees with the plain route")
+        del model, logits, ref, inputs
+        self.free()
 
     # -- phase 7 -----------------------------------------------------------
     def p7_sobel(self):
@@ -3160,6 +3677,10 @@ def main(argv=None) -> int:
     smoke.phase("15g accuracy SLO qwen3-4b", smoke.p15g_slo)  # on phase 4a's model
     smoke.phase("15h speculative qwen3-4b", smoke.p15h_spec)  # on phase 4a's model
     smoke.phase("15i speculative gemma3-1b", smoke.p15i_spec_gemma)  # on phase 4d's model
+    smoke.phase("16a serve starcoder2-15b", smoke.p16a_starcoder2)
+    smoke.phase("16b serve mixtral-8x22b", smoke.p16b_mixtral)
+    smoke.phase("16c serve qwen3-moe-235b-a22b", smoke.p16c_qwen3_moe)
+    smoke.phase("16d forward internvl2-76b", smoke.p16d_internvl)
     smoke.phase("7 sobel", smoke.p7_sobel)
     smoke.phase("8 kmeans_assign", smoke.p8_kmeans)
     smoke.phase("9 paper", smoke.p9_paper)

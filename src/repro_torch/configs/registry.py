@@ -4,7 +4,15 @@ from __future__ import annotations
 
 import importlib
 
-ARCH_IDS = ("qwen3-4b", "gemma3-1b", "deepseek-67b")
+ARCH_IDS = (
+    "qwen3-4b",
+    "starcoder2-15b",
+    "deepseek-67b",
+    "gemma3-1b",
+    "internvl2-76b",
+    "mixtral-8x22b",
+    "qwen3-moe-235b-a22b",
+)
 
 
 def _module(arch_id: str):

@@ -43,7 +43,8 @@
 // lanes reads one K line from the ring (a 16-byte load a lane, 8 bytes of
 // int8; a float32 line of hd = 256 is 64 vectors, so 32 lanes take two
 // each, hd/2 elements apart) and its g dot products meet in a transposing
-// shuffle reduction (g - 1 + log2(lanes / g) shuffles, not g * log2(lanes)).  Every sum, max
+// shuffle reduction (g - 1 + log2(lanes / g) shuffles, not g * log2(lanes),
+// for g a power of two; g = 6 and 12 shuffle each head).  Every sum, max
 // and combine runs in a fixed order, so two calls on the same inputs are
 // bit-identical (no atomics).
 //
@@ -226,13 +227,14 @@ __device__ __forceinline__ void across_chunks(float* vals, long long head0, int 
   __syncthreads();
 }
 
-// Sums each of a lane group's G dot products over its lpl lanes (lpl a power
-// of two, lpl >= G) with G - 1 + log2(lpl / G) shuffles instead of
+// Sums each of a lane group's G dot products over its lpl lanes (G and lpl
+// powers of two, lpl >= G) with G - 1 + log2(lpl / G) shuffles instead of
 // G * log2(lpl): each level hands half of the remaining heads to the partner
 // lane, so a lane ends with one head, sl / (lpl / G), summed over the whole
 // group, in s[0].  The order of the additions is fixed.
 template <int G>
 __device__ __forceinline__ void reduce_heads(float (&s)[G], int lpl, int sl) {
+  static_assert((G & (G - 1)) == 0, "reduce_heads halves the heads: G must be a power of two");
   int off = lpl >> 1;
 #pragma unroll
   for (int n = G; n > 1; n >>= 1) {
@@ -267,8 +269,11 @@ struct Args {
   int wrap;
 };
 
+// Blocks an SM the registers are budgeted for: 4 (128 registers a thread)
+// up to G = 8; the q and accumulator rows of G = 12 and 16 (G x EPL floats
+// each) get 2 (255 registers), so that they do not spill.
 template <class T, class KV, int G, int NV>
-__global__ void __launch_bounds__(kThreads, 4) decode_attention_kernel(Args a) {
+__global__ void __launch_bounds__(kThreads, (G <= 8 ? 4 : 2)) decode_attention_kernel(Args a) {
   constexpr int VEC = vec_of<KV>();
   constexpr int EPL = VEC * NV;  // elements a lane holds of a line
   __shared__ __align__(16) unsigned char ring[kRing * kTileBytes];
@@ -322,7 +327,10 @@ __global__ void __launch_bounds__(kThreads, 4) decode_attention_kernel(Args a) {
   }
   const int p = a.pos[bi];
   const bool all_valid = a.wrap != 0 && p >= a.t_len;
-  const bool split = lpl >= G;  // reduce_heads applies
+  // reduce_heads applies: G a power of two (G = 6 and 12 take the per-head
+  // shuffles below) no larger than the lanes of a line
+  constexpr bool kPow2 = (G & (G - 1)) == 0;
+  const bool split = kPow2 && lpl >= G;
   const int mine = split ? sl / (lpl / G) : 0;  // the head this lane ends with
   const bool writer = split ? sl % (lpl / G) == 0 : sl == 0;
   float m[G];
@@ -353,7 +361,7 @@ __global__ void __launch_bounds__(kThreads, 4) decode_attention_kernel(Args a) {
         s[j] = acc;
       }
       if (split) {
-        reduce_heads<G>(s, lpl, sl);
+        if constexpr (kPow2) reduce_heads<G>(s, lpl, sl);
       } else {
         for (int off = lpl >> 1; off > 0; off >>= 1) {
 #pragma unroll
@@ -518,6 +526,10 @@ int plan_of(int b, int t_len, int h, int kvh, int hd, Plan& p) {
   int cap = 0;
   const int err = capacity<T, KV, G, NV>(cap);
   if (err != 0) return err;
+  // the warps' partial outputs (kWarps x G x hd float32) take the ring at the end
+  if (static_cast<long long>(kWarps) * G * hd * 4 > kRing * kTileBytes) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   p.tl = min(kTileMaxLines, kTileBytes / (hd * static_cast<int>(sizeof(KV))));
   const long long lines_max = kScoreFloats / G;  // the scores' room
   const long long s_min = (t_len + lines_max - 1) / lines_max;
@@ -578,8 +590,19 @@ int dispatch_group(const Args& a, Plan* plan, cudaStream_t stream) {
     REPRO_GROUP(2)
     REPRO_GROUP(4)
     REPRO_GROUP(8)
-    default: return static_cast<int>(cudaErrorInvalidValue);
+    default: break;
   }
+  // starcoder2-15b's G = 12, mixtral-8x22b's 6 and qwen3-moe-235b-a22b's 16,
+  // for one vector a lane (the float32 line of hd = 256 stays at G <= 8)
+  if constexpr (NV == 1) {
+    switch (a.h / a.kvh) {
+      REPRO_GROUP(6)
+      REPRO_GROUP(12)
+      REPRO_GROUP(16)
+      default: break;
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 #undef REPRO_GROUP
 }
 
@@ -636,9 +659,10 @@ extern "C" int decode_attention_plan(int b, int t_len, int h, int kvh, int hd, i
 }
 
 // act_dtype: 1 = bfloat16, 2 = float32; kv_int8: the cache holds int8 values
-// (then k_scale and v_scale are given).  h / kv must be 1, 2, 4 or 8, and
-// hd / VEC a power of two <= 32 (VEC = 4 for a float32 cache, else 8), or
-// 64 for a float32 cache (hd = 256, two vectors a lane); the
+// (then k_scale and v_scale are given).  h / kv must be 1, 2, 4, 6, 8, 12 or
+// 16 with (h / kv) * hd <= 2048, and hd / VEC a power of two <= 32 (VEC = 4
+// for a float32 cache, else 8), or 64 for a float32 cache (hd = 256, two
+// vectors a lane, h / kv <= 8); the
 // K/V base pointers must be 16-byte aligned; workspace holds the elements
 // decode_attention_plan gives for the same shapes.  Returns the first launch
 // error, or cudaGetLastError() after the last launch.

@@ -20,7 +20,13 @@ from repro_torch.kernels.attention.ref import ref_decode_attention
 __all__ = ["decode_attention", "ref_decode_attention"]
 
 _DTYPE_CODE = {torch.bfloat16: 1, torch.float32: 2}
-_GROUPS = (1, 2, 4, 8)  # query heads per KV head that decode_attention.cu instantiates
+# query heads per KV head that decode_attention.cu instantiates: the powers of
+# two for every head_dim, 6, 12 and 16 (starcoder2-15b's 12, mixtral-8x22b's
+# 6, qwen3-moe-235b-a22b's 16) for one vector a lane
+_GROUPS = (1, 2, 4, 8)
+_WIDE_GROUPS = (6, 12, 16)
+# the warps' partial outputs (4 x G x hd float32) must fit the 32 KB ring
+_MAX_GROUP_DIMS = 2048
 _PLAN_ARGTYPES = (ctypes.c_int,) * 7 + (ctypes.POINTER(ctypes.c_longlong),)
 _ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
@@ -38,14 +44,20 @@ def _check(q, k, v, pos, k_scale, v_scale):
         raise ValueError(f"shapes do not match: q {tuple(q.shape)}, k {tuple(k.shape)}")
     if t < 1:
         raise ValueError("decode attention needs a cache of at least one line")
-    if h // kv not in _GROUPS:
-        raise ValueError(f"the kernel serves {_GROUPS} query heads per KV head, got {h // kv}")
+    g = h // kv
+    if g not in _GROUPS + _WIDE_GROUPS:
+        raise ValueError(f"the kernel serves {_GROUPS + _WIDE_GROUPS} query heads per KV head, "
+                         f"got {g}")
     vec = 4 if k.dtype == torch.float32 else 8  # elements per vector load
     vectors = hd // vec  # a lane takes one, or two when a float32 line has 64
     most = 64 if k.dtype == torch.float32 else 32
     if hd % vec or not 1 <= vectors <= most or vectors & (vectors - 1):
         raise ValueError(f"head_dim {hd} must be {vec} x a power of two <= {most} "
                          f"for a {k.dtype} cache")
+    if g * hd > _MAX_GROUP_DIMS or (g in _WIDE_GROUPS and vectors > 32):
+        raise ValueError(f"{g} query heads per KV head of head_dim {hd}: the kernel takes "
+                         f"G * hd <= {_MAX_GROUP_DIMS}, and G = {_WIDE_GROUPS} one vector a "
+                         f"lane")
     quantized = k.dtype == torch.int8
     if not quantized and (k.dtype != q.dtype or v.dtype != q.dtype):
         raise ValueError(f"k/v must be int8 or {q.dtype}, got {k.dtype}, {v.dtype}")

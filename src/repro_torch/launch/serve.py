@@ -9,6 +9,12 @@ a time and reads each argmax back to the host.
 
 Runs on the card unless ``device="cpu"``; the weights are random, drawn from
 a generator seeded with 0, and the prompt from one seeded with ``seed``.
+Every id of ``repro_torch.configs.ARCH_IDS`` serves (internvl2-76b through
+its text path: prefill and decode take tokens only, as in the reference).
+A mixture-of-experts prefill routes the prompt as one group a row, so its
+drops can differ from the loop's, which routes a token at a time: the
+stats' ``token_exact_vs_loop`` is False for such a model, as in the
+reference.
 """
 from __future__ import annotations
 
@@ -75,6 +81,10 @@ def generate(arch="qwen3-4b", *, batch=2, prompt_len=8, gen_len=16, sqrt_unit="e
         )
     dev = resolve_device(device)
     cfg = get_smoke_config(arch, sqrt_unit=sqrt_unit)
+    token_exact = cfg.moe is None
+    if mode == "scan" and not token_exact and verbose:
+        print(f"[serve] note: {arch} is MoE: prefill routing is not token-exact vs "
+              f"mode='loop' (capacity is per prompt)")
     model = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len),
                            generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
@@ -120,6 +130,7 @@ def generate(arch="qwen3-4b", *, batch=2, prompt_len=8, gen_len=16, sqrt_unit="e
         "prefill_ms": prefill_s * 1e3,
         "decode_tok_s": gen_len * batch / decode_s,
         "decode_ms_per_token": decode_s / gen_len * 1e3,
+        "token_exact_vs_loop": token_exact,
     }
     toks = torch.cat([prompt, gen], dim=1).cpu()
     if verbose:

@@ -15,14 +15,23 @@ The fused and unfused routes compute the same function: in the reference
 they are bit-identical, and here only the order of the float32 sum differs.
 So a ladder's rung 0 takes the single-unit route itself (fused for a clean
 "e2afs"): a row at level 0 is bit-identical to the norm without levels.
+
+The model reaches every norm through :func:`norm_init` and :func:`norm_cfg`
+(the reference's ``_norm_init`` and ``_norm``), which dispatch on
+``cfg.norm``: an RMSNorm holds one parameter ``<name>`` (zeros, applied as
+``1 + scale``), a LayerNorm two, ``<name>_scale`` (ones) and ``<name>_bias``
+(zeros).  LayerNorm has no fused kernel: a clean "e2afs" LayerNorm is one
+``e2afs_rsqrt`` launch on a CUDA tensor.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import get_unit, resolve_ladder
+from repro_torch.layers.param import parameter
 
-__all__ = ["rmsnorm", "rmsnorm_select", "rmsnorm_cfg", "layernorm", "layernorm_select"]
+__all__ = ["rmsnorm", "rmsnorm_select", "rmsnorm_cfg", "layernorm", "layernorm_select",
+           "norm_init", "norm_cfg"]
 
 
 def _rsqrt(unit, v: torch.Tensor) -> torch.Tensor:
@@ -132,3 +141,27 @@ def layernorm_select(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor,
     c, var = _centred(x.float())
     inv = _select_inv(var + eps, levels, ladder, faults, x.ndim)
     return (c * inv).to(x.dtype) * scale.to(x.dtype) + bias.to(x.dtype)
+
+
+def norm_init(module: torch.nn.Module, name: str, cfg, *, dtype, device) -> None:
+    """Register the config's norm parameters of width ``cfg.d_model`` on
+    ``module``, uninitialised: ``<name>`` for an RMSNorm, ``<name>_scale``
+    and ``<name>_bias`` for a LayerNorm (``lm.init`` fills them)."""
+    names = (name,) if cfg.norm == "rmsnorm" else (f"{name}_scale", f"{name}_bias")
+    for n in names:
+        module.register_parameter(n, parameter((cfg.d_model,), dtype, device))
+
+
+def norm_cfg(p: torch.nn.Module, name: str, x: torch.Tensor, cfg, *, fused: bool = True,
+             levels=None) -> torch.Tensor:
+    """The norm ``name`` of module ``p`` over ``x`` under the config: an
+    RMSNorm through :func:`rmsnorm_cfg` (the fused kernel where ``fused``
+    asks and it applies), a LayerNorm through :func:`layernorm`, or with
+    ``levels`` ((b,), accuracy-SLO decode) :func:`layernorm_select`."""
+    if cfg.norm == "rmsnorm":
+        return rmsnorm_cfg(getattr(p, name), x, cfg, fused=fused, levels=levels)
+    scale, bias = getattr(p, f"{name}_scale"), getattr(p, f"{name}_bias")
+    if levels is not None:
+        return layernorm_select(scale, bias, x, levels, ladder=cfg.sqrt_ladder,
+                                faults=cfg.sqrt_faults)
+    return layernorm(scale, bias, x, sqrt_unit=cfg.sqrt_unit, faults=cfg.sqrt_faults)

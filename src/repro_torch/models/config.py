@@ -4,11 +4,13 @@
 :meth:`ModelConfig.validate` checks the reference's rules (an accuracy-SLO
 ladder has at least two rungs, rung 0 equal to ``sqrt_unit``, the last
 "exact") as ``ValueError``s, and also rejects what the port does not run
-yet: mixture-of-experts, SSM and RG-LRU blocks, encoder-decoder models,
-vision tokens, non-RoPE positions and LayerNorm.  Every sqrt unit runs
-("exact", "e2afs", "esas", "cwaha4", "cwaha8"), with seeded datapath faults
-(``sqrt_faults``) and a ladder, and remat "none", "block" or "minimal";
-patterns that mix "global" and "window" blocks run (gemma3-1b's 5:1).
+yet: SSM and RG-LRU blocks, encoder-decoder models and non-RoPE positions.
+Every sqrt unit runs ("exact", "e2afs", "esas", "cwaha4", "cwaha8"), with
+seeded datapath faults (``sqrt_faults``) and a ladder, and remat "none",
+"block" or "minimal"; patterns that mix "global" and "window" blocks run
+(gemma3-1b's 5:1); so do RMSNorm and LayerNorm, SwiGLU and GELU MLPs,
+mixture-of-experts layers (``moe``) and the vision stub's tokens
+(``vision_tokens``).
 """
 from __future__ import annotations
 
@@ -146,14 +148,16 @@ class ModelConfig:
         if self.act_dtype not in ("bfloat16", "float32"):
             raise ValueError(f"the port runs bfloat16 or float32 activations, "
                              f"got {self.act_dtype!r}")
+        if self.norm not in ("rmsnorm", "layernorm"):
+            raise ValueError(f"unknown norm {self.norm!r}; expected 'rmsnorm' or 'layernorm'")
+        if self.mlp_act not in ("swiglu", "gelu"):
+            raise ValueError(f"unknown MLP activation {self.mlp_act!r}; expected 'swiglu' or "
+                             f"'gelu'")
         unsupported = {
-            "mixture-of-experts layers": self.moe is not None,
             "SSM blocks": self.ssm is not None or "ssd" in self.blocks,
             "RG-LRU blocks": self.rglru is not None or "rglru" in self.blocks,
             "encoder-decoder models": self.kind != "decoder" or self.encoder is not None,
-            "vision tokens": self.vision_tokens != 0,
             "positions other than RoPE": self.pos != "rope",
-            "LayerNorm": self.norm != "rmsnorm",
         }
         found = [what for what, bad in unsupported.items() if bad]
         if found:

@@ -1,6 +1,8 @@
-"""Dense decoder LM: init, training forward, prefill, decode step and greedy
-decode (torch port of the dense-decoder part of ``repro.models.lm``: uniform
-stacks, and stacks that mix "global" and "window" blocks).
+"""Decoder LM: init, training forward, prefill, decode step and greedy
+decode (torch port of the attention-decoder part of ``repro.models.lm``:
+uniform stacks, and stacks that mix "global" and "window" blocks; RMSNorm or
+LayerNorm, a SwiGLU or GELU MLP or a mixture of experts, and the vision
+stub's tokens in the training forward).
 
 Entry points:
     init(cfg, generator, device, trainable=)     -> LM
@@ -29,16 +31,23 @@ of the window).  Prefill and decode update it IN PLACE (the reference is
 functional and returns a new cache; here the returned cache is the one
 passed in).
 
-Serving runs every norm through ``layers.norms.rmsnorm_cfg``: with
+Serving runs every norm through ``layers.norms.norm_cfg``: an RMSNorm with
 ``sqrt_unit="e2afs"`` and no sqrt fault active on its fused route (the
 RMSNorm kernel on CUDA, its plain version on the CPU; the reference's
-unfused call computes the same function), otherwise unfused through the
-configured unit (``cfg.sqrt_faults`` struck into its datapath).  Decode
-entry points take ``unit_levels`` ((b,) int32, with ``cfg.sqrt_ladder``):
-every norm rsqrt of row ``i`` then runs through ``ladder[unit_levels[i]]``
-(``layers.norms.rmsnorm_select``).  The training forward runs every norm
-unfused, through the unit's differentiable route, as the reference's does
-(the RMSNorm kernel has no backward in either package).
+unfused call computes the same function), otherwise, and every LayerNorm,
+unfused through the configured unit (``cfg.sqrt_faults`` struck into its
+datapath; a clean "e2afs" rsqrt is one ``e2afs_rsqrt`` launch on CUDA).
+Decode entry points take ``unit_levels`` ((b,) int32, with
+``cfg.sqrt_ladder``): every norm rsqrt of row ``i`` then runs through
+``ladder[unit_levels[i]]`` (``layers.norms.rmsnorm_select`` /
+``layernorm_select``).  The training forward runs every norm unfused,
+through the unit's differentiable route, as the reference's does (the
+RMSNorm kernel has no backward in either package).
+
+A mixture-of-experts layer (``cfg.moe``) routes each batch row as one group
+(``layers.moe.moe_apply``): prefill routes the whole prompt, so its drops
+follow the prompt length, and a decode step routes one token a row, which
+never drops.  As in the reference, speculation refuses MoE models.
 """
 from __future__ import annotations
 
@@ -53,7 +62,9 @@ from repro_torch.device import resolve_device
 from repro_torch.layers import attention as attn
 from repro_torch.layers import rowwise
 from repro_torch.layers.mlp import MLP, mlp_apply
-from repro_torch.layers.norms import rmsnorm_cfg as _norm
+from repro_torch.layers.moe import MoE, moe_apply
+from repro_torch.layers.norms import norm_cfg as _norm
+from repro_torch.layers.norms import norm_init
 from repro_torch.layers.param import parameter, truncated_normal
 from repro_torch.models.config import ModelConfig
 
@@ -78,17 +89,24 @@ def exact_twin(cfg: ModelConfig) -> ModelConfig:
 
 
 class Block(nn.Module):
+    """ln1 and ln2 in the config's norm layout, the attention, and ``mlp``
+    or, with ``cfg.moe``, ``moe``."""
+
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
-        self.ln1 = parameter((cfg.d_model,), dtype, device)
+        norm_init(self, "ln1", cfg, dtype=dtype, device=device)
         self.attn = attn.Attention(cfg, dtype=dtype, device=device)
-        self.ln2 = parameter((cfg.d_model,), dtype, device)
-        self.mlp = MLP(cfg, dtype=dtype, device=device)
+        norm_init(self, "ln2", cfg, dtype=dtype, device=device)
+        if cfg.moe is not None:
+            self.moe = MoE(cfg, dtype=dtype, device=device)
+        else:
+            self.mlp = MLP(cfg, dtype=dtype, device=device)
 
 
 class LM(nn.Module):
     """Parameters in the reference's layout: embed (vp, d), unembed (d, vp),
-    ln_f (d,), and one Block per layer (the reference stacks a uniform
+    ln_f (d,) (or ln_f_scale and ln_f_bias), with vision tokens
+    vision_proj (d, d), and one Block per layer (the reference stacks a uniform
     model's on a leading L axis and keeps a mixed model's as a list:
     ``stacked`` records which).  For serving each is stored once in the
     activation dtype, without gradient; ``trainable=True`` keeps float32
@@ -104,7 +122,9 @@ class LM(nn.Module):
         self.embed = parameter((vp, d), dtype, device)
         if not cfg.tie_embeddings:
             self.unembed = parameter((d, vp), dtype, device)
-        self.ln_f = parameter((d,), dtype, device)
+        norm_init(self, "ln_f", cfg, dtype=dtype, device=device)
+        if cfg.vision_tokens:
+            self.vision_proj = parameter((d, d), dtype, device)
         self.layers = nn.ModuleList(Block(cfg, dtype=dtype, device=device)
                                     for _ in range(cfg.n_layers))
         self.requires_grad_(trainable)
@@ -113,9 +133,11 @@ class LM(nn.Module):
         return self.embed.T if not hasattr(self, "unembed") else self.unembed
 
 
-# norm scales are zero-initialised (applied as 1 + scale); every other weight
-# is a fan-in truncated normal with the reference's scale
-_ZERO_INIT = ("ln1", "ln2", "ln_f", "q_norm", "k_norm")
+# RMSNorm scales (applied as 1 + scale), LayerNorm biases (``*_bias``) and
+# the GELU MLP's biases start at zero and LayerNorm scales (``*_scale``) at
+# one; every other weight is a fan-in truncated normal with the reference's
+# scale (sqrt(d) for the embedding, 0.1 for a router, else 1)
+_ZERO_INIT = ("ln1", "ln2", "ln_f", "q_norm", "k_norm", "bi", "bo")
 
 
 @torch.no_grad()
@@ -130,10 +152,14 @@ def init(cfg: ModelConfig, generator: torch.Generator = None, *, device=None,
         generator = torch.Generator(device=dev).manual_seed(0)
     model = LM(cfg, device=dev, trainable=trainable)
     for name, p in model.named_parameters():
-        if name.rsplit(".", 1)[-1] in _ZERO_INIT:
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf in _ZERO_INIT or leaf.endswith("_bias"):
             p.zero_()
+        elif leaf.endswith("_scale"):
+            p.fill_(1.0)
         else:
-            scale = float(cfg.d_model) ** 0.5 if name == "embed" else 1.0
+            scale = (float(cfg.d_model) ** 0.5 if name == "embed" else
+                     0.1 if leaf == "router" else 1.0)
             p.copy_(truncated_normal(generator, tuple(p.shape), p.dtype, scale, device=dev))
     return model
 
@@ -167,15 +193,44 @@ def _layer_cache(cache, i):
     return (cache[i], None) if isinstance(cache, list) else (cache, i)
 
 
+def _ffn(layer: Block, cfg, h, mm=torch.matmul):
+    """The block's MLP over h, or its mixture of experts (one routing group
+    a batch row): (output, the router's aux loss, or None for an MLP)."""
+    if cfg.moe is not None:
+        return moe_apply(layer.moe, cfg, h, capacity_factor=cfg.moe.capacity_factor)
+    return mlp_apply(layer.mlp, cfg, h, mm=mm), None
+
+
 def _layer_train(layer: Block, cfg, block, x, positions):
     """One block of the training forward (the reference's ``_layer_train``):
     unfused norms, full-sequence causal attention ("global") or causal
-    sliding-window attention ("window"), SwiGLU MLP."""
-    h = _norm(layer.ln1, x, cfg, fused=False)
+    sliding-window attention ("window"), the MLP or the experts.  Returns
+    (x, the layer's float32 aux loss, 0 without experts)."""
+    h = _norm(layer, "ln1", x, cfg, fused=False)
     mode = "causal" if block == "global" else "window"
     x = x + attn.attention_train(layer.attn, cfg, h, mode=mode, window=cfg.window,
                                  positions=positions)
-    return x + mlp_apply(layer.mlp, cfg, _norm(layer.ln2, x, cfg, fused=False))
+    h, aux = _ffn(layer, cfg, _norm(layer, "ln2", x, cfg, fused=False))
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + h, aux
+
+
+def _embed_inputs(model: LM, cfg, batch: dict) -> torch.Tensor:
+    """The reference's ``_embed_inputs``: the token embeddings, after the
+    vision stub's tokens ``batch["vision"] @ vision_proj`` when the config
+    has them."""
+    dt = act_dtype(cfg)
+    tokens = batch["tokens"]
+    x = model.embed.to(dt)[tokens]
+    if cfg.vision_tokens:
+        v = batch.get("vision")
+        want = (tokens.shape[0], cfg.vision_tokens, cfg.d_model)
+        if v is None or tuple(v.shape) != want:
+            raise ValueError(f"{cfg.name} takes batch['vision'] of shape {want}, got "
+                             f"{None if v is None else tuple(v.shape)}")
+        x = torch.cat([v.to(dt) @ model.vision_proj.to(dt), x], dim=1)
+    return x
 
 
 def forward(model: LM, cfg: ModelConfig, batch: dict, *, return_hidden: bool = False):
@@ -188,18 +243,26 @@ def forward(model: LM, cfg: ModelConfig, batch: dict, *, return_hidden: bool = F
     pass (``torch.utils.checkpoint``), keeping only the layer inputs;
     ``"minimal"`` recomputes only the attention scores (the reference keeps
     every residual but "attn_scores"; see ``attention._scored_attention``).
-    ``aux["moe_aux"]`` is 0: dense layers have no router loss."""
-    dt = act_dtype(cfg)
-    tokens = batch["tokens"]
-    x = model.embed.to(dt)[tokens]
+    ``aux["moe_aux"]`` is the layers' router loss summed and divided by the
+    number of layers (0 without experts).
+
+    With ``cfg.vision_tokens``, ``batch["vision"]`` (b, vision_tokens, d)
+    goes through ``vision_proj`` in front of the tokens, the positions run
+    over both, and the text positions are sliced out after the final norm:
+    logits (and ``return_hidden``'s x) cover the tokens only."""
+    x = _embed_inputs(model, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, block in zip(model.layers, cfg.blocks):
         if cfg.remat == "block":
-            x = checkpoint(_layer_train, layer, cfg, block, x, positions, use_reentrant=False)
+            x, a = checkpoint(_layer_train, layer, cfg, block, x, positions, use_reentrant=False)
         else:
-            x = _layer_train(layer, cfg, block, x, positions)
-    x = _norm(model.ln_f, x, cfg, fused=False)
-    aux = {"moe_aux": torch.zeros((), dtype=torch.float32, device=x.device)}
+            x, a = _layer_train(layer, cfg, block, x, positions)
+        aux_total = aux_total + a
+    x = _norm(model, "ln_f", x, cfg, fused=False)
+    if cfg.vision_tokens:
+        x = x[:, cfg.vision_tokens:]
+    aux = {"moe_aux": aux_total / max(1, cfg.n_layers)}
     unembed = model.unembed_matrix().to(x.dtype)
     if return_hidden:
         return (x, unembed), aux
@@ -211,7 +274,7 @@ def _window(cfg, block):
 
 
 def _logits(model: LM, cfg, x, levels=None, mm=torch.matmul):
-    x = _norm(model.ln_f, x, cfg, levels=levels)
+    x = _norm(model, "ln_f", x, cfg, levels=levels)
     logits = mm(x, model.unembed_matrix().to(x.dtype))
     return logits[..., : cfg.vocab]
 
@@ -244,11 +307,11 @@ def decode_step(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, pos, *
     x = model.embed[tokens]
     for i, (layer, block) in enumerate(zip(model.layers, cfg.blocks)):
         c, idx = _layer_cache(cache, i)
-        h = _norm(layer.ln1, x, cfg, levels=levels)
+        h = _norm(layer, "ln1", x, cfg, levels=levels)
         h, _ = attn.attention_decode(layer.attn, cfg, h, c, pos, window=_window(cfg, block),
                                      layer_idx=idx, norm_levels=levels)
         x = x + h
-        x = x + mlp_apply(layer.mlp, cfg, _norm(layer.ln2, x, cfg, levels=levels))
+        x = x + _ffn(layer, cfg, _norm(layer, "ln2", x, cfg, levels=levels))[0]
     return _logits(model, cfg, x, levels), cache
 
 
@@ -268,11 +331,11 @@ def prefill(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, *,
     positions = torch.arange(s, device=tokens.device)
     for i, (layer, block) in enumerate(zip(model.layers, cfg.blocks)):
         c, idx = _layer_cache(cache, i)
-        h = _norm(layer.ln1, x, cfg)
+        h = _norm(layer, "ln1", x, cfg)
         h, _ = attn.attention_prefill(layer.attn, cfg, h, c, positions,
                                       window=_window(cfg, block), layer_idx=idx)
         x = x + h
-        x = x + mlp_apply(layer.mlp, cfg, _norm(layer.ln2, x, cfg))
+        x = x + _ffn(layer, cfg, _norm(layer, "ln2", x, cfg))[0]
     if last_logit_only:
         x = x[:, -1:].contiguous()  # the norm kernel takes contiguous rows
     return _logits(model, cfg, x), cache
@@ -639,11 +702,11 @@ def decode_verify_step(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor,
     x = model.embed[tokens]
     for i, (layer, block) in enumerate(zip(model.layers, cfg.blocks)):
         c, idx = _layer_cache(cache, i)
-        h = _norm(layer.ln1, x, cfg, levels=levels)
+        h = _norm(layer, "ln1", x, cfg, levels=levels)
         h, _ = attn.attention_verify(layer.attn, cfg, h, c, pos, window=_window(cfg, block),
                                      layer_idx=idx, norm_levels=levels, mm=mm)
         x = x + h
-        x = x + mlp_apply(layer.mlp, cfg, _norm(layer.ln2, x, cfg, levels=levels), mm=mm)
+        x = x + _ffn(layer, cfg, _norm(layer, "ln2", x, cfg, levels=levels), mm=mm)[0]
     return _logits(model, cfg, x, levels, mm=mm), old
 
 

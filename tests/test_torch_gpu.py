@@ -300,6 +300,29 @@ def test_decode_attention_gemma3_shapes(cuda_device, dtype, quantized, t):
         _assert_attention_close(ours, plain, dtype)
 
 
+@pytest.mark.parametrize("length", ("chunk-1", "chunk", "chunk+1", "576", "4096"))
+@pytest.mark.parametrize("group", [6, 12, 16])
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_wide_groups(cuda_device, dtype, quantized, group, length):
+    """The groups of starcoder2-15b (12 query heads a KV head), mixtral-8x22b
+    (6) and qwen3-moe-235b-a22b (16) at head_dim 128 on 4 KV heads: G = 6
+    and 12 take the per-head shuffles, 16 the halving reduction; float and
+    int8 caches, wrap off and on, mixed per-row positions, around one chunk
+    and at the serving lengths.  Two calls are bit-identical."""
+    b, kv, hd = 6, 4, 128
+    h = kv * group
+    q = torch.empty(b, h, hd, dtype=dtype, device=cuda_device)
+    t = _length(length, q, kv, torch.int8 if quantized else dtype)
+    q, k, v, pos, ks, vs = _attn_case(cuda_device, b, t, h, kv, hd, dtype, quantized, t + group)
+    for wrap in (False, True):
+        plain = attn_ops.ref_decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
+        ours = attn_ops.decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
+        again = attn_ops.decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
+        assert torch.equal(ours, again), "two calls differ"
+        _assert_attention_close(ours, plain, dtype)
+
+
 def test_decode_attention_in_runs_of_slots(cuda_device):
     """More chunks than the blocks that fit on the card at once: the call
     launches once for each run of slots that fits, and still matches."""
@@ -1189,6 +1212,24 @@ def test_verify_rows_equal_sequential_steps_on_the_card(cuda_device, arch, act_d
     cache after an all-row commit the sequential loop's, and after a
     zero-row commit the pre-step cache, bit for bit."""
     cfg = get_smoke_config(arch, act_dtype=act_dtype, sqrt_unit="e2afs", decode_kernel="fused")
+    _verify_rows_case(cuda_device, cfg, quantized)
+
+
+@pytest.mark.parametrize("arch,heads", [("starcoder2-15b", (12, 1)), ("qwen3-4b", (12, 2)),
+                                        ("gemma3-1b", (16, 1))])
+@pytest.mark.parametrize("act_dtype", ["bfloat16", "float32"])
+def test_verify_rows_with_wide_groups(cuda_device, arch, heads, act_dtype):
+    """The same as above with 12, 6 and 16 query heads a KV head (the
+    groups of starcoder2-15b, mixtral-8x22b and qwen3-moe-235b-a22b) on
+    smoke models: starcoder2's LayerNorm stack, a global stack and
+    gemma3-1b's wrapped rings."""
+    h, kv = heads
+    cfg = get_smoke_config(arch, act_dtype=act_dtype, sqrt_unit="e2afs", decode_kernel="fused",
+                           n_heads=h, n_kv_heads=kv)
+    _verify_rows_case(cuda_device, cfg, False)
+
+
+def _verify_rows_case(cuda_device, cfg, quantized):
     model = lm.init(cfg, torch.Generator(device=cuda_device).manual_seed(0), device=cuda_device)
     b, sq, plens = 3, 4, (5, 11, 12)
     cache = lm.init_cache(cfg, b, 40, quantized=quantized, device=cuda_device)
@@ -1290,3 +1331,114 @@ def test_spec_engine_equals_the_plain_engine_on_the_card(cuda_device, arch, act_
     for uid, c in want.items():
         np.testing.assert_array_equal(done[uid].tokens, c.tokens)
     assert eng.stats["spec_steps"] > 0 and 0.0 <= eng.stats["acceptance_rate"] <= 1.0
+
+
+# ---------------------------------------------------------------------------
+# The LayerNorm and mixture-of-experts families on the card
+# ---------------------------------------------------------------------------
+
+
+def _moe_on(dev, arch, act_dtype="float32"):
+    from repro_torch.layers import moe
+
+    cfg = get_smoke_config(arch, act_dtype=act_dtype)
+    module = moe.MoE(cfg, dtype=getattr(torch, act_dtype), device="cpu")
+    g = torch.Generator().manual_seed(3)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.copy_(torch.randn(p.shape, generator=g) * 0.2)
+    card = moe.MoE(cfg, dtype=getattr(torch, act_dtype), device=dev)
+    card.load_state_dict(module.state_dict())
+    return cfg, module, card
+
+
+@pytest.mark.parametrize("cf", [1.25, 0.5])
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "qwen3-moe-235b-a22b"])
+def test_moe_apply_on_the_card_equals_the_cpu(cuda_device, arch, cf):
+    """``moe_apply`` at float32 on the card against the CPU: identical
+    routing (choices, positions, drops), y within 1e-5 plus 1e-6 relative
+    and the aux loss within 1e-6; no host read (``torch.cuda``'s sync debug
+    mode raises on one); a router tie goes to the lower expert on the card
+    as on the CPU (a stable sort)."""
+    from repro_torch.layers import moe
+
+    cfg, cpu, card = _moe_on(cuda_device, arch)
+    x = torch.randn(2, 16, cfg.d_model, generator=torch.Generator().manual_seed(4))
+    y, aux = moe.moe_apply(cpu, cfg, x, capacity_factor=cf)
+    xc = x.to(cuda_device)
+    torch.cuda.synchronize()
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yc, auxc = moe.moe_apply(card, cfg, xc, capacity_factor=cf)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    cap = moe.capacity(cfg, 16, cf)
+    for a, b in zip(moe.route(cpu.router, x, cfg.moe.top_k, cap)[2:],
+                    moe.route(card.router, x.to(cuda_device), cfg.moe.top_k, cap)[2:]):
+        assert torch.equal(a, b.cpu())
+    torch.testing.assert_close(yc.cpu(), y, atol=1e-5, rtol=1e-6)
+    torch.testing.assert_close(auxc.cpu(), aux, atol=1e-6, rtol=0)
+    with torch.no_grad():  # experts 1 and 2 tied for first place on positive inputs
+        for m in (cpu, card):
+            m.router[:, 1] = m.router[:, 0].abs() + 0.5
+            m.router[:, 2] = m.router[:, 1]
+    xa = x.abs()
+    want = moe.route(cpu.router, xa, cfg.moe.top_k, cap)[2]
+    got = moe.route(card.router, xa.to(cuda_device), cfg.moe.top_k, cap)[2]
+    assert bool((want[..., 0] == 1).all() & (want[..., 1] == 2).all())
+    assert torch.equal(got.cpu(), want)
+
+
+_FAMILY_CASES = [("starcoder2-15b", "bfloat16"), ("mixtral-8x22b", "bfloat16"),
+                 ("qwen3-moe-235b-a22b", "bfloat16"), ("qwen3-moe-235b-a22b", "float32")]
+
+
+@pytest.mark.parametrize("arch,act_dtype", _FAMILY_CASES)
+def test_family_chunk_is_captured_and_replays_the_eager_chunk(cuda_device, arch, act_dtype):
+    """The engine's decode chunk of a LayerNorm model (e2afs_rsqrt launches,
+    no RMSNorm) and of MoE models (the routing inside the graph) captures,
+    and a replay gives the eager chunk's pool tensors and packed buffer bit
+    for bit, with the same launches."""
+    cfg, eng = _engine(cuda_device, arch, act_dtype, False)
+    eng.warmup(prompt_lens={3, 5, 12})
+    assert list(eng._graphs) == [()]
+    for slot, req in enumerate(_trace(cfg)[:3]):
+        eng._admit(req, slot, 0.0)
+    start = [t.clone() for t in lm.pool_tensors(eng.pool)]
+
+    def chunk(run):
+        for t, s0 in zip(lm.pool_tensors(eng.pool), start):
+            t.copy_(s0)
+        dispatch.reset_launch_counts()
+        run()
+        torch.cuda.synchronize()
+        return ([t.clone() for t in lm.pool_tensors(eng.pool)] + [eng._packed.clone()],
+                dispatch.launch_counts())
+
+    eager, eager_counts = chunk(eng._chunk_eager)
+    graphed, graph_counts = chunk(eng._decode_chunk)
+    assert _pool_bits_equal(graphed, eager)
+    assert graph_counts == eager_counts
+    norms = 2 * cfg.n_layers + 1 + (2 * cfg.n_layers if cfg.qk_norm else 0)
+    assert eager_counts["decode_attention"] == eng.chunk * cfg.n_layers
+    if cfg.norm == "layernorm":
+        assert eager_counts["rmsnorm"] == 0 and eager_counts["e2afs_rsqrt"] == eng.chunk * norms
+    else:
+        assert eager_counts["rmsnorm"] == eng.chunk * norms
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-15b", "qwen3-moe-235b-a22b"])
+def test_family_staggered_request_equals_the_request_alone(cuda_device, arch):
+    """Five requests through three slots on the card: each one's tokens
+    equal the same request alone in a pool of the same size (a MoE prompt
+    routes as its own group, a decode step each row alone)."""
+    cfg, eng = _engine(cuda_device, arch, "bfloat16", False)
+    eng.warmup(prompt_lens={3, 4, 5, 8, 12})
+    reqs = _trace(cfg)
+    done = eng.run(reqs)
+    assert eng.stats["n_ok"] == len(reqs)
+    for r in reqs:
+        eng.reset()
+        alone = eng.run([Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)])
+        np.testing.assert_array_equal(done[r.uid].tokens, alone[r.uid].tokens)

@@ -24,7 +24,6 @@ from repro.configs import get_smoke_config as jax_smoke_config
 from repro.core import faults as jax_faults
 from repro.layers import attention as jax_attn
 from repro.models import lm as jax_lm
-from repro.models.config import MoESpec
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core import faults
 from repro_torch.kernels import dispatch
@@ -312,7 +311,7 @@ def test_full_width_config_mirrors_reference():
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"moe": MoESpec(4, 2, 32)}, "mixture-of-experts"),
+    ({"block_pattern": ("rglru",)}, "RG-LRU"),
     ({"block_pattern": ("ssd",)}, "SSM"),
     ({"kind": "encdec"}, "encoder-decoder"),
     ({"sqrt_ladder": ("exact", "esas")}, "ladder"),  # the last rung is not "exact"
