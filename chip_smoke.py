@@ -8,7 +8,8 @@ Phases, one line or more each; any failure makes the run exit non-zero:
 
 0. the card's name and power limit; builds the CUDA kernels from
    ``src/repro_torch/csrc`` and prints nvcc's ``-Xptxas -v`` report, then
-   each decode-attention instantiation's registers and spills from it;
+   each decode-attention instantiation's registers and spills from it
+   (G = 10's on a line of its own);
 1. e2afs sqrt/rsqrt kernel vs its plain version: bit-identical (NaN as NaN)
    over every fp16 and bf16 pattern and the fp32 grid, plus the paper's
    Table 2 example (0x785A -> 0 10110 1000100001); the lean sqrt of the
@@ -22,8 +23,10 @@ Phases, one line or more each; any failure makes the run exit non-zero:
 3. decode-attention kernel vs plain version at the serving widths, bf16 and
    fp32, float and int8 caches, wrap off and on, mixed per-row positions,
    t = 576 and 4096, and at gemma3-1b's (one KV head of 4 query heads,
-   head_dim 256, t = 512 and 2112) and phase 16's groups (12 and 16 query
-   heads on 4 KV heads, 6 on 8, head_dim 128), two calls bit-identical;
+   head_dim 256, t = 512 and 2112), phase 16's groups (12 and 16 query
+   heads on 4 KV heads, 6 on 8, head_dim 128) and recurrentgemma-2b's (10
+   query heads on 1, head_dim 256, bf16, float and int8 caches, t = 2048
+   and 2112), two calls bit-identical;
 4. the main paths, each with the launch counts set to 0 just before and read
    just after: (a) qwen3-4b at full width serving batch 8 (prompt 512, 64
    greedy tokens, cache 576) on the kernels, held against the same weights
@@ -46,8 +49,9 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    back-to-back calls, beside the kernel's bound; RMSNorm also at every
    serving shape of phase 2 in bf16 beside F.rms_norm, and decode attention
    also at t = 4096 beside SDPA, both at gemma3-1b's shapes as well, and
-   decode attention at G = 12, 6 and 16 (t = 576, b = 8, bf16) beside its
-   plain version, SDPA and the byte bound; the e2afs kernel in float32, fp16 and bf16
+   decode attention at G = 12, 6 and 16 (t = 576, b = 8, bf16) and at
+   G = 10 (hd 256, t = 2048, b = 8, bf16, wrap) beside its plain version,
+   SDPA and the byte bound; the e2afs kernel in float32, fp16 and bf16
    at the unit path's 10,485,760 elements, each call on a rotation of
    inputs and outputs over four times the L2, beside its first design;
 6. times four full-width decode steps without and then under the profiler:
@@ -193,6 +197,28 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    load, and for (c) 13a's engine; (d) internvl2-76b at full width cut to 2
    layers: ``forward`` over 1024 vision and 512 text tokens, batch 2, its
    5 e2afs_rsqrt launches counted, logits within 4 ulps of the plain route.
+
+17. the recurrent families, after 16d, one model on the card at a time,
+   each at full width and depth, bf16, e2afs, weights from seed 0 with
+   every constant-start leaf moved off its start (a fresh RG-LRU block
+   computes nothing), the counts set to 0 just before its main path and read
+   just after: (a) mamba2-2.7b (64 SSD layers, 80 heads; 4,225 RMSNorm
+   launches) and (b) recurrentgemma-2b (18 RG-LRU and 8 window layers;
+   3,445 RMSNorm, 1,170 ``e2afs_sqrt``, one an RG-LRU layer a forward, and
+   512 decode attention at G = 10, all "wrap"), batch 8, prompt 2048, 64
+   greedy tokens, cache 2112; first-step logits against the plain versions
+   within the larger of 4 bf16 ulps and twice the plain versions' own
+   spread under another order of the norms' sums (mamba2's 64-layer stack
+   carries a one-ulp norm difference past 4 ulps), the first token
+   wherever the plain top-2 margin exceeds twice the diff (the count of such
+   slots printed); then the same weights with float32 activations held to
+   a fixed limit: first-step logits within 4 bf16 ulps of the largest
+   |logit| and the first two tokens 8 of 8; prefill ms and ms
+   a step beside the floor of the bytes a step moves; then phase 13b's
+   engine shape (8 slots of 2112, 12 requests, prompts {512, 1000, 2048}):
+   a replay bit-identical to the eager chunk, its profile, the trace's
+   launches, 8 requests token-identical alone, and canaries at stride 8
+   that never trip serving the same tokens.
 
 Before the last line it prints the card's name and power limit and one JSON
 line of kernels; the last line is ``{"ok": true, "device": {...}}``.  Without
@@ -569,6 +595,12 @@ class Smoke:
         for r in rows:
             print(f"  {r['kernel']}: {r['registers']} registers, {r['spill_stores']} / "
                   f"{r['spill_loads']} bytes spilled, {r['stack']} bytes stack")
+        ten = [r for r in rows if "G=10," in r["kernel"]]
+        print(f"  G = 10 (recurrentgemma-2b): {len(ten)} instantiations, registers "
+              f"{sorted({r['registers'] for r in ten})}, spilled bytes "
+              f"{sum(r['spill_stores'] + r['spill_loads'] for r in ten)}")
+        if not ten:
+            raise AssertionError("no G = 10 instantiation in the ptxas report")
 
     # -- phase 1 -----------------------------------------------------------
     def p1_e2afs(self):
@@ -772,6 +804,27 @@ class Smoke:
                             self.check_attention(y, r, dtype, f"kv={kv} g={g:2d} hd={hd} "
                                                  f"t={t:5d} int8={quant!s:5s} "
                                                  f"wrap={wrap!s:5s}{split}")
+
+        # recurrentgemma-2b's window layers: one KV head of 10 query heads
+        # (per-head shuffles; the warps' partial outputs go through the ring
+        # in two passes), head_dim 256, bf16, its 2048-line ring and 2112
+        b, h, kv, hd = (8, 10, 1, 256)
+        for t in ((24, 40) if self.rehearsal else (2048, 2112)):
+            for quant in (False, True):
+                for wrap in (False, True):
+                    args = self.attn_inputs(b, h, kv, hd, t, torch.bfloat16, quant, t + 10 + quant)
+                    r = ops.ref_decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                    y = ops.decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                    again = ops.decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                    self.sync()
+                    if not torch.equal(y, again):
+                        raise AssertionError("decode attention: two calls differ")
+                    split = ("" if self.rehearsal else
+                             " (S={chunks} of {chunk_lines} lines, {slots} slots a "
+                             "launch)".format(**ops.plan(*args[:2])))
+                    self.check_attention(y, r, torch.bfloat16, f"recurrentgemma-2b kv=1 g=10 "
+                                         f"hd=256 t={t:5d} int8={quant!s:5s} "
+                                         f"wrap={wrap!s:5s}{split}")
 
     def check_attention(self, y, r, dtype, label):
         torch = self.torch
@@ -2485,6 +2538,54 @@ class Smoke:
                   f"kernel {at['ms']}, plain {at['plain_ms']}, SDPA {at['library_ms']}; bound "
                   f"{bnd[0]:.6f} ms ({bnd[1]}); bound / kernel {share}")
 
+        # recurrentgemma-2b's window layer at b = 8, t = 2048 (its ring), bf16,
+        # wrap, every line live: G = 10 beside its plain version, SDPA and
+        # the byte bound
+        b, h, kv, hd, t = (2, 10, 1, 256, 24) if self.rehearsal else (8, 10, 1, 256, 2048)
+        pos = torch.full((b,), t + 100, dtype=torch.int32, device=self.dev)
+        cache_bytes = 2 * b * t * kv * hd * 2
+        copies = 1 if self.rehearsal else max(1, -(-100_000_000 // cache_bytes))
+        sets = [self.attn_inputs(b, h, kv, hd, t, torch.bfloat16, False, 70 + i, pos=pos)
+                for i in range(copies)]
+        it = {"i": 0}
+
+        def rotating(fn, sets=sets, it=it):
+            def call():
+                a = sets[it["i"] % len(sets)]
+                it["i"] += 1
+                return fn(a)
+            return call
+
+        mask = torch.ones(b, 1, 1, t, dtype=torch.bool, device=self.dev)
+
+        def sdpa(a, mask=mask):
+            return F.scaled_dot_product_attention(a[0][:, :, None], a[1].transpose(1, 2),
+                                                  a[2].transpose(1, 2), attn_mask=mask,
+                                                  enable_gqa=True)
+
+        nbytes = (b * h * hd * 2) * 2 + cache_bytes + b * 4
+        bnd = bound(nbytes, 4 * b * h * t * hd, "bfloat16")
+        at = {"model": "recurrentgemma-2b", "g": 10, "kv": kv, "b": b, "t": t, "hd": hd,
+              "wrap": True, "bound_ms": bnd[0], "bound_by": bnd[1],
+              "ms": self.device_ms(rotating(
+                  lambda a: attn_ops.decode_attention(*a, scale=hd**-0.5, wrap=True))),
+              "events_ms": self.time_ms(rotating(
+                  lambda a: attn_ops.decode_attention(*a, scale=hd**-0.5, wrap=True))),
+              "plain_ms": self.device_ms(rotating(
+                  lambda a: attn_ops.ref_decode_attention(*a, scale=hd**-0.5, wrap=True))),
+              "library_ms": self.device_ms(rotating(sdpa))}
+        if not self.rehearsal:
+            plan = attn_ops.plan(sets[0][0], sets[0][1])
+            at.update(chunks=plan["chunks"], chunk_lines=plan["chunk_lines"])
+        self.rows["decode_attention"]["g10"] = at
+        share = f"{bnd[0] / at['ms']:.3f}" if at["ms"] else "not measured"
+        print(f"  decode_attention recurrentgemma-2b b={b} h={h} kv={kv} hd={hd} t={t} bfloat16 "
+              f"wrap (g=10, {copies} cache copies, S={at.get('chunks')}): device ms per call: "
+              f"kernel {at['ms']}, plain {at['plain_ms']}, SDPA {at['library_ms']}; events ms: "
+              f"kernel {at['events_ms']}; bound {bnd[0]:.6f} ms ({bnd[1]}); bound / kernel "
+              f"{share} ({self.card})")
+        del sets
+
         # sobel: a 2160 x 3840 frame.  No PyTorch call computes the E2AFS
         # magnitude: library_ms is None, and F.conv2d + torch.sqrt (another
         # function) is printed as a near-yardstick only.
@@ -3187,6 +3288,324 @@ class Smoke:
         del model, logits, ref, inputs
         self.free()
 
+    # -- phase 17: the recurrent families -------------------------------------
+    def p17a_mamba2(self):
+        """mamba2-2.7b at full width and depth (64 SSD layers, 80 heads) on
+        the kernels; see :meth:`recurrent_phase`."""
+        from repro_torch.configs import get_config, get_smoke_config
+
+        kw = dict(sqrt_unit="e2afs", decode_kernel="fused")
+        self.recurrent_phase((get_smoke_config if self.rehearsal else get_config)(
+            "mamba2-2.7b", **kw))
+
+    def p17b_recurrentgemma(self):
+        """recurrentgemma-2b at full width and depth (18 RG-LRU and 8 window
+        layers of 2048, G = 10 at head_dim 256); see :meth:`recurrent_phase`."""
+        from repro_torch.configs import get_config, get_smoke_config
+
+        kw = dict(sqrt_unit="e2afs", decode_kernel="fused")
+        self.recurrent_phase((get_smoke_config if self.rehearsal else get_config)(
+            "recurrentgemma-2b", **kw))
+
+    def move_constant_starts(self, model, seed):
+        """Move every leaf that starts at a constant (norm scales, the
+        mixers' conv_w, lam, a_log, dt_bias, d_skip) off it by 0.3 x a
+        seeded normal: a fresh RG-LRU block computes nothing (its conv_w
+        starts at zero), and a comparison on it would hold whatever ran."""
+        torch = self.torch
+        from repro_torch.models import lm
+
+        g = self.gen(seed)
+        leaves = lm.constant_start_parameters(model)
+        with torch.no_grad():
+            for _, p in leaves:
+                p.add_((0.3 * torch.randn(p.shape, generator=g, device=self.dev)).to(p.dtype))
+        return len(leaves)
+
+    def recurrent_phase(self, cfg):
+        """A recurrent family at full width and depth, bf16, e2afs, weights
+        from seed 0 with the constant starts moved (seed 1): batch 8, prompt
+        2048, 64 greedy tokens, cache 2112, the launch counts set to 0 just
+        before and read just after (RMSNorm a norm a forward, ``e2afs_sqrt``
+        one an RG-LRU layer a forward, decode attention one a window layer a
+        step, all "wrap"), the first-step logits and tokens against the same
+        weights on the plain versions in bf16 (a limit set by the plain
+        versions' own spread) and in float32 activations (a fixed limit of 4
+        bf16 ulps, the first two tokens 8 of 8), prefill ms and ms a step
+        beside the floor of the
+        bytes a step must move; then phase 13b's engine shape (8 slots of
+        2112 lines, 12 requests, prompts {512, 1000, 2048}, budgets {16,
+        64}): a replay bit-identical to the eager chunk, its profile, the
+        trace's launches, 8 requests token-identical each alone, makespan
+        and tok/s, and canaries at stride 8 with budgets that never trip
+        serving the same tokens.  Peak memory."""
+        import numpy as np
+
+        torch = self.torch
+        from repro_torch.kernels import dispatch
+        from repro_torch.launch.engine import AccuracySLO, Engine
+        from repro_torch.models import lm
+
+        batch, prompt_len, gen_len = (2, 20, 4) if self.rehearsal else (8, 2048, 64)
+        cache_len = prompt_len + gen_len
+        if not self.rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        blocks = cfg.blocks
+        n_rglru, n_window = blocks.count("rglru"), blocks.count("window")
+        norms = sum(1 if b == "ssd" else 2 for b in blocks) + 1
+        mix = {b: blocks.count(b) for b in sorted(set(blocks))}
+        heads = (f" (window {cfg.window}, G = {cfg.n_heads // cfg.n_kv_heads}, hd {cfg.d_head})"
+                 if n_window else "")
+        print(f"  {cfg.name}: {cfg.n_layers} layers {mix}{heads}, d {cfg.d_model}, vocab "
+              f"{cfg.vocab}, {cfg.act_dtype}; batch {batch}, prompt "
+              f"{prompt_len}, {gen_len} new tokens, cache {cache_len}")
+        t0 = time.perf_counter()
+        model = lm.init(cfg, self.gen(0), device=self.dev)
+        moved = self.move_constant_starts(model, 1)
+        self.sync()
+        params = dict(model.named_parameters())
+        weight_bytes = sum(p.numel() * p.element_size() for p in params.values())
+        # a decode step reads every weight once, but of an untied embedding
+        # table only its 8 rows
+        step_weights = weight_bytes - (0 if cfg.tie_embeddings else
+                                       params["embed"].numel() * params["embed"].element_size())
+        print(f"  init: {lm.param_count(model) / 1e9:.4f} B parameters ({weight_bytes / 1e9:.2f} "
+              f"GB) in {time.perf_counter() - t0:.1f} s; {moved} constant-start leaves moved off "
+              f"their starts (seed 1): the weights are random, the comparisons hold a live "
+              f"recurrence")
+        prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=self.gen(2),
+                               device=self.dev)
+
+        def run(c, n, m=model):
+            cache = lm.init_cache(c, batch, cache_len, device=self.dev)
+            self.sync()
+            t_a = time.perf_counter()
+            logits, cache = lm.prefill(m, c, cache, prompt, last_logit_only=True)
+            self.sync()
+            t_b = time.perf_counter()
+            toks, _, cache = lm.generate_scan(m, c, cache, logits[:, -1:].argmax(-1),
+                                              prompt_len, n)
+            self.sync()
+            return logits, toks, cache, t_b - t_a, time.perf_counter() - t_b
+
+        run(cfg, 2)  # warm-up
+        dispatch.reset_launch_counts()
+        logits, toks, cache, pf_s, dec_s = run(cfg, gen_len)  # the main path
+        counts, details = dispatch.launch_counts(), dispatch.launch_details()
+        want = dict.fromkeys(dispatch.KNOWN, 0)
+        want.update({"rmsnorm": norms * (1 + gen_len), "e2afs_sqrt": n_rglru * (1 + gen_len),
+                     "decode_attention": n_window * gen_len})
+        want_details = {"decode_attention wrap": n_window * gen_len} if n_window else {}
+        key = cfg.name.replace("-", "_").replace(".", "_") + "_launches"
+        for name in ("rmsnorm", "e2afs_sqrt", "decode_attention"):
+            self.rows[name][key] = counts[name]
+        print(f"  main path launches: {counts} {details} (want {want} {want_details})")
+        leaves = cache if isinstance(cache, list) else [cache]
+        state_bytes = sum(t.numel() * t.element_size() for c in leaves for k, t in c.items()
+                          if k not in ("k", "v"))
+        ring_bytes = sum(t.numel() * t.element_size() for c in leaves for k, t in c.items()
+                         if k in ("k", "v"))
+        # a step reads the weights, reads and writes every state, reads the rings
+        floor_ms = (step_weights + 2 * state_bytes + ring_bytes) / HBM_BYTES_PER_S * 1e3
+        step_ms = dec_s / gen_len * 1e3
+        print(f"  prefill {pf_s * 1e3:.1f} ms; decode {step_ms:.3f} ms/step (eager), "
+              f"{batch * gen_len / dec_s:.1f} tok/s; floor {floor_ms:.3f} ms/step "
+              f"({step_weights / 1e9:.3f} GB of weights, 2 x {state_bytes / 1e9:.3f} GB of "
+              f"state, {ring_bytes / 1e9:.3f} GB of rings over {HBM_BYTES_PER_S / 1e12:.2f} "
+              f"TB/s) (host clock with synchronize; {self.card})")
+        self.family[cfg.name] = {"prefill_ms": pf_s * 1e3, "ms_per_step": step_ms,
+                                 "tok_s": batch * gen_len / dec_s, "floor_ms": floor_ms}
+
+        from repro_torch.core import get_unit
+        from repro_torch.kernels.rmsnorm import ops as rms_ops
+
+        def summed_in_float64(x, scale, *, sqrt_unit="e2afs", eps=1e-6):
+            """The plain RMSNorm with its mean square summed in float64 (then
+            float32): the same function, summed in another order."""
+            ms = ((x.double() ** 2).sum(dim=-1, keepdim=True) / x.shape[-1]).float()
+            inv = get_unit(sqrt_unit).rsqrt(ms + eps)
+            return (x.float() * inv).to(x.dtype) * (1.0 + scale.to(x.dtype))
+
+        def plain(c=cfg, n=gen_len, m=model, other_order=False):
+            prev, ref_rmsnorm = dispatch.set_backend("reference"), rms_ops.ref_rmsnorm
+            if other_order:
+                rms_ops.ref_rmsnorm = summed_in_float64
+            dispatch.reset_launch_counts()
+            try:
+                out = run(c.replace(decode_kernel="reference"), n, m)
+            finally:
+                dispatch.set_backend(prev)
+                rms_ops.ref_rmsnorm = ref_rmsnorm
+            if not self.rehearsal and any(dispatch.launch_counts().values()):
+                raise AssertionError(f"the plain-version run launched a kernel: "
+                                     f"{dispatch.launch_counts()}")
+            return out
+
+        ref_logits, ref_toks, _, rpf_s, rdec_s = plain()
+        print(f"  plain versions: prefill {rpf_s * 1e3:.1f} ms; decode "
+              f"{rdec_s / gen_len * 1e3:.3f} ms/step")
+        # how far the plain versions move under another order of the norms'
+        # sums: a deep bf16 recurrence carries a one-ulp norm difference on
+        alt_logits, alt_toks = plain(other_order=True)[:2]
+        spread = float((alt_logits.float() - ref_logits.float()).abs().max())
+        steady = (alt_toks[:, :2] == ref_toks[:, :2]).all(dim=1)
+        print(f"  plain versions against themselves with the norms' mean square summed in "
+              f"float64: first-step logits max |diff| {spread:.4g}; first two tokens agree in "
+              f"{int(steady.sum())} of {batch} slots; greedy token agreement "
+              f"{float((alt_toks == ref_toks).float().mean()):.3f}")
+        if not self.rehearsal and (counts != want or details != want_details):
+            raise AssertionError(f"launch counts {counts} {details}, want {want} {want_details}")
+        if tuple(logits.shape) != (batch, 1, cfg.vocab) or tuple(toks.shape) != (batch, gen_len):
+            raise AssertionError(f"shapes: logits {tuple(logits.shape)}, tokens "
+                                 f"{tuple(toks.shape)}")
+        if not bool(torch.isfinite(logits).all()):
+            raise AssertionError("non-finite first-step logits")
+        diff = float((logits.float() - ref_logits.float()).abs().max())
+        top = ref_logits.float().abs().max()
+        ulps4 = 4 * float(ulp_of(top.reshape(1).to(ref_logits.dtype)))
+        limit = max(ulps4, 2 * spread)
+        first = [int((toks[:, i] == ref_toks[:, i]).sum()) for i in range(min(2, gen_len))]
+        # the first token is the argmax of the first-step logits: it must
+        # agree wherever the plain top-2 margin exceeds twice the logits' diff
+        top2 = ref_logits[:, -1].float().topk(2, dim=-1).values
+        decided = (top2[:, 0] - top2[:, 1]) > 2 * diff
+        held = bool((toks[:, 0] == ref_toks[:, 0])[decided].all())
+        print(f"  bf16 kernels vs plain versions: first-step logits max |diff| {diff:.4g} (limit "
+              f"{limit:.4g}: the larger of 4 {ref_logits.dtype} ulps at max |logit| "
+              f"{float(top):.4g}, {ulps4:.4g}, and twice the plain versions' own spread); first "
+              f"two generated tokens agree {first} of {batch} (the plain versions with "
+              f"themselves: {int(steady.sum())} of {batch}); the first token in every one of "
+              f"the {int(decided.sum())} slots whose top-2 margin exceeds twice the diff: "
+              f"{held}; greedy token agreement {float((toks == ref_toks).float().mean()):.3f} "
+              f"over {toks.numel()} tokens")
+        self.family[cfg.name].update(first_logit_diff=diff, ulps4=ulps4, plain_spread=spread,
+                                     first_two=first, steady_slots=int(steady.sum()),
+                                     decided_slots=int(decided.sum()))
+        if diff > limit:
+            raise AssertionError(f"{cfg.name} logits disagree with the plain versions")
+        if not held:
+            raise AssertionError(f"first generated tokens disagree: {first} of {batch}")
+        del cache, ref_logits, alt_logits
+        self.free()
+
+        # a hold whose limit does not scale with the run: the same weights
+        # with float32 activations, where the stack no longer amplifies a
+        # bf16 rounding flip into the logits, on the same prompt; first-step
+        # logits within 4 bf16 ulps of the largest |logit| and the first two
+        # tokens 8 of 8.  A float32 cache at G = 10, head_dim 256 has no
+        # decode-attention kernel, so both sides decode attention plainly
+        # here (the bf16 run above holds that kernel)
+        cfg32 = cfg.replace(act_dtype="float32", decode_kernel="reference")
+        m32 = lm.init(cfg32, self.gen(0), device=self.dev)
+        with torch.no_grad():
+            for a, b in zip(m32.parameters(), model.parameters()):
+                a.copy_(b)
+        dispatch.reset_launch_counts()
+        logits32, toks32 = run(cfg32, 2, m32)[:2]
+        launched32 = {k: v for k, v in dispatch.launch_counts().items() if v}
+        ref32, rtoks32 = plain(cfg32, 2, m32)[:2]
+        diff32 = float((logits32 - ref32).abs().max())
+        top32 = ref32.abs().max().reshape(1)
+        ulps4_32 = 4 * float(ulp_of(top32.to(torch.bfloat16)))
+        first32 = [int((toks32[:, i] == rtoks32[:, i]).sum()) for i in range(2)]
+        print(f"  float32 activations, kernels {launched32} vs plain versions: first-step logits "
+              f"max |diff| {diff32:.4g} ({diff32 / float(ulp_of(top32)):.1f} float32 ulps; limit "
+              f"4 bfloat16 ulps at max |logit| {float(top32):.4g}, {ulps4_32:.4g}); first two "
+              f"generated tokens agree {first32} of {batch}")
+        self.family[cfg.name].update(f32_logit_diff=diff32, f32_ulps4=ulps4_32,
+                                     f32_first_two=first32)
+        if not bool(torch.isfinite(logits32).all()) or diff32 > ulps4_32:
+            raise AssertionError(f"{cfg.name} float32 logits disagree with the plain versions")
+        if first32 != [batch, batch]:
+            raise AssertionError(f"float32 first two tokens disagree: {first32} of {batch}")
+        del m32, logits32, ref32
+        self.free()
+
+        # phase 13b's engine shape
+        if self.rehearsal:
+            slots, e_len, n, prompts, budgets = 4, 40, 6, (3, 10, 20), (2, 6)
+        else:
+            slots, e_len, n, prompts, budgets = 8, 2112, 12, (512, 1000, 2048), (16, 64)
+        chunk = 8
+        reqs = trace(cfg, n, prompts, budgets)
+        eng = Engine(model, cfg, num_slots=slots, cache_len=e_len, chunk=chunk)
+        t0 = time.perf_counter()
+        eng.warmup(prompt_lens=prompts)
+        self.sync()
+        print(f"  engine: {slots} slots of {e_len} lines, chunks of {chunk}; {n} requests, prompts "
+              f"{sorted(set(len(r.prompt) for r in reqs))}, budgets "
+              f"{sorted(set(r.max_new_tokens for r in reqs))}; warmup "
+              f"{time.perf_counter() - t0:.2f} s; graph captured: {bool(eng._graphs)}")
+        if not self.rehearsal and not eng._graphs:
+            raise AssertionError("the decode chunk was not captured")
+        restore = self.replay_equals_eager(eng, reqs[:slots])
+        restore()
+        replay_ms = self.time_ms(eng._decode_chunk, iters=4)
+        restore()
+        wall_us, rows = self.profiled(eng._decode_chunk, 1, every_launch=True)
+        busy = sum(r[0] for r in rows)
+        replay_us = replay_ms * 1e3 if replay_ms else float("nan")
+        print(f"  ms a decode step replayed: {replay_us / chunk / 1e3:.3f} (CUDA events around 4 "
+              f"replays; floor {floor_ms:.3f}); a profiled replay: "
+              f"{sum(r[1] for r in rows) / chunk:.0f} kernels and {busy / chunk / 1e3:.3f} device "
+              f"ms a step, idle share {1 - busy / replay_us:.3f} of the unprofiled replay "
+              f"({self.card}); by kernel:")
+        for dev_us, count, name in rows[:10]:
+            print(f"    {dev_us / chunk / 1e3:9.4f} ms/step  {count / chunk:7.1f} calls/step  "
+                  f"{name[:90]}")
+        eng.reset()
+        self.sync()
+        dispatch.reset_launch_counts()
+        done = eng.run(reqs)
+        counts = dispatch.launch_counts()
+        st = eng.stats
+        steps = st["decode_chunks"] * chunk
+        want = {"rmsnorm": norms * (n + steps), "e2afs_sqrt": n_rglru * (n + steps),
+                "decode_attention": n_window * steps}
+        got = {k: counts[k] for k in want}
+        for name in want:
+            self.rows[name]["engine_" + key] = counts[name]
+        print(f"  Engine.run: makespan {st['makespan_s']:.3f} s, {st['total_tokens']} tokens, "
+              f"{st['tok_s']:.1f} tok/s, {st['decode_chunks']} chunks; launches {got} (want "
+              f"{want}: {n} admissions + {steps} steps)")
+        self.family[cfg.name].update(engine_tok_s=st["tok_s"], makespan_s=st["makespan_s"],
+                                     replay_ms_per_step=replay_us / chunk / 1e3)
+        if not self.rehearsal and got != want:
+            raise AssertionError(f"engine launch counts {got}, want {want}")
+        if st["n_ok"] != n:
+            raise AssertionError(f"not every request completed: {st}")
+        longest = max(len(r.prompt) for r in reqs)
+        order = sorted(reqs, key=lambda r: (len(r.prompt) < longest, r.uid < slots, r.uid))
+        picked = order[:4] + [r for r in order[4:] if r.uid >= slots][:4]
+        chosen = {r.uid for r in picked}
+        picked += [r for r in order[4:] if r.uid not in chosen][:8 - len(picked)]
+        same = 0
+        for r in picked:
+            eng.reset()
+            same += int(np.array_equal(eng.run([r])[r.uid].tokens, done[r.uid].tokens))
+        print(f"  alone in the pool: {same} of {len(picked)} requests token-identical (uids "
+              f"{[r.uid for r in picked]})")
+        if same != len(picked) or len(picked) < min(8, n):
+            raise AssertionError("staggered requests differ from the same requests alone")
+        del eng
+        self.free()
+        quiet = AccuracySLO(canary_stride=8, rel_err_budget=1e9, divergence_budget=None,
+                            promote_after=None)
+        slo = Engine(model, cfg, num_slots=slots, cache_len=e_len, chunk=chunk, slo=quiet)
+        slo.warmup(prompt_lens=prompts)
+        canaried = slo.run(reqs)
+        same = sum(np.array_equal(canaried[r.uid].tokens, done[r.uid].tokens) for r in reqs)
+        print(f"  canaries at stride 8 (budgets that never trip): {same} of {n} requests "
+              f"token-identical to the engine without an SLO; {slo.stats['canary_checks']} "
+              f"canaries, max relative logit error {slo.stats['canary_max_rel_err']:.4g}, graphs "
+              f"{sorted(slo._graphs)}")
+        if same != n or not slo.stats["canary_checks"]:
+            raise AssertionError("the canaries changed the served tokens")
+        peak = torch.cuda.max_memory_allocated() / 2**30 if not self.rehearsal else float("nan")
+        print(f"  peak memory of the sub-phase {peak:.2f} GiB ({self.card})")
+        del slo, model, logits
+        self.free()
+
     # -- phase 7 -----------------------------------------------------------
     def p7_sobel(self):
         torch = self.torch
@@ -3681,6 +4100,8 @@ def main(argv=None) -> int:
     smoke.phase("16b serve mixtral-8x22b", smoke.p16b_mixtral)
     smoke.phase("16c serve qwen3-moe-235b-a22b", smoke.p16c_qwen3_moe)
     smoke.phase("16d forward internvl2-76b", smoke.p16d_internvl)
+    smoke.phase("17a serve mamba2-2.7b", smoke.p17a_mamba2)
+    smoke.phase("17b serve recurrentgemma-2b", smoke.p17b_recurrentgemma)
     smoke.phase("7 sobel", smoke.p7_sobel)
     smoke.phase("8 kmeans_assign", smoke.p8_kmeans)
     smoke.phase("9 paper", smoke.p9_paper)

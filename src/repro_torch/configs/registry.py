@@ -12,6 +12,8 @@ ARCH_IDS = (
     "internvl2-76b",
     "mixtral-8x22b",
     "qwen3-moe-235b-a22b",
+    "mamba2-2.7b",
+    "recurrentgemma-2b",
 )
 
 

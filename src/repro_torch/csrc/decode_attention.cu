@@ -44,7 +44,7 @@
 // int8; a float32 line of hd = 256 is 64 vectors, so 32 lanes take two
 // each, hd/2 elements apart) and its g dot products meet in a transposing
 // shuffle reduction (g - 1 + log2(lanes / g) shuffles, not g * log2(lanes),
-// for g a power of two; g = 6 and 12 shuffle each head).  Every sum, max
+// for g a power of two; g = 6, 10 and 12 shuffle each head).  Every sum, max
 // and combine runs in a fixed order, so two calls on the same inputs are
 // bit-identical (no atomics).
 //
@@ -270,8 +270,8 @@ struct Args {
 };
 
 // Blocks an SM the registers are budgeted for: 4 (128 registers a thread)
-// up to G = 8; the q and accumulator rows of G = 12 and 16 (G x EPL floats
-// each) get 2 (255 registers), so that they do not spill.
+// up to G = 8; the q and accumulator rows of G = 10, 12 and 16 (G x EPL
+// floats each) get 2 (255 registers), so that they do not spill.
 template <class T, class KV, int G, int NV>
 __global__ void __launch_bounds__(kThreads, (G <= 8 ? 4 : 2)) decode_attention_kernel(Args a) {
   constexpr int VEC = vec_of<KV>();
@@ -327,8 +327,8 @@ __global__ void __launch_bounds__(kThreads, (G <= 8 ? 4 : 2)) decode_attention_k
   }
   const int p = a.pos[bi];
   const bool all_valid = a.wrap != 0 && p >= a.t_len;
-  // reduce_heads applies: G a power of two (G = 6 and 12 take the per-head
-  // shuffles below) no larger than the lanes of a line
+  // reduce_heads applies: G a power of two (G = 6, 10 and 12 take the
+  // per-head shuffles below) no larger than the lanes of a line
   constexpr bool kPow2 = (G & (G - 1)) == 0;
   const bool split = kPow2 && lpl >= G;
   const int mine = split ? sl / (lpl / G) : 0;  // the head this lane ends with
@@ -459,25 +459,38 @@ __global__ void __launch_bounds__(kThreads, (G <= 8 ? 4 : 2)) decode_attention_k
       for (int e = 0; e < EPL; ++e) acc[j][e] += __shfl_xor_sync(0xffffffffu, acc[j][e], off);
     }
   }
-  float* wsum = reinterpret_cast<float*>(ring);  // kWarps * G * hd floats <= the ring
-  if (sub == 0) {
-#pragma unroll
-    for (int j = 0; j < G; ++j) {
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) wsum[(warp * G + j) * hd + dim(e)] = acc[j][e];
-    }
-  }
-  __syncthreads();
+  // The warps' partial outputs (kWarps x G x hd float32) go through the ring
+  // in passes of as many heads as it holds (kWarps x hp x hd floats): one pass
+  // up to G x hd = 2048, two at recurrentgemma-2b's G = 10, hd = 256 (40 KB of
+  // partials against the 32 KB ring).  Passes rather than a larger buffer: the
+  // static shared memory (ring, scores, red, slots) is already ~47 KB of the
+  // 48 KB a block may hold without opting in to dynamic shared memory, and a
+  // pass costs one more block barrier.  One pass sums exactly as before.
+  float* wsum = reinterpret_cast<float*>(ring);
+  const int hp = min(G, kRing * kTileBytes / (kWarps * hd * 4));
   T* out = static_cast<T*>(a.out);
-  for (int i = threadIdx.x; i < G * hd; i += kThreads) {
-    float s = 0.f;
-    for (int wp = 0; wp < kWarps; ++wp) s += wsum[wp * G * hd + i];
-    if (S == 1) {
-      out[head0 * hd + i] = from_f<T>(s);
-    } else {
-      const int j = i / hd;
-      a.part[((head0 + j) * S + c) * hd + (i - j * hd)] = s;
+  for (int j0 = 0; j0 < G; j0 += hp) {
+    const int nh = min(hp, G - j0);
+    if (sub == 0) {
+#pragma unroll
+      for (int j = 0; j < G; ++j) {
+        if (j < j0 || j >= j0 + nh) continue;
+#pragma unroll
+        for (int e = 0; e < EPL; ++e) wsum[(warp * nh + j - j0) * hd + dim(e)] = acc[j][e];
+      }
     }
+    __syncthreads();
+    for (int i = threadIdx.x; i < nh * hd; i += kThreads) {
+      float s = 0.f;
+      for (int wp = 0; wp < kWarps; ++wp) s += wsum[wp * nh * hd + i];
+      const int j = j0 + i / hd, d = i % hd;
+      if (S == 1) {
+        out[(head0 + j) * hd + d] = from_f<T>(s);
+      } else {
+        a.part[((head0 + j) * S + c) * hd + d] = s;
+      }
+    }
+    __syncthreads();  // the ring is free for the next pass
   }
   if (S == 1) return;
 
@@ -526,8 +539,8 @@ int plan_of(int b, int t_len, int h, int kvh, int hd, Plan& p) {
   int cap = 0;
   const int err = capacity<T, KV, G, NV>(cap);
   if (err != 0) return err;
-  // the warps' partial outputs (kWarps x G x hd float32) take the ring at the end
-  if (static_cast<long long>(kWarps) * G * hd * 4 > kRing * kTileBytes) {
+  // a pass of the partial outputs through the ring holds at least one head
+  if (static_cast<long long>(kWarps) * hd * 4 > kRing * kTileBytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   p.tl = min(kTileMaxLines, kTileBytes / (hd * static_cast<int>(sizeof(KV))));
@@ -592,11 +605,13 @@ int dispatch_group(const Args& a, Plan* plan, cudaStream_t stream) {
     REPRO_GROUP(8)
     default: break;
   }
-  // starcoder2-15b's G = 12, mixtral-8x22b's 6 and qwen3-moe-235b-a22b's 16,
-  // for one vector a lane (the float32 line of hd = 256 stays at G <= 8)
+  // starcoder2-15b's G = 12, mixtral-8x22b's 6, recurrentgemma-2b's 10 and
+  // qwen3-moe-235b-a22b's 16, for one vector a lane (the float32 line of
+  // hd = 256 stays at G <= 8)
   if constexpr (NV == 1) {
     switch (a.h / a.kvh) {
       REPRO_GROUP(6)
+      REPRO_GROUP(10)
       REPRO_GROUP(12)
       REPRO_GROUP(16)
       default: break;
@@ -659,8 +674,8 @@ extern "C" int decode_attention_plan(int b, int t_len, int h, int kvh, int hd, i
 }
 
 // act_dtype: 1 = bfloat16, 2 = float32; kv_int8: the cache holds int8 values
-// (then k_scale and v_scale are given).  h / kv must be 1, 2, 4, 6, 8, 12 or
-// 16 with (h / kv) * hd <= 2048, and hd / VEC a power of two <= 32 (VEC = 4
+// (then k_scale and v_scale are given).  h / kv must be 1, 2, 4, 6, 8, 10, 12
+// or 16, and hd / VEC a power of two <= 32 (VEC = 4
 // for a float32 cache, else 8), or 64 for a float32 cache (hd = 256, two
 // vectors a lane, h / kv <= 8); the
 // K/V base pointers must be 16-byte aligned; workspace holds the elements

@@ -21,12 +21,14 @@ __all__ = ["decode_attention", "ref_decode_attention"]
 
 _DTYPE_CODE = {torch.bfloat16: 1, torch.float32: 2}
 # query heads per KV head that decode_attention.cu instantiates: the powers of
-# two for every head_dim, 6, 12 and 16 (starcoder2-15b's 12, mixtral-8x22b's
-# 6, qwen3-moe-235b-a22b's 16) for one vector a lane
+# two for every head_dim, 6, 10, 12 and 16 (starcoder2-15b's 12,
+# mixtral-8x22b's 6, recurrentgemma-2b's 10, qwen3-moe-235b-a22b's 16) for one
+# vector a lane
 _GROUPS = (1, 2, 4, 8)
-_WIDE_GROUPS = (6, 12, 16)
-# the warps' partial outputs (4 x G x hd float32) must fit the 32 KB ring
-_MAX_GROUP_DIMS = 2048
+_WIDE_GROUPS = (6, 10, 12, 16)
+# the largest G x hd the card's tests hold (recurrentgemma-2b's 10 x 256; the
+# kernel reduces the warps' partial outputs through its ring in passes of heads)
+_MAX_GROUP_DIMS = 2560
 _PLAN_ARGTYPES = (ctypes.c_int,) * 7 + (ctypes.POINTER(ctypes.c_longlong),)
 _ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)

@@ -70,6 +70,7 @@ alone in a pool of the same size (greedy); on the CPU they equal a solo
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import time
@@ -980,7 +981,12 @@ class Engine:
         each launch and warms the allocator), then the same steps captured as
         one CUDA graph over the pool's tensors and the packed buffer, in the
         memory pool of the graphs captured before.  The capture launches
-        nothing: the launches it counts become what each replay adds."""
+        nothing: the launches it counts become what each replay adds.
+
+        The garbage collector is held off during the capture: a dead
+        engine's graph that it collected mid-capture would be
+        destroyed on a capturing stream, which CUDA refuses, and the capture
+        would fail (a cuBLAS call in it reports the invalidated capture)."""
         side = torch.cuda.Stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
@@ -988,8 +994,14 @@ class Engine:
         torch.cuda.current_stream(self.device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         mempool = next(iter(self._graphs.values()))[0].pool() if self._graphs else None
-        with dispatch.capture_launches() as launches, torch.cuda.graph(graph, pool=mempool):
-            self._chunk_eager(fire)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with dispatch.capture_launches() as launches, torch.cuda.graph(graph, pool=mempool):
+                self._chunk_eager(fire)
+        finally:
+            if collecting:
+                gc.enable()
         self._graphs[fire] = (graph, launches)
 
     def _write_levels(self):

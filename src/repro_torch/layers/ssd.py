@@ -1,0 +1,200 @@
+"""Mamba-2 SSD (state-space duality) mixer, chunked (torch port of
+``repro.layers.ssd``).
+
+The chunked algorithm of the SSD paper (arXiv:2405.21060): the intra-chunk
+terms are dense contractions, and the state between chunks is carried by a
+short loop over chunks (the reference's ``lax.scan``).  The depthwise causal
+conv (width 4) is shifted adds, in the reference's order.  Decode keeps
+(conv tail, SSM state) a layer and takes the O(1) step.
+
+The contractions are plain ``torch.einsum``/matmul, as the reference's are
+plain XLA: no TPU kernel computes them.  They sum in another order than
+XLA's, so prefill, stepping and the reference agree within a tolerance
+(``tests/test_torch_recurrent.py`` states it), not bit for bit.
+
+The head count is ``d_inner // head_dim`` (80 at mamba2-2.7b's full width),
+not ``cfg.n_heads``.  ``a_log``, ``d_skip`` and ``dt_bias`` are kept in
+float32 whatever the activation dtype: the reference reads its float32
+masters there without a cast.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.layers.param import parameter
+
+__all__ = ["CONV_W", "SSD", "causal_conv", "conv_step", "conv_tail", "init_ssd_state",
+           "softplus", "ssd_decode", "ssd_train"]
+
+CONV_W = 4
+
+
+class SSD(nn.Module):
+    """The mixer's weights in the reference's layout: in_proj (d, 2 d_in +
+    2 n + nh), conv_w (4, d_in + 2 n), a_log, d_skip, dt_bias (nh,) and
+    out_proj (d_in, d).  ``CONSTANT_START`` gives the reference's constant
+    starts (``ones``/``zeros`` ignore the ``scale=0.25`` of conv_w)."""
+
+    CONSTANT_START = {"conv_w": 1.0, "a_log": 0.0, "d_skip": 1.0, "dt_bias": 0.0}
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        s = cfg.ssm
+        d, d_in, n = cfg.d_model, s.d_inner, s.d_state
+        nh = d_in // s.head_dim
+        self.in_proj = parameter((d, 2 * d_in + 2 * n + nh), dtype, device)
+        self.conv_w = parameter((CONV_W, d_in + 2 * n), dtype, device)
+        self.a_log = parameter((nh,), torch.float32, device)
+        self.d_skip = parameter((nh,), torch.float32, device)
+        self.dt_bias = parameter((nh,), torch.float32, device)
+        self.out_proj = parameter((d_in, d), dtype, device)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)`` (torch's ``F.softplus``
+    turns into the identity above its threshold)."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv as shifted adds, the reference's order.
+    x: (b, s, c), w: (4, c)."""
+    out = x * w[CONV_W - 1]
+    s = x.shape[1]
+    for i in range(1, CONV_W):
+        shifted = F.pad(x, (0, 0, i, 0))[:, :s]
+        out = out + shifted * w[CONV_W - 1 - i]
+    return out
+
+
+def conv_step(conv_in: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """One output of the conv over the last 4 inputs: the reference's
+    ``einsum("bwc,wc->bc")``, summed in float32 and rounded once."""
+    return (conv_in.float() * w.float()).sum(dim=1).to(conv_in.dtype)
+
+
+def _split_proj(cfg, proj):
+    s = cfg.ssm
+    d_in, n = s.d_inner, s.d_state
+    z, xbc_dt = proj[..., :d_in], proj[..., d_in:]
+    return z, xbc_dt[..., : d_in + 2 * n], xbc_dt[..., d_in + 2 * n:]
+
+
+def conv_tail(raw: torch.Tensor, slen: int) -> torch.Tensor:
+    """The decode conv state after a prompt: the last 3 pre-conv inputs; a
+    prompt shorter than 3 keeps the zero start in front."""
+    tail = raw[:, -(CONV_W - 1):]
+    if slen < CONV_W - 1:
+        tail = F.pad(tail, (0, 0, CONV_W - 1 - slen, 0))
+    return tail
+
+
+def ssd_train(p: SSD, cfg, x: torch.Tensor, *, chunk: int = 128, return_state: bool = False):
+    """x: (b, s, d) -> (b, s, d), any s >= 1.  The prompt is front-padded to a
+    chunk multiple: zero tokens project to xs = B = C = 0, so they add
+    nothing to the outputs or the state.  With ``return_state`` also the
+    decode state after the last token, ``{"conv": (b, 3, d_in + 2n),
+    "ssm": (b, nh, n, hp) float32}``."""
+    s_cfg = cfg.ssm
+    d_in, n, hp = s_cfg.d_inner, s_cfg.d_state, s_cfg.head_dim
+    nh = d_in // hp
+    b, slen, _ = x.shape
+    chunk = min(chunk, slen)
+    pad = (-slen) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, pad, 0))
+    slen_p = slen + pad
+    dt_act = x.dtype
+
+    proj = x @ p.in_proj.to(dt_act)
+    z, xbc, dt = _split_proj(cfg, proj)
+    xbc_raw = xbc  # the decode conv state is the tail of the pre-conv inputs
+    xbc = F.silu(causal_conv(xbc, p.conv_w.to(dt_act)))
+    xs, B, C = xbc[..., :d_in], xbc[..., d_in: d_in + n], xbc[..., d_in + n:]
+
+    dt = softplus(dt.float() + p.dt_bias.float())  # (b, s, nh)
+    a = -torch.exp(p.a_log.float())
+    log_decay = dt * a  # log a_t
+
+    nc = slen_p // chunk
+    xh = xs.reshape(b, nc, chunk, nh, hp)
+    Bc = B.reshape(b, nc, chunk, n)
+    Cc = C.reshape(b, nc, chunk, n)
+    dtc = dt.reshape(b, nc, chunk, nh)
+    cum = torch.cumsum(log_decay.reshape(b, nc, chunk, nh), dim=2)
+    # intra-chunk: y[i] = sum_{j<=i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
+    scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc).float()
+    seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (b, nc, q, k, nh)
+    causal = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
+    L = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    W = scores[..., None] * L
+    dtx = dtc[..., None] * xh.float()  # (b, nc, k, nh, hp)
+    y_intra = torch.einsum("bcqkh,bckhp->bcqhp", W, dtx)
+
+    # chunk states: S_c = sum_j exp(cum_end - cum_j) dt_j B_j (x) x_j
+    decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
+    Sc = torch.einsum("bckn,bckhp->bchnp", Bc.float(), (dtc * decay_to_end)[..., None] * xh.float())
+
+    # between chunks: the state entering each chunk
+    total_decay = torch.exp(cum[:, :, -1, :])  # (b, nc, nh)
+    state = torch.zeros((b, nh, n, hp), dtype=torch.float32, device=x.device)
+    entering = []
+    for c in range(nc):
+        entering.append(state)
+        state = state * total_decay[:, c, :, None, None] + Sc[:, c]
+    S_in = torch.stack(entering, dim=1)  # (b, nc, nh, n, hp)
+
+    # y[i] += C_i . (exp(cum_i) S_in)
+    y_inter = torch.einsum("bcqn,bchnp->bcqhp", Cc.float(), S_in) * torch.exp(cum)[..., None]
+
+    y = (y_intra + y_inter).reshape(b, slen_p, nh, hp)
+    y = y + p.d_skip.float()[None, None, :, None] * xs.reshape(b, slen_p, nh, hp).float()
+    y = y.reshape(b, slen_p, d_in).to(dt_act) * F.silu(z)
+    out = (y @ p.out_proj.to(dt_act))[:, pad:]
+    if not return_state:
+        return out
+    return out, {"conv": conv_tail(xbc_raw, slen), "ssm": state}
+
+
+def init_ssd_state(cfg, batch: int, dtype, *, device=None, layers=None) -> dict:
+    """Zeroed decode state: ``conv`` (b, 3, d_in + 2n) in the activation
+    dtype and ``ssm`` (b, nh, n, hp) float32, with ``layers=L`` stacked on a
+    leading L axis."""
+    s = cfg.ssm
+    nh = s.d_inner // s.head_dim
+    lead = () if layers is None else (layers,)
+    return {
+        "conv": torch.zeros(lead + (batch, CONV_W - 1, s.d_inner + 2 * s.d_state), dtype=dtype,
+                            device=device),
+        "ssm": torch.zeros(lead + (batch, nh, s.d_state, s.head_dim), dtype=torch.float32,
+                           device=device),
+    }
+
+
+def ssd_decode(p: SSD, cfg, x: torch.Tensor, state: dict):
+    """One token: x (b, 1, d), ``state`` as :func:`init_ssd_state` gives one
+    layer's.  Returns (y (b, 1, d), the new state); ``state`` is only read."""
+    s_cfg = cfg.ssm
+    d_in, n, hp = s_cfg.d_inner, s_cfg.d_state, s_cfg.head_dim
+    nh = d_in // hp
+    b = x.shape[0]
+    dt_act = x.dtype
+
+    proj = x @ p.in_proj.to(dt_act)
+    z, xbc, dt = _split_proj(cfg, proj)
+    conv_in = torch.cat([state["conv"], xbc], dim=1)  # (b, 4, c)
+    conv_out = F.silu(conv_step(conv_in, p.conv_w.to(dt_act)))
+
+    xs = conv_out[:, :d_in].reshape(b, nh, hp).float()
+    B = conv_out[:, d_in: d_in + n].float()
+    C = conv_out[:, d_in + n:].float()
+    dtv = softplus(dt[:, 0].float() + p.dt_bias.float())  # (b, nh)
+    a = torch.exp(dtv * -torch.exp(p.a_log.float()))
+
+    h = state["ssm"] * a[..., None, None] + B[:, None, :, None] * (dtv[..., None] * xs)[:, :, None]
+    y = torch.einsum("bn,bhnp->bhp", C, h)
+    y = y + p.d_skip.float()[None, :, None] * xs
+    y = y.reshape(b, 1, d_in).to(dt_act) * F.silu(z)
+    return y @ p.out_proj.to(dt_act), {"conv": conv_in[:, 1:], "ssm": h}

@@ -4,13 +4,14 @@
 :meth:`ModelConfig.validate` checks the reference's rules (an accuracy-SLO
 ladder has at least two rungs, rung 0 equal to ``sqrt_unit``, the last
 "exact") as ``ValueError``s, and also rejects what the port does not run
-yet: SSM and RG-LRU blocks, encoder-decoder models and non-RoPE positions.
-Every sqrt unit runs ("exact", "e2afs", "esas", "cwaha4", "cwaha8"), with
-seeded datapath faults (``sqrt_faults``) and a ladder, and remat "none",
+yet: encoder-decoder models and sinusoidal positions.  Every sqrt unit
+runs ("exact", "e2afs", "esas", "cwaha4", "cwaha8"), with seeded datapath
+faults (``sqrt_faults``) and a ladder, and remat "none",
 "block" or "minimal"; patterns that mix "global" and "window" blocks run
 (gemma3-1b's 5:1); so do RMSNorm and LayerNorm, SwiGLU and GELU MLPs,
-mixture-of-experts layers (``moe``) and the vision stub's tokens
-(``vision_tokens``).
+mixture-of-experts layers (``moe``), the vision stub's tokens
+(``vision_tokens``), and the recurrent blocks: "ssd" (mamba2-2.7b, with
+``pos="none"``) and "rglru" (recurrentgemma-2b's mix with "window").
 """
 from __future__ import annotations
 
@@ -153,11 +154,20 @@ class ModelConfig:
         if self.mlp_act not in ("swiglu", "gelu"):
             raise ValueError(f"unknown MLP activation {self.mlp_act!r}; expected 'swiglu' or "
                              f"'gelu'")
+        unknown = set(self.blocks) - {"global", "window", "ssd", "rglru"}
+        if unknown:
+            raise ValueError(f"unknown blocks {sorted(unknown)}; expected 'global', 'window', "
+                             f"'ssd' or 'rglru'")
+        if "ssd" in self.blocks and self.ssm is None:
+            raise ValueError("ssd blocks need cfg.ssm")
+        if "rglru" in self.blocks and self.rglru is None:
+            raise ValueError("rglru blocks need cfg.rglru")
+        if self.pos not in ("rope", "sinusoidal", "none"):
+            raise ValueError(f"unknown positions {self.pos!r}; expected 'rope', 'sinusoidal' "
+                             f"or 'none'")
         unsupported = {
-            "SSM blocks": self.ssm is not None or "ssd" in self.blocks,
-            "RG-LRU blocks": self.rglru is not None or "rglru" in self.blocks,
             "encoder-decoder models": self.kind != "decoder" or self.encoder is not None,
-            "positions other than RoPE": self.pos != "rope",
+            "sinusoidal positions": self.pos == "sinusoidal",
         }
         found = [what for what, bad in unsupported.items() if bad]
         if found:

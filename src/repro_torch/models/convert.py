@@ -7,9 +7,11 @@ downloaded and JAX is not imported: the input is plain numpy.
 
 The reference's tree is ``embed``, ``unembed``, ``ln_f`` and
 ``layers/{ln1, ln2, attn/{wq, wk, wv, wo, q_norm, k_norm},
-mlp/{wi_gate, wi_up, wo}}``: for a uniform model one dict whose arrays are
-stacked on a leading L axis, for a mixed model (gemma3-1b's window and
-global layers) a list of L per-layer dicts.  The port names the same
+mlp/{wi_gate, wi_up, wo}}``, a recurrent layer's ``mixer/...`` in place of
+``attn`` (an "ssd" layer has no ln2 or mlp): for a uniform model one dict
+whose arrays are stacked on a leading L axis, for a mixed model (gemma3-1b's
+window and global layers, recurrentgemma-2b's RG-LRU and window layers) a
+list of L per-layer dicts, each with its own block's leaves.  The port names the same
 tensors ``embed`` ... ``layers.<i>.attn.wq``.  :func:`named_to_tree` and
 :func:`tree_to_named` map any per-parameter state (the parameters, the
 optimizer's moments) between the two, so checkpoints keep the reference's
@@ -44,8 +46,9 @@ def _put(node: dict, path, value) -> None:
 def named_to_tree(named: dict, n_layers: int, *, stacked: bool) -> dict:
     """``{port name: tensor}`` -> the reference's nested tree of numpy
     arrays: per-layer tensors stacked on a leading L axis (``stacked``: a
-    uniform model, ``cfg.uniform``), or a list of ``n_layers`` per-layer
-    dicts (a mixed model)."""
+    uniform model, ``cfg.uniform``; every layer must hold every leaf), or a
+    list of ``n_layers`` per-layer dicts (a mixed model, each layer with the
+    leaves it holds)."""
     tree, per_layer = {}, {}
     for name, t in named.items():
         parts = name.split(".")
@@ -57,13 +60,14 @@ def named_to_tree(named: dict, n_layers: int, *, stacked: bool) -> dict:
         return tree
     layers = {} if stacked else [{} for _ in range(n_layers)]
     for path, arrays in per_layer.items():
-        if any(a is None for a in arrays):
-            raise ValueError(f"layers.*.{'.'.join(path)}: not every layer is present")
         if stacked:
+            if any(a is None for a in arrays):
+                raise ValueError(f"layers.*.{'.'.join(path)}: not every layer is present")
             _put(layers, path, np.stack(arrays))
-        else:
+        else:  # a mixed stack's layers hold what their block holds
             for layer, a in zip(layers, arrays):
-                _put(layer, path, a)
+                if a is not None:
+                    _put(layer, path, a)
     tree["layers"] = layers
     return tree
 

@@ -1,8 +1,9 @@
 """Decoder LM: init, training forward, prefill, decode step and greedy
-decode (torch port of the attention-decoder part of ``repro.models.lm``:
-uniform stacks, and stacks that mix "global" and "window" blocks; RMSNorm or
-LayerNorm, a SwiGLU or GELU MLP or a mixture of experts, and the vision
-stub's tokens in the training forward).
+decode (torch port of the decoder part of ``repro.models.lm``: uniform
+stacks, and stacks that mix "global", "window", "ssd" and "rglru" blocks;
+RMSNorm or LayerNorm, a SwiGLU or GELU MLP or a mixture of experts, the
+vision stub's tokens in the training forward, and the recurrent blocks:
+the SSD mixer of mamba2-2.7b and the RG-LRU block of recurrentgemma-2b).
 
 Entry points:
     init(cfg, generator, device, trainable=)     -> LM
@@ -27,9 +28,14 @@ Speculative decoding over the slot pool (greedy draft-and-verify):
 As in the reference, a uniform stack's cache is one dict of stacked
 ``(L, b, t, kv, hd)`` tensors, and a mixed stack's is a list of per-layer
 dicts ``(b, t, kv, hd)``, each layer's ``t`` its own (a window layer's ring
-of the window).  Prefill and decode update it IN PLACE (the reference is
-functional and returns a new cache; here the returned cache is the one
-passed in).
+of the window).  A recurrent layer's share is its state, as the
+reference's ``_layer_cache`` has it: ``{"conv": (b, 3, c), "ssm": (b, nh,
+n, hp)}`` for "ssd" and ``{"conv": (b, 3, dr), "h": (b, dr)}`` for "rglru"
+(``conv`` in the activation dtype, the rest float32, never int8), stacked
+on a leading L axis in a uniform stack.  Prefill and decode update it IN
+PLACE (the reference is functional and returns a new cache; here the
+returned cache is the one passed in, and a layer's new state is
+``copy_``-ed into its tensors, which a captured graph holds).
 
 Serving runs every norm through ``layers.norms.norm_cfg``: an RMSNorm with
 ``sqrt_unit="e2afs"`` and no sqrt fault active on its fused route (the
@@ -60,7 +66,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core.faults import _M32, _mix32
 from repro_torch.device import resolve_device
 from repro_torch.layers import attention as attn
-from repro_torch.layers import rowwise
+from repro_torch.layers import rglru, rowwise, ssd
 from repro_torch.layers.mlp import MLP, mlp_apply
 from repro_torch.layers.moe import MoE, moe_apply
 from repro_torch.layers.norms import norm_cfg as _norm
@@ -89,15 +95,24 @@ def exact_twin(cfg: ModelConfig) -> ModelConfig:
 
 
 class Block(nn.Module):
-    """ln1 and ln2 in the config's norm layout, the attention, and ``mlp``
-    or, with ``cfg.moe``, ``moe``."""
+    """One layer in the reference's layout, by its block: "global" and
+    "window" hold ln1, ``attn``, ln2 and ``mlp`` (or, with ``cfg.moe``,
+    ``moe``); "ssd" holds ln1 and ``mixer`` (:class:`~repro_torch.layers.ssd.SSD`);
+    "rglru" holds ln1, ``mixer`` (:class:`~repro_torch.layers.rglru.RGLRU`),
+    ln2 and ``mlp``.  Norms in the config's layout."""
 
-    def __init__(self, cfg, *, dtype, device):
+    def __init__(self, cfg, block: str, *, dtype, device):
         super().__init__()
         norm_init(self, "ln1", cfg, dtype=dtype, device=device)
-        self.attn = attn.Attention(cfg, dtype=dtype, device=device)
+        if block == "ssd":
+            self.mixer = ssd.SSD(cfg, dtype=dtype, device=device)
+            return
+        if block == "rglru":
+            self.mixer = rglru.RGLRU(cfg, dtype=dtype, device=device)
+        else:
+            self.attn = attn.Attention(cfg, dtype=dtype, device=device)
         norm_init(self, "ln2", cfg, dtype=dtype, device=device)
-        if cfg.moe is not None:
+        if cfg.moe is not None and block != "rglru":
             self.moe = MoE(cfg, dtype=dtype, device=device)
         else:
             self.mlp = MLP(cfg, dtype=dtype, device=device)
@@ -125,8 +140,8 @@ class LM(nn.Module):
         norm_init(self, "ln_f", cfg, dtype=dtype, device=device)
         if cfg.vision_tokens:
             self.vision_proj = parameter((d, d), dtype, device)
-        self.layers = nn.ModuleList(Block(cfg, dtype=dtype, device=device)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Block(cfg, block, dtype=dtype, device=device)
+                                    for block in cfg.blocks)
         self.requires_grad_(trainable)
 
     def unembed_matrix(self) -> torch.Tensor:
@@ -135,8 +150,11 @@ class LM(nn.Module):
 
 # RMSNorm scales (applied as 1 + scale), LayerNorm biases (``*_bias``) and
 # the GELU MLP's biases start at zero and LayerNorm scales (``*_scale``) at
-# one; every other weight is a fan-in truncated normal with the reference's
-# scale (sqrt(d) for the embedding, 0.1 for a router, else 1)
+# one; a recurrent mixer's constant leaves start where its class's
+# ``CONSTANT_START`` says (the same name means ones in one mixer and zeros in
+# the other: SSD's conv_w, RG-LRU's); every other weight is a fan-in truncated
+# normal with the reference's scale (sqrt(d) for the embedding, 0.1 for a
+# router, a mixer's ``INIT_SCALE``, else 1)
 _ZERO_INIT = ("ln1", "ln2", "ln_f", "q_norm", "k_norm", "bi", "bo")
 
 
@@ -152,16 +170,35 @@ def init(cfg: ModelConfig, generator: torch.Generator = None, *, device=None,
         generator = torch.Generator(device=dev).manual_seed(0)
     model = LM(cfg, device=dev, trainable=trainable)
     for name, p in model.named_parameters():
-        leaf = name.rsplit(".", 1)[-1]
-        if leaf in _ZERO_INIT or leaf.endswith("_bias"):
-            p.zero_()
-        elif leaf.endswith("_scale"):
-            p.fill_(1.0)
+        start = _constant_start(model, name)
+        if start is not None:
+            p.fill_(start)
         else:
-            scale = (float(cfg.d_model) ** 0.5 if name == "embed" else
-                     0.1 if leaf == "router" else 1.0)
+            owner, _, leaf = name.rpartition(".")
+            scale = (float(cfg.d_model) ** 0.5 if name == "embed" else 0.1 if leaf == "router"
+                     else getattr(model.get_submodule(owner), "INIT_SCALE", {}).get(leaf, 1.0))
             p.copy_(truncated_normal(generator, tuple(p.shape), p.dtype, scale, device=dev))
     return model
+
+
+def _constant_start(model: LM, name: str):
+    """The constant :func:`init` starts parameter ``name`` at, or None for a
+    drawn one."""
+    owner, _, leaf = name.rpartition(".")
+    start = getattr(model.get_submodule(owner), "CONSTANT_START", {})
+    if leaf in start:
+        return start[leaf]
+    if leaf in _ZERO_INIT or leaf.endswith("_bias"):
+        return 0.0
+    return 1.0 if leaf.endswith("_scale") else None
+
+
+def constant_start_parameters(model: LM) -> list:
+    """``(name, parameter)`` for every parameter :func:`init` starts at a
+    constant, in ``named_parameters`` order.  Comparisons move these off
+    their starts first: a fresh RG-LRU block (conv_w at zero) computes
+    nothing, and a check on it would hold whatever ran."""
+    return [(n, p) for n, p in model.named_parameters() if _constant_start(model, n) is not None]
 
 
 def _cache_lines(cfg, block, cache_len):
@@ -170,27 +207,50 @@ def _cache_lines(cfg, block, cache_len):
     return min(cache_len, cfg.window) if block == "window" else cache_len
 
 
+def _block_cache(cfg, block, batch, cache_len, dt, *, quantized, device, layers=None) -> dict:
+    if block == "ssd":
+        return ssd.init_ssd_state(cfg, batch, dt, device=device, layers=layers)
+    if block == "rglru":
+        return rglru.init_rglru_state(cfg, batch, dt, device=device, layers=layers)
+    return attn.init_kv_cache(cfg, batch, _cache_lines(cfg, block, cache_len), dt,
+                              quantized=quantized, device=device, layers=layers)
+
+
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, quantized: bool = False,
                device=None):
-    """Zeroed KV cache (int8 plus float32 scales when ``quantized``) on
-    ``device`` (the card unless ``device="cpu"``), in the reference's two
-    forms: for a uniform stack one dict of ``(L, batch, lines, kv, hd)``
-    tensors, for a mixed stack a list of per-layer dicts of ``(batch,
-    lines, kv, hd)``.  A layer's ``lines`` is ``cache_len``, or for a window
-    layer ``min(cache_len, cfg.window)``, a ring of its window."""
+    """Zeroed cache on ``device`` (the card unless ``device="cpu"``), in the
+    reference's two forms: for a uniform stack one dict of tensors stacked
+    on a leading L axis, for a mixed stack a list of per-layer dicts.  An
+    attention layer holds ``(batch, lines, kv, hd)`` K/V (int8 plus float32
+    scales when ``quantized``), ``lines`` being ``cache_len``, or for a
+    window layer ``min(cache_len, cfg.window)``, a ring of its window; a
+    recurrent layer holds its state (see the module docstring), which
+    ``quantized`` leaves as it is."""
     dev = resolve_device(device)
     dt = act_dtype(cfg)
     if cfg.uniform:
-        return attn.init_kv_cache(cfg, batch, _cache_lines(cfg, cfg.blocks[0], cache_len), dt,
-                                  quantized=quantized, device=dev, layers=cfg.n_layers)
-    return [attn.init_kv_cache(cfg, batch, _cache_lines(cfg, block, cache_len), dt,
-                               quantized=quantized, device=dev) for block in cfg.blocks]
+        return _block_cache(cfg, cfg.blocks[0], batch, cache_len, dt, quantized=quantized,
+                            device=dev, layers=cfg.n_layers)
+    return [_block_cache(cfg, block, batch, cache_len, dt, quantized=quantized, device=dev)
+            for block in cfg.blocks]
 
 
 def _layer_cache(cache, i):
     """Layer ``i``'s share of the cache, as ``(cache, layer_idx)`` for the
     attention layer: the stacked dict with ``i``, or the list's own dict."""
     return (cache[i], None) if isinstance(cache, list) else (cache, i)
+
+
+def _layer_state(cache, i) -> dict:
+    """Layer ``i``'s recurrent state as views into the cache's tensors."""
+    return cache[i] if isinstance(cache, list) else {k: t[i] for k, t in cache.items()}
+
+
+def _write_state(state: dict, new: dict) -> None:
+    """A layer's new state into its tensors, in place (never rebound: a
+    captured graph holds the pool's addresses)."""
+    for k, t in state.items():
+        t.copy_(new[k])
 
 
 def _ffn(layer: Block, cfg, h, mm=torch.matmul):
@@ -204,9 +264,16 @@ def _ffn(layer: Block, cfg, h, mm=torch.matmul):
 def _layer_train(layer: Block, cfg, block, x, positions):
     """One block of the training forward (the reference's ``_layer_train``):
     unfused norms, full-sequence causal attention ("global") or causal
-    sliding-window attention ("window"), the MLP or the experts.  Returns
-    (x, the layer's float32 aux loss, 0 without experts)."""
+    sliding-window attention ("window"), the MLP or the experts; or the
+    chunked SSD mixer ("ssd"), or the RG-LRU block and its MLP ("rglru").
+    Returns (x, the layer's float32 aux loss, 0 without experts)."""
     h = _norm(layer, "ln1", x, cfg, fused=False)
+    if block in ("ssd", "rglru"):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        if block == "ssd":
+            return x + ssd.ssd_train(layer.mixer, cfg, h), aux
+        x = x + rglru.rglru_train(layer.mixer, cfg, h)
+        return x + mlp_apply(layer.mlp, cfg, _norm(layer, "ln2", x, cfg, fused=False)), aux
     mode = "causal" if block == "global" else "window"
     x = x + attn.attention_train(layer.attn, cfg, h, mode=mode, window=cfg.window,
                                  positions=positions)
@@ -289,23 +356,47 @@ def _levels(cfg, unit_levels, device):
     return torch.as_tensor(unit_levels, dtype=torch.int32, device=device)
 
 
+def _recurrent_decode(layer: Block, cfg, block, x, state, levels, write_state):
+    """One recurrent layer's decode step (the reference's ``_layer_decode``
+    for "ssd" and "rglru"): the new state goes into ``state`` in place, or
+    with ``write_state`` False nowhere."""
+    step = ssd.ssd_decode if block == "ssd" else rglru.rglru_decode
+    h, new = step(layer.mixer, cfg, _norm(layer, "ln1", x, cfg, levels=levels), state)
+    if write_state:
+        _write_state(state, new)
+    x = x + h
+    if block == "rglru":
+        x = x + mlp_apply(layer.mlp, cfg, _norm(layer, "ln2", x, cfg, levels=levels))
+    return x
+
+
 @torch.no_grad()
 def decode_step(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, pos, *,
-                unit_levels=None):
+                unit_levels=None, write_state: bool = True):
     """One decode forward (a single token per batch row) over the cache (a
     stacked dict or a per-layer list, as :func:`init_cache` gives it).
 
     tokens: (b, 1) integer; pos: the position of this token, an int
     (lock-step batch) or a (b,) tensor (one position per row).  Writes one
-    token line per layer into ``cache`` in place; a window layer writes its
-    ring at ``pos % window`` and attends with ``wrap``.  ``unit_levels``
-    ((b,) int32, requires ``cfg.sqrt_ladder``): every norm rsqrt of row
-    ``i``, qk-norm and final norm included, through ladder rung
-    ``unit_levels[i]``.  Returns (logits (b, 1, vocab), cache).
+    token line per attention layer into ``cache`` in place (a window layer
+    writes its ring at ``pos % window`` and attends with ``wrap``), and
+    each recurrent layer's new state over its old one.  ``write_state=False``
+    drops the recurrent layers' new states instead (the canary's shadow
+    step: a state is read-modify-write, so the served step must read the
+    state as it was; the attention lines it writes are the served step's
+    to overwrite).  ``unit_levels`` ((b,) int32, requires
+    ``cfg.sqrt_ladder``): every norm rsqrt of row ``i``, qk-norm and final
+    norm included, through ladder rung ``unit_levels[i]`` (the RG-LRU's
+    sqrt stays on ``cfg.sqrt_unit``, as in the reference).  Returns (logits
+    (b, 1, vocab), cache).
     """
     levels = _levels(cfg, unit_levels, tokens.device)
     x = model.embed[tokens]
     for i, (layer, block) in enumerate(zip(model.layers, cfg.blocks)):
+        if block in ("ssd", "rglru"):
+            x = _recurrent_decode(layer, cfg, block, x, _layer_state(cache, i), levels,
+                                  write_state)
+            continue
         c, idx = _layer_cache(cache, i)
         h = _norm(layer, "ln1", x, cfg, levels=levels)
         h, _ = attn.attention_decode(layer.attn, cfg, h, c, pos, window=_window(cfg, block),
@@ -319,10 +410,12 @@ def decode_step(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, pos, *
 def prefill(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, *,
             last_logit_only: bool = False):
     """One-shot batched prefill over the prompt, writing positions [0, s) of
-    every layer's cache in place (a window layer's ring shorter than the
-    prompt keeps the last lines).  tokens: (b, s) with s >= 1 into a fresh
-    cache.  Returns (logits (b, s, vocab), cache); ``last_logit_only`` keeps
-    only the last position's row, (b, 1, vocab)."""
+    every attention layer's cache in place (a window layer's ring shorter
+    than the prompt keeps the last lines), and each recurrent layer's state
+    after the last token (the chunked SSD, or the RG-LRU's scan).  tokens:
+    (b, s) with s >= 1 into a fresh cache.  Returns (logits (b, s, vocab),
+    cache); ``last_logit_only`` keeps only the last position's row, (b, 1,
+    vocab)."""
     s = tokens.shape[1]
     if s < 1:
         raise ValueError(f"prefill needs at least one prompt token, got tokens shape "
@@ -330,6 +423,14 @@ def prefill(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, *,
     x = model.embed[tokens]
     positions = torch.arange(s, device=tokens.device)
     for i, (layer, block) in enumerate(zip(model.layers, cfg.blocks)):
+        if block in ("ssd", "rglru"):
+            train = ssd.ssd_train if block == "ssd" else rglru.rglru_train
+            h, new = train(layer.mixer, cfg, _norm(layer, "ln1", x, cfg), return_state=True)
+            _write_state(_layer_state(cache, i), new)
+            x = x + h
+            if block == "rglru":
+                x = x + mlp_apply(layer.mlp, cfg, _norm(layer, "ln2", x, cfg))
+            continue
         c, idx = _layer_cache(cache, i)
         h = _norm(layer, "ln1", x, cfg)
         h, _ = attn.attention_prefill(layer.attn, cfg, h, c, positions,
@@ -550,13 +651,15 @@ def decode_slots_step(model: LM, cfg: ModelConfig, pool: dict, toks: torch.Tenso
     ``canary_stats`` ((b,) int32 ``cc``, ``cd``, (b,) float32 ``cmr``,
     ``crs``, owned by the caller; see :func:`_canary_update`).  The shadow
     runs first and writes the K/V lines (and int8 scales) the served step
-    then overwrites, so no shadow state survives the step.
+    then overwrites; its recurrent layers read the pool's states and drop
+    their new ones (``decode_step(write_state=False)``), so only the served
+    step advances them and no shadow state survives the step.
 
     Updates the pool in place and reads nothing back to the host, so a run
     of steps can be captured in a CUDA graph."""
     tok, pos, active, remaining = pool["tok"], pool["pos"], pool["active"], pool["remaining"]
     if canary:
-        exact, _ = decode_step(model, exact_twin(cfg), pool["cache"], tok, pos)
+        exact, _ = decode_step(model, exact_twin(cfg), pool["cache"], tok, pos, write_state=False)
     logits, _ = decode_step(model, cfg, pool["cache"], tok, pos, unit_levels=unit_levels)
     lg = logits[:, -1].float()
     if logits_hook is not None:

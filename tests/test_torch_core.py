@@ -24,6 +24,13 @@ from repro_torch.core import get_unit
 
 REPO = Path(__file__).resolve().parents[1]
 
+# The suite runs in parallel worker processes beside one another's XLA
+# thread pools, where torch's CPU threads spin on a shared machine and slow
+# every small op many-fold (the port's trainer tests read about 30 times
+# their time alone).  pytest imports every test module at collection, so this
+# puts torch on one thread for the whole test run in every worker.
+torch.set_num_threads(1)
+
 _NP_DTYPE = {"fp16": np.float16, "bf16": ml_dtypes.bfloat16, "fp32": np.float32}
 _TORCH_INT = {"fp16": torch.int16, "bf16": torch.int16, "fp32": torch.int32}
 _NP_INT = {"fp16": np.int16, "bf16": np.int16, "fp32": np.int32}

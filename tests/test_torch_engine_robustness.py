@@ -42,7 +42,6 @@ from repro.launch.engine import SHED_POLICIES as JAX_SHED_POLICIES
 from repro.launch.engine import STATUSES as JAX_STATUSES
 from repro.launch.engine import Engine as JaxEngine
 from repro.launch.engine import Request as JaxRequest
-from repro.launch.engine import solo_generate as jax_solo_generate
 from repro.models import lm as jax_lm
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.faults import DispatchFault, DispatchFaultInjector, FaultConfig
@@ -65,6 +64,23 @@ def setup():
     tcfg = get_smoke_config("qwen3-4b", **KW)
     model = convert.params_from_numpy(tcfg, jax.tree.map(np.asarray, params), device="cpu")
     return jcfg, params, tcfg, model
+
+
+# the reference's ``launch.engine.solo_generate`` (prefill, then greedy
+# ``generate_scan``) with both calls jitted (the config and lengths static):
+# run eagerly, each call compiles its layer scans anew; jitted, each config
+# and shape compiles once for the whole file
+_jax_prefill = jax.jit(jax_lm.prefill, static_argnums=1, static_argnames="last_logit_only")
+_jax_generate = jax.jit(jax_lm.generate_scan, static_argnums=(1, 5))
+
+
+def jax_solo_generate(params, cfg, prompt, max_new_tokens, *, cache_len):
+    prompt = jnp.asarray(prompt, jnp.int32)[None]
+    cache, _ = jax_lm.init_cache(cfg, 1, cache_len)
+    logits, cache = _jax_prefill(params, cfg, cache, prompt, last_logit_only=True)
+    toks, _, _ = _jax_generate(params, cfg, cache, jnp.argmax(logits[:, -1:], axis=-1),
+                               prompt.shape[1], max_new_tokens)
+    return np.asarray(toks)[0]
 
 
 def _requests(vocab, n, *, seed=0, prompts=(3, 5), gens=(2, 4, 7), cls=Request):
@@ -350,7 +366,7 @@ def test_health_signals_equal_the_reference(setup):
     remaining = np.array([4, 4, 2, 4], np.int32)
 
     jcache, _ = jax_lm.init_cache(jcfg, 4, 16)
-    jlog, jcache = jax_lm.prefill(params, jcfg, jcache, jnp.asarray(prompt), last_logit_only=True)
+    jlog, jcache = _jax_prefill(params, jcfg, jcache, jnp.asarray(prompt), last_logit_only=True)
     jout = jax_lm.decode_slots_scan(
         params, jcfg, jcache, jnp.argmax(jlog[:, -1:], -1).astype(jnp.int32),
         jnp.full(4, 5, jnp.int32), jnp.asarray(active), jnp.asarray(remaining), 4,

@@ -63,8 +63,6 @@ _forward = jax.jit(jax_lm.forward, static_argnums=1)
 _loss_grad = jax.jit(jax.value_and_grad(jax_steps.loss_fn, has_aux=True), static_argnums=1)
 _moe_apply = jax.jit(jax_moe.moe_apply, static_argnums=1, static_argnames="capacity_factor")
 
-# parameters that start at a constant (zeros or ones)
-_CONSTANT_START = ("ln1", "ln2", "ln_f", "q_norm", "k_norm", "bi", "bo")
 
 
 @pytest.fixture(scope="module")
@@ -80,10 +78,8 @@ def trees():
             model = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
             gen = torch.Generator().manual_seed(1)
             with torch.no_grad():
-                for name, p in model.named_parameters():
-                    leaf = name.rsplit(".", 1)[-1]
-                    if leaf in _CONSTANT_START or leaf.endswith(("_scale", "_bias")):
-                        p.add_(0.1 * torch.randn(p.shape, generator=gen))
+                for _, p in lm.constant_start_parameters(model):
+                    p.add_(0.1 * torch.randn(p.shape, generator=gen))
             tree = convert.params_to_numpy(model)
             cache[arch] = (jax.tree.map(jnp.asarray, tree), tree)
         return cache[arch]
@@ -355,10 +351,10 @@ def test_full_config_and_parameter_count_mirror_the_reference(arch):
 
 def test_registry_knows_the_ported_ids_and_validate_keeps_its_refusals():
     assert set(FAMILIES) <= set(ARCH_IDS)
-    for override, match in (({"block_pattern": ("ssd",)}, "SSM"),
-                            ({"block_pattern": ("rglru",)}, "RG-LRU"),
+    for override, match in (({"block_pattern": ("ssd",)}, "ssd blocks need cfg.ssm"),
+                            ({"mlp_act": "relu"}, "unknown MLP activation"),
                             ({"kind": "encdec"}, "encoder-decoder"),
-                            ({"pos": "sinusoidal"}, "RoPE"),
+                            ({"pos": "sinusoidal"}, "sinusoidal"),
                             ({"norm": "batchnorm"}, "unknown norm")):
         with pytest.raises(ValueError, match=match):
             get_smoke_config("starcoder2-15b", **override)

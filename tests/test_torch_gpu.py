@@ -1442,3 +1442,180 @@ def test_family_staggered_request_equals_the_request_alone(cuda_device, arch):
         eng.reset()
         alone = eng.run([Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)])
         np.testing.assert_array_equal(done[r.uid].tokens, alone[r.uid].tokens)
+
+
+# -- the recurrent families (recurrentgemma-2b's G = 10, the SSD and RG-LRU) --
+
+@pytest.mark.parametrize("t", [2048, 2112])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_attention_ten_heads_a_kv_head(cuda_device, quantized, t):
+    """recurrentgemma-2b's window layer: 8 slots, one KV head of 10 query
+    heads (G = 10: per-head shuffles, the warps' partial outputs through the
+    ring in two passes), head_dim 256, bf16, float and int8 caches, the
+    2048-line ring and 2112 lines, wrap off and on, mixed per-row positions.
+    Two calls are bit-identical."""
+    b, h, kv, hd, dtype = 8, 10, 1, 256, torch.bfloat16
+    q, k, v, pos, ks, vs = _attn_case(cuda_device, b, t, h, kv, hd, dtype, quantized, t + 10)
+    for wrap in (False, True):
+        plain = attn_ops.ref_decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
+        ours = attn_ops.decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
+        again = attn_ops.decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
+        assert torch.equal(ours, again), "two calls differ"
+        _assert_attention_close(ours, plain, dtype)
+
+
+def test_decode_attention_refuses_a_float32_line_of_ten_heads(cuda_device):
+    """G = 10 takes one vector a lane: a float32 cache of head_dim 256 (two a
+    lane) is refused with an error, never served by the plain version."""
+    q = torch.ones(1, 10, 256, device=cuda_device)
+    k = torch.ones(1, 8, 1, 256, device=cuda_device)
+    pos = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="one vector a lane"):
+        attn_ops.decode_attention(q, k, k, pos, scale=0.0625)
+
+
+_RECURRENT = ("mamba2-2.7b", "recurrentgemma-2b")
+
+
+def _recurrent_model(dev, arch, act_dtype="float32"):
+    cfg = get_smoke_config(arch, act_dtype=act_dtype, sqrt_unit="e2afs", decode_kernel="fused")
+    model = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for _, p in lm.constant_start_parameters(model):
+            p.add_(0.3 * torch.randn(p.shape, generator=gen).to(p.dtype))
+    return cfg, model.to(dev)
+
+
+def _cache_tensors(cache):
+    return [t for layer in (cache if isinstance(cache, list) else [cache])
+            for _, t in sorted(layer.items())]
+
+
+@pytest.mark.parametrize("arch", _RECURRENT)
+def test_recurrent_model_on_the_card_matches_the_cpu(cuda_device, arch):
+    """Both recurrent families at smoke width in float32: prefill over 13
+    tokens (past recurrentgemma's ring of 8) and 6 decode steps on the
+    card, on the kernels (RMSNorm, e2afs_sqrt in each RG-LRU, decode
+    attention in each window layer, each counted), against the CPU: logits
+    and every state within 1e-4 of max(1, max |value|) (cuBLAS sums in
+    another order), greedy tokens identical."""
+    cfg, model = _recurrent_model(torch.device("cpu"), arch)
+    gpu_model = _recurrent_model(cuda_device, arch)[1]
+    prompt = torch.randint(0, cfg.vocab, (2, 13), generator=torch.Generator().manual_seed(2))
+    out = {}
+    for dev, m in (("cpu", model), ("cuda", gpu_model)):
+        dispatch.reset_launch_counts()
+        cache = lm.init_cache(cfg, 2, 19, device=dev)
+        logits, cache = lm.prefill(m, cfg, cache, prompt.to(dev))
+        toks, _, cache = lm.generate_scan(m, cfg, cache, logits[:, -1:].argmax(-1), 13, 6)
+        out[dev] = (logits.cpu(), toks.cpu(), [t.cpu() for t in _cache_tensors(cache)],
+                    dispatch.launch_counts())
+    rglru_layers, windows = cfg.blocks.count("rglru"), cfg.blocks.count("window")
+    norms = (2 if arch == "recurrentgemma-2b" else 1) * cfg.n_layers + 1
+    counts = out["cuda"][3]
+    assert counts["rmsnorm"] == 7 * norms
+    assert counts["e2afs_sqrt"] == 7 * rglru_layers
+    assert counts["decode_attention"] == 6 * windows
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], rtol=0, atol=0)
+    for a, b in zip([out["cuda"][0]] + out["cuda"][2], [out["cpu"][0]] + out["cpu"][2]):
+        err = float((a.float() - b.float()).abs().max())
+        assert err <= 1e-4 * max(1.0, float(b.float().abs().max())), err
+
+
+@pytest.mark.parametrize("arch", _RECURRENT)
+@pytest.mark.parametrize("act_dtype", ["bfloat16", "float32"])
+def test_recurrent_chunk_is_captured_and_replays_the_eager_chunk(cuda_device, arch, act_dtype):
+    """The engine's decode chunk of a recurrent model captures, and a replay
+    gives the eager chunk's pool tensors (the states updated in place, never
+    rebound) and packed buffer bit for bit, with the same launches."""
+    cfg, model = _recurrent_model(cuda_device, arch, act_dtype)
+    eng = Engine(model, cfg, num_slots=3, cache_len=40, chunk=4)
+    eng.warmup(prompt_lens={3, 5, 12})
+    assert list(eng._graphs) == [()]
+    for slot, req in enumerate(_trace(cfg)[:3]):
+        eng._admit(req, slot, 0.0)
+    start = [t.clone() for t in lm.pool_tensors(eng.pool)]
+
+    def chunk(run):
+        for t, s0 in zip(lm.pool_tensors(eng.pool), start):
+            t.copy_(s0)
+        dispatch.reset_launch_counts()
+        run()
+        torch.cuda.synchronize()
+        return ([t.clone() for t in lm.pool_tensors(eng.pool)] + [eng._packed.clone()],
+                dispatch.launch_counts())
+
+    eager, eager_counts = chunk(eng._chunk_eager)
+    graphed, graph_counts = chunk(eng._decode_chunk)
+    assert _pool_bits_equal(graphed, eager)
+    assert not _pool_bits_equal(eager[:len(start)], start), "the chunk moved no state"
+    assert graph_counts == eager_counts
+    assert eager_counts["e2afs_sqrt"] == eng.chunk * cfg.blocks.count("rglru")
+    assert eager_counts["decode_attention"] == eng.chunk * cfg.blocks.count("window")
+
+
+@pytest.mark.parametrize("arch", _RECURRENT)
+def test_recurrent_canaries_on_the_card_leave_the_pool_untouched(cuda_device, arch):
+    """Canaries at stride 1 with budgets that never trip, captured: every
+    token and every pool tensor bit-identical to the engine without an SLO
+    (the shadow's recurrent states are dropped, not written), the trace
+    queued at once so that both engines fill the same slots."""
+    from repro_torch.launch.engine import AccuracySLO
+
+    cfg, model = _recurrent_model(cuda_device, arch, "bfloat16")
+    quiet = AccuracySLO(canary_stride=1, rel_err_budget=1e9, divergence_budget=None,
+                        promote_after=None)
+    plain = Engine(model, cfg, num_slots=3, cache_len=40, chunk=4)
+    canary = Engine(model, cfg, num_slots=3, cache_len=40, chunk=4, slo=quiet)
+
+    def trace():  # every request queued at 0: the slots do not follow the host's clock
+        return [Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)
+                for r in _trace(cfg)]
+
+    want, got = plain.run(trace()), canary.run(trace())
+    assert canary.stats["canary_checks"] > 0 and canary._graphs
+    for uid, c in want.items():
+        np.testing.assert_array_equal(got[uid].tokens, c.tokens)
+    assert _pool_bits_equal(lm.pool_tensors(canary.pool), lm.pool_tensors(plain.pool))
+
+
+@pytest.mark.parametrize("arch", _RECURRENT)
+def test_recurrent_staggered_request_equals_the_request_alone(cuda_device, arch):
+    """Five requests through three slots on the card (reused slots, a late
+    arrival): each one's tokens equal the same request alone in a pool of
+    the same size (admission overwrites a reused slot's whole state)."""
+    cfg, model = _recurrent_model(cuda_device, arch, "bfloat16")
+    eng = Engine(model, cfg, num_slots=3, cache_len=40, chunk=4)
+    eng.warmup(prompt_lens={3, 4, 5, 8, 12})
+    reqs = _trace(cfg)
+    done = eng.run(reqs)
+    assert eng.stats["n_ok"] == len(reqs)
+    for r in reqs:
+        eng.reset()
+        alone = eng.run([Request(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens)])
+        np.testing.assert_array_equal(done[r.uid].tokens, alone[r.uid].tokens)
+
+
+def test_capture_holds_off_the_garbage_collector(cuda_device):
+    """A chunk is captured with the collector off (a dead engine's graph it
+    collected mid-capture would be destroyed on the capturing stream and
+    fail the capture), and the collector is back on after."""
+    import gc
+
+    cfg, eng = _engine(cuda_device, "qwen3-4b", "bfloat16", False)
+    dead = _engine(cuda_device, "qwen3-4b", "bfloat16", False)[1]
+    dead.warmup(prompt_lens={3})
+    dead.cycle = dead  # only the cyclic collector frees it, and its graph
+    del dead
+    seen = []
+    chunk = eng._chunk_eager
+
+    def recording(*args, **kw):
+        seen.append(gc.isenabled())
+        return chunk(*args, **kw)
+
+    eng._chunk_eager = recording
+    assert gc.isenabled()
+    eng.warmup(prompt_lens={3})
+    assert eng._graphs and seen[-1] is False and gc.isenabled()

@@ -33,6 +33,13 @@ from repro_torch.models import convert, lm
 
 B, S, GEN = 2, 8, 16
 
+# the reference's entry points, jitted (the config and lengths static): run
+# eagerly, each call compiles its layer scan anew; jitted, each config and
+# shape compiles once for the whole file, shared by the tests that repeat it
+_jprefill = jax.jit(jax_lm.prefill, static_argnums=1, static_argnames="last_logit_only")
+_jdecode = jax.jit(jax_lm.decode_step, static_argnums=1)
+_jgenerate = jax.jit(jax_lm.generate_scan, static_argnums=(1, 5))
+
 
 def _configs(**kw):
     return jax_smoke_config("qwen3-4b", **kw), get_smoke_config("qwen3-4b", **kw)
@@ -74,7 +81,7 @@ def _both(jax_params, act_dtype="float32", quantized=False, decode_kernel=None):
 @pytest.mark.parametrize("quantized", [False, True])
 def test_prefill_logits_and_cache(jax_params, quantized):
     jcfg, tcfg, params, model, prompt, jcache, tcache = _both(jax_params, quantized=quantized)
-    jlog, jcache = jax_lm.prefill(params, jcfg, jcache, jnp.asarray(prompt))
+    jlog, jcache = _jprefill(params, jcfg, jcache, jnp.asarray(prompt))
     tlog, tcache = lm.prefill(model, tcfg, tcache, torch.from_numpy(prompt))
     assert tuple(tlog.shape) == (B, S, jcfg.vocab)
     np.testing.assert_allclose(_np(tlog), _np(jlog), atol=1e-4, rtol=0)
@@ -92,11 +99,11 @@ def test_prefill_logits_and_cache(jax_params, quantized):
 @pytest.mark.parametrize("quantized", [False, True])
 def test_decode_step_logits_and_cache(jax_params, quantized, per_row):
     jcfg, tcfg, params, model, prompt, jcache, tcache = _both(jax_params, quantized=quantized)
-    jlog, jcache = jax_lm.prefill(params, jcfg, jcache, jnp.asarray(prompt))
+    jlog, jcache = _jprefill(params, jcfg, jcache, jnp.asarray(prompt))
     _, tcache = lm.prefill(model, tcfg, tcache, torch.from_numpy(prompt))
     tok = np.asarray(jnp.argmax(jlog[:, -1:], axis=-1)).astype(np.int32)
     pos = np.array([S, S - 3], np.int32) if per_row else S
-    jl, jcache = jax_lm.decode_step(params, jcfg, jcache, jnp.asarray(tok), jnp.asarray(pos))
+    jl, jcache = _jdecode(params, jcfg, jcache, jnp.asarray(tok), jnp.asarray(pos))
     tl, tcache = lm.decode_step(model, tcfg, tcache, torch.from_numpy(tok),
                                 torch.from_numpy(pos) if per_row else pos)
     np.testing.assert_allclose(_np(tl), _np(jl), atol=1e-4, rtol=0)
@@ -110,9 +117,9 @@ def test_decode_step_logits_and_cache(jax_params, quantized, per_row):
 def test_generate_scan_tokens_identical(jax_params, quantized, decode_kernel):
     jcfg, tcfg, params, model, prompt, jcache, tcache = _both(
         jax_params, quantized=quantized, decode_kernel=decode_kernel)
-    jlog, jcache = jax_lm.prefill(params, jcfg, jcache, jnp.asarray(prompt), last_logit_only=True)
+    jlog, jcache = _jprefill(params, jcfg, jcache, jnp.asarray(prompt), last_logit_only=True)
     tlog, tcache = lm.prefill(model, tcfg, tcache, torch.from_numpy(prompt), last_logit_only=True)
-    jt, jnext, _ = jax_lm.generate_scan(params, jcfg, jcache, jnp.argmax(jlog, axis=-1), S, GEN)
+    jt, jnext, _ = _jgenerate(params, jcfg, jcache, jnp.argmax(jlog, axis=-1), S, GEN)
     tt, tnext, _ = lm.generate_scan(model, tcfg, tcache, tlog.argmax(dim=-1), S, GEN)
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
     np.testing.assert_array_equal(tnext.numpy(), np.asarray(jnext))
@@ -121,12 +128,12 @@ def test_generate_scan_tokens_identical(jax_params, quantized, decode_kernel):
 def test_bfloat16_within_tolerance(jax_params):
     jcfg, tcfg, params, model, prompt, jcache, tcache = _both(
         jax_params, act_dtype="bfloat16", decode_kernel="fused")
-    jlog, jcache = jax_lm.prefill(params, jcfg, jcache, jnp.asarray(prompt), last_logit_only=True)
+    jlog, jcache = _jprefill(params, jcfg, jcache, jnp.asarray(prompt), last_logit_only=True)
     tlog, tcache = lm.prefill(model, tcfg, tcache, torch.from_numpy(prompt), last_logit_only=True)
     assert tlog.dtype == torch.bfloat16
     np.testing.assert_allclose(_np(tlog), _np(jlog), atol=5e-2, rtol=0)
     tok = np.asarray(jnp.argmax(jlog, axis=-1)).astype(np.int32)
-    jl, _ = jax_lm.decode_step(params, jcfg, jcache, jnp.asarray(tok), S)
+    jl, _ = _jdecode(params, jcfg, jcache, jnp.asarray(tok), S)
     tl, _ = lm.decode_step(model, tcfg, tcache, torch.from_numpy(tok), S)
     np.testing.assert_allclose(_np(tl), _np(jl), atol=5e-2, rtol=0)
 
@@ -147,15 +154,15 @@ def test_window_model_cache_is_the_window(jax_params, quantized):
     jcache, _ = jax_lm.init_cache(jcfg, B, cache_len, quantized=quantized)
     tcache = lm.init_cache(tcfg, B, cache_len, quantized=quantized, device="cpu")
     assert tcache["k"].shape[2] == jcache["k"].shape[2] == tcfg.window
-    jlog, jcache = jax_lm.prefill(params, jcfg, jcache, jnp.asarray(prompt), last_logit_only=True)
+    jlog, jcache = _jprefill(params, jcfg, jcache, jnp.asarray(prompt), last_logit_only=True)
     tlog, tcache = lm.prefill(model, tcfg, tcache, torch.from_numpy(prompt), last_logit_only=True)
     np.testing.assert_allclose(_np(tlog), _np(jlog), atol=1e-4, rtol=0)
     tok = np.asarray(jnp.argmax(jlog, axis=-1)).astype(np.int32)
-    jl, _ = jax_lm.decode_step(params, jcfg, jcache, jnp.asarray(tok), S)
+    jl, _ = _jdecode(params, jcfg, jcache, jnp.asarray(tok), S)
     tl, _ = lm.decode_step(model, tcfg, {k: v.clone() for k, v in tcache.items()},
                            torch.from_numpy(tok), S)
     np.testing.assert_allclose(_np(tl), _np(jl), atol=1e-4, rtol=0)
-    jt, jnext, _ = jax_lm.generate_scan(params, jcfg, jcache, jnp.asarray(tok), S, GEN)
+    jt, jnext, _ = _jgenerate(params, jcfg, jcache, jnp.asarray(tok), S, GEN)
     tt, tnext, _ = lm.generate_scan(model, tcfg, tcache, torch.from_numpy(tok), S, GEN)
     np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
     np.testing.assert_array_equal(tnext.numpy(), np.asarray(jnext))
@@ -311,8 +318,8 @@ def test_full_width_config_mirrors_reference():
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"block_pattern": ("rglru",)}, "RG-LRU"),
-    ({"block_pattern": ("ssd",)}, "SSM"),
+    ({"pos": "sinusoidal"}, "sinusoidal"),
+    ({"mlp_act": "relu"}, "unknown MLP activation"),
     ({"kind": "encdec"}, "encoder-decoder"),
     ({"sqrt_ladder": ("exact", "esas")}, "ladder"),  # the last rung is not "exact"
     ({"sqrt_ladder": ("e2afs", "exact")}, "ladder"),  # rung 0 is not sqrt_unit ("exact")
@@ -365,10 +372,10 @@ def mixed_runs():
             params = trees[arch][0]
             prompt = np.random.default_rng(1).integers(0, jcfg.vocab, (B, MIX_S)).astype(np.int32)
             jcache, _ = jax_lm.init_cache(jcfg, B, MIX_S + MIX_GEN, quantized=quantized)
-            jlog, jcache = jax_lm.prefill(params, jcfg, jcache, jnp.asarray(prompt))
+            jlog, jcache = _jprefill(params, jcfg, jcache, jnp.asarray(prompt))
             after = jax.tree.map(np.asarray, jcache)
-            jt, jnext, _ = jax_lm.generate_scan(params, jcfg, jcache,
-                                                jnp.argmax(jlog[:, -1:], axis=-1), MIX_S, MIX_GEN)
+            jt, jnext, _ = _jgenerate(params, jcfg, jcache, jnp.argmax(jlog[:, -1:], axis=-1),
+                                      MIX_S, MIX_GEN)
             runs[key] = {"prompt": prompt, "logits": np.asarray(jlog), "cache": after,
                          "tokens": np.asarray(jt), "next": np.asarray(jnext)}
         return trees[arch][1], runs[key]
@@ -453,7 +460,7 @@ def test_mixed_decode_step_logits_and_caches(mixed_runs, per_row):
     jcache = jax.tree.map(jnp.asarray, ref["cache"])
     tok = ref["logits"][:, -1:].argmax(-1).astype(np.int32)
     pos = np.array([MIX_S, MIX_S + 5], np.int32) if per_row else MIX_S
-    jl, jcache = jax_lm.decode_step(params, jcfg, jcache, jnp.asarray(tok), jnp.asarray(pos))
+    jl, jcache = _jdecode(params, jcfg, jcache, jnp.asarray(tok), jnp.asarray(pos))
     tl, tcache = lm.decode_step(model, tcfg, tcache, torch.from_numpy(tok),
                                 torch.from_numpy(pos) if per_row else pos)
     np.testing.assert_allclose(_np(tl), _np(jl), atol=1e-4, rtol=0)
@@ -542,7 +549,7 @@ def _slot_runs(ladder_trees, arch, *, sqrt_faults, unit_levels, hook=None, recor
     remaining = np.full(b, SLOT_STEPS, np.int32)
 
     jcache, _ = jax_lm.init_cache(jcfg, b, cache_len)
-    jlog, jcache = jax_lm.prefill(params, jcfg, jcache, jnp.asarray(prompt))
+    jlog, jcache = _jprefill(params, jcfg, jcache, jnp.asarray(prompt))
     jtok = jnp.argmax(jlog[:, -1:], axis=-1).astype(jnp.int32)
     jhook = hook and jax_faults.logits_hook(jax_faults.FaultConfig(*hook))
     jt = jax_lm.decode_slots_scan(params, jcfg, jcache, jtok, pos, active, remaining, SLOT_STEPS,

@@ -48,6 +48,11 @@ from repro_torch.models import convert, lm
 
 S_LONG, Q_CHUNK, LOSS_CHUNK = 256, 64, 128
 
+# the reference's loss and gradients, jitted (the config static): one XLA
+# compile a config instead of eager dispatch of every primitive.  Every call
+# runs under ``small_chunks``, so every trace sees the same chunk sizes.
+_jax_loss_grad = jax.jit(jax.value_and_grad(jax_steps.loss_fn, has_aux=True), static_argnums=1)
+
 
 @pytest.fixture(scope="module")
 def jax_tree():
@@ -106,7 +111,7 @@ def test_loss_and_gradients_match_the_reference(jax_tree, small_chunks, unit, li
     jcfg = jax_smoke_config("qwen3-4b", act_dtype="float32", sqrt_unit=unit)
     tcfg = get_smoke_config("qwen3-4b", act_dtype="float32", sqrt_unit=unit)
     batch = _batch(jcfg.vocab, 2, S_LONG)
-    (j_total, j_metrics), j_grads = jax.value_and_grad(jax_steps.loss_fn, has_aux=True)(
+    (j_total, j_metrics), j_grads = _jax_loss_grad(
         params, jcfg, {k: jnp.asarray(v) for k, v in batch.items()})
     t_total, t_metrics, t_grads = _port_grads(tcfg, tree, batch)
     np.testing.assert_allclose(t_total, float(j_total), rtol=1e-6)
@@ -139,7 +144,7 @@ def test_mixed_loss_and_gradients_match_the_reference(gemma_tree, small_chunks, 
     jcfg = jax_smoke_config("gemma3-1b", act_dtype="float32", sqrt_unit=unit)
     tcfg = get_smoke_config("gemma3-1b", act_dtype="float32", sqrt_unit=unit)
     batch = _batch(jcfg.vocab, 2, S_LONG, seed=3)
-    (j_total, _), j_grads = jax.value_and_grad(jax_steps.loss_fn, has_aux=True)(
+    (j_total, _), j_grads = _jax_loss_grad(
         params, jcfg, {k: jnp.asarray(v) for k, v in batch.items()})
     t_total, _, t_grads = _port_grads(tcfg, tree, batch)
     assert isinstance(t_grads["layers"], list) and len(t_grads["layers"]) == tcfg.n_layers
@@ -276,7 +281,7 @@ def test_remat_minimal_equals_none_and_the_reference(jax_tree, small_chunks, det
     for (path, a), (_, b) in zip(flat_none, flat_min):
         np.testing.assert_array_equal(a, b, err_msg=str(path))
     jcfg = jax_smoke_config("qwen3-4b", act_dtype="float32", sqrt_unit="e2afs", remat="minimal")
-    (j_total, _), j_grads = jax.value_and_grad(jax_steps.loss_fn, has_aux=True)(
+    (j_total, _), j_grads = _jax_loss_grad(
         params, jcfg, {k: jnp.asarray(v) for k, v in batch.items()})
     np.testing.assert_allclose(total, float(j_total), rtol=1e-6)
     worst = _gradient_errors(j_grads, grads["minimal"])
