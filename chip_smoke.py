@@ -24,9 +24,10 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    fp32, float and int8 caches, wrap off and on, mixed per-row positions,
    t = 576 and 4096, and at gemma3-1b's (one KV head of 4 query heads,
    head_dim 256, t = 512 and 2112), phase 16's groups (12 and 16 query
-   heads on 4 KV heads, 6 on 8, head_dim 128) and recurrentgemma-2b's (10
+   heads on 4 KV heads, 6 on 8, head_dim 128), recurrentgemma-2b's (10
    query heads on 1, head_dim 256, bf16, float and int8 caches, t = 2048
-   and 2112), two calls bit-identical;
+   and 2112) and whisper-small's (12 KV heads of one query head, head_dim
+   64, bf16, float and int8 caches, t = 192), two calls bit-identical;
 4. the main paths, each with the launch counts set to 0 just before and read
    just after: (a) qwen3-4b at full width serving batch 8 (prompt 512, 64
    greedy tokens, cache 576) on the kernels, held against the same weights
@@ -49,9 +50,10 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    back-to-back calls, beside the kernel's bound; RMSNorm also at every
    serving shape of phase 2 in bf16 beside F.rms_norm, and decode attention
    also at t = 4096 beside SDPA, both at gemma3-1b's shapes as well, and
-   decode attention at G = 12, 6 and 16 (t = 576, b = 8, bf16) and at
-   G = 10 (hd 256, t = 2048, b = 8, bf16, wrap) beside its plain version,
-   SDPA and the byte bound; the e2afs kernel in float32, fp16 and bf16
+   decode attention at G = 12, 6 and 16 (t = 576, b = 8, bf16), at
+   G = 10 (hd 256, t = 2048, b = 8, bf16, wrap) and at G = 1 (hd 64, 12
+   KV heads, t = 192, b = 8, bf16) beside its plain version, SDPA and the
+   byte bound; the e2afs kernel in float32, fp16 and bf16
    at the unit path's 10,485,760 elements, each call on a rotation of
    inputs and outputs over four times the L2, beside its first design;
 6. times four full-width decode steps without and then under the profiler:
@@ -89,7 +91,11 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    the plain route (the clip once, then leaf by leaf);
     11b. the same for gemma3-1b at full width and full depth (26 layers,
    1.0 B parameters), its window layers on the banded chunks, one warm-up
-   and two timed steps (no route comparison);
+   and two timed steps (no route comparison); 11c and 11d the same for
+   mamba2-2.7b and recurrentgemma-2b at full width and depth (2.83 and
+   2.89 B parameters, every constant-start leaf moved off its start), the
+   launches counted by block: an SSD layer one norm, an RG-LRU layer two
+   and one e2afs_sqrt, a window layer two, each twice under block remat;
 12. ``launch.train.train_loop`` at smoke width on the card: an aborted and
    resumed run ends on the uninterrupted run's loss (rtol 1e-4);
    microbatches and compressed gradients train with finite losses;
@@ -219,6 +225,24 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    a replay bit-identical to the eager chunk, its profile, the trace's
    launches, 8 requests token-identical alone, and canaries at stride 8
    that never trip serving the same tokens.
+
+18. whisper-small, after 17b, at full width and depth (12 encoder and 12
+   decoder layers, d 768, LayerNorm, GELU, sinusoidal positions), e2afs,
+   weights from seed 0 with every constant-start leaf moved off its start:
+   (a) seeded audio (8, 1500, 768), ``precompute_cross``, ``prefill`` of a
+   128-token prompt and 64 greedy tokens (cache 192), the counts set to 0
+   just before and read just after (an e2afs_rsqrt a LayerNorm: 25 for the
+   encoder, 37 a decoder forward; decode attention at G = 1, head_dim 64,
+   12 a step, none with wrap); first-step logits within 4 bf16 ulps of the
+   same weights on the plain versions and the first two tokens 8 of 8, in
+   bf16 and with float32 activations; the encoder's ms, prefill ms and ms a
+   step beside the floor of the decoder weights, unembed, cross K/V and
+   cache over 3.35 TB/s; one ``decode_slots_step(cross_kv=)`` captured as a
+   CUDA graph, its replay bit-identical to the eager step, ms a step of
+   each; two requests admitted at staggered steps each equal to itself
+   alone; (b) training at batch 4 x 448 text tokens and 1500 audio frames,
+   remat "block", fused AdamW, phase 11b's run (e2afs_rsqrt counted: the
+   encoder's and the decoder's norms twice, the final norms once).
 
 Before the last line it prints the card's name and power limit and one JSON
 line of kernels; the last line is ``{"ok": true, "device": {...}}``.  Without
@@ -825,6 +849,25 @@ class Smoke:
                     self.check_attention(y, r, torch.bfloat16, f"recurrentgemma-2b kv=1 g=10 "
                                          f"hd=256 t={t:5d} int8={quant!s:5s} "
                                          f"wrap={wrap!s:5s}{split}")
+
+        # whisper-small's decoder self-attention: 12 KV heads of one query
+        # head each (G = 1), head_dim 64 (8 lanes a bf16 line), b = 8, its
+        # 192-line cache, bf16, float and int8 caches
+        b, h, kv, hd, t = (8, 12, 12, 64, 24 if self.rehearsal else 192)
+        for quant in (False, True):
+            for wrap in (False, True):
+                args = self.attn_inputs(b, h, kv, hd, t, torch.bfloat16, quant, t + 12 + quant)
+                r = ops.ref_decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                y = ops.decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                again = ops.decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                self.sync()
+                if not torch.equal(y, again):
+                    raise AssertionError("decode attention: two calls differ")
+                split = ("" if self.rehearsal else
+                         " (S={chunks} of {chunk_lines} lines, {slots} slots a "
+                         "launch)".format(**ops.plan(*args[:2])))
+                self.check_attention(y, r, torch.bfloat16, f"whisper-small kv=12 g=1 hd=64 "
+                                     f"t={t:5d} int8={quant!s:5s} wrap={wrap!s:5s}{split}")
 
     def check_attention(self, y, r, dtype, label):
         torch = self.torch
@@ -2539,52 +2582,59 @@ class Smoke:
                   f"{bnd[0]:.6f} ms ({bnd[1]}); bound / kernel {share}")
 
         # recurrentgemma-2b's window layer at b = 8, t = 2048 (its ring), bf16,
-        # wrap, every line live: G = 10 beside its plain version, SDPA and
-        # the byte bound
-        b, h, kv, hd, t = (2, 10, 1, 256, 24) if self.rehearsal else (8, 10, 1, 256, 2048)
-        pos = torch.full((b,), t + 100, dtype=torch.int32, device=self.dev)
-        cache_bytes = 2 * b * t * kv * hd * 2
-        copies = 1 if self.rehearsal else max(1, -(-100_000_000 // cache_bytes))
-        sets = [self.attn_inputs(b, h, kv, hd, t, torch.bfloat16, False, 70 + i, pos=pos)
-                for i in range(copies)]
-        it = {"i": 0}
+        # wrap, and whisper-small's decoder self-attention (12 KV heads of one
+        # query head each, head_dim 64) at b = 8, t = 192, bf16, every line
+        # live: each beside its plain version, SDPA and the byte bound
+        for key, model_name, (b, h, kv, hd, t), wrap in (
+                ("g10", "recurrentgemma-2b",
+                 (2, 10, 1, 256, 24) if self.rehearsal else (8, 10, 1, 256, 2048), True),
+                ("g1_hd64", "whisper-small",
+                 (2, 12, 12, 64, 24) if self.rehearsal else (8, 12, 12, 64, 192), False)):
+            pos = torch.full((b,), t + 100 if wrap else t - 1, dtype=torch.int32,
+                             device=self.dev)
+            cache_bytes = 2 * b * t * kv * hd * 2
+            copies = 1 if self.rehearsal else max(1, -(-100_000_000 // cache_bytes))
+            sets = [self.attn_inputs(b, h, kv, hd, t, torch.bfloat16, False, 70 + i, pos=pos)
+                    for i in range(copies)]
+            it = {"i": 0}
 
-        def rotating(fn, sets=sets, it=it):
-            def call():
-                a = sets[it["i"] % len(sets)]
-                it["i"] += 1
-                return fn(a)
-            return call
+            def rotating(fn, sets=sets, it=it):
+                def call():
+                    a = sets[it["i"] % len(sets)]
+                    it["i"] += 1
+                    return fn(a)
+                return call
 
-        mask = torch.ones(b, 1, 1, t, dtype=torch.bool, device=self.dev)
+            mask = torch.ones(b, 1, 1, t, dtype=torch.bool, device=self.dev)
 
-        def sdpa(a, mask=mask):
-            return F.scaled_dot_product_attention(a[0][:, :, None], a[1].transpose(1, 2),
-                                                  a[2].transpose(1, 2), attn_mask=mask,
-                                                  enable_gqa=True)
+            def sdpa(a, mask=mask):
+                return F.scaled_dot_product_attention(a[0][:, :, None], a[1].transpose(1, 2),
+                                                      a[2].transpose(1, 2), attn_mask=mask,
+                                                      enable_gqa=True)
 
-        nbytes = (b * h * hd * 2) * 2 + cache_bytes + b * 4
-        bnd = bound(nbytes, 4 * b * h * t * hd, "bfloat16")
-        at = {"model": "recurrentgemma-2b", "g": 10, "kv": kv, "b": b, "t": t, "hd": hd,
-              "wrap": True, "bound_ms": bnd[0], "bound_by": bnd[1],
-              "ms": self.device_ms(rotating(
-                  lambda a: attn_ops.decode_attention(*a, scale=hd**-0.5, wrap=True))),
-              "events_ms": self.time_ms(rotating(
-                  lambda a: attn_ops.decode_attention(*a, scale=hd**-0.5, wrap=True))),
-              "plain_ms": self.device_ms(rotating(
-                  lambda a: attn_ops.ref_decode_attention(*a, scale=hd**-0.5, wrap=True))),
-              "library_ms": self.device_ms(rotating(sdpa))}
-        if not self.rehearsal:
-            plan = attn_ops.plan(sets[0][0], sets[0][1])
-            at.update(chunks=plan["chunks"], chunk_lines=plan["chunk_lines"])
-        self.rows["decode_attention"]["g10"] = at
-        share = f"{bnd[0] / at['ms']:.3f}" if at["ms"] else "not measured"
-        print(f"  decode_attention recurrentgemma-2b b={b} h={h} kv={kv} hd={hd} t={t} bfloat16 "
-              f"wrap (g=10, {copies} cache copies, S={at.get('chunks')}): device ms per call: "
-              f"kernel {at['ms']}, plain {at['plain_ms']}, SDPA {at['library_ms']}; events ms: "
-              f"kernel {at['events_ms']}; bound {bnd[0]:.6f} ms ({bnd[1]}); bound / kernel "
-              f"{share} ({self.card})")
-        del sets
+            nbytes = (b * h * hd * 2) * 2 + cache_bytes + b * 4
+            bnd = bound(nbytes, 4 * b * h * t * hd, "bfloat16")
+            at = {"model": model_name, "g": h // kv, "kv": kv, "b": b, "t": t, "hd": hd,
+                  "wrap": wrap, "bound_ms": bnd[0], "bound_by": bnd[1],
+                  "ms": self.device_ms(rotating(
+                      lambda a, w=wrap: attn_ops.decode_attention(*a, scale=hd**-0.5, wrap=w))),
+                  "events_ms": self.time_ms(rotating(
+                      lambda a, w=wrap: attn_ops.decode_attention(*a, scale=hd**-0.5, wrap=w))),
+                  "plain_ms": self.device_ms(rotating(
+                      lambda a, w=wrap: attn_ops.ref_decode_attention(*a, scale=hd**-0.5,
+                                                                      wrap=w))),
+                  "library_ms": self.device_ms(rotating(sdpa))}
+            if not self.rehearsal:
+                plan = attn_ops.plan(sets[0][0], sets[0][1])
+                at.update(chunks=plan["chunks"], chunk_lines=plan["chunk_lines"])
+            self.rows["decode_attention"][key] = at
+            share = f"{bnd[0] / at['ms']:.3f}" if at["ms"] else "not measured"
+            print(f"  decode_attention {model_name} b={b} h={h} kv={kv} hd={hd} t={t} bfloat16 "
+                  f"wrap={wrap} (g={h // kv}, {copies} cache copies, S={at.get('chunks')}): "
+                  f"device ms per call: kernel {at['ms']}, plain {at['plain_ms']}, SDPA "
+                  f"{at['library_ms']}; events ms: kernel {at['events_ms']}; bound "
+                  f"{bnd[0]:.6f} ms ({bnd[1]}); bound / kernel {share} ({self.card})")
+            del sets
 
         # sobel: a 2160 x 3840 frame.  No PyTorch call computes the E2AFS
         # magnitude: library_ms is None, and F.conv2d + torch.sqrt (another
@@ -3606,6 +3656,301 @@ class Smoke:
         del slo, model, logits
         self.free()
 
+    # -- phase 18 ----------------------------------------------------------
+    def whisper(self, **kw):
+        """whisper-small (the smoke config in a rehearsal), e2afs."""
+        from repro_torch.configs import get_config, get_smoke_config
+
+        return (get_smoke_config if self.rehearsal else get_config)(
+            "whisper-small", sqrt_unit="e2afs", **kw)
+
+    def p18a_whisper_serve(self):
+        """whisper-small at full width and depth (12 encoder and 12 decoder
+        layers, d 768, LayerNorm, GELU, sinusoidal positions), bf16, weights
+        from seed 0 with every constant-start leaf moved off its start (seed
+        1): seeded audio (8, 1500, 768), ``precompute_cross`` then
+        ``prefill`` (128-token prompt) then ``generate_scan`` (64 greedy
+        tokens, cache 192), the launch counts set to 0 just before and read
+        just after (an e2afs_rsqrt a LayerNorm: 25 in the encoder, 37 a
+        decoder forward; decode attention at G = 1, head_dim 64, 12 a step,
+        none with wrap); first-step logits within 4 bf16 ulps of the same
+        weights on the plain versions and the first two tokens 8 of 8, and
+        the same with float32 activations; the encoder's ms, prefill ms and
+        ms a step beside the floor of the bytes a step moves; one
+        ``decode_slots_step(cross_kv=)`` captured as a CUDA graph, its replay
+        bit-identical to the eager step, ms a step of each; two requests
+        admitted at staggered steps each equal to itself alone."""
+        torch = self.torch
+        from repro_torch.kernels import dispatch
+        from repro_torch.models import lm
+
+        cfg = self.whisper(decode_kernel="fused")
+        batch, prompt_len, gen_len = (8, 6, 4) if self.rehearsal else (8, 128, 64)
+        cache_len = prompt_len + gen_len
+        frames = cfg.encoder.n_ctx
+        if not self.rehearsal:
+            torch.cuda.reset_peak_memory_stats()
+        print(f"  {cfg.name}: {cfg.encoder.n_layers} encoder and {cfg.n_layers} decoder layers, "
+              f"d {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads} of {cfg.d_head}, d_ff "
+              f"{cfg.d_ff} ({cfg.mlp_act}), {cfg.norm}, {cfg.pos} positions, vocab {cfg.vocab}, "
+              f"{cfg.act_dtype}; audio ({batch}, {frames}, {cfg.d_model}), prompt {prompt_len}, "
+              f"{gen_len} new tokens, cache {cache_len}")
+        t0 = time.perf_counter()
+        model = lm.init(cfg, self.gen(0), device=self.dev)
+        moved = self.move_constant_starts(model, 1)
+        self.sync()
+        params = dict(model.named_parameters())
+        weight_bytes = sum(p.numel() * p.element_size() for p in params.values())
+        print(f"  init: {lm.param_count(model) / 1e9:.4f} B parameters ({weight_bytes / 1e9:.3f} "
+              f"GB) in {time.perf_counter() - t0:.1f} s; {moved} constant-start leaves moved off "
+              f"their starts (seed 1)")
+        audio = torch.randn(batch, frames, cfg.d_model, generator=self.gen(2), device=self.dev)
+        prompt = torch.randint(0, cfg.vocab, (batch, prompt_len), generator=self.gen(3),
+                               device=self.dev)
+
+        def run(c, n, m=model):
+            self.sync()
+            t_a = time.perf_counter()
+            ckv, _ = lm.precompute_cross(m, c, audio)
+            self.sync()
+            t_b = time.perf_counter()
+            cache = lm.init_cache(c, batch, cache_len, device=self.dev)
+            logits, cache = lm.prefill(m, c, cache, prompt, cross_kv=ckv, last_logit_only=True)
+            self.sync()
+            t_c = time.perf_counter()
+            toks, _, cache = lm.generate_scan(m, c, cache, logits[:, -1:].argmax(-1), prompt_len,
+                                              n, cross_kv=ckv)
+            self.sync()
+            return (logits, toks, ckv, cache, t_b - t_a, t_c - t_b,
+                    time.perf_counter() - t_c)
+
+        def plain(c, n, m=model):
+            prev = dispatch.set_backend("reference")
+            dispatch.reset_launch_counts()
+            try:
+                out = run(c.replace(decode_kernel="reference"), n, m)
+            finally:
+                dispatch.set_backend(prev)
+            if not self.rehearsal and any(dispatch.launch_counts().values()):
+                raise AssertionError(f"the plain-version run launched a kernel: "
+                                     f"{dispatch.launch_counts()}")
+            return out
+
+        run(cfg, 2)  # warm-up
+        dispatch.reset_launch_counts()
+        logits, toks, ckv, cache, enc_s, pf_s, dec_s = run(cfg, gen_len)  # the main path
+        counts, details = dispatch.launch_counts(), dispatch.launch_details()
+        enc_norms, dec_norms = 2 * cfg.encoder.n_layers + 1, 3 * cfg.n_layers + 1
+        want = dict.fromkeys(dispatch.KNOWN, 0)
+        want.update({"e2afs_rsqrt": enc_norms + dec_norms * (1 + gen_len),
+                     "decode_attention": cfg.n_layers * gen_len})
+        for name in ("e2afs_rsqrt", "decode_attention"):
+            self.rows[name]["whisper_small_launches"] = counts[name]
+        want_details = {"decode_attention no wrap": cfg.n_layers * gen_len}
+        print(f"  main path launches: {counts} {details} (want {want} {want_details}: "
+              f"{enc_norms} encoder norms, {dec_norms} a decoder forward)")
+        if not self.rehearsal and (counts != want or details != want_details):
+            raise AssertionError(f"launch counts {counts} {details}, want {want} {want_details}")
+        # a step reads the decoder's weights (of the embedding only its 8
+        # rows), every layer's cross K/V and its cache
+        dec_weights = sum(p.numel() * p.element_size() for n, p in params.items()
+                          if n.startswith(("layers.", "unembed", "ln_f")))
+        ckv_bytes = sum(t.numel() * t.element_size() for t in ckv.values())
+        cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+        floor_ms = (dec_weights + ckv_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3
+        step_ms = dec_s / gen_len * 1e3
+        print(f"  encoder (precompute_cross) {enc_s * 1e3:.1f} ms; prefill {pf_s * 1e3:.1f} ms; "
+              f"decode {step_ms:.3f} ms/step (eager), {batch * gen_len / dec_s:.1f} tok/s; floor "
+              f"{floor_ms:.4f} ms/step ({dec_weights / 1e9:.3f} GB of decoder weights and "
+              f"unembed, {ckv_bytes / 1e9:.3f} GB of cross K/V, {cache_bytes / 1e9:.4f} GB of "
+              f"cache over {HBM_BYTES_PER_S / 1e12:.2f} TB/s) (host clock with synchronize; "
+              f"{self.card})")
+        self.family[cfg.name] = {"encoder_ms": enc_s * 1e3, "prefill_ms": pf_s * 1e3,
+                                 "ms_per_step": step_ms, "tok_s": batch * gen_len / dec_s,
+                                 "floor_ms": floor_ms}
+        if tuple(logits.shape) != (batch, 1, cfg.vocab) or tuple(toks.shape) != (batch, gen_len):
+            raise AssertionError(f"shapes: logits {tuple(logits.shape)}, tokens "
+                                 f"{tuple(toks.shape)}")
+        if tuple(ckv["ck"].shape) != (cfg.n_layers, batch, frames, cfg.n_kv_heads, cfg.d_head):
+            raise AssertionError(f"cross K/V {tuple(ckv['ck'].shape)}")
+
+        # phase 4a's contract against the plain versions, in bf16 and with
+        # float32 activations on the same weights (the float32 cache of
+        # head_dim 64 has a decode-attention kernel too)
+        m32 = lm.init(cfg.replace(act_dtype="float32"), self.gen(0), device=self.dev)
+        with torch.no_grad():
+            for a, b in zip(m32.parameters(), model.parameters()):
+                a.copy_(b)
+        for label, c, m in (("bfloat16", cfg, model),
+                            ("float32", cfg.replace(act_dtype="float32"), m32)):
+            if c is cfg:
+                got, got_toks, got_ckv = logits, toks, ckv
+            else:
+                dispatch.reset_launch_counts()
+                got, got_toks, got_ckv = run(c, 2, m)[:3]
+                launched = dispatch.launch_counts()
+                if not self.rehearsal and (launched["e2afs_rsqrt"] != enc_norms + 3 * dec_norms
+                                           or launched["decode_attention"] != 2 * cfg.n_layers):
+                    raise AssertionError(f"float32 launches {launched}")
+            ref, ref_toks, rckv, _, renc_s, rpf_s, rdec_s = plain(c, got_toks.shape[1], m)
+            diff = float((got.float() - ref.float()).abs().max())
+            top = ref.float().abs().max().reshape(1)
+            limit = 4 * float(ulp_of(top.to(torch.bfloat16)))
+            ckv_diff = max(float((t.float() - rckv[k].float()).abs().max())
+                           for k, t in got_ckv.items())
+            first = [int((got_toks[:, i] == ref_toks[:, i]).sum()) for i in range(2)]
+            print(f"  {label} activations, kernels vs plain versions (plain: encoder "
+                  f"{renc_s * 1e3:.1f} ms, prefill {rpf_s * 1e3:.1f} ms, decode "
+                  f"{rdec_s / max(1, got_toks.shape[1]) * 1e3:.3f} ms/step): first-step logits "
+                  f"max |diff| {diff:.4g} (limit {limit:.4g}: 4 bf16 ulps at max |logit| "
+                  f"{float(top):.4g}); cross K/V max |diff| {ckv_diff:.4g}; first two generated "
+                  f"tokens agree {first} of {batch}")
+            self.family[cfg.name][f"{label}_logit_diff"] = diff
+            self.family[cfg.name][f"{label}_first_two"] = first
+            if not bool(torch.isfinite(got).all()) or diff > limit:
+                raise AssertionError(f"{label} logits disagree with the plain versions")
+            if first != [batch, batch]:
+                raise AssertionError(f"{label} first two tokens disagree: {first} of {batch}")
+        del m32, cache
+        self.free()
+
+        # one decode_slots_step over the pool with the pool's cross K/V,
+        # captured as a CUDA graph: its replay bit-identical to the eager step
+        pool = lm.init_pool_state(cfg, batch, cache_len, device=self.dev)
+        pool_ckv = {k: torch.zeros_like(t) for k, t in ckv.items()}
+        slots = torch.arange(batch, device=self.dev)
+        first_logits, _ = lm.prefill_into_slots(model, cfg, pool["cache"], prompt, slots,
+                                                cross_kv=ckv, pool_cross_kv=pool_ckv)
+        pool["tok"].copy_(first_logits[:, -1].argmax(-1, keepdim=True).to(torch.int32))
+        pool["pos"].fill_(prompt_len)
+        pool["active"].fill_(True)
+        pool["remaining"].fill_(10**6)
+        out_toks = torch.zeros((batch, 1), dtype=torch.int32, device=self.dev)
+        out_emit = torch.zeros((batch, 1), dtype=torch.bool, device=self.dev)
+        state = lm.pool_tensors(pool) + [out_toks, out_emit]
+        start = [t.clone() for t in state]
+
+        def restore():
+            for t, s0 in zip(state, start):
+                t.copy_(s0)
+
+        def step():
+            lm.decode_slots_step(model, cfg, pool, out_toks, out_emit, 0, cross_kv=pool_ckv)
+
+        def outcome(fn):
+            restore()
+            fn()
+            self.sync()
+            return [t.clone() for t in state]
+
+        eager = outcome(step)
+        if self.rehearsal:
+            graphed = outcome(step)
+            replay = step
+        else:
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            with torch.cuda.stream(side):
+                step()
+            torch.cuda.current_stream().wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with dispatch.capture_launches() as launches, torch.cuda.graph(graph):
+                step()
+
+            def replay():
+                graph.replay()
+                dispatch.replay_launches(launches)
+
+            graphed = outcome(replay)
+            print(f"  captured step launches: {launches.counts} {launches.details}")
+            if (launches.counts["decode_attention"] != cfg.n_layers
+                    or launches.counts["e2afs_rsqrt"] != dec_norms):
+                raise AssertionError(f"the captured step launches {launches.counts}")
+        differ = [i for i, (a, b) in enumerate(zip(graphed, eager))
+                  if not torch.equal(a.view(torch.uint8) if a.is_floating_point() else a,
+                                     b.view(torch.uint8) if b.is_floating_point() else b)]
+        moved_state = any(not torch.equal(a, b) for a, b in zip(eager, start))
+        restore()
+        eager_ms = self.time_ms(step, iters=20)
+        restore()
+        replay_ms = self.time_ms(replay, iters=20)
+        restore()
+        print(f"  decode_slots_step(cross_kv=) replayed vs eager from one pool state: "
+              f"{len(differ)} of {len(eager)} tensors differ (every pool tensor, the step's "
+              f"tokens and emission); ms a step eager {eager_ms}, replayed {replay_ms} (CUDA "
+              f"events around 20 steps; floor {floor_ms:.4f}; {self.card})")
+        self.family[cfg.name].update(eager_step_ms=eager_ms, replay_step_ms=replay_ms)
+        if differ or not moved_state:
+            raise AssertionError(f"the graphed step differs from the eager one: {differ}")
+        restore()
+        _, rows = self.profiled(replay, 1, every_launch=True)
+        restore()
+        busy = sum(r[0] for r in rows) / 1e3
+        print(f"  a profiled replay: {sum(r[1] for r in rows)} kernels, {busy:.3f} device ms, "
+              f"idle share {1 - busy / replay_ms if replay_ms else float('nan'):.3f} of the "
+              f"unprofiled replay ({self.card}); by kernel:")
+        for dev_us, count, name in rows[:10]:
+            print(f"    {dev_us / 1e3:9.4f} ms  {count:5d} calls  {name[:100]}")
+        del pool, graphed, eager, start, state
+
+        # two requests admitted at staggered steps (rows 0 and 1 of the
+        # audio and prompt, into slots 2 and 5 at steps 0 and 3), each equal
+        # to itself alone in a pool of the same shape
+        budget = 4 if self.rehearsal else 16
+
+        def slot_run(admit):
+            pool = lm.init_pool_state(cfg, batch, cache_len, device=self.dev)
+            pool_ckv = {k: torch.zeros_like(t) for k, t in ckv.items()}
+            toks = torch.zeros((batch, 3 + budget), dtype=torch.int32, device=self.dev)
+            emit = torch.zeros((batch, 3 + budget), dtype=torch.bool, device=self.dev)
+            for i in range(3 + budget):
+                for r, (slot, at) in admit.items():
+                    if at != i:
+                        continue
+                    sl = torch.tensor([slot], device=self.dev)
+                    lg, _ = lm.prefill_into_slots(model, cfg, pool["cache"], prompt[r:r + 1], sl,
+                                                  cross_kv={k: t[:, r:r + 1] for k, t in
+                                                            ckv.items()},
+                                                  pool_cross_kv=pool_ckv)
+                    pool["tok"][slot] = lg[0, -1].argmax().to(torch.int32)
+                    pool["pos"][slot] = prompt_len
+                    pool["active"][slot] = True
+                    pool["remaining"][slot] = budget
+                lm.decode_slots_step(model, cfg, pool, toks, emit, i, cross_kv=pool_ckv)
+            return {r: toks[slot][emit[slot]].tolist() for r, (slot, _) in admit.items()}
+
+        both = slot_run({0: (2, 0), 1: (5, 3)})
+        alone = [slot_run({r: (slot, 0)})[r] for r, slot in ((0, 2), (1, 5))]
+        same = [both[r] == alone[r] and len(alone[r]) == budget for r in (0, 1)]
+        print(f"  staggered requests (slots 2 and 5, admitted at steps 0 and 3, {budget} tokens "
+              f"each) equal to each alone in the pool: {same}")
+        if not all(same):
+            raise AssertionError("staggered requests differ from the same requests alone")
+        peak = torch.cuda.max_memory_allocated() / 2**30 if not self.rehearsal else float("nan")
+        print(f"  peak memory of the sub-phase {peak:.2f} GiB ({self.card})")
+        del model, ckv, logits
+        self.free()
+
+    def p18b_whisper_train(self):
+        """whisper-small training at full width and depth: batch 4 x 448
+        text tokens and 1500 seeded audio frames a row, remat "block", fused
+        AdamW, one warm-up and two timed steps (phase 11b's run)."""
+        torch = self.torch
+
+        cfg = self.whisper(remat="block")
+        batch, seq = (2, 64) if self.rehearsal else (4, 448)
+        frames = cfg.encoder.n_ctx
+
+        def audio(i):
+            g = self.gen(100 + i)
+            return {"audio": torch.randn(batch, frames, cfg.d_model, generator=g,
+                                         device=self.dev)}
+
+        print(f"  {cfg.name}: audio ({batch}, {frames}, {cfg.d_model}) a batch beside its text "
+              f"tokens")
+        self.train_phase(cfg, batch, seq, timed=2, compare_routes=False,
+                         launches_key="whisper_small_launches", move_constants=True, extra=audio)
+
     # -- phase 7 -----------------------------------------------------------
     def p7_sobel(self):
         torch = self.torch
@@ -3871,13 +4216,62 @@ class Smoke:
         self.train_phase(cfg, batch, seq, timed=2, compare_routes=False,
                          launches_key="gemma3_1b_launches")
 
-    def train_phase(self, cfg, batch, seq, *, timed, compare_routes, launches_key):
+    def p11c_train_mamba2(self):
+        """mamba2-2.7b at full width and depth (64 SSD layers, 2.83 B float32
+        parameters: 45 GB of p, g, m and v before activations)."""
+        self.train_recurrent("mamba2-2.7b", "mamba2_2_7b_launches")
+
+    def p11d_train_recurrentgemma(self):
+        """recurrentgemma-2b at full width and depth (18 RG-LRU and 8 window
+        layers, 2.89 B float32 parameters), the RG-LRU's sqrt on the
+        e2afs_sqrt kernel under the backward pass."""
+        self.train_recurrent("recurrentgemma-2b", "recurrentgemma_2b_launches")
+
+    def train_recurrent(self, arch, launches_key):
+        """Phase 11b's training run for a recurrent family, every
+        constant-start leaf moved off its start (seed 1; a fresh RG-LRU block
+        computes nothing), batch 4 x 2048, one warm-up and two timed steps."""
+        from repro_torch.configs import get_config, get_smoke_config
+
+        kw = dict(sqrt_unit="e2afs", remat="block")
+        if self.rehearsal:
+            cfg, batch, seq = get_smoke_config(arch, **kw), 2, 64
+        else:
+            cfg, batch, seq = get_config(arch, **kw), 4, 2048
+        self.train_phase(cfg, batch, seq, timed=2, compare_routes=False,
+                         launches_key=launches_key, move_constants=True)
+
+    def train_launches(self, cfg):
+        """(e2afs_rsqrt, e2afs_sqrt) launches of one training step, counted
+        by block: an "ssd" layer has one norm, an "rglru" layer two and one
+        sqrt, an attention layer two norms, its qk-norms two more, and in an
+        encoder-decoder its lnx and its cross attention's qk-norms; an
+        encoder layer two norms and its qk-norms.  Under block remat every
+        layer's forward runs twice (again in the backward's recompute); the
+        final norms (ln_f, enc_ln_f) run once.  The unit's kernel route has
+        a plain-torch backward that launches nothing (ROADMAP C.14)."""
+        qk = 2 * cfg.qk_norm
+        cross = 1 + qk if cfg.kind == "encdec" else 0
+        per_block = {"ssd": 1, "rglru": 2, "global": 2 + qk + cross, "window": 2 + qk + cross}
+        remat = 2 if cfg.remat == "block" else 1
+        rsqrt = remat * sum(per_block[b] for b in cfg.blocks) + 1
+        if cfg.kind == "encdec":
+            rsqrt += remat * (2 + qk) * cfg.encoder.n_layers + 1
+        return rsqrt, remat * cfg.blocks.count("rglru")
+
+    def train_phase(self, cfg, batch, seq, *, timed, compare_routes, launches_key,
+                    move_constants=False, extra=None):
         """One warm-up step, then ``timed`` steps with the launch counts set
         to 0 just before and read just after (adam launches = parameter
-        tensors x steps, kept in the adam row under ``launches_key``); ms/step, tokens/s, peak memory, a profiled step's
-        device-busy and adam shares; the loss finite and, on the first batch,
-        lower after the steps.  ``compare_routes``: then one step's update on
-        the kernel route bit-identical to the plain route's."""
+        tensors x steps, kept in the adam row under ``launches_key``; the
+        norms' e2afs_rsqrt and the RG-LRU's e2afs_sqrt by block, see
+        :meth:`train_launches`); ms/step, tokens/s, peak memory, a profiled
+        step's device-busy and adam shares and device time by kind; the loss
+        finite and, on the first batch, lower after the steps.
+        ``move_constants``: every constant-start leaf moved off its start
+        first (seed 1).  ``extra(i)``: more entries of batch ``i`` (an
+        encoder-decoder's audio frames).  ``compare_routes``: then one step's
+        update on the kernel route bit-identical to the plain route's."""
         torch = self.torch
         from repro_torch.data import DataConfig, SyntheticLM
         from repro_torch.kernels import dispatch
@@ -3885,14 +4279,15 @@ class Smoke:
         from repro_torch.models import lm
         from repro_torch.optim import AdamWConfig, adamw_init, adamw_update, global_norm_clip
 
-        if not self.rehearsal:
-            torch.cuda.empty_cache()
+        self.free()
         # a fixed rate (the cosine over 10,000 steps barely moves in 6); the
         # rehearsal's tiny model needs a larger one to move in 6 steps
         lr = 3e-3 if self.rehearsal else 3e-4
         opt_cfg = AdamWConfig(lr=lr, warmup_steps=1, fused=True, sqrt_unit="e2afs")
         t0 = time.perf_counter()
         model = lm.init(cfg, self.gen(0), device=self.dev, trainable=True)
+        if move_constants:
+            self.move_constant_starts(model, 1)
         opt = adamw_init(model)
         n_params, n_tensors = lm.param_count(model), len(list(model.parameters()))
         self.sync()
@@ -3904,7 +4299,8 @@ class Smoke:
         data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0))
 
         def batch_at(i):
-            return {k: torch.from_numpy(a).to(self.dev) for k, a in data.batch(i).items()}
+            out = {k: torch.from_numpy(a).to(self.dev) for k, a in data.batch(i).items()}
+            return dict(out, **extra(i)) if extra else out
 
         step_fn = make_train_step(cfg, opt_cfg)
         losses, lrs = [], []
@@ -3934,17 +4330,22 @@ class Smoke:
               f"synchronize; {self.card})")
         if not self.rehearsal and counts["adam"] != n_tensors * timed:
             raise AssertionError(f"adam launches {counts['adam']}, want {n_tensors} x {timed}")
-        # every norm of the forward (2 a layer, the qk-norms, ln_f) runs its
-        # rsqrt on the e2afs kernel route, and block remat runs each layer's
-        # norms again in the backward
-        per_layer = 2 + 2 * cfg.qk_norm
-        want_rsqrt = (2 * per_layer * cfg.n_layers + 1) * timed
+        # every norm of the forward runs its rsqrt on the e2afs kernel route
+        # (and every RG-LRU its sqrt), and block remat runs each layer's
+        # forward again in the backward
+        rsqrt, sqrt = self.train_launches(cfg)
+        want_rsqrt, want_sqrt = rsqrt * timed, sqrt * timed
         self.rows["e2afs_rsqrt"][f"train_{launches_key}"] = counts["e2afs_rsqrt"]
+        if sqrt:
+            self.rows["e2afs_sqrt"][f"train_{launches_key}"] = counts["e2afs_sqrt"]
         print(f"  e2afs_rsqrt launches of the unfused training norms: {counts['e2afs_rsqrt']} "
-              f"(want {want_rsqrt}: ({per_layer} x {cfg.n_layers} x 2 + 1) x {timed} steps)")
-        if not self.rehearsal and (counts["e2afs_rsqrt"] != want_rsqrt or counts["rmsnorm"]):
-            raise AssertionError(f"training norm launches {counts}, want {want_rsqrt} "
-                                 f"e2afs_rsqrt and no rmsnorm")
+              f"(want {want_rsqrt}: {rsqrt} a step x {timed} steps); e2afs_sqrt of the "
+              f"RG-LRUs: {counts['e2afs_sqrt']} (want {want_sqrt}: {sqrt} a step, none in the "
+              f"backward)")
+        if not self.rehearsal and (counts["e2afs_rsqrt"] != want_rsqrt or counts["rmsnorm"]
+                                   or counts["e2afs_sqrt"] != want_sqrt):
+            raise AssertionError(f"training launches {counts}, want {want_rsqrt} "
+                                 f"e2afs_rsqrt, {want_sqrt} e2afs_sqrt and no rmsnorm")
 
         # a profiled step: device-busy share and the adam kernels' share
         _, rows = self.profiled(lambda: step(1 + timed), 1)
@@ -3979,7 +4380,7 @@ class Smoke:
             raise AssertionError(f"the loss did not fall: {losses[0]} -> {again}")
         self.training[cfg.name] = {"ms_per_step": ms, "tok_s": batch * seq / (wall / timed),
                                    "peak_gib": peak / 2**30 if peak is not None else None,
-                                   "busy_ms": busy, "adam_ms": adam_ms}
+                                   "busy_ms": busy, "adam_ms": adam_ms, "device_ms": groups}
         if not compare_routes:
             return
 
@@ -4102,12 +4503,16 @@ def main(argv=None) -> int:
     smoke.phase("16d forward internvl2-76b", smoke.p16d_internvl)
     smoke.phase("17a serve mamba2-2.7b", smoke.p17a_mamba2)
     smoke.phase("17b serve recurrentgemma-2b", smoke.p17b_recurrentgemma)
+    smoke.phase("18a serve whisper-small", smoke.p18a_whisper_serve)
+    smoke.phase("18b train whisper-small", smoke.p18b_whisper_train)
     smoke.phase("7 sobel", smoke.p7_sobel)
     smoke.phase("8 kmeans_assign", smoke.p8_kmeans)
     smoke.phase("9 paper", smoke.p9_paper)
     smoke.phase("10 adam", smoke.p10_adam)
     smoke.phase("11 train qwen3-4b", smoke.p11_train)
     smoke.phase("11b train gemma3-1b", smoke.p11b_train_gemma)
+    smoke.phase("11c train mamba2-2.7b", smoke.p11c_train_mamba2)
+    smoke.phase("11d train recurrentgemma-2b", smoke.p11d_train_recurrentgemma)
     smoke.phase("12 train_loop resume", smoke.p12_resume)
     smoke.phase("14d remat", smoke.p14d_remat)
     if smoke.failed:

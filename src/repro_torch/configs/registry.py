@@ -1,10 +1,13 @@
-"""Maps public arch ids to their config modules (the architectures the port
-runs so far)."""
+"""Maps public arch ids to their config modules: every model the reference
+runs, and the paper's own unit evaluation (``e2afs-fp16``, an
+``E2AFSConfig``, not an LM)."""
 from __future__ import annotations
 
+import dataclasses
 import importlib
 
 ARCH_IDS = (
+    "whisper-small",
     "qwen3-4b",
     "starcoder2-15b",
     "deepseek-67b",
@@ -14,6 +17,8 @@ ARCH_IDS = (
     "qwen3-moe-235b-a22b",
     "mamba2-2.7b",
     "recurrentgemma-2b",
+    # the paper's own "architecture": the FP16 sqrt unit evaluation
+    "e2afs-fp16",
 )
 
 
@@ -26,11 +31,11 @@ def get_config(arch_id: str, **overrides):
     if arch_id not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     cfg = _module(arch_id).config()
-    return cfg.replace(**overrides).validate() if overrides else cfg
+    return dataclasses.replace(cfg, **overrides).validate() if overrides else cfg
 
 
 def get_smoke_config(arch_id: str, **overrides):
     if arch_id not in ARCH_IDS:
         raise ValueError(f"unknown arch {arch_id!r}; known: {ARCH_IDS}")
     cfg = _module(arch_id).smoke_config()
-    return cfg.replace(**overrides).validate() if overrides else cfg
+    return dataclasses.replace(cfg, **overrides).validate() if overrides else cfg

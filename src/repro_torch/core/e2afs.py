@@ -29,12 +29,15 @@ __all__ = [
     "e2afs_sqrt",
     "e2afs_sqrt_positive",
     "e2afs_rsqrt",
+    "E2AFS_CONSTANTS",
     "RSQRT_REGIONS",
     "format_constants",
 ]
 
 _C_EVEN_HI = 0.045  # subtracted when r even, Y >= 0.5
 _C_ODD_HI = 0.3333  # added to Y (before >>2) when r odd, Y >= 0.5
+
+E2AFS_CONSTANTS = {"c_even_hi": _C_EVEN_HI, "c_odd_hi": _C_ODD_HI}
 
 # (odd, y_hi) -> (shift_a, shift_b, intercept_q10) of the E2AFS-R regions
 RSQRT_REGIONS = {

@@ -112,6 +112,10 @@ class SqrtUnit:
             return _Reciprocal.apply(self._sqrt(x, **kw))
         return self._rsqrt(x, **kw)
 
+    @property
+    def is_exact(self) -> bool:
+        return self.name == "exact"
+
 
 _REGISTRY = {
     "exact": SqrtUnit("exact", exact.exact_sqrt, exact.exact_rsqrt, "IEEE sqrt (reference)"),

@@ -1,7 +1,8 @@
 """Grouped-query attention with QK-norm (through the configured sqrt unit),
-RoPE, a differentiable full-sequence path for training, and a decode path
-over a float or int8 KV cache (torch port of the train/prefill/decode part
-of ``repro.layers.attention``).
+RoPE, a differentiable full-sequence path for training in the causal,
+sliding-window, bidirectional and cross modes, a decode path over a float or
+int8 KV cache, and the encoder-decoder's cross-attention over precomputed
+encoder K/V (torch port of ``repro.layers.attention``).
 
 Shapes follow the reference's (batch, seq, heads, head_dim) convention.  The
 cache is a dict of tensors; with ``layer_idx`` each tensor carries a leading
@@ -28,8 +29,10 @@ __all__ = [
     "attention_prefill",
     "attention_decode",
     "attention_verify",
+    "cross_attention_decode",
     "gather_verify_lines",
     "init_kv_cache",
+    "precompute_cross_kv",
     "verify_cache_commit",
 ]
 
@@ -88,6 +91,8 @@ def _mask(mode, q_pos, kv_pos, window):
         ok = d >= 0
     elif mode == "window":  # causal sliding window
         ok = (d >= 0) & (d < window)
+    elif mode in ("bidir", "cross"):
+        ok = torch.ones(d.shape, dtype=torch.bool, device=d.device)
     else:
         raise ValueError(mode)
     return torch.where(ok, 0.0, NEG_INF).to(torch.float32)
@@ -147,35 +152,39 @@ def _scored_attention(q, k, v, mask, scale, sdt, out_dtype, *, remat_scores=Fals
 
 
 def attention_train(p: Attention, cfg, x, *, mode: str = "causal",
-                    window: Optional[int] = None, positions=None, q_chunk: int = 1024):
+                    window: Optional[int] = None, kv_x=None, positions=None, kv_positions=None,
+                    q_chunk: int = 1024):
     """Full-sequence attention for training (the reference's
-    ``attention_train`` in "causal" or "window" mode), differentiable;
-    writes no cache.  x: (b, s, d); positions: (s,), default ``arange(s)``.
-    QK-norm runs unfused through the unit's differentiable datapath.
-    Sequences longer than ``q_chunk`` (and a multiple of it) process queries
-    in chunks, as the reference's ``_chunked_attention``: each chunk against
-    the whole K/V, or in "window" mode against a band of ``window +
-    q_chunk`` lines (K/V left-padded by ``window`` lines at position
-    ``-10**9``, which the mask drops), so the scores are ``(b, h, q_chunk,
-    window + q_chunk)``.  Cross mode comes with the model family that uses
-    it."""
+    ``attention_train``), differentiable; writes no cache.  x: (b, s, d);
+    mode "causal", "window", "bidir" (the encoder's) or "cross" (``kv_x``
+    (b, t, d), the encoder's output, gives K/V, and RoPE is not applied);
+    positions (s,) and kv_positions (t,), default ``arange``.  QK-norm runs
+    unfused through the unit's differentiable datapath.  Sequences longer
+    than ``q_chunk`` (and a multiple of it) process queries in chunks, as the
+    reference's ``_chunked_attention``: each chunk against the whole K/V, or
+    in "window" mode against a band of ``window + q_chunk`` lines (K/V
+    left-padded by ``window`` lines at position ``-10**9``, which the mask
+    drops), so the scores are ``(b, h, q_chunk, window + q_chunk)``; other
+    lengths (whisper's 1500 frames) take one block of (b, h, s, t) scores."""
     s = x.shape[1]
+    xkv = x if kv_x is None else kv_x
     pos = positions if positions is not None else torch.arange(s, device=x.device)
-    q, k, v = _project_qkv(p, cfg, x, x, pos, pos, use_rope=cfg.pos == "rope",
+    kp = kv_positions if kv_positions is not None else (
+        pos if kv_x is None else torch.arange(xkv.shape[1], device=x.device))
+    q, k, v = _project_qkv(p, cfg, x, xkv, pos, kp, use_rope=cfg.pos == "rope" and mode != "cross",
                            fused_norm=False)
     scale = cfg.d_head**-0.5
     sdt = getattr(torch, cfg.scores_dtype)
     remat = cfg.remat == "minimal"
     if s <= q_chunk or s % q_chunk:
-        return _out_proj(_scored_attention(q, k, v, _mask(mode, pos, pos, window), scale, sdt,
+        return _out_proj(_scored_attention(q, k, v, _mask(mode, pos, kp, window), scale, sdt,
                                            x.dtype, remat_scores=remat), p.wo)
-    kp = pos
     banded = mode == "window" and window is not None
     if banded:  # in padded coordinates chunk i's band is [i * q_chunk, i * q_chunk + band)
         band = window + q_chunk
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, window, 0))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, window, 0))
-        kp = torch.cat([pos.new_full((window,), -(10**9)), pos])
+        kp = torch.cat([kp.new_full((window,), -(10**9)), kp])
     chunks = []
     for i in range(s // q_chunk):
         sl = slice(i * q_chunk, (i + 1) * q_chunk)
@@ -491,3 +500,36 @@ def verify_cache_commit(cache, old: dict, pos, n_commit, *, stacked: bool = Fals
         else:
             buf[rows, slots] = torch.where(kb, buf[rows, slots], o)
     return cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention decode (encoder-decoder): the encoder's K/V once a request
+# ---------------------------------------------------------------------------
+
+
+def precompute_cross_kv(p: Attention, cfg, enc_out: torch.Tensor) -> dict:
+    """One decoder layer's cross-attention K/V over the encoder output
+    (b, t, d): ``{"ck", "cv"}`` of (b, t, kv, hd), K through the layer's
+    qk-norm when the config has one."""
+    k = _project(enc_out, p.wk)
+    v = _project(enc_out, p.wv)
+    if cfg.qk_norm:
+        k = rmsnorm_cfg(p.k_norm, k, cfg)
+    return {"ck": k, "cv": v}
+
+
+def cross_attention_decode(p: Attention, cfg, x: torch.Tensor, cross_kv: dict) -> torch.Tensor:
+    """The decoder's cross-attention of x (b, s, d) over one layer's
+    precomputed encoder K/V (:func:`precompute_cross_kv`), every frame
+    visible: the reference's plain einsums with float32 scores times the
+    exact scale and a float32 softmax, no mask, the weights cast to x's
+    dtype before the V product (prefill and decode alike; the training
+    path's "cross" mode folds in its mask instead).  Returns (b, s, d)."""
+    q = _project(x, p.wq)
+    if cfg.qk_norm:
+        q = rmsnorm_cfg(p.q_norm, q, cfg)
+    h = q.shape[2]
+    scores = torch.einsum("bshk,bthk->bhst", q, _expand_kv(cross_kv["ck"], h)).float()
+    w = _softmax(scores * cfg.d_head**-0.5).to(x.dtype)
+    out = torch.einsum("bhst,bthk->bshk", w, _expand_kv(cross_kv["cv"], h))
+    return _out_proj(out, p.wo)

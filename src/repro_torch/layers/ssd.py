@@ -10,7 +10,9 @@ conv (width 4) is shifted adds, in the reference's order.  Decode keeps
 The contractions are plain ``torch.einsum``/matmul, as the reference's are
 plain XLA: no TPU kernel computes them.  They sum in another order than
 XLA's, so prefill, stepping and the reference agree within a tolerance
-(``tests/test_torch_recurrent.py`` states it), not bit for bit.
+(``tests/test_torch_recurrent.py`` states it), not bit for bit.  One
+deliberate difference: the intra-chunk decay is masked before its exp, so
+the gradient stays finite where the reference's is NaN (ROADMAP C.28).
 
 The head count is ``d_inner // head_dim`` (80 at mamba2-2.7b's full width),
 not ``cfg.n_heads``.  ``a_log``, ``d_skip`` and ``dt_bias`` are kept in
@@ -128,7 +130,11 @@ def ssd_train(p: SSD, cfg, x: torch.Tensor, *, chunk: int = 128, return_state: b
     scores = torch.einsum("bcqn,bckn->bcqk", Cc, Bc).float()
     seg = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (b, nc, q, k, nh)
     causal = torch.ones((chunk, chunk), dtype=torch.bool, device=x.device).tril()
-    L = torch.where(causal[None, None, :, :, None], torch.exp(seg), 0.0)
+    # masked before the exp (the reference masks after it): the upper
+    # triangle's seg is a sum of -log decays, which passes exp's float32
+    # range at full width, and exp's gradient there is 0 * inf = NaN in the
+    # reference (ROADMAP C.28); the forward is the same bits either way
+    L = torch.exp(torch.where(causal[None, None, :, :, None], seg, float("-inf")))
     W = scores[..., None] * L
     dtx = dtc[..., None] * xh.float()  # (b, nc, k, nh, hp)
     y_intra = torch.einsum("bcqkh,bckhp->bcqhp", W, dtx)

@@ -3,15 +3,18 @@
 
 :meth:`ModelConfig.validate` checks the reference's rules (an accuracy-SLO
 ladder has at least two rungs, rung 0 equal to ``sqrt_unit``, the last
-"exact") as ``ValueError``s, and also rejects what the port does not run
-yet: encoder-decoder models and sinusoidal positions.  Every sqrt unit
-runs ("exact", "e2afs", "esas", "cwaha4", "cwaha8"), with seeded datapath
-faults (``sqrt_faults``) and a ladder, and remat "none",
-"block" or "minimal"; patterns that mix "global" and "window" blocks run
-(gemma3-1b's 5:1); so do RMSNorm and LayerNorm, SwiGLU and GELU MLPs,
-mixture-of-experts layers (``moe``), the vision stub's tokens
-(``vision_tokens``), and the recurrent blocks: "ssd" (mamba2-2.7b, with
-``pos="none"``) and "rglru" (recurrentgemma-2b's mix with "window").
+"exact"; an encoder-decoder model has an encoder) as ``ValueError`` s, and
+also rejects what the port does not run: an unknown unit, norm, MLP, block,
+position or remat, activations other than bfloat16 or float32.  Every sqrt
+unit runs ("exact", "e2afs", "esas", "cwaha4", "cwaha8"), with seeded
+datapath faults (``sqrt_faults``) and a ladder, and remat "none", "block" or
+"minimal"; patterns that mix "global" and "window" blocks run (gemma3-1b's
+5:1); so do RMSNorm and LayerNorm, SwiGLU and GELU MLPs, mixture-of-experts
+layers (``moe``), the vision stub's tokens (``vision_tokens``), the
+recurrent blocks: "ssd" (mamba2-2.7b, with ``pos="none"``) and "rglru"
+(recurrentgemma-2b's mix with "window"), and encoder-decoder models
+(``kind="encdec"``, whisper-small: an ``encoder`` over the audio stub's
+frames, cross-attention in every decoder layer, sinusoidal positions).
 """
 from __future__ import annotations
 
@@ -165,11 +168,10 @@ class ModelConfig:
         if self.pos not in ("rope", "sinusoidal", "none"):
             raise ValueError(f"unknown positions {self.pos!r}; expected 'rope', 'sinusoidal' "
                              f"or 'none'")
-        unsupported = {
-            "encoder-decoder models": self.kind != "decoder" or self.encoder is not None,
-            "sinusoidal positions": self.pos == "sinusoidal",
-        }
-        found = [what for what, bad in unsupported.items() if bad]
-        if found:
-            raise ValueError(f"{self.name}: the torch port does not run {', '.join(found)} yet")
+        if self.pos == "sinusoidal" and self.d_model % 2:
+            raise ValueError(f"sinusoidal positions need an even d_model, got {self.d_model}")
+        if self.kind not in ("decoder", "encdec"):
+            raise ValueError(f"unknown kind {self.kind!r}; expected 'decoder' or 'encdec'")
+        if self.kind == "encdec" and self.encoder is None:
+            raise ValueError("encoder-decoder models need cfg.encoder")
         return self

@@ -11,11 +11,16 @@ mlp/{wi_gate, wi_up, wo}}``, a recurrent layer's ``mixer/...`` in place of
 ``attn`` (an "ssd" layer has no ln2 or mlp): for a uniform model one dict
 whose arrays are stacked on a leading L axis, for a mixed model (gemma3-1b's
 window and global layers, recurrentgemma-2b's RG-LRU and window layers) a
-list of L per-layer dicts, each with its own block's leaves.  The port names the same
-tensors ``embed`` ... ``layers.<i>.attn.wq``.  :func:`named_to_tree` and
+list of L per-layer dicts, each with its own block's leaves.  An
+encoder-decoder's decoder layers also hold ``xattn/...`` and ``lnx``, and the
+tree has ``encoder/{ln1, attn, ln2, mlp}`` (always stacked on the encoder's
+layers) and ``enc_extra/enc_ln_f``.  The port names the same tensors
+``embed`` ... ``layers.<i>.attn.wq``, ``encoder.<i>.attn.wq``,
+``enc_extra.enc_ln_f_scale``.  :func:`named_to_tree` and
 :func:`tree_to_named` map any per-parameter state (the parameters, the
 optimizer's moments) between the two, so checkpoints keep the reference's
-leaf names (``layers_wq``-style stacked leaves, or ``layers_<i>_...``).
+leaf names (``layers_wq``-style stacked leaves, or ``layers_<i>_...``;
+``encoder_attn_wq``, ``enc_extra_enc_ln_f_scale``).
 """
 from __future__ import annotations
 
@@ -43,54 +48,70 @@ def _put(node: dict, path, value) -> None:
     node[path[-1]] = value
 
 
-def named_to_tree(named: dict, n_layers: int, *, stacked: bool) -> dict:
-    """``{port name: tensor}`` -> the reference's nested tree of numpy
-    arrays: per-layer tensors stacked on a leading L axis (``stacked``: a
-    uniform model, ``cfg.uniform``; every layer must hold every leaf), or a
-    list of ``n_layers`` per-layer dicts (a mixed model, each layer with the
-    leaves it holds)."""
-    tree, per_layer = {}, {}
-    for name, t in named.items():
-        parts = name.split(".")
-        if parts[0] == "layers":
-            per_layer.setdefault(tuple(parts[2:]), [None] * n_layers)[int(parts[1])] = _numpy(t)
-        else:
-            tree[name] = _numpy(t)
-    if not per_layer:
-        return tree
-    layers = {} if stacked else [{} for _ in range(n_layers)]
+def _stack_layers(per_layer: dict, n: int, stacked: bool, what: str):
+    """{path: [array of layer i]} -> a dict of arrays stacked on a leading
+    axis of ``n`` (every layer holding every leaf), or a list of ``n``
+    per-layer dicts, each with the leaves it holds."""
+    layers = {} if stacked else [{} for _ in range(n)]
     for path, arrays in per_layer.items():
         if stacked:
-            if any(a is None for a in arrays):
-                raise ValueError(f"layers.*.{'.'.join(path)}: not every layer is present")
+            if len(arrays) != n or any(a is None for a in arrays):
+                raise ValueError(f"{what}.*.{'.'.join(path)}: not every layer is present")
             _put(layers, path, np.stack(arrays))
         else:  # a mixed stack's layers hold what their block holds
             for layer, a in zip(layers, arrays):
                 if a is not None:
                     _put(layer, path, a)
-    tree["layers"] = layers
+    return layers
+
+
+def named_to_tree(named: dict, n_layers: int, *, stacked: bool) -> dict:
+    """``{port name: tensor}`` -> the reference's nested tree of numpy
+    arrays: per-layer tensors stacked on a leading L axis (``stacked``: a
+    uniform model, ``cfg.uniform``; every layer must hold every leaf), or a
+    list of ``n_layers`` per-layer dicts (a mixed model, each layer with the
+    leaves it holds).  An encoder's layers are always stacked, on as many
+    layers as the names give."""
+    tree, per_layer, per_enc = {}, {}, {}
+    for name, t in named.items():
+        parts = name.split(".")
+        if parts[0] == "layers":
+            per_layer.setdefault(tuple(parts[2:]), [None] * n_layers)[int(parts[1])] = _numpy(t)
+        elif parts[0] == "encoder":
+            arrays = per_enc.setdefault(tuple(parts[2:]), [])
+            i = int(parts[1])
+            arrays.extend([None] * (i + 1 - len(arrays)))
+            arrays[i] = _numpy(t)
+        else:
+            _put(tree, parts, _numpy(t))
+    if per_layer:
+        tree["layers"] = _stack_layers(per_layer, n_layers, stacked, "layers")
+    if per_enc:
+        n_enc = max(len(a) for a in per_enc.values())
+        tree["encoder"] = _stack_layers(per_enc, n_enc, True, "encoder")
     return tree
 
 
 def tree_to_named(tree: dict, names) -> dict:
     """The reference's tree -> ``{port name: numpy array}`` for ``names``:
     per-layer slices of the stacked arrays, or the entries of the list of
-    per-layer dicts, by the type of ``tree["layers"]``.  A name the tree
-    lacks raises."""
+    per-layer dicts, by the type of ``tree["layers"]`` (``tree["encoder"]``
+    is stacked).  A name the tree lacks raises."""
     out = {}
     for name in names:
         parts = name.split(".")
         node = tree
         try:
-            if parts[0] == "layers":
-                layers, i = node["layers"], int(parts[1])
+            if parts[0] in ("layers", "encoder"):
+                layers, i = node[parts[0]], int(parts[1])
                 node = layers[i] if isinstance(layers, list) else layers
                 for key in parts[2:]:
                     node = node[key]
                 if not isinstance(layers, list):
                     node = node[i]
             else:
-                node = node[name]
+                for key in parts:
+                    node = node[key]
         except (KeyError, IndexError):
             raise ValueError(f"parameter {name} is missing from the tree") from None
         out[name] = node

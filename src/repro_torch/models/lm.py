@@ -1,9 +1,12 @@
-"""Decoder LM: init, training forward, prefill, decode step and greedy
-decode (torch port of the decoder part of ``repro.models.lm``: uniform
-stacks, and stacks that mix "global", "window", "ssd" and "rglru" blocks;
-RMSNorm or LayerNorm, a SwiGLU or GELU MLP or a mixture of experts, the
-vision stub's tokens in the training forward, and the recurrent blocks:
-the SSD mixer of mamba2-2.7b and the RG-LRU block of recurrentgemma-2b).
+"""Config-driven LMs: init, training forward, prefill, decode step and
+greedy decode (torch port of ``repro.models.lm``: uniform stacks, and
+stacks that mix "global", "window", "ssd" and "rglru" blocks; RMSNorm or
+LayerNorm, a SwiGLU or GELU MLP or a mixture of experts, the vision stub's
+tokens in the training forward, the recurrent blocks: the SSD mixer of
+mamba2-2.7b and the RG-LRU block of recurrentgemma-2b; and the
+encoder-decoder of whisper-small: a bidirectional encoder over
+``batch["audio"]`` frames, cross-attention in every decoder layer,
+sinusoidal positions on both sides).
 
 Entry points:
     init(cfg, generator, device, trainable=)     -> LM
@@ -13,6 +16,15 @@ Entry points:
     prefill(model, cfg, cache, tokens)           -> (logits, cache)
     generate_scan(model, cfg, cache, tok, start_pos, gen_len)
                                                  -> (tokens, next_tok, cache)
+    precompute_cross(model, cfg, audio)          -> (cross_kv, enc_out)
+
+An encoder-decoder's decode entry points (``decode_step``, ``prefill``,
+``generate_scan``, ``prefill_into_slots``, ``decode_slots_step``,
+``decode_slots_scan``) take ``cross_kv=``: the stacked ``{"ck", "cv"}`` of
+(L, b, frames, kv, hd) that :func:`precompute_cross` returns, for the batch's
+rows (the pool's rows in the slot path; ``prefill_into_slots`` writes the
+admitted rows' into ``pool_cross_kv`` in place).  Without it a decoder
+layer skips its cross step, as the reference's does.
 
 Slot-pool serving (the continuous-batching engine's primitives):
     init_pool_state(cfg, num_slots, cache_len)   -> pool dict
@@ -59,6 +71,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -79,7 +92,7 @@ __all__ = ["LM", "init", "init_cache", "forward", "decode_step", "prefill", "gen
            "insert_cache_slots", "prefill_into_slots", "sample_tokens", "decode_slots_step",
            "decode_slots_scan", "canary_steps", "exact_twin", "gather_verify_lines",
            "decode_verify_step", "commit_verify_cache", "draft_ngram", "decode_slots_spec_step",
-           "decode_slots_spec_scan"]
+           "decode_slots_spec_scan", "precompute_cross"]
 
 
 def act_dtype(cfg) -> torch.dtype:
@@ -97,11 +110,12 @@ def exact_twin(cfg: ModelConfig) -> ModelConfig:
 class Block(nn.Module):
     """One layer in the reference's layout, by its block: "global" and
     "window" hold ln1, ``attn``, ln2 and ``mlp`` (or, with ``cfg.moe``,
-    ``moe``); "ssd" holds ln1 and ``mixer`` (:class:`~repro_torch.layers.ssd.SSD`);
+    ``moe``), and in an encoder-decoder (``cross``) also ``xattn`` and lnx;
+    "ssd" holds ln1 and ``mixer`` (:class:`~repro_torch.layers.ssd.SSD`);
     "rglru" holds ln1, ``mixer`` (:class:`~repro_torch.layers.rglru.RGLRU`),
     ln2 and ``mlp``.  Norms in the config's layout."""
 
-    def __init__(self, cfg, block: str, *, dtype, device):
+    def __init__(self, cfg, block: str, *, dtype, device, cross: bool = False):
         super().__init__()
         norm_init(self, "ln1", cfg, dtype=dtype, device=device)
         if block == "ssd":
@@ -116,6 +130,21 @@ class Block(nn.Module):
             self.moe = MoE(cfg, dtype=dtype, device=device)
         else:
             self.mlp = MLP(cfg, dtype=dtype, device=device)
+        if cross and block in ("global", "window"):
+            self.xattn = attn.Attention(cfg, dtype=dtype, device=device)
+            norm_init(self, "lnx", cfg, dtype=dtype, device=device)
+
+
+class EncoderLayer(nn.Module):
+    """One encoder layer (the reference's ``_enc_layer_init``): ln1, ``attn``
+    (bidirectional), ln2 and ``mlp``."""
+
+    def __init__(self, cfg, *, dtype, device):
+        super().__init__()
+        norm_init(self, "ln1", cfg, dtype=dtype, device=device)
+        self.attn = attn.Attention(cfg, dtype=dtype, device=device)
+        norm_init(self, "ln2", cfg, dtype=dtype, device=device)
+        self.mlp = MLP(cfg, dtype=dtype, device=device)
 
 
 class LM(nn.Module):
@@ -123,7 +152,10 @@ class LM(nn.Module):
     ln_f (d,) (or ln_f_scale and ln_f_bias), with vision tokens
     vision_proj (d, d), and one Block per layer (the reference stacks a uniform
     model's on a leading L axis and keeps a mixed model's as a list:
-    ``stacked`` records which).  For serving each is stored once in the
+    ``stacked`` records which); an encoder-decoder also holds ``encoder``,
+    one :class:`EncoderLayer` per encoder layer (stacked in the reference),
+    and ``enc_extra`` with the encoder's final norm ``enc_ln_f``.  For
+    serving each is stored once in the
     activation dtype, without gradient; ``trainable=True`` keeps float32
     masters that require gradients, as the reference always does, cast at
     every use."""
@@ -140,8 +172,14 @@ class LM(nn.Module):
         norm_init(self, "ln_f", cfg, dtype=dtype, device=device)
         if cfg.vision_tokens:
             self.vision_proj = parameter((d, d), dtype, device)
-        self.layers = nn.ModuleList(Block(cfg, block, dtype=dtype, device=device)
+        cross = cfg.kind == "encdec"
+        self.layers = nn.ModuleList(Block(cfg, block, dtype=dtype, device=device, cross=cross)
                                     for block in cfg.blocks)
+        if cross:
+            self.encoder = nn.ModuleList(EncoderLayer(cfg, dtype=dtype, device=device)
+                                         for _ in range(cfg.encoder.n_layers))
+            self.enc_extra = nn.Module()
+            norm_init(self.enc_extra, "enc_ln_f", cfg, dtype=dtype, device=device)
         self.requires_grad_(trainable)
 
     def unembed_matrix(self) -> torch.Tensor:
@@ -155,7 +193,7 @@ class LM(nn.Module):
 # the other: SSD's conv_w, RG-LRU's); every other weight is a fan-in truncated
 # normal with the reference's scale (sqrt(d) for the embedding, 0.1 for a
 # router, a mixer's ``INIT_SCALE``, else 1)
-_ZERO_INIT = ("ln1", "ln2", "ln_f", "q_norm", "k_norm", "bi", "bo")
+_ZERO_INIT = ("ln1", "ln2", "ln_f", "lnx", "enc_ln_f", "q_norm", "k_norm", "bi", "bo")
 
 
 @torch.no_grad()
@@ -261,12 +299,14 @@ def _ffn(layer: Block, cfg, h, mm=torch.matmul):
     return mlp_apply(layer.mlp, cfg, h, mm=mm), None
 
 
-def _layer_train(layer: Block, cfg, block, x, positions):
+def _layer_train(layer: Block, cfg, block, x, positions, enc_out=None):
     """One block of the training forward (the reference's ``_layer_train``):
     unfused norms, full-sequence causal attention ("global") or causal
-    sliding-window attention ("window"), the MLP or the experts; or the
-    chunked SSD mixer ("ssd"), or the RG-LRU block and its MLP ("rglru").
-    Returns (x, the layer's float32 aux loss, 0 without experts)."""
+    sliding-window attention ("window"), with ``enc_out`` the cross step
+    (lnx, then "cross" attention over the encoder's output), the MLP or the
+    experts; or the chunked SSD mixer ("ssd"), or the RG-LRU block and its
+    MLP ("rglru").  Returns (x, the layer's float32 aux loss, 0 without
+    experts)."""
     h = _norm(layer, "ln1", x, cfg, fused=False)
     if block in ("ssd", "rglru"):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -277,16 +317,81 @@ def _layer_train(layer: Block, cfg, block, x, positions):
     mode = "causal" if block == "global" else "window"
     x = x + attn.attention_train(layer.attn, cfg, h, mode=mode, window=cfg.window,
                                  positions=positions)
+    if enc_out is not None:
+        h = _norm(layer, "lnx", x, cfg, fused=False)
+        x = x + attn.attention_train(layer.xattn, cfg, h, mode="cross", kv_x=enc_out)
     h, aux = _ffn(layer, cfg, _norm(layer, "ln2", x, cfg, fused=False))
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + h, aux
 
 
+def _sinusoidal(n: int, d: int, device) -> torch.Tensor:
+    """The reference's absolute position table (n, d): sines then cosines of
+    ``pos / 10000^(2i / d)``, computed in float64 (numpy) and rounded to
+    float32."""
+    pos = np.arange(n)[:, None]
+    i = np.arange(d // 2)[None, :]
+    angle = pos / np.power(10000.0, 2 * i / d)
+    table = np.concatenate([np.sin(angle), np.cos(angle)], -1).astype(np.float32)
+    return torch.from_numpy(table).to(device)
+
+
+def _step_sinusoid(pos, d: int, device) -> torch.Tensor:
+    """The reference's decode-step sinusoid in float32 on the device: (d,)
+    for an int (or 0-dim) position, (b, d) for a (b,) tensor.  No host read,
+    so a captured step keeps it; divisions by device tensors (a CUDA tensor
+    divided by a Python number is multiplied by its rounded reciprocal)."""
+    if isinstance(pos, torch.Tensor):
+        p = pos.to(device=device, dtype=torch.float32)
+    else:
+        p = torch.full((), float(pos), dtype=torch.float32, device=device)
+    i = torch.arange(d // 2, dtype=torch.float32, device=device)
+    exponent = 2 * i / torch.full((), float(d), dtype=torch.float32, device=device)
+    ang = p[..., None] / torch.pow(10000.0, exponent)
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
+def _enc_layer(layer: EncoderLayer, cfg, x, fused: bool):
+    """One encoder layer (the reference's ``_enc_layer``): bidirectional
+    attention and the MLP, each after its norm."""
+    h = _norm(layer, "ln1", x, cfg, fused=fused)
+    x = x + attn.attention_train(layer.attn, cfg, h, mode="bidir")
+    return x + mlp_apply(layer.mlp, cfg, _norm(layer, "ln2", x, cfg, fused=fused))
+
+
+def _run_encoder(model: LM, cfg, audio: torch.Tensor, *, fused: bool) -> torch.Tensor:
+    """The encoder over the audio frames (b, frames, d) (the reference's
+    ``_run_encoder``): the sinusoidal table added, each layer rematerialised
+    in the backward under ``remat="block"``, the final norm ``enc_ln_f``.
+    ``fused``: the serving norm route (:func:`precompute_cross`), else the
+    training one."""
+    dt = act_dtype(cfg)
+    x = audio.to(dt)
+    x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device).to(dt)[None]
+    for layer in model.encoder:
+        if cfg.remat == "block":
+            x = checkpoint(_enc_layer, layer, cfg, x, fused, use_reentrant=False)
+        else:
+            x = _enc_layer(layer, cfg, x, fused)
+    return _norm(model.enc_extra, "enc_ln_f", x, cfg, fused=fused)
+
+
+def _audio(cfg, batch: dict, b: int) -> torch.Tensor:
+    """``batch["audio"]``, the encoder's frames (b, frames, d), checked."""
+    a = batch.get("audio")
+    if a is None or a.ndim != 3 or a.shape[0] != b or a.shape[2] != cfg.d_model:
+        want = (b, cfg.encoder.n_ctx, cfg.d_model)
+        raise ValueError(f"{cfg.name} takes batch['audio'] of shape {want}, got "
+                         f"{None if a is None else tuple(a.shape)}")
+    return a
+
+
 def _embed_inputs(model: LM, cfg, batch: dict) -> torch.Tensor:
     """The reference's ``_embed_inputs``: the token embeddings, after the
     vision stub's tokens ``batch["vision"] @ vision_proj`` when the config
-    has them."""
+    has them, plus the sinusoidal table when the config has sinusoidal
+    positions."""
     dt = act_dtype(cfg)
     tokens = batch["tokens"]
     x = model.embed.to(dt)[tokens]
@@ -297,6 +402,8 @@ def _embed_inputs(model: LM, cfg, batch: dict) -> torch.Tensor:
             raise ValueError(f"{cfg.name} takes batch['vision'] of shape {want}, got "
                              f"{None if v is None else tuple(v.shape)}")
         x = torch.cat([v.to(dt) @ model.vision_proj.to(dt), x], dim=1)
+    if cfg.pos == "sinusoidal":
+        x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device).to(dt)[None]
     return x
 
 
@@ -316,15 +423,21 @@ def forward(model: LM, cfg: ModelConfig, batch: dict, *, return_hidden: bool = F
     With ``cfg.vision_tokens``, ``batch["vision"]`` (b, vision_tokens, d)
     goes through ``vision_proj`` in front of the tokens, the positions run
     over both, and the text positions are sliced out after the final norm:
-    logits (and ``return_hidden``'s x) cover the tokens only."""
+    logits (and ``return_hidden``'s x) cover the tokens only.  An
+    encoder-decoder runs the encoder over ``batch["audio"]`` (b, frames, d)
+    first, and every decoder layer attends to its output."""
     x = _embed_inputs(model, cfg, batch)
     positions = torch.arange(x.shape[1], device=x.device)
+    enc_out = None
+    if cfg.kind == "encdec":
+        enc_out = _run_encoder(model, cfg, _audio(cfg, batch, x.shape[0]), fused=False)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for layer, block in zip(model.layers, cfg.blocks):
         if cfg.remat == "block":
-            x, a = checkpoint(_layer_train, layer, cfg, block, x, positions, use_reentrant=False)
+            x, a = checkpoint(_layer_train, layer, cfg, block, x, positions, enc_out,
+                              use_reentrant=False)
         else:
-            x, a = _layer_train(layer, cfg, block, x, positions)
+            x, a = _layer_train(layer, cfg, block, x, positions, enc_out)
         aux_total = aux_total + a
     x = _norm(model, "ln_f", x, cfg, fused=False)
     if cfg.vision_tokens:
@@ -370,9 +483,23 @@ def _recurrent_decode(layer: Block, cfg, block, x, state, levels, write_state):
     return x
 
 
+def _cross_layer(cross_kv, i) -> Optional[dict]:
+    """Layer ``i``'s share of the stacked cross K/V, or None."""
+    return None if cross_kv is None else {k: t[i] for k, t in cross_kv.items()}
+
+
+def _cross_step(layer: Block, cfg, x, cross_kv, levels=None):
+    """x plus the decoder layer's cross-attention (after lnx) over its
+    encoder K/V; x itself without them."""
+    if cross_kv is None:
+        return x
+    h = _norm(layer, "lnx", x, cfg, levels=levels)
+    return x + attn.cross_attention_decode(layer.xattn, cfg, h, cross_kv)
+
+
 @torch.no_grad()
 def decode_step(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, pos, *,
-                unit_levels=None, write_state: bool = True):
+                cross_kv=None, unit_levels=None, write_state: bool = True):
     """One decode forward (a single token per batch row) over the cache (a
     stacked dict or a per-layer list, as :func:`init_cache` gives it).
 
@@ -387,11 +514,17 @@ def decode_step(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, pos, *
     to overwrite).  ``unit_levels`` ((b,) int32, requires
     ``cfg.sqrt_ladder``): every norm rsqrt of row ``i``, qk-norm and final
     norm included, through ladder rung ``unit_levels[i]`` (the RG-LRU's
-    sqrt stays on ``cfg.sqrt_unit``, as in the reference).  Returns (logits
+    sqrt stays on ``cfg.sqrt_unit``, as in the reference).  ``cross_kv``
+    (an encoder-decoder's, from :func:`precompute_cross`, for these rows):
+    each decoder layer's cross step over its encoder K/V.  Sinusoidal
+    positions are computed on the device from ``pos``.  Returns (logits
     (b, 1, vocab), cache).
     """
     levels = _levels(cfg, unit_levels, tokens.device)
     x = model.embed[tokens]
+    if cfg.pos == "sinusoidal":
+        pe = _step_sinusoid(pos, cfg.d_model, x.device)
+        x = x + (pe[:, None] if pe.ndim == 2 else pe).to(x.dtype)
     for i, (layer, block) in enumerate(zip(model.layers, cfg.blocks)):
         if block in ("ssd", "rglru"):
             x = _recurrent_decode(layer, cfg, block, x, _layer_state(cache, i), levels,
@@ -401,13 +534,13 @@ def decode_step(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, pos, *
         h = _norm(layer, "ln1", x, cfg, levels=levels)
         h, _ = attn.attention_decode(layer.attn, cfg, h, c, pos, window=_window(cfg, block),
                                      layer_idx=idx, norm_levels=levels)
-        x = x + h
+        x = _cross_step(layer, cfg, x + h, _cross_layer(cross_kv, i), levels)
         x = x + _ffn(layer, cfg, _norm(layer, "ln2", x, cfg, levels=levels))[0]
     return _logits(model, cfg, x, levels), cache
 
 
 @torch.no_grad()
-def prefill(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, *,
+def prefill(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, *, cross_kv=None,
             last_logit_only: bool = False):
     """One-shot batched prefill over the prompt, writing positions [0, s) of
     every attention layer's cache in place (a window layer's ring shorter
@@ -415,12 +548,15 @@ def prefill(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, *,
     after the last token (the chunked SSD, or the RG-LRU's scan).  tokens:
     (b, s) with s >= 1 into a fresh cache.  Returns (logits (b, s, vocab),
     cache); ``last_logit_only`` keeps only the last position's row, (b, 1,
-    vocab)."""
+    vocab).  ``cross_kv`` as in :func:`decode_step`: each decoder layer's
+    cross step over the whole prompt."""
     s = tokens.shape[1]
     if s < 1:
         raise ValueError(f"prefill needs at least one prompt token, got tokens shape "
                          f"{tuple(tokens.shape)}")
     x = model.embed[tokens]
+    if cfg.pos == "sinusoidal":
+        x = x + _sinusoidal(s, cfg.d_model, x.device).to(x.dtype)[None]
     positions = torch.arange(s, device=tokens.device)
     for i, (layer, block) in enumerate(zip(model.layers, cfg.blocks)):
         if block in ("ssd", "rglru"):
@@ -435,7 +571,7 @@ def prefill(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, *,
         h = _norm(layer, "ln1", x, cfg)
         h, _ = attn.attention_prefill(layer.attn, cfg, h, c, positions,
                                       window=_window(cfg, block), layer_idx=idx)
-        x = x + h
+        x = _cross_step(layer, cfg, x + h, _cross_layer(cross_kv, i))
         x = x + _ffn(layer, cfg, _norm(layer, "ln2", x, cfg))[0]
     if last_logit_only:
         x = x[:, -1:].contiguous()  # the norm kernel takes contiguous rows
@@ -444,7 +580,7 @@ def prefill(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, *,
 
 @torch.no_grad()
 def generate_scan(model: LM, cfg: ModelConfig, cache, tok: torch.Tensor, start_pos: int,
-                  gen_len: int):
+                  gen_len: int, *, cross_kv=None):
     """Greedy decode of ``gen_len`` steps: a Python loop over
     :func:`decode_step` with the argmax on the device and no host
     synchronisation per token.
@@ -453,13 +589,13 @@ def generate_scan(model: LM, cfg: ModelConfig, cache, tok: torch.Tensor, start_p
     start_pos: its position, an int.  Returns (tokens (b, gen_len), next_tok
     (b, 1), cache) with tokens[:, 0] == tok, as the reference: each emitted
     token is the one fed at that step, and ``next_tok`` is the argmax after
-    the last step.
+    the last step.  ``cross_kv`` as in :func:`decode_step`.
     """
     start_pos = int(start_pos)
     out = []
     for i in range(gen_len):
         out.append(tok[:, 0])
-        logits, cache = decode_step(model, cfg, cache, tok, start_pos + i)
+        logits, cache = decode_step(model, cfg, cache, tok, start_pos + i, cross_kv=cross_kv)
         tok = logits[:, -1:].argmax(dim=-1).to(tok.dtype)
     toks = torch.stack(out, dim=1) if out else tok.new_zeros((tok.shape[0], 0))
     return toks, tok, cache
@@ -467,6 +603,17 @@ def generate_scan(model: LM, cfg: ModelConfig, cache, tok: torch.Tensor, start_p
 
 def param_count(model: nn.Module) -> int:
     return sum(p.numel() for p in model.parameters())
+
+
+@torch.no_grad()
+def precompute_cross(model: LM, cfg: ModelConfig, audio: torch.Tensor):
+    """An encoder-decoder's serving start: the encoder once over ``audio``
+    (b, frames, d), on the serving norm route, then every decoder layer's
+    cross K/V over its output, stacked as the reference's ``{"ck", "cv"}``
+    of (L, b, frames, kv, hd).  Returns (cross_kv, enc_out)."""
+    enc_out = _run_encoder(model, cfg, audio, fused=True)
+    per_layer = [attn.precompute_cross_kv(layer.xattn, cfg, enc_out) for layer in model.layers]
+    return {k: torch.stack([c[k] for c in per_layer]) for k in ("ck", "cv")}, enc_out
 
 
 # ---------------------------------------------------------------------------
@@ -550,7 +697,7 @@ def insert_cache_slots(cfg: ModelConfig, cache, rows, slots: torch.Tensor):
 
 @torch.no_grad()
 def prefill_into_slots(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor,
-                       slots: torch.Tensor):
+                       slots: torch.Tensor, *, cross_kv=None, pool_cross_kv=None):
     """Admit requests into a live slot pool: a batch-k :func:`prefill` into
     fresh staging rows (the same math and cache layout as a solo prefill),
     then one whole-row write a cache tensor into ``slots`` of the live
@@ -558,9 +705,16 @@ def prefill_into_slots(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor,
     masked by the per-slot validity mask until the new occupant writes them.
 
     tokens: (k, s) prompts of one length; slots: (k,) integer tensor.
-    Returns (last-token logits (k, 1, vocab), cache)."""
+    ``cross_kv``: the admitted rows' (an encoder-decoder's, (L, k, ...)),
+    which the prefill attends to and, with ``pool_cross_kv`` (the pool's
+    rows, (L, b, ...)), lands at ``slots`` of it in place (``index_copy_``:
+    a graph captured over the pool's rows keeps their addresses).  Returns
+    (last-token logits (k, 1, vocab), cache)."""
     rows = slot_rows_like(cfg, cache, tokens.shape[0])
-    logits, rows = prefill(model, cfg, rows, tokens, last_logit_only=True)
+    logits, rows = prefill(model, cfg, rows, tokens, cross_kv=cross_kv, last_logit_only=True)
+    if pool_cross_kv is not None:
+        for name, buf in pool_cross_kv.items():
+            buf.index_copy_(1, slots.to(torch.long), cross_kv[name].to(buf.dtype))
     return logits, insert_cache_slots(cfg, cache, rows, slots)
 
 
@@ -625,7 +779,7 @@ def decode_slots_step(model: LM, cfg: ModelConfig, pool: dict, toks: torch.Tenso
                       emitted: torch.Tensor, i: int, *, eos_id: Optional[int] = None,
                       temperature: float = 0.0, top_k: int = 0, unit_levels=None,
                       logits_hook=None, health=None, canary: bool = False,
-                      canary_stats=None) -> None:
+                      canary_stats=None, cross_kv=None) -> None:
     """One slot-scheduled decode step over ``pool`` (an
     :func:`init_pool_state` dict), every row an independent request.
 
@@ -653,14 +807,18 @@ def decode_slots_step(model: LM, cfg: ModelConfig, pool: dict, toks: torch.Tenso
     runs first and writes the K/V lines (and int8 scales) the served step
     then overwrites; its recurrent layers read the pool's states and drop
     their new ones (``decode_step(write_state=False)``), so only the served
-    step advances them and no shadow state survives the step.
+    step advances them and no shadow state survives the step.  ``cross_kv``
+    (an encoder-decoder's, the pool's rows) as in :func:`decode_step`, for
+    both.
 
     Updates the pool in place and reads nothing back to the host, so a run
     of steps can be captured in a CUDA graph."""
     tok, pos, active, remaining = pool["tok"], pool["pos"], pool["active"], pool["remaining"]
     if canary:
-        exact, _ = decode_step(model, exact_twin(cfg), pool["cache"], tok, pos, write_state=False)
-    logits, _ = decode_step(model, cfg, pool["cache"], tok, pos, unit_levels=unit_levels)
+        exact, _ = decode_step(model, exact_twin(cfg), pool["cache"], tok, pos, cross_kv=cross_kv,
+                               write_state=False)
+    logits, _ = decode_step(model, cfg, pool["cache"], tok, pos, cross_kv=cross_kv,
+                            unit_levels=unit_levels)
     lg = logits[:, -1].float()
     if logits_hook is not None:
         lg = logits_hook(lg)
@@ -698,7 +856,8 @@ def decode_slots_scan(model: LM, cfg: ModelConfig, cache, tok, pos, active, rema
                       n_steps: int, *, eos_id: Optional[int] = None, temperature: float = 0.0,
                       top_k: int = 0, keys: Optional[torch.Tensor] = None, unit_levels=None,
                       logits_hook=None, with_health: bool = False,
-                      canary_stride: Optional[int] = None, canary_offset: int = 0):
+                      canary_stride: Optional[int] = None, canary_offset: int = 0,
+                      cross_kv=None):
     """``n_steps`` of :func:`decode_slots_step`: a Python loop with no host
     synchronisation (the reference's ``lax.scan``).
 
@@ -716,7 +875,9 @@ def decode_slots_scan(model: LM, cfg: ModelConfig, cache, tok, pos, active, rema
     N (:func:`canary_steps`; a step that does not fire computes nothing for
     it) and appends the four per-slot stats: canary checks (b,) int32,
     argmax divergences (b,) int32, the max relative logit error (b,)
-    float32 and the sum of the mean relative errors (b,) float32."""
+    float32 and the sum of the mean relative errors (b,) float32.
+    ``cross_kv``: an encoder-decoder's, the pool's rows (see
+    :func:`prefill_into_slots`)."""
     if temperature and keys is None:
         raise ValueError(
             "temperature sampling needs per-request keys (a (b, 2) keys tensor); "
@@ -738,7 +899,7 @@ def decode_slots_scan(model: LM, cfg: ModelConfig, cache, tok, pos, active, rema
         decode_slots_step(model, cfg, pool, toks, emitted, i, eos_id=eos_id,
                           temperature=temperature, top_k=top_k, unit_levels=levels,
                           logits_hook=logits_hook, health=health, canary=i in fire,
-                          canary_stats=stats)
+                          canary_stats=stats, cross_kv=cross_kv)
     return (toks, emitted, tok, pos, active, remaining, cache) + (health or ()) + (stats or ())
 
 
@@ -803,6 +964,10 @@ def decode_verify_step(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor,
     levels = _levels(cfg, unit_levels, tokens.device)
     mm = rowwise.matmul
     x = model.embed[tokens]
+    if cfg.pos == "sinusoidal":  # a row at a time, at the sequential step's shape
+        pe = torch.stack([_step_sinusoid(pos + j, cfg.d_model, x.device)
+                          for j in range(tokens.shape[1])], dim=1)
+        x = x + pe.to(x.dtype)
     for i, (layer, block) in enumerate(zip(model.layers, cfg.blocks)):
         c, idx = _layer_cache(cache, i)
         h = _norm(layer, "ln1", x, cfg, levels=levels)

@@ -126,6 +126,42 @@ def test_format_constants(name):
     assert got == want
 
 
+def test_e2afs_constants_match_the_reference():
+    """The public ``E2AFS_CONSTANTS`` (the paper's Q-grid region constants)
+    equal the reference's."""
+    assert e2afs.E2AFS_CONSTANTS == jax_e2afs.E2AFS_CONSTANTS
+
+
+def test_unit_is_exact_matches_the_reference():
+    """``SqrtUnit.is_exact`` for every unit, as the reference's."""
+    from repro.core import available_units as jax_available_units
+    from repro_torch.core import available_units
+
+    assert available_units() == jax_available_units()
+    assert [get_unit(n).is_exact for n in available_units()] == [
+        jax_get_unit(n).is_exact for n in jax_available_units()]
+    assert get_unit("exact").is_exact and not get_unit("e2afs").is_exact
+
+
+def test_e2afs_fp16_config_mirrors_the_reference():
+    """The registry's ``e2afs-fp16`` id: the paper's unit evaluation
+    (``E2AFSConfig``, not an LM), field for field the reference's, full and
+    smoke; an override replaces a field as for the models."""
+    import dataclasses
+
+    from repro.configs import get_config as jax_get_config
+    from repro.configs import get_smoke_config as jax_smoke_config
+    from repro_torch.configs import ARCH_IDS, get_config, get_smoke_config
+    from repro_torch.configs.e2afs_fp16 import E2AFSConfig
+
+    assert "e2afs-fp16" in ARCH_IDS
+    for ours, theirs in ((get_config("e2afs-fp16"), jax_get_config("e2afs-fp16")),
+                         (get_smoke_config("e2afs-fp16"), jax_smoke_config("e2afs-fp16"))):
+        assert isinstance(ours, E2AFSConfig)
+        assert dataclasses.asdict(ours) == dataclasses.asdict(theirs)
+    assert get_config("e2afs-fp16", fmt="bf16").fmt == "bf16"
+
+
 def test_table2_worked_example():
     """0x785A -> 0 10110 1000100001 (196.125), as the paper's Table 2."""
     x = torch.tensor([0x785A], dtype=torch.int16).view(torch.float16)

@@ -353,8 +353,8 @@ def test_registry_knows_the_ported_ids_and_validate_keeps_its_refusals():
     assert set(FAMILIES) <= set(ARCH_IDS)
     for override, match in (({"block_pattern": ("ssd",)}, "ssd blocks need cfg.ssm"),
                             ({"mlp_act": "relu"}, "unknown MLP activation"),
-                            ({"kind": "encdec"}, "encoder-decoder"),
-                            ({"pos": "sinusoidal"}, "sinusoidal"),
+                            ({"kind": "encdec"}, "encoder-decoder"),  # without an encoder
+                            ({"pos": "sinusoidal", "d_model": 63}, "sinusoidal"),
                             ({"norm": "batchnorm"}, "unknown norm")):
         with pytest.raises(ValueError, match=match):
             get_smoke_config("starcoder2-15b", **override)

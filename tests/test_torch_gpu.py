@@ -17,8 +17,10 @@ sums of up to 262,144 terms in its own order), bit-identical from run to
 run; adam bit-identical (p, m and v; one training step on the kernel route
 against the plain route too); speculative verify rows bit-identical to the
 sequential steps, replayed spec chunks to eager ones, spec tokens to the
-plain engine's.  Only the order of float32 sums differs between a kernel
-and its plain version.
+plain engine's; whisper-small's kernel route within 4 bf16 ulps of the
+largest |logit| of its plain route, tokens identical, and its cross-K/V
+slot step replayed bit-identical to the eager one.  Only the order of
+float32 sums differs between a kernel and its plain version.
 """
 import numpy as np
 import pytest
@@ -1619,3 +1621,129 @@ def test_capture_holds_off_the_garbage_collector(cuda_device):
     assert gc.isenabled()
     eng.warmup(prompt_lens={3})
     assert eng._graphs and seen[-1] is False and gc.isenabled()
+
+
+# -- whisper-small: the encoder-decoder (G = 1 at head_dim 64, cross K/V) --
+
+@pytest.mark.parametrize("t", [8, 192, 576])
+@pytest.mark.parametrize("quantized", [False, True])
+def test_decode_attention_one_head_a_kv_head_of_64(cuda_device, quantized, t):
+    """whisper-small's decoder self-attention: 8 slots, 12 KV heads of one
+    query head each (G = 1), head_dim 64 (8 lanes a bf16 line), bf16,
+    float and int8 caches, wrap off and on, mixed per-row positions, t up
+    to its 192-line cache and past it.  Two calls are bit-identical."""
+    b, h, kv, hd, dtype = 8, 12, 12, 64, torch.bfloat16
+    q, k, v, pos, ks, vs = _attn_case(cuda_device, b, t, h, kv, hd, dtype, quantized, t + 1)
+    for wrap in (False, True):
+        plain = attn_ops.ref_decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
+        ours = attn_ops.decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
+        again = attn_ops.decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
+        assert torch.equal(ours, again), "two calls differ"
+        _assert_attention_close(ours, plain, dtype)
+
+
+def _whisper_model(dev, act_dtype="float32"):
+    """whisper-small's smoke config on the kernels, every constant-start
+    leaf (LayerNorm scales and biases, the GELU biases) moved off its start,
+    with seeded audio (2, 8, 64) and a 6-token prompt."""
+    cfg = get_smoke_config("whisper-small", act_dtype=act_dtype, sqrt_unit="e2afs",
+                           decode_kernel="fused")
+    model = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for _, p in lm.constant_start_parameters(model):
+            p.add_(0.3 * torch.randn(p.shape, generator=gen).to(p.dtype))
+    g = torch.Generator().manual_seed(2)
+    audio = torch.randn(2, cfg.encoder.n_ctx, cfg.d_model, generator=g)
+    prompt = torch.randint(0, cfg.vocab, (2, 6), generator=g)
+    return cfg, model.to(dev), audio.to(dev), prompt.to(dev)
+
+
+@pytest.mark.parametrize("act_dtype", ["bfloat16", "float32"])
+def test_whisper_kernel_route_equals_the_plain_route(cuda_device, act_dtype):
+    """``precompute_cross``, ``prefill`` and 8 greedy steps with
+    ``cross_kv`` at smoke width on the card: the kernel route (an
+    e2afs_rsqrt a LayerNorm, decode attention at G = 1) against the plain
+    versions: logits within 4 bf16 ulps of the largest |logit|, tokens
+    identical; the kernel route's launches counted (5 encoder norms, 7 a
+    decoder forward, 2 decode attention a step), the plain route's none."""
+    cfg, model, audio, prompt = _whisper_model(cuda_device, act_dtype)
+    out = {}
+    for backend, route in (("auto", "fused"), ("reference", "reference")):
+        prev = dispatch.set_backend(backend)
+        try:
+            c = cfg.replace(decode_kernel=route)
+            dispatch.reset_launch_counts()
+            ckv, _ = lm.precompute_cross(model, c, audio)
+            cache = lm.init_cache(c, 2, 14, device=cuda_device)
+            logits, cache = lm.prefill(model, c, cache, prompt, cross_kv=ckv,
+                                       last_logit_only=True)
+            toks, _, _ = lm.generate_scan(model, c, cache, logits.argmax(-1), 6, 8, cross_kv=ckv)
+            out[backend] = (logits.float(), toks, dispatch.launch_counts())
+        finally:
+            dispatch.set_backend(prev)
+    ref = out["reference"][0]
+    _, e = torch.frexp(ref.abs().max())
+    limit = 4 * 2.0 ** (int(e) - 1 - _MAN_BITS[torch.bfloat16])  # 4 bf16 ulps at max |logit|
+    assert float((out["auto"][0] - ref).abs().max()) <= limit
+    assert torch.equal(out["auto"][1], out["reference"][1])
+    assert out["auto"][2]["e2afs_rsqrt"] == 5 + 7 * 9
+    assert out["auto"][2]["decode_attention"] == 2 * 8
+    assert set(out["reference"][2].values()) == {0}
+
+
+@pytest.mark.parametrize("act_dtype", ["bfloat16", "float32"])
+def test_cross_kv_slot_step_replays_the_eager_step(cuda_device, act_dtype):
+    """``decode_slots_step(cross_kv=)`` over a pool whose cross K/V rows
+    were written in place at admission (``prefill_into_slots(pool_cross_kv=)``),
+    captured as a CUDA graph: from one pool state, a replay and the eager
+    step give every pool tensor and the step's tokens bit for bit, with the
+    same launches."""
+    cfg, model, audio, prompt = _whisper_model(cuda_device, act_dtype)
+    ckv, _ = lm.precompute_cross(model, cfg, audio)
+    pool = lm.init_pool_state(cfg, 3, 16, device=cuda_device)
+    pool_ckv = {k: torch.zeros((t.shape[0], 3) + t.shape[2:], dtype=t.dtype, device=cuda_device)
+                for k, t in ckv.items()}
+    slots = torch.tensor([2, 0], device=cuda_device)
+    logits, _ = lm.prefill_into_slots(model, cfg, pool["cache"], prompt, slots, cross_kv=ckv,
+                                      pool_cross_kv=pool_ckv)
+    assert torch.equal(pool_ckv["ck"][:, 2], ckv["ck"][:, 0])
+    pool["tok"][slots] = logits[:, -1].argmax(-1, keepdim=True).to(torch.int32)
+    pool["pos"][slots] = 6
+    pool["active"][slots] = True
+    pool["remaining"][slots] = 5
+    toks = torch.zeros((3, 1), dtype=torch.int32, device=cuda_device)
+    emitted = torch.zeros((3, 1), dtype=torch.bool, device=cuda_device)
+    state = lm.pool_tensors(pool) + [toks, emitted]
+    start = [t.clone() for t in state]
+
+    def step():
+        lm.decode_slots_step(model, cfg, pool, toks, emitted, 0, cross_kv=pool_ckv)
+
+    def outcome(run):
+        for t, s0 in zip(state, start):
+            t.copy_(s0)
+        dispatch.reset_launch_counts()
+        run()
+        torch.cuda.synchronize()
+        return [t.clone() for t in state], dispatch.launch_counts()
+
+    eager, eager_counts = outcome(step)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with dispatch.capture_launches() as launches, torch.cuda.graph(graph):
+        step()
+
+    def replay():
+        graph.replay()
+        dispatch.replay_launches(launches)
+
+    graphed, graph_counts = outcome(replay)
+    assert _pool_bits_equal(graphed, eager)
+    assert not _pool_bits_equal(eager, start), "the step moved nothing"
+    assert graph_counts == eager_counts
+    assert eager_counts["decode_attention"] == cfg.n_layers

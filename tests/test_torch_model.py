@@ -318,9 +318,9 @@ def test_full_width_config_mirrors_reference():
 
 
 @pytest.mark.parametrize("override,match", [
-    ({"pos": "sinusoidal"}, "sinusoidal"),
+    ({"pos": "sinusoidal", "d_model": 63}, "sinusoidal"),  # the table needs an even width
     ({"mlp_act": "relu"}, "unknown MLP activation"),
-    ({"kind": "encdec"}, "encoder-decoder"),
+    ({"kind": "encdec"}, "encoder-decoder"),  # without cfg.encoder
     ({"sqrt_ladder": ("exact", "esas")}, "ladder"),  # the last rung is not "exact"
     ({"sqrt_ladder": ("e2afs", "exact")}, "ladder"),  # rung 0 is not sqrt_unit ("exact")
     ({"decode_kernel": "flash"}, "unknown decode kernel"),

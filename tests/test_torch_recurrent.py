@@ -288,6 +288,33 @@ def test_rglru_under_pinned_sqrt_faults_matches_the_reference(trees):
         _close(t, j, key)
 
 
+def test_ssd_gradient_stays_finite_where_the_reference_overflows(trees):
+    """ROADMAP C.28: with a decay of about 12 a token (``dt_bias`` 12) over
+    a chunk of 13, the upper triangle's ``exp(seg)`` passes float32's range;
+    the reference masks after the exp, so its gradient is 0 * inf = NaN
+    there, and the port masks before it.  The outputs agree within ATOL, and
+    every gradient of the port (the input's and each mixer leaf's) is
+    finite where the reference's is not."""
+    arch = "mamba2-2.7b"
+    cfg = get_smoke_config(arch, act_dtype="float32")
+    jcfg = jax_smoke_config(arch, act_dtype="float32")
+    p, module = _mixer_pair(trees, arch, cfg)
+    p = dict(p, dt_bias=jnp.full_like(p["dt_bias"], 12.0))
+    with torch.no_grad():
+        module.dt_bias.fill_(12.0)
+    x = np.random.default_rng(7).standard_normal((B, 13, cfg.d_model)).astype(np.float32)
+    jy, jgrads = jax.value_and_grad(
+        lambda q, v: jax_ssd.ssd_train(q, jcfg, v).sum(), argnums=(0, 1))(p, jnp.asarray(x))
+    assert not all(bool(jnp.isfinite(g).all()) for g in jax.tree.leaves(jgrads))
+    module.requires_grad_(True)
+    tx = torch.from_numpy(x).requires_grad_(True)
+    ty = ssd.ssd_train(module, cfg, tx).sum()
+    ty.backward()
+    _close(ty.detach(), jy, "sum of y")
+    for name, g in [("x", tx.grad)] + [(n, q.grad) for n, q in module.named_parameters()]:
+        assert g is not None and bool(torch.isfinite(g).all()), name
+
+
 @pytest.mark.parametrize("arch", ARCHS)
 def test_full_config_and_parameter_count_mirror_the_reference(arch):
     """The full config equals the reference's field for field, and the
