@@ -244,6 +244,28 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    remat "block", fused AdamW, phase 11b's run (e2afs_rsqrt counted: the
    encoder's and the decoder's norms twice, the final norms once).
 
+19. sharded serving, after 18b, on a one-device mesh: a one-rank NCCL
+   process group and ``make_production_mesh(shape=(1, 1))`` (the host has
+   one card; collectives across ranks are held on 4 gloo ranks on the
+   CPU), destroyed at the end of the phase, on phase 4a's and 4d's models:
+   (a) ``Engine(mesh=, rules=serve_rules(..., replicate_params=True))`` at
+   13a's shape serving 13a's 24 requests, the counts set to 0 just before
+   and read just after: tokens bit-identical to 13a's, RMSNorm and decode
+   attention launches equal to 13a's, every pool DTensor on the placements
+   ``serve_pool_shardings`` gives after the run, ms a replayed step and
+   the makespan beside 13a's; (b) the same under the default
+   tensor-parallel ``serve_rules`` (a one-wide 'model' axis splits no
+   sum: the same tokens); (c) 13b's shape and 12 requests on gemma3-1b's
+   ring cache in exact mode, tokens equal to 13b's, and the int8 cache at
+   13a's shape on 8 requests equal to the unsharded int8 engine; (d) 12 of
+   13a's requests with a journal and ``snapshot_every_chunks=2``, killed
+   at chunk 3 and resumed by ``Engine.resume`` from one device onto the
+   mesh and from the mesh onto one device: every uid finished exactly once
+   with 13a's tokens; (e) phase 4a's model, prompt and shapes through
+   ``lm.prefill``/``generate_scan`` with ``mesh=``: 4a's tokens; and
+   ``serve.generate(mesh=)`` at smoke width and 4a's batch, prompt and
+   length equal to it without.
+
 Before the last line it prints the card's name and power limit and one JSON
 line of kernels; the last line is ``{"ok": true, "device": {...}}``.  Without
 a card, or outside a checkout of the repository, it exits non-zero and
@@ -492,6 +514,7 @@ class Smoke:
         self.card = "rehearsal on the CPU: no card"
         self.training = {}
         self.serving = self.gemma = None
+        self.serve_tokens = None  # phase 4a's greedy tokens
         # phase 14c's faulted engine, phase 15a's engines, phase 15f's process
         self.faulted_engine = self.robust = self.sigkill = None
         self.anchor = None  # phase 15a's requests and tokens
@@ -980,6 +1003,7 @@ class Smoke:
             raise AssertionError(f"first generated tokens disagree: {first} of {batch}")
         self.serving = (cfg, model, prompt, logits[:, -1:].argmax(-1), batch, prompt_len,
                         cache_len)
+        self.serve_tokens = toks
 
     def p4_unit(self):
         """The sqrt-unit entry point on an activation-sized tensor, forward
@@ -3951,6 +3975,219 @@ class Smoke:
         self.train_phase(cfg, batch, seq, timed=2, compare_routes=False,
                          launches_key="whisper_small_launches", move_constants=True, extra=audio)
 
+    # -- phase 19 ----------------------------------------------------------
+    def p19_mesh(self):
+        """Sharded serving on a one-device mesh: a one-rank process group
+        (NCCL on the card; this host has one card) and
+        ``make_production_mesh(shape=(1, 1))``, destroyed at the end.  On
+        phase 4a's and 4d's models with phase 13's shapes and traces:
+        (a) exact mode against 13a's tokens, launches and ms a step, the
+        pool's placements kept; (b) the default tensor-parallel rules, the
+        same tokens (a one-wide 'model' axis splits no sum); (c) 13b's ring
+        cache in exact mode, and the int8 cache at 13a's shape against the
+        unsharded int8 engine; (d) snapshots resumed across mesh shapes;
+        (e) ``lm.prefill``/``generate_scan`` with ``mesh=`` on phase 4a's
+        model and prompt against 4a's tokens, and ``serve.generate`` with
+        ``mesh=`` against it without."""
+        import torch.distributed as dist
+
+        from repro_torch.launch.mesh import make_production_mesh
+
+        if dist.is_initialized():
+            raise AssertionError("a process group exists before phase 19")
+        mesh = make_production_mesh(shape=(1, 1), device=self.dev)
+        try:
+            print(f"  mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+                  f"{dist.get_backend()}, world size {dist.get_world_size()} ({self.card})")
+            self.mesh_engines(mesh)
+            self.mesh_resume(mesh)
+            self.mesh_generate(mesh)
+        finally:
+            dist.destroy_process_group()
+
+    def same_tokens(self, done, ref, uids=None):
+        import numpy as np
+
+        uids = sorted(ref) if uids is None else uids
+        return sum(int(np.array_equal(done[u].tokens, ref[u].tokens)) for u in uids), len(uids)
+
+    def mesh_engine(self, cfg, model, mesh, rules, run, *, reqs, label, warm=True, **kw):
+        """An Engine on ``mesh`` by ``rules`` at ``run``'s shape serving
+        ``reqs`` (warmed up and captured first), the counts set to 0 just
+        before the trace and read just after.  Returns (engine, done,
+        counts, ms a replayed step)."""
+        from repro_torch.distributed import sharding
+        from repro_torch.kernels import dispatch
+        from repro_torch.launch.engine import Engine
+        from repro_torch.models import lm
+
+        sh = run["shape"]
+        eng = Engine(model, cfg, num_slots=sh["slots"], cache_len=sh["cache_len"],
+                     chunk=sh["chunk"], mesh=mesh, rules=rules, **kw)
+        if warm:
+            eng.warmup(prompt_lens=sh["prompts"])
+        self.sync()
+        dispatch.reset_launch_counts()
+        done = eng.run(reqs)
+        counts = dispatch.launch_counts()
+        want = sharding.serve_pool_tree(eng._pool_sh)
+        kept = all(dt.placements == s.placements and dt.to_local().data_ptr() == t.data_ptr()
+                   for dt, s, t in zip(lm.pool_tensors(eng._dpool), lm.pool_tensors(want),
+                                       lm.pool_tensors(eng.pool)))
+        step_ms = None
+        if warm and not self.rehearsal:
+            eng.reset()
+            for slot, req in enumerate(reqs[:sh["slots"]]):
+                eng._admit(req, slot, 0.0)
+            step_ms = self.time_ms(eng._decode_chunk, iters=4) / sh["chunk"]
+        print(f"  {label}: makespan {eng.stats['makespan_s']:.3f} s (13's "
+              f"{run['stats']['makespan_s']:.3f}), {eng.stats['tok_s']:.1f} tok/s, "
+              f"{eng.stats['decode_chunks']} chunks (13's {run['stats']['decode_chunks']}); "
+              f"ms a replayed step {step_ms if step_ms is None else round(step_ms, 4)} (13's "
+              f"{run['step_ms']:.4f}); launches {counts}; pool placements kept: {kept} "
+              f"({self.card})")
+        if not kept:
+            raise AssertionError(f"{label}: the pool left its placements")
+        return eng, done, counts, step_ms
+
+    def mesh_engines(self, mesh):
+        from repro_torch.distributed.sharding import serve_rules
+        from repro_torch.launch.engine import Engine
+
+        q13 = self.engine_runs["engine_qwen3_4b_launches"]
+        g13 = self.engine_runs["engine_gemma3_1b_launches"]
+        cfg, model = self.serving[:2]
+        for mode, rules in (("19a exact", serve_rules(cfg, mesh, replicate_params=True)),
+                            ("19b tensor parallel", serve_rules(cfg, mesh))):
+            eng, done, counts, step_ms = self.mesh_engine(cfg, model, mesh, rules, q13,
+                                                          reqs=q13["reqs"], label=mode)
+            same, n = self.same_tokens(done, q13["done"])
+            want = {k: self.rows[k]["engine_qwen3_4b_launches"]
+                    for k in ("rmsnorm", "decode_attention")}
+            got = {k: counts[k] for k in want}
+            print(f"  {mode}: {same} of {n} requests token-identical to 13a's; rmsnorm and "
+                  f"decode_attention launches {got} (13a's {want})")
+            key = "mesh_exact_launches" if mode.startswith("19a") else "mesh_tp_launches"
+            for k, v in got.items():
+                self.rows[k][key] = v
+            if same != n or (not self.rehearsal and got != want):
+                raise AssertionError(f"{mode}: tokens or launches differ from phase 13a's")
+            if step_ms is not None:
+                self.engine_runs[key] = dict(step_ms=step_ms, makespan_s=eng.stats["makespan_s"])
+            del eng
+            self.free()
+
+        gcfg, gmodel = self.gemma
+        eng, done, counts, _ = self.mesh_engine(
+            gcfg, gmodel, mesh, serve_rules(gcfg, mesh, replicate_params=True), g13,
+            reqs=g13["reqs"], label="19c gemma3-1b ring, exact")
+        same, n = self.same_tokens(done, g13["done"])
+        print(f"  19c gemma3-1b: {same} of {n} requests token-identical to 13b's")
+        if same != n:
+            raise AssertionError("19c: the ring cache on the mesh differs from 13b's tokens")
+        del eng
+        self.free()
+
+        reqs = q13["reqs"][:8]
+        sh = q13["shape"]
+        plain = Engine(model, cfg, num_slots=sh["slots"], cache_len=sh["cache_len"],
+                       chunk=sh["chunk"], quantized_kv=True)
+        plain.warmup(prompt_lens=sh["prompts"])
+        ref = plain.run(reqs)
+        del plain
+        eng, done, _, _ = self.mesh_engine(
+            cfg, model, mesh, serve_rules(cfg, mesh, replicate_params=True), q13, reqs=reqs,
+            label="19c int8 cache, exact", quantized_kv=True)
+        same, n = self.same_tokens(done, ref)
+        print(f"  19c int8: {same} of {n} requests token-identical to the unsharded int8 "
+              f"engine")
+        if same != n:
+            raise AssertionError("19c: the int8 cache on the mesh differs from the unsharded")
+        del eng
+        self.free()
+
+    def mesh_resume(self, mesh):
+        """19d: 13a's draw killed mid-trace and resumed across mesh shapes:
+        a one-device snapshot onto the mesh, a mesh snapshot onto no mesh;
+        every uid finished exactly once with 13a's tokens."""
+        import tempfile
+
+        from repro_torch.distributed.sharding import serve_rules
+        from repro_torch.launch.engine import Engine
+        from repro_torch.launch.kill_resume import audit
+
+        q13 = self.engine_runs["engine_qwen3_4b_launches"]
+        cfg, model = self.serving[:2]
+        sh = q13["shape"]
+        reqs = q13["reqs"][:12]
+        exact = serve_rules(cfg, mesh, replicate_params=True)
+        tokens = {r.uid: q13["done"][r.uid].tokens for r in reqs}
+        kw = dict(num_slots=sh["slots"], cache_len=sh["cache_len"], chunk=sh["chunk"])
+        # the rehearsal's trace ends within two chunks: cut it at the first
+        kill, every = (1, 1) if self.rehearsal else (3, 2)
+        for label, first, then in (("one device -> mesh", None, mesh),
+                                   ("mesh -> one device", mesh, None)):
+            with tempfile.TemporaryDirectory(prefix="mesh-snapshot-") as tmp:
+                snap, jpath = Path(tmp) / "snap", Path(tmp) / "journal.jsonl"
+                eng = Engine(model, cfg, snapshot_dir=snap, snapshot_every_chunks=every,
+                             journal=jpath, mesh=first, rules=exact if first else None, **kw)
+                seg1 = eng.run(reqs, max_chunks=kill)
+                killed = eng.stats["killed"]
+                del eng
+                self.free()
+                t0 = time.perf_counter()
+                eng = Engine.resume(model, cfg, snap, journal=jpath, mesh=then,
+                                    rules=exact if then else None)
+                self.sync()
+                resume_ms = (time.perf_counter() - t0) * 1e3
+                restored = sum(o is not None for o in eng._owner)
+                seg2 = eng.run([])
+                failures = audit(jpath, reqs, tokens)
+                print(f"  19d {label}: killed at chunk {kill} ({killed}; {len(seg1)} finished "
+                      f"before), resumed with {restored} slots in flight in {resume_ms:.1f} ms, "
+                      f"{len(seg2)} finished after; every uid exactly once with 13a's tokens: "
+                      f"{failures or 'yes'} ({self.card})")
+                if not killed or failures:
+                    raise AssertionError(f"19d {label}: not exactly-once with 13a's tokens")
+                del eng
+                self.free()
+
+    def mesh_generate(self, mesh):
+        """19e: phase 4a's model, prompt and shapes through ``lm.prefill`` and
+        ``lm.generate_scan`` with ``mesh=`` (the calls ``serve.generate``
+        makes): 4a's tokens; and ``serve.generate`` with ``mesh=`` at smoke
+        width and 4a's batch, prompt and length against it without."""
+        torch = self.torch
+        from repro_torch.distributed import sharding
+        from repro_torch.launch import serve
+        from repro_torch.models import lm
+
+        cfg, model, prompt, _, batch, prompt_len, cache_len = self.serving
+        gen_len = cache_len - prompt_len
+        rules = sharding.serve_rules(cfg, mesh)
+        local = sharding.place_model(model, cfg, mesh, rules)
+        like = lm.init_cache(cfg, batch, cache_len, abstract=True)
+        cache = sharding.local_tree(sharding.zeros_tree(like, sharding.shardings_for(
+            lm.cache_specs(cfg), mesh, rules, like)))
+        logits, cache = lm.prefill(local, cfg, cache, prompt, last_logit_only=True, mesh=mesh,
+                                   rules=rules)
+        toks, _, _ = lm.generate_scan(local, cfg, cache, logits[:, -1:].argmax(-1), prompt_len,
+                                      gen_len, mesh=mesh, rules=rules)
+        same = bool(torch.equal(toks, self.serve_tokens))
+        del local, cache
+        kw = dict(batch=batch, prompt_len=prompt_len, gen_len=gen_len, reps=1, verbose=False,
+                  device=self.dev)
+        on_mesh, stats = serve.generate("qwen3-4b", mesh=mesh, **kw)
+        plain, _ = serve.generate("qwen3-4b", **kw)
+        print(f"  19e lm.prefill/generate_scan(mesh=) on 4a's model: tokens identical to 4a's: "
+              f"{same}; serve.generate(mesh=) at smoke width, batch {batch}, prompt "
+              f"{prompt_len}, {gen_len} tokens: identical to it without: "
+              f"{bool(torch.equal(on_mesh, plain))} ({stats['decode_ms_per_token']:.3f} ms a "
+              f"token on the mesh; {self.card})")
+        if not same or not torch.equal(on_mesh, plain):
+            raise AssertionError("19e: mesh serving differs from phase 4a's tokens")
+        self.free()
+
     # -- phase 7 -----------------------------------------------------------
     def p7_sobel(self):
         torch = self.torch
@@ -4505,6 +4742,7 @@ def main(argv=None) -> int:
     smoke.phase("17b serve recurrentgemma-2b", smoke.p17b_recurrentgemma)
     smoke.phase("18a serve whisper-small", smoke.p18a_whisper_serve)
     smoke.phase("18b train whisper-small", smoke.p18b_whisper_train)
+    smoke.phase("19 sharded serving, one-device mesh", smoke.p19_mesh)  # 4a's, 4d's, 13's
     smoke.phase("7 sobel", smoke.p7_sobel)
     smoke.phase("8 kmeans_assign", smoke.p8_kmeans)
     smoke.phase("9 paper", smoke.p9_paper)

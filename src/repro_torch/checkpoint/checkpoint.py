@@ -13,8 +13,17 @@ and reinterpreted against the restore target's dtype.
 
 Leaves are torch tensors (any device), numpy arrays or Python scalars.
 :func:`restore` gives each leaf the kind, dtype and device of the matching
-leaf of its target.  Restoring onto shardings (elastic resharding) is not
-ported.
+leaf of its target.
+
+On a mesh (one process a rank): :func:`save` of a tree that holds DTensors
+gathers each such leaf whole on every rank (a collective, in leaf order),
+rank 0 alone writes the step, and every rank waits at a barrier until it is
+committed, so the files are the full leaves under the reference's names
+and either package restores them.  :func:`restore` with ``shardings=`` (a
+matching tree of ``distributed.sharding.Sharding``) reads each leaf on the
+host and places it: every rank keeps its own block, as a DTensor (elastic
+resharding: a step written on one mesh shape restores onto another, or
+onto none).
 
 Failure hygiene:
 
@@ -36,6 +45,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 __all__ = [
     "save",
@@ -94,9 +104,28 @@ def _unflatten(like, leaves):
     return build(like)
 
 
+def _is_dtensor(x) -> bool:
+    if not (isinstance(x, torch.Tensor) and dist.is_available()):
+        return False
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(x, DTensor)
+
+
+def _sharded(tree) -> bool:
+    """Whether ``tree`` holds DTensors: a mesh's ranks save it together,
+    and rank 0 alone writes."""
+    return any(_is_dtensor(leaf) for _, leaf in _flatten(tree))
+
+
 def _to_host(x) -> tuple:
     """(numpy array, manifest dtype name) of one leaf, copied off the
-    device; bfloat16 as 2-byte void records."""
+    device (a DTensor gathered whole first); bfloat16 as 2-byte void
+    records."""
+    if _is_dtensor(x):
+        from repro_torch.distributed.sharding import full_tensor
+
+        x = full_tensor(x)
     if isinstance(x, torch.Tensor):
         t = x.detach().to("cpu", copy=True)
         if t.dtype == torch.bfloat16:
@@ -158,20 +187,35 @@ def _write_step(ckpt_dir: Path, step: int, host_items) -> Path:
 
 
 def save(ckpt_dir, step: int, tree) -> Path:
-    """Synchronous atomic save.  Returns the committed directory."""
+    """Synchronous atomic save.  Returns the committed directory.  A tree
+    holding DTensors is saved by every rank of its mesh together (see the
+    module docstring)."""
     ckpt_dir = Path(ckpt_dir)
-    _sweep_stale_tmp(ckpt_dir)
-    return _write_step(ckpt_dir, step, _host_items(tree))
+    sharded = _sharded(tree)
+    items = _host_items(tree)
+    path = ckpt_dir / f"step-{step}"
+    if not sharded or dist.get_rank() == 0:
+        _sweep_stale_tmp(ckpt_dir)
+        path = _write_step(ckpt_dir, step, items)
+    if sharded:
+        dist.barrier()
+    return path
 
 
 def save_async(ckpt_dir, step: int, tree) -> threading.Thread:
     """Save off the training path: the tree is copied to the host now, the
     files are written by a daemon thread.  :func:`wait_pending` joins the
-    writers and re-raises the first writer error."""
+    writers and re-raises the first writer error.  A tree holding DTensors
+    is gathered by every rank of its mesh; rank 0's thread writes it (no
+    barrier: the other ranks do not wait for the files)."""
     host_items = _host_items(tree)
+    if _sharded(tree) and dist.get_rank() != 0:
+        host_items = None
     w = _Writer(ckpt_dir, step)
 
     def _write():
+        if host_items is None:
+            return
         try:
             _write_step(Path(ckpt_dir), step, host_items)
         except BaseException as e:  # parked for wait_pending, never swallowed
@@ -219,26 +263,41 @@ def _itemsize(dtype) -> int:
     return np.dtype(dtype).itemsize
 
 
-def _as_like(arr: np.ndarray, like):
-    """``arr`` with the kind, dtype and device of ``like``."""
+def _as_like(arr: np.ndarray, like, device=None):
+    """``arr`` with the kind, dtype and device (or ``device``) of
+    ``like``."""
     if isinstance(like, torch.Tensor):
+        device = like.device if device is None else device
         if arr.dtype.kind == "V":  # raw records: reinterpret through an integer view
             t = torch.from_numpy(arr.view(f"i{arr.dtype.itemsize}").copy())
-            return t.view(like.dtype).to(like.device)
-        return torch.from_numpy(np.array(arr)).to(like.device, like.dtype)
+            return t.view(like.dtype).to(device)
+        return torch.from_numpy(np.array(arr)).to(device, like.dtype)
     if arr.dtype.kind == "V":
         return arr.view(np.dtype(like.dtype))
     return np.asarray(arr).astype(np.dtype(like.dtype))
 
 
 def restore(ckpt_dir, step: int, like_tree, shardings=None):
-    """Restore into the structure of ``like_tree`` (tensors or arrays; only
-    their shapes and dtypes are read).  Leaves present in the checkpoint but
-    absent from ``like_tree`` are ignored; a leaf ``like_tree`` expects that
-    is missing, unreadable or mis-shaped raises :class:`CheckpointError`
-    naming it."""
+    """Restore into the structure of ``like_tree`` (tensors, DTensors, meta
+    tensors or arrays; only their shapes and dtypes are read).  Leaves
+    present in the checkpoint but absent from ``like_tree`` are ignored; a
+    leaf ``like_tree`` expects that is missing, unreadable or mis-shaped
+    raises :class:`CheckpointError` naming it.
+
+    ``shardings``: a matching tree of ``distributed.sharding.Sharding``;
+    each leaf is read whole on the host and placed on its mesh and
+    placements, this rank keeping its block (a DTensor on the mesh's
+    device).  None gives each leaf ``like``'s device."""
+    sh_leaves = None
     if shardings is not None:
-        raise NotImplementedError("restoring onto shardings is not ported (ROADMAP A.7)")
+        from repro_torch.distributed.sharding import Sharding, place
+
+        sh_leaves = []
+        for path, sh in _flatten(shardings):
+            if not isinstance(sh, Sharding):
+                raise TypeError(f"restore(shardings=): leaf '{'_'.join(path)}' is "
+                                f"{type(sh).__name__}, not a distributed.sharding.Sharding")
+            sh_leaves.append(sh)
     final = Path(ckpt_dir) / f"step-{step}"
     man_path = final / "manifest.json"
     if not man_path.exists():
@@ -252,7 +311,7 @@ def restore(ckpt_dir, step: int, like_tree, shardings=None):
     by_name = {leaf["name"]: leaf for leaf in manifest["leaves"]}
 
     leaves = []
-    for path, like in _flatten(like_tree):
+    for i, (path, like) in enumerate(_flatten(like_tree)):
         name = "_".join(path)
         entry = by_name.get(name)
         if entry is None:
@@ -275,5 +334,8 @@ def restore(ckpt_dir, step: int, like_tree, shardings=None):
         if tuple(arr.shape) != tuple(like.shape):
             raise CheckpointError(f"checkpoint {final} leaf '{name}': shape {tuple(arr.shape)} "
                                   f"does not match restore target {tuple(like.shape)}")
-        leaves.append(_as_like(arr, like))
+        if sh_leaves is None:
+            leaves.append(_as_like(arr, like))
+        else:
+            leaves.append(place(_as_like(arr, like, device="cpu"), sh_leaves[i]))
     return _unflatten(like_tree, leaves)

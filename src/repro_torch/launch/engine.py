@@ -1,6 +1,5 @@
 """Continuous-batching serving engine: slot-scheduled decode over a KV-cache
-pool with per-request positions (torch port of ``repro.launch.engine``, all
-but its mesh option).
+pool with per-request positions (torch port of ``repro.launch.engine``).
 
 * a **slot pool** (:func:`lm.init_pool_state`): one KV cache of
   ``num_slots`` batch rows, each row an independent request with its own
@@ -66,6 +65,21 @@ a slot on a demoted rung accepts no draft.
 A request decoded in a staggered slot emits the tokens of the same request
 alone in a pool of the same size (greedy); on the CPU they equal a solo
 ``prefill`` + ``generate_scan`` run (:func:`solo_generate`).
+
+Sharded serving (``mesh=``, ``rules=``; one process a rank, every rank
+building the same Engine): the weights are placed by ``rules``
+(``distributed.sharding.place_model``) and the pool by
+``serve_pool_shardings``, the pool's tensors DTensors whose local blocks the
+steps update in place.  In the exact mode (``serve_rules(...,
+replicate_params=True)``) a rank owns a contiguous block of slots and its
+decode chunk runs no collective; under the default tensor-parallel rules a
+rank holds a block of the heads, hidden units and vocabulary, and the
+layers reduce and gather across the 'model' axis.  The host scheduler is
+the same program on every rank and must take the same decisions: the
+chunk's one host copy is an all-gather of every rank's slot rows, rank 0's
+clock is broadcast wherever the loop reads the time, a slot is admitted
+(prefilled) only by the ranks that hold it, at its local row, and rank 0
+alone writes the journal, the telemetry and the snapshots' files.
 """
 from __future__ import annotations
 
@@ -80,11 +94,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch import checkpoint
 from repro_torch.core.faults import DispatchFault, DispatchFaultInjector, FaultConfig
 from repro_torch.core.faults import logits_hook as _make_logits_hook
 from repro_torch.core.units import resolve_ladder
+from repro_torch.distributed import sharding
+from repro_torch.distributed.constraints import maybe_axis_rules
 from repro_torch.kernels import dispatch
 from repro_torch.launch.journal import (RequestJournal, read_journal, replay_plan,
                                         replay_unit_levels)
@@ -194,15 +211,16 @@ def _device_of(model: lm.LM) -> torch.device:
 
 @torch.no_grad()
 def _prefill_alone(model: lm.LM, cfg: ModelConfig, prompt, *, cache_len: int,
-                   quantized_kv: bool):
+                   quantized_kv: bool, cache=None):
     """One request's prompt through a batch-1 :func:`lm.prefill` on the
-    model's device.  Returns (last logits (1, 1, vocab), cache, prompt
-    length)."""
+    model's device, into ``cache`` (default: a fresh one).  Returns (last
+    logits (1, 1, vocab), cache, prompt length)."""
     dev = _device_of(model)
     prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int32, device=dev)
     if prompt.ndim == 1:
         prompt = prompt[None]
-    cache = lm.init_cache(cfg, 1, cache_len, quantized=quantized_kv, device=dev)
+    if cache is None:
+        cache = lm.init_cache(cfg, 1, cache_len, quantized=quantized_kv, device=dev)
     logits, cache = lm.prefill(model, cfg, cache, prompt, last_logit_only=True)
     return logits, cache, prompt.shape[1]
 
@@ -333,8 +351,16 @@ class Engine:
     ``slo=`` takes an :class:`AccuracySLO` and ``telemetry=`` a path or a
     :class:`~repro_torch.launch.telemetry.Telemetry`; ``spec=`` a
     :class:`SpecConfig`, with ``draft_model=(model, cfg)`` for model
-    drafting.  The reference's ``mesh=``/``rules=`` (ROADMAP A.7) are not
-    ported.
+    drafting.
+
+    ``mesh=`` (a ``launch.mesh`` DeviceMesh over the whole process group;
+    every rank builds the same Engine from the same whole model and drives
+    it with the same requests) runs the scheduler on the mesh, ``rules=``
+    defaulting to ``serve_rules(cfg, mesh)`` (tensor parallel; see the
+    module docstring).  With ``serve_rules(..., replicate_params=True)``
+    the tokens are bit-identical to the one-device engine's.  ``spec=``
+    does not run on a mesh (ValueError, as in the reference), and neither
+    do ``faults=`` (ROADMAP A.7a) nor ``slo=`` (ROADMAP A.7b).
     """
 
     def __init__(self, model: lm.LM, cfg: ModelConfig, *, num_slots: int = 4,
@@ -346,7 +372,8 @@ class Engine:
                  max_queue: Optional[int] = None, shed_policy: str = "reject-new",
                  snapshot_dir=None, snapshot_every_chunks: Optional[int] = None,
                  journal=None, slo: Optional[AccuracySLO] = None, telemetry=None,
-                 spec: Optional[SpecConfig] = None, draft_model: Optional[tuple] = None):
+                 spec: Optional[SpecConfig] = None, draft_model: Optional[tuple] = None,
+                 mesh=None, rules=None):
         if num_slots < 1 or cache_len < 2 or chunk < 1:
             raise ValueError(
                 f"need num_slots >= 1, cache_len >= 2, chunk >= 1 "
@@ -369,6 +396,9 @@ class Engine:
             if temperature != 0.0 or top_k != 0:
                 raise ValueError("speculative decoding is greedy-only (the acceptance rule "
                                  "compares argmaxes); drop temperature/top_k or spec=")
+            if mesh is not None:
+                raise ValueError("speculative decoding does not run on a mesh yet; drop "
+                                 "mesh= or spec=")
             lm._validate_spec_cfg(cfg)
             lm._validate_spec_k(cfg, spec.k)
             if spec.k + 1 > cache_len:
@@ -389,6 +419,17 @@ class Engine:
         elif draft_model is not None:
             raise ValueError("draft_model= without spec= has no effect; pass "
                              "spec=SpecConfig(draft='model')")
+        if mesh is not None:
+            # the sqrt fault schedule hashes an element's index in the whole
+            # tensor, which a rank's block does not know; the SLO's canaries
+            # have no test on a mesh yet
+            if faults is not None:
+                raise NotImplementedError("faults= does not run on a mesh yet (ROADMAP A.7a)")
+            if slo is not None:
+                raise NotImplementedError("slo= does not run on a mesh yet (ROADMAP A.7b)")
+            if mesh.size() != dist.get_world_size():
+                raise ValueError(f"the engine's mesh must span the process group: mesh of "
+                                 f"{mesh.size()} ranks, world size {dist.get_world_size()}")
         self.spec = spec
         self._draft_model = draft_model if spec is not None and spec.draft == "model" else None
         # sqrt-site fault schedules ride the serving config; activation faults
@@ -413,8 +454,14 @@ class Engine:
             cfg = cfg.replace(sqrt_ladder=self._ladder)
         self._canary_stride = (0 if slo is None or slo.canary_stride is None
                                else int(slo.canary_stride))
+        self.mesh = mesh
+        self.rules = rules if rules is not None or mesh is None else sharding.serve_rules(cfg, mesh)
+        # rank 0 alone writes the host's files on a mesh; the others read them
+        self._writer = mesh is None or dist.get_rank() == 0
         self._telemetry = (telemetry if telemetry is None or isinstance(telemetry, Telemetry)
-                           else Telemetry(telemetry))
+                           else Telemetry(telemetry)) if self._writer else None
+        if mesh is not None:  # this rank's blocks of the weights
+            model = sharding.place_model(model, cfg, mesh, self.rules)
         self.model = model
         self.cfg = cfg
         self.num_slots = num_slots
@@ -429,8 +476,10 @@ class Engine:
         self.shed_policy = shed_policy
         self.snapshot_dir = None if snapshot_dir is None else Path(snapshot_dir)
         self.snapshot_every_chunks = snapshot_every_chunks
-        self._journal = (journal if journal is None or isinstance(journal, RequestJournal)
-                         else RequestJournal(journal))
+        journal = (journal if journal is None or isinstance(journal, RequestJournal)
+                   else RequestJournal(journal))
+        self._journal_path = None if journal is None else journal.path
+        self._journal = journal if self._writer else None
         self.faults = faults
         self.detectors = detectors
         self.logit_sentinel = float(logit_sentinel)
@@ -441,13 +490,30 @@ class Engine:
                           if faults is not None and faults.targets_dispatch else None)
         self._hook = _make_logits_hook(faults)
         self.device = _device_of(model)
-        self.pool = lm.init_pool_state(cfg, num_slots, cache_len, quantized=quantized_kv,
-                                       device=self.device)
-        self._slots = torch.arange(num_slots, device=self.device)
+        # on a mesh the pool's DTensors (``_dpool``) and this rank's blocks
+        # of them (``pool``, which every step updates in place); the rank
+        # holds slots [_row0, _row0 + its rows)
+        self._dpool = self._pool_sh = None
+        self._row0 = 0
+        if mesh is None:
+            self.pool = lm.init_pool_state(cfg, num_slots, cache_len, quantized=quantized_kv,
+                                           device=self.device)
+        else:
+            self._pool_sh = sharding.serve_pool_shardings(
+                cfg, mesh, self.rules, num_slots=num_slots, cache_len=cache_len,
+                quantized=quantized_kv)
+            self._dpool = sharding.zeros_tree(
+                lm.init_pool_state(cfg, num_slots, cache_len, quantized=quantized_kv,
+                                   abstract=True),
+                sharding.serve_pool_tree(self._pool_sh))
+            self.pool = sharding.local_tree(self._dpool)
+            self._row0 = sharding.local_rows(num_slots, self._pool_sh["vec"]).start
+        b_local = self.pool["tok"].shape[0]
+        self._slots = torch.arange(b_local, device=self.device)
         dev = self.device
 
         def zeros(dtype):
-            return torch.zeros(num_slots, dtype=dtype, device=dev)
+            return torch.zeros(b_local, dtype=dtype, device=dev)
 
         # the health latches (bad, mx) and the canary stats (checks,
         # divergences, max and summed relative error) of the chunk, zeroed
@@ -479,7 +545,7 @@ class Engine:
         # drafts and spec steps (2 x (b,))
         cols = (2 * self._width + 1 + 2 * detectors + 4 * (self._canary is not None)
                 + 2 * (spec is not None))
-        self._packed = torch.zeros((num_slots, cols), dtype=torch.int32, device=dev)
+        self._packed = torch.zeros((b_local, cols), dtype=torch.int32, device=dev)
         # the captured chunk, one graph a firing pattern of canary steps:
         # {pattern: (graph, the launches a replay adds)}
         self._graphs: dict = {}
@@ -536,6 +602,26 @@ class Engine:
         if self.spec is None:
             return []
         return [self._hist] + (lm._cache_leaves(self._dcache) if self._dcache is not None else [])
+
+    def _row(self, slot: int) -> Optional[int]:
+        """``slot``'s row in this rank's block of the pool, or None where
+        another rank holds it."""
+        r = slot - self._row0
+        return r if 0 <= r < self._slots.shape[0] else None
+
+    def _scope(self):
+        """The rule scope of a device step: the mesh's, or none."""
+        return maybe_axis_rules(self.mesh, self.rules)
+
+    def _now(self, t0: float) -> float:
+        """Seconds since ``t0`` on rank 0's clock, which every rank of a mesh
+        reads (a broadcast), so their schedulers decide alike."""
+        now = time.perf_counter() - t0
+        if self.mesh is None or self.mesh.size() == 1:
+            return now
+        t = torch.tensor([now], dtype=torch.float64, device=self.device)
+        dist.broadcast(t, src=0)
+        return float(t.item())
 
     @property
     def unit_levels(self) -> tuple:
@@ -634,7 +720,8 @@ class Engine:
                 "events": [list(e) for e in self._slot_events],
             }
         blob = np.frombuffer(json.dumps(meta).encode("utf-8"), np.uint8)
-        path = checkpoint.save(ckpt_dir, step, {"pool": self.pool, "meta": blob})
+        pool = self.pool if self.mesh is None else self._dpool
+        path = checkpoint.save(ckpt_dir, step, {"pool": pool, "meta": blob})
         self._snapshots_written += 1
         if self._journal is not None:
             self._journal.snapshot(step)
@@ -686,12 +773,12 @@ class Engine:
           ``spec=`` overrides it, None turning speculation off); the n-gram
           history, which the snapshot does not hold, is rebuilt from the
           slots' prompts and emitted tokens.
+        * Elastic resharding: ``mesh=`` (and ``rules=``) lands a snapshot
+          taken on one mesh shape on another: the pool's leaves are read on
+          the host and placed by ``serve_pool_shardings`` (one device to a
+          mesh and back).
 
-        Resuming onto a mesh (``mesh=``, ``rules=``) is not ported.  Do not
-        call :meth:`warmup` on the result (it resets the pool)."""
-        if mesh is not None or rules is not None:
-            raise NotImplementedError("Engine.resume onto a mesh (mesh=, rules=) is not "
-                                      "ported (ROADMAP A.7)")
+        Do not call :meth:`warmup` on the result (it resets the pool)."""
         if step is None and ckpt_dir is not None:
             step = checkpoint.latest_step(ckpt_dir)
         meta = None
@@ -721,7 +808,7 @@ class Engine:
             kw.setdefault("journal", journal)
         if ckpt_dir is not None:
             kw.setdefault("snapshot_dir", ckpt_dir)
-        eng = cls(model, cfg, **kw)
+        eng = cls(model, cfg, mesh=mesh, rules=rules, **kw)
         if step is not None:
             eng._restore_snapshot(ckpt_dir, step, meta)
         eng._replay_journal()
@@ -729,9 +816,16 @@ class Engine:
 
     def _restore_snapshot(self, ckpt_dir, step: int, meta: dict) -> None:
         """Install a committed snapshot: its pool written into this engine's
-        pool tensors in place (a graph captured on them stays valid), and
-        the host's slot and queue records."""
-        restored = checkpoint.restore(ckpt_dir, step, {"pool": self.pool})["pool"]
+        pool tensors in place (a graph captured on them stays valid; on a
+        mesh each rank's block, placed by the pool's shardings), and the
+        host's slot and queue records."""
+        if self.mesh is None:
+            restored = checkpoint.restore(ckpt_dir, step, {"pool": self.pool})["pool"]
+        else:
+            restored = checkpoint.restore(
+                ckpt_dir, step, {"pool": self._dpool},
+                shardings={"pool": sharding.serve_pool_tree(self._pool_sh)})["pool"]
+            restored = sharding.local_tree(restored)
         for t, r in zip(lm.pool_tensors(self.pool), lm.pool_tensors(restored)):
             t.copy_(r)
         del restored
@@ -773,9 +867,9 @@ class Engine:
         """Reconcile the write-ahead journal with the restored state:
         finished uids are done exactly once (dropped everywhere); accepted
         uids neither queued nor in a slot are replayed."""
-        if self._journal is None:
+        if self._journal_path is None:
             return
-        records = read_journal(self._journal.path)
+        records = read_journal(self._journal_path)
         if not records:
             return
         finished, accepted = replay_plan(records)
@@ -786,7 +880,8 @@ class Engine:
                 # harmlessly, as in quarantine)
                 self._owner[slot] = None
                 self._emitted[slot] = []
-                self.pool["active"][slot] = False
+                if self._row(slot) is not None:
+                    self.pool["active"][self._row(slot)] = False
         self._queue = deque(t for t in self._queue if t.req.uid not in finished)
         present = ({t.req.uid for t in self._queue}
                    | {o.uid for o in self._owner if o is not None})
@@ -872,9 +967,11 @@ class Engine:
 
     def _set_stream(self, slot: int, uid: int):
         """The slot's sampling words: the request's stream (seed, uid),
-        keyed by uid, not by slot."""
-        self.pool["keys"][slot, 0] = self.seed & 0xFFFFFFFF
-        self.pool["keys"][slot, 1] = uid & 0x7FFFFFFF
+        keyed by uid, not by slot (on the ranks that hold the slot)."""
+        row = self._row(slot)
+        if row is not None:
+            self.pool["keys"][row, 0] = self.seed & 0xFFFFFFFF
+            self.pool["keys"][row, 1] = uid & 0x7FFFFFFF
 
     def _rung_cfg(self, level: int) -> ModelConfig:
         """The config a slot on ladder rung ``level`` prefills with: the
@@ -890,21 +987,26 @@ class Engine:
         """Prefill ``req`` into ``slot`` of the live pool on the slot's rung
         and draw its first token from the request's own stream, at the
         position of the prompt's last token, as every later token draws at
-        its own."""
+        its own.  On a mesh only the ranks that hold the slot do, at its
+        local row."""
+        row = self._row(slot)
+        if row is None:
+            return
         pool, dev = self.pool, self.device
         prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int32, device=dev)[None]
         s = prompt.shape[1]
         cfg = self._rung_cfg(int(self._unit_levels[slot]))
         logits, _ = lm.prefill_into_slots(self.model, cfg, pool["cache"], prompt,
-                                          self._slots[slot:slot + 1])
+                                          self._slots[row:row + 1], mesh=self.mesh,
+                                          rules=self.rules)
         self._set_stream(slot, req.uid)
         last_pos = torch.full((1,), s - 1, dtype=torch.int32, device=dev)
-        pool["tok"][slot] = lm.sample_tokens(logits[:, -1].float(), last_pos,
-                                             pool["keys"][slot:slot + 1], self.temperature,
-                                             self.top_k)
-        pool["pos"][slot] = s
-        pool["active"][slot] = True
-        pool["remaining"][slot] = int(req.max_new_tokens)
+        pool["tok"][row] = lm.sample_tokens(logits[:, -1].float(), last_pos,
+                                            pool["keys"][row:row + 1], self.temperature,
+                                            self.top_k)
+        pool["pos"][row] = s
+        pool["active"][row] = True
+        pool["remaining"][row] = int(req.max_new_tokens)
         if self.spec is not None:
             # the prompt is the slot's fed history; what a previous occupant
             # left past it stays masked (the drafter reads p < pos only)
@@ -959,19 +1061,21 @@ class Engine:
         # a slot on a demoted rung decodes one row a step: its row 0 is the
         # sequential demoted step
         demoted = None if self._levels is None or self.spec is None else self._levels > 0
-        for i in range(c):
-            if self.spec is None:
-                lm.decode_slots_step(self.model, self.cfg, self.pool, toks, emitted, i,
-                                     eos_id=self.eos_id, temperature=self.temperature,
-                                     top_k=self.top_k, unit_levels=self._levels,
-                                     logits_hook=self._hook, health=self._health,
-                                     canary=i in fire, canary_stats=self._canary)
-                continue
-            lm.decode_slots_spec_step(
-                self.model, self.cfg, self.pool, self._hist, toks, emitted, i, k=self.spec.k,
-                counts=self._spec_counts, eos_id=self.eos_id, unit_levels=self._levels,
-                spec_disable=demoted, logits_hook=self._hook, health=self._health,
-                canary=i in fire, canary_stats=self._canary, draft=draft)
+        with self._scope():
+            for i in range(c):
+                if self.spec is None:
+                    lm.decode_slots_step(self.model, self.cfg, self.pool, toks, emitted, i,
+                                         eos_id=self.eos_id, temperature=self.temperature,
+                                         top_k=self.top_k, unit_levels=self._levels,
+                                         logits_hook=self._hook, health=self._health,
+                                         canary=i in fire, canary_stats=self._canary)
+                    continue
+                lm.decode_slots_spec_step(
+                    self.model, self.cfg, self.pool, self._hist, toks, emitted, i,
+                    k=self.spec.k, counts=self._spec_counts, eos_id=self.eos_id,
+                    unit_levels=self._levels, spec_disable=demoted, logits_hook=self._hook,
+                    health=self._health, canary=i in fire, canary_stats=self._canary,
+                    draft=draft)
         self._packed[:, 2 * w] = self.pool["active"]
         for j, t in enumerate(latches):
             self._packed[:, 2 * w + 1 + j] = t.view(torch.int32) if t.is_floating_point() else t
@@ -1033,7 +1137,10 @@ class Engine:
         zeros.  With speculation the chunk's accepted drafts and spec steps
         come in the same copy and are added to the slots' counters."""
         self._dispatch(self._run_chunk, self._firing())
-        packed = self._packed.cpu().numpy()
+        packed = self._packed
+        if self.mesh is not None:  # every rank's slot rows, in slot order
+            packed = sharding.gather(packed, self._pool_sh["tok"])
+        packed = packed.cpu().numpy()
         w, b = self._width, self.num_slots
         col = 2 * w + 1
 
@@ -1121,12 +1228,20 @@ class Engine:
         (tokens, healthy): ``healthy=False`` when even the exact path gives
         non-finite logits (status ``failed``)."""
         ecfg = lm.exact_twin(self.cfg)
-        logits, cache, s = _prefill_alone(self.model, ecfg, req.prompt, cache_len=self.cache_len,
-                                          quantized_kv=self.quantized_kv)
-        if not bool(torch.isfinite(logits[:, -1].float()).all()):
-            return np.zeros(0, np.int32), False
-        toks, _, _ = lm.generate_scan(self.model, ecfg, cache, logits[:, -1:].argmax(dim=-1), s,
-                                      req.max_new_tokens)
+        cache = None
+        if self.mesh is not None:  # this rank's block of a one-row cache
+            like = lm.init_cache(ecfg, 1, self.cache_len, quantized=self.quantized_kv,
+                                 abstract=True)
+            cache = sharding.local_tree(sharding.zeros_tree(like, sharding.shardings_for(
+                lm.cache_specs(ecfg, quantized=self.quantized_kv), self.mesh, self.rules, like)))
+        with self._scope():
+            logits, cache, s = _prefill_alone(self.model, ecfg, req.prompt,
+                                              cache_len=self.cache_len,
+                                              quantized_kv=self.quantized_kv, cache=cache)
+            if not bool(torch.isfinite(logits[:, -1].float()).all()):
+                return np.zeros(0, np.int32), False
+            toks, _, _ = lm.generate_scan(self.model, ecfg, cache, logits[:, -1:].argmax(dim=-1),
+                                          s, req.max_new_tokens)
         out = toks[0].cpu().numpy()
         if self.eos_id is not None:  # the slot path's rule: EOS emitted, then stop
             hits = np.nonzero(out == self.eos_id)[0]
@@ -1235,7 +1350,7 @@ class Engine:
             return req.deadline_s is not None and now > req.arrival_s + req.deadline_s
 
         while queue or arrivals or any(o is not None for o in self._owner):
-            now = time.perf_counter() - t0
+            now = self._now(t0)
             if now > deadline_s:
                 expired = True
                 break
@@ -1279,7 +1394,7 @@ class Engine:
             toks, emitted, active, bad, mx, cc, cd, cmr, _ = self._decode_chunk()
             decode_chunks += 1
             self._chunks_total += 1
-            now = time.perf_counter() - t0
+            now = self._now(t0)
             if self._canary is not None:
                 # the ladder first: a request finishing this chunk carries
                 # its final rung and canary trail
@@ -1302,7 +1417,7 @@ class Engine:
                     else:
                         counters["exact_fallbacks"] += 1
                         tokens, healthy = self._exact_fallback(req)
-                        now = time.perf_counter() - t0
+                        now = self._now(t0)
                         finish(req, tokens, "degraded" if healthy else "failed", now,
                                self._admitted_s[slot], trips, slot)
                     continue
@@ -1332,7 +1447,7 @@ class Engine:
                     and decode_chunks % self.snapshot_every_chunks == 0):
                 self.snapshot()
         if expired:
-            now = time.perf_counter() - t0
+            now = self._now(t0)
             for slot, req in enumerate(self._owner):
                 if req is not None:
                     counters["deadline_evictions"] += 1

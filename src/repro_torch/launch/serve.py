@@ -15,6 +15,9 @@ A mixture-of-experts prefill routes the prompt as one group a row, so its
 drops can differ from the loop's, which routes a token at a time: the
 stats' ``token_exact_vs_loop`` is False for such a model, as in the
 reference.
+
+``mesh=`` (a ``launch.mesh`` DeviceMesh; every rank of it calls
+:func:`generate` alike) serves the scan path sharded by ``rules=``.
 """
 from __future__ import annotations
 
@@ -67,13 +70,18 @@ def generate(arch="qwen3-4b", *, batch=2, prompt_len=8, gen_len=16, sqrt_unit="e
     One untimed pass warms up (builds and loads the kernels on the card);
     then ``reps`` timed passes run, each on a fresh cache allocated before
     the clock starts, and the best is kept.  Returns (tokens (b, prompt +
-    gen) as a CPU tensor, stats dict).  ``mesh``/``rules`` keep the
-    reference's signature; sharded serving is not ported yet, so they must
-    be None."""
-    if mesh is not None or rules is not None:
-        raise NotImplementedError("sharded serving (mesh=, rules=) is not ported yet")
+    gen) as a CPU tensor, stats dict).
+
+    ``mesh=`` runs the scan path sharded: the weights, the prompt and the
+    cache are placed by ``rules`` (default ``serve_rules(cfg, mesh)``, tensor
+    parallel; ``serve_rules(cfg, mesh, replicate_params=True)`` is the
+    exact mode, each rank decoding its block of the batch) before the clock
+    starts, prefill and decode run inside the rule scope, and every rank
+    returns the whole batch's tokens.  Scan mode only."""
     if mode not in MODES:
         raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+    if mesh is not None and mode != "scan":
+        raise ValueError("mesh serving is only wired into mode='scan'")
     if prompt_len < 1:
         raise ValueError(
             f"prompt_len must be >= 1 (got {prompt_len}): prefill needs at "
@@ -89,8 +97,24 @@ def generate(arch="qwen3-4b", *, batch=2, prompt_len=8, gen_len=16, sqrt_unit="e
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len),
                            generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
 
+    feed = prompt
+    if mesh is not None:  # this rank's blocks of the weights, the prompt and the cache
+        from repro_torch.distributed import sharding as sh
+
+        rules = rules if rules is not None else sh.serve_rules(cfg, mesh)
+        model = sh.place_model(model, cfg, mesh, rules)
+        cache_abs = lm.init_cache(cfg, batch, prompt_len + gen_len, quantized=quantized_kv,
+                                  abstract=True)
+        cache_sh = sh.shardings_for(lm.cache_specs(cfg, quantized=quantized_kv), mesh, rules,
+                                    cache_abs)
+        rows_sh = sh.shardings_for(("batch", None), mesh, rules, prompt)
+        feed = sh.place(prompt, rows_sh).to_local()
+
     def new_cache():
-        return lm.init_cache(cfg, batch, prompt_len + gen_len, quantized=quantized_kv, device=dev)
+        if mesh is None:
+            return lm.init_cache(cfg, batch, prompt_len + gen_len, quantized=quantized_kv,
+                                 device=dev)
+        return sh.local_tree(sh.zeros_tree(cache_abs, cache_sh))
 
     if mode == "loop":
         def decode(m, c, t, pos):
@@ -108,11 +132,13 @@ def generate(arch="qwen3-4b", *, batch=2, prompt_len=8, gen_len=16, sqrt_unit="e
     else:
         def run_once(cache):
             t0 = time.perf_counter()
-            logits, cache = lm.prefill(model, cfg, cache, prompt, last_logit_only=True)
+            logits, cache = lm.prefill(model, cfg, cache, feed, last_logit_only=True, mesh=mesh,
+                                       rules=rules)
             _sync(dev)
             t_pf = time.perf_counter()
             tok = logits[:, -1:].argmax(dim=-1)
-            gen, _, _ = lm.generate_scan(model, cfg, cache, tok, prompt_len, gen_len)
+            gen, _, _ = lm.generate_scan(model, cfg, cache, tok, prompt_len, gen_len, mesh=mesh,
+                                         rules=rules)
             _sync(dev)
             return gen, t_pf - t0, time.perf_counter() - t_pf
 
@@ -132,6 +158,8 @@ def generate(arch="qwen3-4b", *, batch=2, prompt_len=8, gen_len=16, sqrt_unit="e
         "decode_ms_per_token": decode_s / gen_len * 1e3,
         "token_exact_vs_loop": token_exact,
     }
+    if mesh is not None:  # every rank's block of the batch
+        gen = sh.gather(gen, rows_sh)
     toks = torch.cat([prompt, gen], dim=1).cpu()
     if verbose:
         print(f"[serve] {arch} mode={mode} on {dev}: prefill({prompt_len} tok x{batch}) "

@@ -19,6 +19,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.distributed.constraints import constrain, mesh_axes, partial_sum
 from repro_torch.layers.norms import rmsnorm_cfg
 from repro_torch.layers.param import parameter
 from repro_torch.layers.rope import rope_tables, rotate
@@ -32,6 +33,7 @@ __all__ = [
     "cross_attention_decode",
     "gather_verify_lines",
     "init_kv_cache",
+    "kv_cache_specs",
     "precompute_cross_kv",
     "verify_cache_commit",
 ]
@@ -41,7 +43,12 @@ NEG_INF = -2.0e38
 
 class Attention(nn.Module):
     """wq (d, h, hd), wk/wv (d, kv, hd), wo (h, hd, d), and with qk-norm the
-    (hd,) scales q_norm/k_norm, as in the reference."""
+    (hd,) scales q_norm/k_norm, as in the reference; ``SPECS`` their
+    logical axes."""
+
+    SPECS = {"wq": ("embed", "heads", None), "wk": ("embed", "kv_heads", None),
+             "wv": ("embed", "kv_heads", None), "wo": ("heads", None, "embed"),
+             "q_norm": (None,), "k_norm": (None,)}
 
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
@@ -78,10 +85,22 @@ def _project_qkv(p: Attention, cfg, xq, xkv, q_positions, kv_positions, *, use_r
     return q, k, v
 
 
-def _out_proj(out: torch.Tensor, wo: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd")."""
+def _out_proj(out: torch.Tensor, wo: torch.Tensor, mm=torch.matmul, cfg=None) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd").  With ``cfg`` in a tensor-parallel scope,
+    where a rank holds a block of the heads, its partial sums are reduced
+    over the mesh axes that shard them."""
     b, s, h, hd = out.shape
-    return mm(out.reshape(b, s, h * hd), wo.to(out.dtype).reshape(h * hd, -1))
+    y = mm(out.reshape(b, s, h * hd), wo.to(out.dtype).reshape(h * hd, -1))
+    if cfg is None:
+        return y
+    axes = mesh_axes(Attention.SPECS["wo"], (cfg.n_heads, cfg.d_head, cfg.d_model), 0)
+    return constrain(partial_sum(y, axes), ("batch", "seq", "embed"))
+
+
+def _constrain_qkv(q, k, v):
+    return (constrain(q, ("batch", "seq", "heads", None)),
+            constrain(k, ("batch", "seq", "kv_heads", None)),
+            constrain(v, ("batch", "seq", "kv_heads", None)))
 
 
 def _mask(mode, q_pos, kv_pos, window):
@@ -241,6 +260,16 @@ def init_kv_cache(cfg, batch, cache_len, dtype, *, quantized: bool = False, devi
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def kv_cache_specs(quantized: bool = False) -> dict:
+    """Logical axes of one layer's :func:`init_kv_cache`."""
+    base = {"k": ("batch", "kv_seq", "kv_heads", "kv_dim"),
+            "v": ("batch", "kv_seq", "kv_heads", "kv_dim")}
+    if quantized:
+        base["k_scale"] = ("batch", "kv_seq", "kv_heads")
+        base["v_scale"] = ("batch", "kv_seq", "kv_heads")
+    return base
+
+
 def _quantize_kv(x):
     """Per (…, head) absmax int8 quantisation over head_dim.  The rounded
     values are clamped to int8's range, the saturating conversion of the
@@ -304,7 +333,8 @@ def attention_prefill(p: Attention, cfg, x, cache, positions, *, window: Optiona
     multiple of it) process queries in chunks.  Returns (out, cache)."""
     s = x.shape[1]
     use_rope = cfg.pos == "rope"
-    q, k, v = _project_qkv(p, cfg, x, x, positions, positions, use_rope=use_rope)
+    q, k, v = _constrain_qkv(*_project_qkv(p, cfg, x, x, positions, positions,
+                                           use_rope=use_rope))
     ring = window is not None
     k_scale = v_scale = None
     if cache["k"].dtype == torch.int8:
@@ -329,7 +359,7 @@ def attention_prefill(p: Attention, cfg, x, cache, positions, *, window: Optiona
             chunks.append(_fold_masked_attention(q[:, sl], k, v, m, scale, k_scale, v_scale,
                                                  x.dtype))
         out = torch.cat(chunks, dim=1)
-    return _out_proj(out, p.wo), cache
+    return _out_proj(out, p.wo, cfg=cfg), cache
 
 
 def attention_decode(p: Attention, cfg, x, cache, pos, *, window: Optional[int] = None,
@@ -364,13 +394,14 @@ def attention_decode(p: Attention, cfg, x, cache, pos, *, window: Optional[int] 
     else:
         rope_pos = torch.full((1,), pos, dtype=torch.int32, device=x.device)
         slot = pos % cache_len
-    q, k_new, v_new = _project_qkv(p, cfg, x, x, rope_pos, rope_pos, use_rope=cfg.pos == "rope",
-                                   norm_levels=norm_levels)
+    q, k_new, v_new = _constrain_qkv(*_project_qkv(p, cfg, x, x, rope_pos, rope_pos,
+                                                   use_rope=cfg.pos == "rope",
+                                                   norm_levels=norm_levels))
 
     pos_b = pos if per_slot else torch.full((b,), pos, dtype=torch.int32, device=x.device)
     out = _write_and_attend(cfg, cache, q[:, 0], k_new[:, 0], v_new[:, 0], pos_b, slot,
                             window=window, layer_idx=layer_idx, kernel=kernel)
-    return _out_proj(out[:, None], p.wo), cache
+    return _out_proj(out[:, None], p.wo, cfg=cfg), cache
 
 
 def _write_and_attend(cfg, cache, q, k_new, v_new, pos_b, slot, *, window, layer_idx, kernel):
@@ -467,13 +498,14 @@ def attention_verify(p: Attention, cfg, x, cache, pos, *, window: Optional[int] 
         cos = torch.cat([c for c, _ in tables], dim=1)
         sin = torch.cat([s for _, s in tables], dim=1)
         q, k_new = rotate(q, cos, sin), rotate(k_new, cos, sin)
+    q, k_new, v_new = _constrain_qkv(q, k_new, v_new)
     outs = []
     for j in range(sq):
         pj = posr[:, j].contiguous()
         outs.append(_write_and_attend(cfg, cache, q[:, j].contiguous(), k_new[:, j], v_new[:, j],
                                       pj, (pj % cache_len).long(), window=window,
                                       layer_idx=layer_idx, kernel=kernel))
-    return _out_proj(torch.stack(outs, dim=1), p.wo, mm), cache
+    return _out_proj(torch.stack(outs, dim=1), p.wo, mm, cfg=cfg), cache
 
 
 def verify_cache_commit(cache, old: dict, pos, n_commit, *, stacked: bool = False):

@@ -4,6 +4,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.constraints import constrain, mesh_axes, partial_sum
 from repro_torch.layers.param import parameter
 
 __all__ = ["MLP", "mlp_apply"]
@@ -11,7 +12,11 @@ __all__ = ["MLP", "mlp_apply"]
 
 class MLP(nn.Module):
     """Weights in the reference's layout: wi_* (d, f), wo (f, d); the GELU
-    variant also has biases bi (f,) and bo (d,)."""
+    variant also has biases bi (f,) and bo (d,); ``SPECS`` their logical
+    axes."""
+
+    SPECS = {"wi_gate": ("embed", "mlp"), "wi_up": ("embed", "mlp"), "bi": ("mlp",),
+             "bo": ("embed",), "wo": ("mlp", "embed")}
 
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
@@ -26,14 +31,23 @@ class MLP(nn.Module):
         self.wo = parameter((f, d), dtype, device)
 
 
+def _reduced(cfg, y: torch.Tensor) -> torch.Tensor:
+    """The down projection's output, summed over the mesh axes that shard
+    the hidden units (a tensor-parallel scope; none elsewhere)."""
+    axes = mesh_axes(MLP.SPECS["wo"], (cfg.d_ff, cfg.d_model), 0)
+    return constrain(partial_sum(y, axes), ("batch", "seq", "embed"))
+
+
 def mlp_apply(p: MLP, cfg, x: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
     """The block over x (..., d); ``mm`` is the product (a speculative
-    verify passes ``layers.rowwise.matmul``)."""
+    verify passes ``layers.rowwise.matmul``).  Under tensor parallelism a
+    rank holds a block of the hidden units; the down projection's partial
+    sums are reduced before the GELU variant's output bias."""
     dt = x.dtype
     if cfg.mlp_act == "swiglu":
         g = mm(x, p.wi_gate.to(dt))
         u = mm(x, p.wi_up.to(dt))
-        return mm(torch.nn.functional.silu(g) * u, p.wo.to(dt))
+        return _reduced(cfg, mm(torch.nn.functional.silu(g) * u, p.wo.to(dt)))
     h = mm(x, p.wi_up.to(dt)) + p.bi.to(dt)
     h = torch.nn.functional.gelu(h, approximate="tanh")  # jax.nn.gelu's default
-    return mm(h, p.wo.to(dt)) + p.bo.to(dt)
+    return _reduced(cfg, mm(h, p.wo.to(dt))) + p.bo.to(dt)

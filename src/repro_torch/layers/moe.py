@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from repro_torch.distributed.constraints import constrain
 from repro_torch.layers.param import parameter
 
 __all__ = ["MoE", "capacity", "moe_apply", "route"]
@@ -29,7 +30,10 @@ __all__ = ["MoE", "capacity", "moe_apply", "route"]
 
 class MoE(nn.Module):
     """Weights in the reference's layout: router (d, E), wi_gate and wi_up
-    (E, d, f), wo (E, f, d)."""
+    (E, d, f), wo (E, f, d); ``SPECS`` their logical axes."""
+
+    SPECS = {"router": ("embed", None), "wi_gate": ("expert", "embed", "mlp"),
+             "wi_up": ("expert", "embed", "mlp"), "wo": ("expert", "mlp", "embed")}
 
     def __init__(self, cfg, *, dtype, device):
         super().__init__()
@@ -88,7 +92,10 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, *, capacity_factor: float = 1.25):
         m = keep[..., j, None, None].to(dt) * oh_e[..., None] * oh_c[..., None, :]
         dispatch = dispatch + m
         combine = combine + m * gates[..., j, None, None].to(dt)
+    dispatch = constrain(dispatch, ("batch", None, "expert", None))
+    combine = constrain(combine, ("batch", None, "expert", None))
     xe = torch.einsum("bsec,bsd->becd", dispatch, x)
+    xe = constrain(xe, ("batch", "expert", None, None))
     g = torch.einsum("becd,edf->becf", xe, p.wi_gate.to(dt))
     u = torch.einsum("becd,edf->becf", xe, p.wi_up.to(dt))
     ye = torch.einsum("becf,efd->becd", torch.nn.functional.silu(g) * u, p.wo.to(dt))

@@ -34,7 +34,8 @@ from repro_torch.core import get_unit
 from repro_torch.layers.param import parameter
 from repro_torch.layers.ssd import CONV_W, causal_conv, conv_step, conv_tail, softplus
 
-__all__ = ["RGLRU", "init_rglru_state", "linear_scan", "rglru_decode", "rglru_train"]
+__all__ = ["RGLRU", "init_rglru_state", "linear_scan", "rglru_decode", "rglru_state_specs",
+           "rglru_train"]
 
 _C = 8.0  # Griffin's fixed gate temperature
 
@@ -44,8 +45,11 @@ class RGLRU(nn.Module):
     (d, dr), conv_w (4, dr), w_r and w_i (dr, dr), lam (dr,), out_proj
     (dr, d).  ``CONSTANT_START``: conv_w and lam start at zero (so a fresh
     block's recurrence input is zero); ``INIT_SCALE``: w_r and w_i are drawn
-    at scale 0.5."""
+    at scale 0.5; ``SPECS`` their logical axes."""
 
+    SPECS = {"gate_proj": ("embed", "mlp"), "x_proj": ("embed", "mlp"), "conv_w": (None, "mlp"),
+             "w_r": ("mlp", None), "w_i": ("mlp", None), "lam": ("mlp",),
+             "out_proj": ("mlp", "embed")}
     CONSTANT_START = {"conv_w": 0.0, "lam": 0.0}
     INIT_SCALE = {"w_r": 0.5, "w_i": 0.5}
 
@@ -121,6 +125,11 @@ def init_rglru_state(cfg, batch: int, dtype, *, device=None, layers=None) -> dic
     lead = () if layers is None else (layers,)
     return {"conv": torch.zeros(lead + (batch, CONV_W - 1, dr), dtype=dtype, device=device),
             "h": torch.zeros(lead + (batch, dr), dtype=torch.float32, device=device)}
+
+
+def rglru_state_specs() -> dict:
+    """Logical axes of one layer's :func:`init_rglru_state`."""
+    return {"conv": ("batch", None, "mlp"), "h": ("batch", "mlp")}
 
 
 def rglru_decode(p: RGLRU, cfg, x: torch.Tensor, state: dict):

@@ -28,7 +28,7 @@ from torch import nn
 from repro_torch.layers.param import parameter
 
 __all__ = ["CONV_W", "SSD", "causal_conv", "conv_step", "conv_tail", "init_ssd_state",
-           "softplus", "ssd_decode", "ssd_train"]
+           "softplus", "ssd_decode", "ssd_state_specs", "ssd_train"]
 
 CONV_W = 4
 
@@ -37,8 +37,12 @@ class SSD(nn.Module):
     """The mixer's weights in the reference's layout: in_proj (d, 2 d_in +
     2 n + nh), conv_w (4, d_in + 2 n), a_log, d_skip, dt_bias (nh,) and
     out_proj (d_in, d).  ``CONSTANT_START`` gives the reference's constant
-    starts (``ones``/``zeros`` ignore the ``scale=0.25`` of conv_w)."""
+    starts (``ones``/``zeros`` ignore the ``scale=0.25`` of conv_w);
+    ``SPECS`` their logical axes."""
 
+    SPECS = {"in_proj": ("embed", "heads_mix"), "conv_w": (None, "heads_mix"),
+             "a_log": ("heads",), "d_skip": ("heads",), "dt_bias": ("heads",),
+             "out_proj": ("heads_mix", "embed")}
     CONSTANT_START = {"conv_w": 1.0, "a_log": 0.0, "d_skip": 1.0, "dt_bias": 0.0}
 
     def __init__(self, cfg, *, dtype, device):
@@ -177,6 +181,11 @@ def init_ssd_state(cfg, batch: int, dtype, *, device=None, layers=None) -> dict:
         "ssm": torch.zeros(lead + (batch, nh, s.d_state, s.head_dim), dtype=torch.float32,
                            device=device),
     }
+
+
+def ssd_state_specs() -> dict:
+    """Logical axes of one layer's :func:`init_ssd_state`."""
+    return {"conv": ("batch", None, "heads_mix"), "ssm": ("batch", "heads", None, None)}
 
 
 def ssd_decode(p: SSD, cfg, x: torch.Tensor, state: dict):

@@ -77,6 +77,8 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.faults import _M32, _mix32
+from repro_torch.distributed.constraints import (block_index, constrain, maybe_axis_rules,
+                                                 mesh_axes, partial_sum, shard_of)
 from repro_torch.device import resolve_device
 from repro_torch.layers import attention as attn
 from repro_torch.layers import rglru, rowwise, ssd
@@ -92,7 +94,8 @@ __all__ = ["LM", "init", "init_cache", "forward", "decode_step", "prefill", "gen
            "insert_cache_slots", "prefill_into_slots", "sample_tokens", "decode_slots_step",
            "decode_slots_scan", "canary_steps", "exact_twin", "gather_verify_lines",
            "decode_verify_step", "commit_verify_cache", "draft_ngram", "decode_slots_spec_step",
-           "decode_slots_spec_scan", "precompute_cross"]
+           "decode_slots_spec_scan", "precompute_cross", "param_specs", "named_param_specs",
+           "cache_specs", "cross_kv_specs"]
 
 
 def act_dtype(cfg) -> torch.dtype:
@@ -158,7 +161,11 @@ class LM(nn.Module):
     serving each is stored once in the
     activation dtype, without gradient; ``trainable=True`` keeps float32
     masters that require gradients, as the reference always does, cast at
-    every use."""
+    every use.  ``SPECS``: the logical axes of the model's own leaves (the
+    layers' classes carry theirs; every norm is ("embed",))."""
+
+    SPECS = {"embed": ("vocab", "embed"), "unembed": ("embed", "vocab"),
+             "vision_proj": ("embed", None)}
 
     def __init__(self, cfg: ModelConfig, *, device, trainable: bool = False):
         super().__init__()
@@ -239,6 +246,85 @@ def constant_start_parameters(model: LM) -> list:
     return [(n, p) for n, p in model.named_parameters() if _constant_start(model, n) is not None]
 
 
+_NORMS = ("ln1", "ln2", "ln_f", "lnx", "enc_ln_f")
+
+
+def named_param_specs(cfg: ModelConfig) -> dict:
+    """{parameter name: its logical axes}, one entry a dim of the port's own
+    tensor (a layer's tensors carry no 'layers' axis: each Block holds one
+    layer), from the ``SPECS`` of the module that owns it; every norm's
+    scale and bias is ("embed",)."""
+    model = LM(cfg, device=torch.device("meta"))
+    specs = {}
+    for name, _ in model.named_parameters():
+        owner, _, leaf = name.rpartition(".")
+        table = getattr(model.get_submodule(owner), "SPECS", {})
+        if leaf in table:
+            specs[name] = table[leaf]
+        elif leaf in _NORMS or leaf.rsplit("_", 1)[0] in _NORMS:
+            specs[name] = ("embed",)
+        else:
+            raise KeyError(f"no logical axes for parameter {name}")
+    return specs
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """The parameters' logical axes in the reference's tree (the second
+    value of its ``lm.init``), under the leaf names ``models/convert.py``
+    maps: a uniform stack's layer leaves stacked, ``("layers", *axes)``,
+    a mixed stack's a list of per-layer dicts, the encoder's always
+    stacked."""
+    from repro_torch.models.convert import _put
+
+    tree, stacked_layers = {}, {}
+    layers = None if cfg.uniform else [{} for _ in range(cfg.n_layers)]
+    for name, axes in named_param_specs(cfg).items():
+        parts = name.split(".")
+        if parts[0] == "layers" and layers is not None:
+            _put(layers[int(parts[1])], parts[2:], axes)
+        elif parts[0] in ("layers", "encoder"):
+            _put(stacked_layers.setdefault(parts[0], {}), parts[2:], ("layers", *axes))
+        else:
+            _put(tree, parts, axes)
+    tree.update(stacked_layers)
+    if layers is not None:
+        tree["layers"] = layers
+    return tree
+
+
+def _block_specs(block, quantized):
+    if block == "ssd":
+        return ssd.ssd_state_specs()
+    if block == "rglru":
+        return rglru.rglru_state_specs()
+    return attn.kv_cache_specs(quantized)
+
+
+def cache_specs(cfg: ModelConfig, *, quantized: bool = False):
+    """The logical axes of :func:`init_cache`'s tree (the second value of
+    the reference's ``init_cache``): a uniform stack's leaves with a leading
+    'layers' axis, a mixed stack's a list of per-layer dicts."""
+    if cfg.uniform:
+        return {k: ("layers", *axes) for k, axes in _block_specs(cfg.blocks[0], quantized).items()}
+    return [_block_specs(block, quantized) for block in cfg.blocks]
+
+
+def cross_kv_specs() -> dict:
+    """Logical axes of :func:`precompute_cross`'s stacked cross K/V."""
+    return {"ck": ("layers", "batch", "kv_seq", "kv_heads", None),
+            "cv": ("layers", "batch", "kv_seq", "kv_heads", None)}
+
+
+def _mesh_scope(cfg, mesh, rules):
+    """The ``axis_rules`` scope of a mesh-optional entry point: ``rules``
+    default to ``serve_rules(cfg, mesh)``; no mesh, no scope."""
+    if mesh is not None and rules is None:
+        from repro_torch.distributed.sharding import serve_rules
+
+        rules = serve_rules(cfg, mesh)
+    return maybe_axis_rules(mesh, rules)
+
+
 def _cache_lines(cfg, block, cache_len):
     """The reference's ``_layer_cache``: a window block keeps a ring of
     ``min(cache_len, cfg.window)`` lines, a global block ``cache_len``."""
@@ -255,7 +341,7 @@ def _block_cache(cfg, block, batch, cache_len, dt, *, quantized, device, layers=
 
 
 def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, quantized: bool = False,
-               device=None):
+               device=None, abstract: bool = False):
     """Zeroed cache on ``device`` (the card unless ``device="cpu"``), in the
     reference's two forms: for a uniform stack one dict of tensors stacked
     on a leading L axis, for a mixed stack a list of per-layer dicts.  An
@@ -263,8 +349,9 @@ def init_cache(cfg: ModelConfig, batch: int, cache_len: int, *, quantized: bool 
     scales when ``quantized``), ``lines`` being ``cache_len``, or for a
     window layer ``min(cache_len, cfg.window)``, a ring of its window; a
     recurrent layer holds its state (see the module docstring), which
-    ``quantized`` leaves as it is."""
-    dev = resolve_device(device)
+    ``quantized`` leaves as it is.  ``abstract=True`` gives meta tensors
+    (shapes and dtypes, no storage), as the reference's ShapeDtypeStructs."""
+    dev = torch.device("meta") if abstract else resolve_device(device)
     dt = act_dtype(cfg)
     if cfg.uniform:
         return _block_cache(cfg, cfg.blocks[0], batch, cache_len, dt, quantized=quantized,
@@ -307,6 +394,7 @@ def _layer_train(layer: Block, cfg, block, x, positions, enc_out=None):
     experts; or the chunked SSD mixer ("ssd"), or the RG-LRU block and its
     MLP ("rglru").  Returns (x, the layer's float32 aux loss, 0 without
     experts)."""
+    x = constrain(x, ("batch", "seq", "embed"))
     h = _norm(layer, "ln1", x, cfg, fused=False)
     if block in ("ssd", "rglru"):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -323,7 +411,7 @@ def _layer_train(layer: Block, cfg, block, x, positions, enc_out=None):
     h, aux = _ffn(layer, cfg, _norm(layer, "ln2", x, cfg, fused=False))
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x + h, aux
+    return constrain(x + h, ("batch", "seq", "embed")), aux
 
 
 def _sinusoidal(n: int, d: int, device) -> torch.Tensor:
@@ -446,16 +534,43 @@ def forward(model: LM, cfg: ModelConfig, batch: dict, *, return_hidden: bool = F
     unembed = model.unembed_matrix().to(x.dtype)
     if return_hidden:
         return (x, unembed), aux
-    return x @ unembed, aux
+    return constrain(x @ unembed, ("batch", "seq", "vocab")), aux
 
 
 def _window(cfg, block):
     return cfg.window if block == "window" else None
 
 
+def _vocab_axes(cfg) -> tuple:
+    """The mesh axes that shard the vocabulary of the embedding table (and
+    so of a tied unembedding) in the current scope."""
+    return mesh_axes(LM.SPECS["embed"], (cfg.padded_vocab, cfg.d_model), 0)
+
+
+def _embed(model: LM, cfg, tokens: torch.Tensor) -> torch.Tensor:
+    """The token embeddings ``embed[tokens]``.  Where the rules shard the
+    vocabulary, a rank holds a block of the table's rows: it looks up the
+    ids in its block, zeros elsewhere, and the constraint sums the blocks
+    (one addend nonzero, so the sum is exact)."""
+    axes = _vocab_axes(cfg)
+    if not axes:
+        return constrain(model.embed[tokens], ("batch", "seq", "embed"))
+    n = model.embed.shape[0]
+    local = tokens.long() - block_index(axes) * n
+    hit = (local >= 0) & (local < n)
+    x = torch.where(hit[..., None], model.embed[local.clamp(0, n - 1)], 0)
+    return constrain(partial_sum(x, axes), ("batch", "seq", "embed"))
+
+
 def _logits(model: LM, cfg, x, levels=None, mm=torch.matmul):
+    """The final norm and the unembedding, over the real vocabulary.  Where
+    the rules shard the vocabulary a rank computes a block of each row;
+    sampling reads whole rows, so the blocks are gathered."""
     x = _norm(model, "ln_f", x, cfg, levels=levels)
     logits = mm(x, model.unembed_matrix().to(x.dtype))
+    axes = (_vocab_axes(cfg) if cfg.tie_embeddings
+            else mesh_axes(LM.SPECS["unembed"], (cfg.d_model, cfg.padded_vocab), 1))
+    logits = constrain(shard_of(logits, axes, -1), ("batch", "seq", None))
     return logits[..., : cfg.vocab]
 
 
@@ -521,7 +636,7 @@ def decode_step(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, pos, *
     (b, 1, vocab), cache).
     """
     levels = _levels(cfg, unit_levels, tokens.device)
-    x = model.embed[tokens]
+    x = _embed(model, cfg, tokens)
     if cfg.pos == "sinusoidal":
         pe = _step_sinusoid(pos, cfg.d_model, x.device)
         x = x + (pe[:, None] if pe.ndim == 2 else pe).to(x.dtype)
@@ -536,12 +651,12 @@ def decode_step(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, pos, *
                                      layer_idx=idx, norm_levels=levels)
         x = _cross_step(layer, cfg, x + h, _cross_layer(cross_kv, i), levels)
         x = x + _ffn(layer, cfg, _norm(layer, "ln2", x, cfg, levels=levels))[0]
-    return _logits(model, cfg, x, levels), cache
+    return constrain(_logits(model, cfg, x, levels), ("batch", "seq", "vocab")), cache
 
 
 @torch.no_grad()
 def prefill(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, *, cross_kv=None,
-            last_logit_only: bool = False):
+            last_logit_only: bool = False, mesh=None, rules=None):
     """One-shot batched prefill over the prompt, writing positions [0, s) of
     every attention layer's cache in place (a window layer's ring shorter
     than the prompt keeps the last lines), and each recurrent layer's state
@@ -549,12 +664,24 @@ def prefill(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, *, cross_k
     (b, s) with s >= 1 into a fresh cache.  Returns (logits (b, s, vocab),
     cache); ``last_logit_only`` keeps only the last position's row, (b, 1,
     vocab).  ``cross_kv`` as in :func:`decode_step`: each decoder layer's
-    cross step over the whole prompt."""
+    cross step over the whole prompt.
+
+    ``mesh=`` (with an optional ``rules=`` table, default
+    ``serve_rules(cfg, mesh)``) runs the forward inside an ``axis_rules``
+    scope: ``model``, ``cache`` and ``tokens`` are this rank's blocks
+    (``distributed.sharding.place_model`` and ``place``), and the
+    constraints reduce or gather across ranks where the rules shard a
+    contraction or the vocabulary.  Without a mesh every constraint is a
+    no-op."""
+    if mesh is not None:
+        with _mesh_scope(cfg, mesh, rules):
+            return prefill(model, cfg, cache, tokens, cross_kv=cross_kv,
+                           last_logit_only=last_logit_only)
     s = tokens.shape[1]
     if s < 1:
         raise ValueError(f"prefill needs at least one prompt token, got tokens shape "
                          f"{tuple(tokens.shape)}")
-    x = model.embed[tokens]
+    x = _embed(model, cfg, tokens)
     if cfg.pos == "sinusoidal":
         x = x + _sinusoidal(s, cfg.d_model, x.device).to(x.dtype)[None]
     positions = torch.arange(s, device=tokens.device)
@@ -575,12 +702,12 @@ def prefill(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor, *, cross_k
         x = x + _ffn(layer, cfg, _norm(layer, "ln2", x, cfg))[0]
     if last_logit_only:
         x = x[:, -1:].contiguous()  # the norm kernel takes contiguous rows
-    return _logits(model, cfg, x), cache
+    return constrain(_logits(model, cfg, x), ("batch", "seq", "vocab")), cache
 
 
 @torch.no_grad()
 def generate_scan(model: LM, cfg: ModelConfig, cache, tok: torch.Tensor, start_pos: int,
-                  gen_len: int, *, cross_kv=None):
+                  gen_len: int, *, cross_kv=None, mesh=None, rules=None):
     """Greedy decode of ``gen_len`` steps: a Python loop over
     :func:`decode_step` with the argmax on the device and no host
     synchronisation per token.
@@ -589,8 +716,12 @@ def generate_scan(model: LM, cfg: ModelConfig, cache, tok: torch.Tensor, start_p
     start_pos: its position, an int.  Returns (tokens (b, gen_len), next_tok
     (b, 1), cache) with tokens[:, 0] == tok, as the reference: each emitted
     token is the one fed at that step, and ``next_tok`` is the argmax after
-    the last step.  ``cross_kv`` as in :func:`decode_step`.
+    the last step.  ``cross_kv`` as in :func:`decode_step`; ``mesh=`` /
+    ``rules=`` as in :func:`prefill`, every step inside the scope.
     """
+    if mesh is not None:
+        with _mesh_scope(cfg, mesh, rules):
+            return generate_scan(model, cfg, cache, tok, start_pos, gen_len, cross_kv=cross_kv)
     start_pos = int(start_pos)
     out = []
     for i in range(gen_len):
@@ -634,7 +765,7 @@ def _cache_leaves(cache) -> list:
 
 
 def init_pool_state(cfg: ModelConfig, num_slots: int, cache_len: int, *,
-                    quantized: bool = False, device=None) -> dict:
+                    quantized: bool = False, device=None, abstract: bool = False) -> dict:
     """The engine's device-side slot-pool state, on ``device`` (the card
     unless ``device="cpu"``), in the reference's layout::
 
@@ -648,11 +779,13 @@ def init_pool_state(cfg: ModelConfig, num_slots: int, cache_len: int, *,
     Every tensor is updated in place from then on and never reallocated (a
     CUDA graph of the decode chunk holds their addresses).  The reference
     fills ``keys`` from a split PRNG key; here admission writes each slot's
-    (seed, request id) words, and the keys start zero."""
-    dev = resolve_device(device)
+    (seed, request id) words, and the keys start zero.  ``abstract=True``:
+    meta tensors."""
+    dev = torch.device("meta") if abstract else resolve_device(device)
     b = num_slots
     return {
-        "cache": init_cache(cfg, b, cache_len, quantized=quantized, device=dev),
+        "cache": init_cache(cfg, b, cache_len, quantized=quantized, device=dev,
+                            abstract=abstract),
         "tok": torch.zeros((b, 1), dtype=torch.int32, device=dev),
         "pos": torch.zeros((b,), dtype=torch.int32, device=dev),
         "active": torch.zeros((b,), dtype=torch.bool, device=dev),
@@ -697,7 +830,8 @@ def insert_cache_slots(cfg: ModelConfig, cache, rows, slots: torch.Tensor):
 
 @torch.no_grad()
 def prefill_into_slots(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor,
-                       slots: torch.Tensor, *, cross_kv=None, pool_cross_kv=None):
+                       slots: torch.Tensor, *, cross_kv=None, pool_cross_kv=None, mesh=None,
+                       rules=None):
     """Admit requests into a live slot pool: a batch-k :func:`prefill` into
     fresh staging rows (the same math and cache layout as a solo prefill),
     then one whole-row write a cache tensor into ``slots`` of the live
@@ -709,7 +843,13 @@ def prefill_into_slots(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor,
     which the prefill attends to and, with ``pool_cross_kv`` (the pool's
     rows, (L, b, ...)), lands at ``slots`` of it in place (``index_copy_``:
     a graph captured over the pool's rows keeps their addresses).  Returns
-    (last-token logits (k, 1, vocab), cache)."""
+    (last-token logits (k, 1, vocab), cache).  ``mesh=`` / ``rules=`` as in
+    :func:`prefill`: ``cache`` is this rank's block of the pool and
+    ``slots`` index it locally."""
+    if mesh is not None:
+        with _mesh_scope(cfg, mesh, rules):
+            return prefill_into_slots(model, cfg, cache, tokens, slots, cross_kv=cross_kv,
+                                      pool_cross_kv=pool_cross_kv)
     rows = slot_rows_like(cfg, cache, tokens.shape[0])
     logits, rows = prefill(model, cfg, rows, tokens, cross_kv=cross_kv, last_logit_only=True)
     if pool_cross_kv is not None:
@@ -857,7 +997,7 @@ def decode_slots_scan(model: LM, cfg: ModelConfig, cache, tok, pos, active, rema
                       top_k: int = 0, keys: Optional[torch.Tensor] = None, unit_levels=None,
                       logits_hook=None, with_health: bool = False,
                       canary_stride: Optional[int] = None, canary_offset: int = 0,
-                      cross_kv=None):
+                      cross_kv=None, mesh=None, rules=None):
     """``n_steps`` of :func:`decode_slots_step`: a Python loop with no host
     synchronisation (the reference's ``lax.scan``).
 
@@ -877,7 +1017,17 @@ def decode_slots_scan(model: LM, cfg: ModelConfig, cache, tok, pos, active, rema
     argmax divergences (b,) int32, the max relative logit error (b,)
     float32 and the sum of the mean relative errors (b,) float32.
     ``cross_kv``: an encoder-decoder's, the pool's rows (see
-    :func:`prefill_into_slots`)."""
+    :func:`prefill_into_slots`).  ``mesh=`` / ``rules=`` as in
+    :func:`prefill`, every step inside the scope, on this rank's block of
+    the pool."""
+    if mesh is not None:
+        with _mesh_scope(cfg, mesh, rules):
+            return decode_slots_scan(model, cfg, cache, tok, pos, active, remaining, n_steps,
+                                     eos_id=eos_id, temperature=temperature, top_k=top_k,
+                                     keys=keys, unit_levels=unit_levels,
+                                     logits_hook=logits_hook, with_health=with_health,
+                                     canary_stride=canary_stride,
+                                     canary_offset=canary_offset, cross_kv=cross_kv)
     if temperature and keys is None:
         raise ValueError(
             "temperature sampling needs per-request keys (a (b, 2) keys tensor); "
@@ -963,7 +1113,7 @@ def decode_verify_step(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor,
         old = gather_verify_lines(cfg, cache, pos, tokens.shape[1])
     levels = _levels(cfg, unit_levels, tokens.device)
     mm = rowwise.matmul
-    x = model.embed[tokens]
+    x = _embed(model, cfg, tokens)
     if cfg.pos == "sinusoidal":  # a row at a time, at the sequential step's shape
         pe = torch.stack([_step_sinusoid(pos + j, cfg.d_model, x.device)
                           for j in range(tokens.shape[1])], dim=1)
@@ -975,7 +1125,7 @@ def decode_verify_step(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor,
                                      layer_idx=idx, norm_levels=levels, mm=mm)
         x = x + h
         x = x + _ffn(layer, cfg, _norm(layer, "ln2", x, cfg, levels=levels), mm=mm)[0]
-    return _logits(model, cfg, x, levels, mm=mm), old
+    return constrain(_logits(model, cfg, x, levels, mm=mm), ("batch", "seq", "vocab")), old
 
 
 def commit_verify_cache(cfg: ModelConfig, cache, old, pos: torch.Tensor, n_commit: torch.Tensor):

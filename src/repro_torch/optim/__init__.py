@@ -1,6 +1,6 @@
 """AdamW with a pluggable sqrt unit, and int8 gradient compression."""
 from repro_torch.optim.adamw import (AdamWConfig, adamw_init, adamw_update, cosine_lr,
-                                    global_norm_clip)
+                                    global_norm_clip, opt_state_specs)
 from repro_torch.optim.compression import compress_decompress, compress_init
 
 __all__ = [
@@ -11,4 +11,5 @@ __all__ = [
     "compress_init",
     "cosine_lr",
     "global_norm_clip",
+    "opt_state_specs",
 ]

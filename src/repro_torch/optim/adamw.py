@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.core import get_unit
 
-__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm_clip", "cosine_lr"]
+__all__ = ["AdamWConfig", "adamw_init", "adamw_update", "global_norm_clip", "cosine_lr",
+           "opt_state_specs"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +68,12 @@ def adamw_init(params) -> dict:
                 for n, p in named.items()}
 
     return {"m": zeros(), "v": zeros(), "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def opt_state_specs(param_specs):
+    """The optimizer state's logical axes mirror the parameters' (a tree of
+    spec tuples, e.g. ``lm.param_specs(cfg)``); the step is a scalar."""
+    return {"m": param_specs, "v": param_specs, "step": ()}
 
 
 def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

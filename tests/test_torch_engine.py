@@ -377,18 +377,18 @@ def test_engine_validation_names_request_and_field(qwen):
 
 
 def test_engine_takes_only_the_plain_options(qwen):
-    """The pool shape is checked, and an option of the reference's layers
-    not ported yet (the mesh) is refused as an unknown keyword, while
-    speculation's options are taken (``tests/test_torch_spec.py``); the
-    statuses are the reference's five."""
+    """The pool shape is checked; the reference's options are taken:
+    speculation's (``tests/test_torch_spec.py``) and the mesh's, None being
+    the one-device engine (``tests/test_torch_mesh.py`` holds a mesh); an
+    unknown keyword is refused; the statuses are the reference's five."""
     cfg, model = qwen
     with pytest.raises(ValueError, match="num_slots"):
         Engine(model, cfg, num_slots=0, cache_len=24)
-    for option in ("mesh", "rules"):
-        with pytest.raises(TypeError):
-            Engine(model, cfg, num_slots=1, cache_len=24, **{option: None})
-    eng = Engine(model, cfg, num_slots=1, cache_len=24, spec=None, draft_model=None)
-    assert eng.spec is None
+    with pytest.raises(TypeError):
+        Engine(model, cfg, num_slots=1, cache_len=24, mesh_shape=(2, 2))
+    eng = Engine(model, cfg, num_slots=1, cache_len=24, spec=None, draft_model=None,
+                 mesh=None, rules=None)
+    assert eng.spec is None and eng.mesh is None
     assert engine.STATUSES == ("ok", "degraded", "evicted", "failed", "rejected")
 
 

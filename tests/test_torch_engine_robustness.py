@@ -46,7 +46,8 @@ from repro.models import lm as jax_lm
 from repro_torch.configs import get_smoke_config
 from repro_torch.core.faults import DispatchFault, DispatchFaultInjector, FaultConfig
 from repro_torch.launch import engine, kill_resume
-from repro_torch.launch.engine import SHED_POLICIES, STATUSES, Engine, Request, solo_generate
+from repro_torch.launch.engine import (SHED_POLICIES, STATUSES, AccuracySLO, Engine, Request,
+                                      solo_generate)
 from repro_torch.launch.journal import RequestJournal, read_journal, replay_plan
 from repro_torch.models import convert, lm
 
@@ -532,15 +533,18 @@ def test_journal_only_replay_without_snapshot(setup, tmp_path):
 
 def test_resume_rejects_pool_shape_change_and_a_mesh(setup, tmp_path):
     """The pool's shape is part of the snapshot: another num_slots raises.
-    Resuming onto a mesh waits for ROADMAP A.7 and says so."""
+    Resuming onto a mesh is ported (``tests/test_torch_mesh.py``), but not
+    with the options that have no mesh path yet: faults= and slo= raise
+    naming their ROADMAP items, before the mesh is touched."""
     _, _, cfg, model = setup
     eng = Engine(model, cfg, num_slots=2, cache_len=CACHE, chunk=3, snapshot_dir=tmp_path)
     eng.snapshot()
     with pytest.raises(ValueError, match="num_slots"):
         Engine.resume(model, cfg, tmp_path, num_slots=4)
-    for kw in (dict(mesh=object()), dict(rules=object())):
-        with pytest.raises(NotImplementedError, match="A.7"):
-            Engine.resume(model, cfg, tmp_path, **kw)
+    for kw, item in ((dict(faults=FaultConfig(site="sqrt_man", rate=0.1)), "A.7a"),
+                     (dict(slo=AccuracySLO()), "A.7b")):
+        with pytest.raises(NotImplementedError, match=item):
+            Engine.resume(model, cfg, tmp_path, mesh=object(), **kw)
 
 
 def test_snapshot_requires_directory(setup):

@@ -19,8 +19,10 @@ against the plain route too); speculative verify rows bit-identical to the
 sequential steps, replayed spec chunks to eager ones, spec tokens to the
 plain engine's; whisper-small's kernel route within 4 bf16 ulps of the
 largest |logit| of its plain route, tokens identical, and its cross-K/V
-slot step replayed bit-identical to the eager one.  Only the order of
-float32 sums differs between a kernel and its plain version.
+slot step replayed bit-identical to the eager one; an engine on the
+card's one-device mesh, exact or tensor parallel, bit-identical to the
+unsharded engine, and a pool restored onto it bit for bit.  Only the order
+of float32 sums differs between a kernel and its plain version.
 """
 import numpy as np
 import pytest
@@ -1747,3 +1749,103 @@ def test_cross_kv_slot_step_replays_the_eager_step(cuda_device, act_dtype):
     assert not _pool_bits_equal(eager, start), "the step moved nothing"
     assert graph_counts == eager_counts
     assert eager_counts["decode_attention"] == cfg.n_layers
+
+
+# ---------------------------------------------------------------------------
+# Sharded serving on the card's one-device mesh (the host has one card:
+# multi-rank collectives are held on 4 gloo ranks in tests/test_torch_mesh.py)
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card_mesh():
+    """A (data=1, model=1) mesh over a one-rank NCCL group that the mesh
+    builder starts; the group is destroyed after the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the card's mesh runs NCCL")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_production_mesh
+
+    started = not dist.is_initialized()
+    mesh = make_production_mesh(shape=(1, 1))
+    yield mesh
+    if started:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "tensor_parallel"])
+def test_mesh_engine_equals_unsharded_on_the_card(card_mesh, exact):
+    """An Engine on the one-device mesh, in exact mode and under the default
+    tensor-parallel rules (a one-wide 'model' axis splits no sum): a replay
+    of its captured chunk bit-identical to the eager chunk, the trace's
+    tokens and launches identical to the unsharded engine's, and the pool's
+    DTensors still on their placements."""
+    from repro_torch.distributed import sharding
+
+    dev = torch.device("cuda")
+    cfg, plain = _engine(dev, "qwen3-4b", "bfloat16", False)
+    plain.warmup(prompt_lens={3, 4, 5, 8, 12})
+    reqs = _trace(cfg)
+    dispatch.reset_launch_counts()
+    ref = plain.run(reqs)
+    ref_counts = dispatch.launch_counts()
+    rules = sharding.serve_rules(cfg, card_mesh, replicate_params=exact)
+    eng = Engine(plain.model, cfg, num_slots=3, cache_len=40, chunk=4, mesh=card_mesh,
+                 rules=rules)
+    del plain
+    eng.warmup(prompt_lens={3, 4, 5, 8, 12})
+    assert list(eng._graphs) == [()]
+    for slot, req in enumerate(reqs[:3]):
+        eng._admit(req, slot, 0.0)
+    start = [t.clone() for t in lm.pool_tensors(eng.pool)]
+
+    def chunk(run):
+        for t, s0 in zip(lm.pool_tensors(eng.pool), start):
+            t.copy_(s0)
+        run()
+        torch.cuda.synchronize()
+        return [t.clone() for t in lm.pool_tensors(eng.pool)] + [eng._packed.clone()]
+
+    assert _pool_bits_equal(chunk(eng._decode_chunk), chunk(eng._chunk_eager))
+    eng.reset()
+    dispatch.reset_launch_counts()
+    done = eng.run(reqs)
+    assert dispatch.launch_counts() == ref_counts
+    for r in reqs:
+        np.testing.assert_array_equal(done[r.uid].tokens, ref[r.uid].tokens)
+    want = sharding.serve_pool_tree(eng._pool_sh)
+    for dt, sh, t in zip(lm.pool_tensors(eng._dpool), lm.pool_tensors(want),
+                         lm.pool_tensors(eng.pool)):
+        assert dt.placements == sh.placements and dt.to_local().data_ptr() == t.data_ptr()
+        assert dt.device.type == "cuda"
+
+
+def test_restore_onto_the_card_mesh(card_mesh, tmp_path):
+    """``checkpoint.restore(shardings=)``: a pool written from plain tensors
+    restores onto the card's mesh as DTensors on the card, with the
+    placements of ``serve_pool_shardings`` and the same bits; saved again
+    from the DTensors, it restores bit-identical without shardings."""
+    from repro_torch import checkpoint
+    from repro_torch.distributed import sharding
+    from repro_torch.distributed.sharding import Sharding
+
+    cfg = get_smoke_config("qwen3-4b", sqrt_unit="e2afs")
+    pool = lm.init_pool_state(cfg, 4, 16, quantized=True, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    for t in lm.pool_tensors(pool):
+        t.copy_(torch.randint(0, 100, t.shape, generator=gen).to(t.dtype))
+    checkpoint.save(tmp_path, 1, {"pool": pool})
+    sh = sharding.serve_pool_tree(sharding.serve_pool_shardings(
+        cfg, card_mesh, sharding.serve_rules(cfg, card_mesh), num_slots=4, cache_len=16,
+        quantized=True))
+    like = lm.init_pool_state(cfg, 4, 16, quantized=True, abstract=True)
+    out = checkpoint.restore(tmp_path, 1, {"pool": like}, shardings={"pool": sh})["pool"]
+    for got, s, want in zip(lm.pool_tensors(out), lm.pool_tensors(sh), lm.pool_tensors(pool)):
+        assert isinstance(s, Sharding) and got.placements == s.placements
+        assert got.device.type == "cuda" and got.dtype == want.dtype
+        assert torch.equal(got.to_local().cpu(), want)
+    checkpoint.save(tmp_path, 2, {"pool": out})
+    back = checkpoint.restore(tmp_path, 2, {"pool": pool})["pool"]
+    for got, want in zip(lm.pool_tensors(back), lm.pool_tensors(pool)):
+        assert torch.equal(got, want)

@@ -270,8 +270,10 @@ def test_serve_scan_matches_loop(quantized_kv):
 
 
 def test_serve_refuses_a_mesh():
-    with pytest.raises(NotImplementedError, match="sharded serving"):
-        serve.generate("qwen3-4b", mesh=object(), device="cpu")
+    """A mesh serves the scan path only (``tests/test_torch_mesh.py`` holds
+    it); the per-token loop refuses one, with the reference's message."""
+    with pytest.raises(ValueError, match="only wired into mode='scan'"):
+        serve.generate("qwen3-4b", mode="loop", mesh=object(), device="cpu")
 
 
 def test_serve_main_cli(capsys):

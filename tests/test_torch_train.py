@@ -425,7 +425,10 @@ def test_checkpoint_bf16_round_trip_and_no_shardings(tmp_path):
     out = ck.restore(tmp_path, 1, t16)
     assert out["w"].dtype == torch.bfloat16 and torch.equal(out["w"], t16["w"])
     assert torch.equal(out["i"], t16["i"])
-    with pytest.raises(NotImplementedError):
+    # restoring onto shardings takes a Sharding a leaf (held on a mesh in
+    # tests/test_torch_mesh.py); anything else is refused, naming the leaf
+    # (leaves in sorted order: 'i' first)
+    with pytest.raises(TypeError, match="leaf 'i' is NoneType, not a"):
         ck.restore(tmp_path, 1, t16, shardings={"w": None, "i": None})
 
 
