@@ -31,7 +31,8 @@ Phases, one line or more each; any failure makes the run exit non-zero:
 4. the main paths, each with the launch counts set to 0 just before and read
    just after: (a) qwen3-4b at full width serving batch 8 (prompt 512, 64
    greedy tokens, cache 576) on the kernels, held against the same weights
-   and prompt on the plain versions; (b) the sqrt-unit entry point
+   and prompt on the plain versions (8 steps: the first-step logits and
+   the first two tokens); (b) the sqrt-unit entry point
    ``get_unit("e2afs", kernel=True)`` on an activation-sized tensor,
    forward and backward (no launch in the backward), outputs and gradients
    held bit-identical to the plain route.  Then (c) a
@@ -264,7 +265,20 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    with 13a's tokens; (e) phase 4a's model, prompt and shapes through
    ``lm.prefill``/``generate_scan`` with ``mesh=``: 4a's tokens; and
    ``serve.generate(mesh=)`` at smoke width and 4a's batch, prompt and
-   length equal to it without.
+   length equal to it without; (f) phase 14c's faulted engine (``sqrt_man``
+   1e-3 in every norm, 8 slots of 576 lines, its 8 requests) in exact mode
+   and under the tensor-parallel rules: 14c's tokens (run in 15c), ms a
+   replayed step beside 14c's; (g) phase 15g's SLO engines in exact mode:
+   stride 8's tokens and canary counters, ms a replayed step beside 15g's,
+   and the pressure run's demotions, rungs and probe tokens; (h) runs
+   inside phases 16a-c, 17a-b and 18a (the mesh is made on first use
+   there and destroyed at the end of 19): each family's model, prompt and
+   shape as that phase built them (starcoder2-15b, mixtral-8x22b and
+   qwen3-moe-235b-a22b at 4 layers, mamba2-2.7b, recurrentgemma-2b,
+   whisper-small) through ``lm.precompute_cross``/``prefill``/
+   ``generate_scan(mesh=)`` under the default tensor-parallel rules: the
+   first 16 of the phase's tokens, the kernels its main path launched, ms
+   a step beside the phase's.
 
 Before the last line it prints the card's name and power limit and one JSON
 line of kernels; the last line is ``{"ok": true, "device": {...}}``.  Without
@@ -330,6 +344,10 @@ PLAIN_BATCH_SUMS_LIMIT = 5e-5
 # window now and then sees no device time or misses a launch, at worst three
 # windows in a row so far.
 PROFILER_WINDOWS = 10
+# decode steps of the plain-version reruns of phases 4a and 4d: their
+# contract holds the first-step logits and the first two tokens (later
+# tokens part on near ties by design, so their agreement is only printed)
+PLAIN_STEPS = 8
 
 KERNELS = {
     "e2afs_sqrt": ("src/repro_torch/csrc/e2afs_sqrt.cu",
@@ -521,6 +539,10 @@ class Smoke:
         self.engine_runs = {}  # phases 13a's and 13b's traces, tokens and replayed ms a step
         self.spec_routes, self.spec_runs = {}, {}  # phases 15h/15i: GEMM routes, spec steps
         self.family = {}  # phase 16: serving numbers by model
+        # phase 19f-g's references: 14c's faulted engine's tokens (15c), the
+        # SLO engines' (15g)
+        self.faulted_ref = self.slo_ref = None
+        self.mesh = None  # the one-device mesh of 16-19 (:meth:`one_mesh`)
 
     # -- helpers -----------------------------------------------------------
     def phase(self, name, fn):
@@ -968,13 +990,15 @@ class Smoke:
               f"{peak / 2**30 if peak is not None else float('nan'):.2f} GiB (host clock with "
               f"synchronize; {self.card})")
 
+        plain_len = min(PLAIN_STEPS, gen_len)
         prev = dispatch.set_backend("reference")
         try:
-            ref_logits, ref_toks, rpf_s, rdec_s = run(cfg.replace(decode_kernel="reference"), gen_len)
+            ref_logits, ref_toks, rpf_s, rdec_s = run(cfg.replace(decode_kernel="reference"),
+                                                      plain_len)
         finally:
             dispatch.set_backend(prev)
         print(f"  plain versions: prefill {rpf_s * 1e3:.1f} ms; decode "
-              f"{rdec_s / gen_len * 1e3:.2f} ms/step")
+              f"{rdec_s / plain_len * 1e3:.2f} ms/step ({plain_len} steps)")
         if not self.rehearsal and (counts["rmsnorm"] != want["rmsnorm"]
                                    or counts["decode_attention"] != want["decode_attention"]):
             raise AssertionError(f"launch counts {counts}, want {want}")
@@ -987,12 +1011,12 @@ class Smoke:
         diff = float((logits.float() - ref_logits.float()).abs().max())
         top = ref_logits.float().abs().max()
         limit = 4 * float(ulp_of(top.reshape(1).to(ref_logits.dtype)))
-        agree = float((toks == ref_toks).float().mean())
+        agree = float((toks[:, :plain_len] == ref_toks).float().mean())
         first = [int((toks[:, i] == ref_toks[:, i]).sum()) for i in range(min(2, gen_len))]
         print(f"  kernels vs plain versions: first-step logits max |diff| {diff:.4g} "
               f"(limit {limit:.4g}: 4 {ref_logits.dtype} ulps at max |logit| {float(top):.4g}); "
               f"first two generated tokens agree {first} of {batch}; greedy token agreement "
-              f"{agree:.3f} over {toks.numel()} tokens")
+              f"{agree:.3f} over {ref_toks.numel()} tokens")
         # Only sum orders differ in the norms and attention: the logits stay
         # within a few ulps, and the prefill argmax and the first decode
         # step's token agree in every slot.  Later tokens may part on near
@@ -1180,14 +1204,15 @@ class Smoke:
               f"{peak / 2**30 if peak is not None else float('nan'):.2f} GiB (host clock with "
               f"synchronize; {self.card})")
 
+        plain_len = min(PLAIN_STEPS, gen_len)
         prev = dispatch.set_backend("reference")
         try:
             ref_logits, ref_toks, _, rpf_s, rdec_s = run(cfg.replace(decode_kernel="reference"),
-                                                         gen_len)
+                                                         plain_len)
         finally:
             dispatch.set_backend(prev)
         print(f"  plain versions: prefill {rpf_s * 1e3:.1f} ms; decode "
-              f"{rdec_s / gen_len * 1e3:.2f} ms/step")
+              f"{rdec_s / plain_len * 1e3:.2f} ms/step ({plain_len} steps)")
         if lines != want_lines:
             raise AssertionError(f"cache lines {lines}, want {want_lines}")
         if not self.rehearsal and (counts["rmsnorm"] != want["rmsnorm"]
@@ -1203,12 +1228,12 @@ class Smoke:
         diff = float((logits.float() - ref_logits.float()).abs().max())
         top = ref_logits.float().abs().max()
         limit = 4 * float(ulp_of(top.reshape(1).to(ref_logits.dtype)))
-        agree = float((toks == ref_toks).float().mean())
+        agree = float((toks[:, :plain_len] == ref_toks).float().mean())
         first = [int((toks[:, i] == ref_toks[:, i]).sum()) for i in range(min(2, gen_len))]
         print(f"  kernels vs plain versions: first-step logits max |diff| {diff:.4g} "
               f"(limit {limit:.4g}: 4 {ref_logits.dtype} ulps at max |logit| {float(top):.4g}); "
               f"first two generated tokens agree {first} of {batch}; greedy token agreement "
-              f"{agree:.3f} over {toks.numel()} tokens")
+              f"{agree:.3f} over {ref_toks.numel()} tokens")
         # the phase 4a contract
         if diff > limit:
             raise AssertionError("gemma3-1b logits disagree with the plain versions")
@@ -1300,10 +1325,9 @@ class Smoke:
           what the admissions and chunks imply, every request complete;
         * eight requests (the longest prompts, then requests in reused
           slots) token-identical to the same request alone in the pool;
-        * against batch-1 ``solo_generate``: the first two tokens equal for
-          every request (the decode-attention split depends on the batch,
-          so later tokens may part on near ties), the share of equal tokens
-          printed;
+        * against batch-1 ``solo_generate`` of two tokens: the first two
+          tokens equal for every request (the decode-attention split depends
+          on the batch, so later tokens may part on near ties);
         * ``run_static_baseline`` on the same trace, its tok/s beside the
           engine's."""
         import numpy as np
@@ -1412,16 +1436,12 @@ class Smoke:
         print(f"  run_static_baseline: makespan {base['makespan_s']:.3f} s, {base['tok_s']:.1f} "
               f"tok/s (engine {stats['tok_s']:.1f}, {stats['tok_s'] / base['tok_s']:.2f}x)")
 
-        # batch-1 solo runs
-        first, equal, total = 0, 0, 0
-        for r in reqs:
-            solo = solo_generate(model, cfg, r.prompt, r.max_new_tokens, cache_len=cache_len)
-            mine = done[r.uid].tokens
-            first += int(np.array_equal(solo[:2], mine[:2]))
-            equal += int((solo == mine).sum())
-            total += len(solo)
+        # batch-1 solo runs of the first two tokens
+        first = sum(int(np.array_equal(solo_generate(model, cfg, r.prompt, 2,
+                                                     cache_len=cache_len)[:2],
+                                       done[r.uid].tokens[:2])) for r in reqs)
         print(f"  against batch-1 solo_generate: first two tokens equal in {first} of "
-              f"{n_requests} requests; {equal} of {total} tokens equal ({equal / total:.3f})")
+              f"{n_requests} requests")
         if first != n_requests:
             raise AssertionError("first two tokens differ from batch-1 solo runs")
         self.engine_runs[key] = dict(reqs=reqs, done=done, stats=stats,
@@ -1876,7 +1896,8 @@ class Smoke:
 
     def p15c_faulted_replay(self):
         """Phase 14c's captured engine (``sqrt_man`` 1e-3, seed 7, in every
-        norm): ms a decode step replayed, beside phase 14c's eager step; the
+        norm): ms a decode step replayed (and again from fresh admissions,
+        as 19f times the mesh's), beside phase 14c's eager step; the
         kernels and device time of one step from the same engine with chunks
         of one step, its captured step bit-identical to the eager one and
         profiled (reading a profile of the 8-step replay, 238,560 kernel
@@ -1890,6 +1911,19 @@ class Smoke:
         restore()
         ms = self.time_ms(eng._decode_chunk, iters=4)
         step = (ms if ms is not None else float("nan")) / eng.chunk
+        eng.reset()
+        done = eng.run(reqs)  # phase 19f's reference tokens
+        stats = dict(eng.stats)
+        eng.reset()  # and its reference ms: timed from fresh admissions, as 19f times the mesh's
+        for slot, req in enumerate(reqs[:eng.num_slots]):
+            eng._admit(req, slot, 0.0)
+        admitted = self.time_ms(eng._decode_chunk, iters=4)
+        admitted = (admitted if admitted is not None else float("nan")) / eng.chunk
+        self.faulted_ref = dict(cfg=eng.cfg, reqs=reqs, done=done, stats=stats,
+                                step_ms=admitted, shape=dict(slots=eng.num_slots,
+                                                         cache_len=eng.cache_len,
+                                                         chunk=eng.chunk,
+                                                         prompts=(len(reqs[0].prompt),)))
         one = Engine(eng.model, eng.cfg, num_slots=eng.num_slots, cache_len=eng.cache_len,
                      chunk=1)
         del eng, restore
@@ -1899,7 +1933,8 @@ class Smoke:
         busy = sum(r[0] for r in rows)
         launches = sum(r[1] for r in rows)
         print(f"  {one.cfg.name} under {one.cfg.sqrt_faults}, {one.num_slots} slots: "
-              f"{step:.3f} ms a decode step replayed (CUDA events around 4 replays of 8 steps); "
+              f"{step:.3f} ms a decode step replayed (CUDA events around 4 replays of 8 steps; "
+              f"{admitted:.4f} from fresh admissions, 19f's reference); "
               f"a profiled one-step replay: {launches} kernels, device busy {busy / 1e3:.3f} ms "
               f"({busy / launches if launches else 0:.2f} us a kernel), idle share "
               f"{1 - busy / (step * 1e3):.3f} of the 8-step replay's step; {self.card}")
@@ -2187,6 +2222,8 @@ class Smoke:
             ms[name].append(round(t / (n * chunk), 4) if t is not None else None)
         print(f"  ms a replayed decode step (CUDA events around 4 chunks, stride 32's over the "
               f"lifetime clock's 4-chunk cycle, in turns; {self.card}): {ms}")
+        self.slo_ref = dict(reqs=reqs, shape=dict(sh, chunk=chunk), done=done_b, stats=st,
+                            step_ms=ms["stride 8"][0] or float("nan"))
         for name, eng in engines.items():
             for fire in eng._patterns():
                 restores[name]()
@@ -2226,6 +2263,7 @@ class Smoke:
               f"chunk's capture included)")
         if names != ("exact",) * slots or first["demotions"] != slots or same_d != len(probes):
             raise AssertionError(f"demotion under pressure: {first}")
+        self.slo_ref["pressure"] = dict(first=first, names=names, probes=probes, done=done_d)
         del ex
         if not self.rehearsal:
             self.torch.cuda.empty_cache()
@@ -3101,6 +3139,8 @@ class Smoke:
               f"lines a layer {lines} (host clock with synchronize; {self.card})")
         self.family[cfg.name] = {"prefill_ms": pf_s * 1e3, "ms_per_step": dec_s / gen_len * 1e3,
                                  "tok_s": batch * gen_len / dec_s, "floor_ms": floor_ms}
+        self.mesh_family(cfg, model, prompt, toks, cache_len, dec_s / gen_len * 1e3, counts)
+
         def plain(record=None, replay=None):
             """The plain versions' run; with experts, each call's choices
             appended to ``record``, or taken in order from ``replay``."""
@@ -3489,6 +3529,7 @@ class Smoke:
               f"TB/s) (host clock with synchronize; {self.card})")
         self.family[cfg.name] = {"prefill_ms": pf_s * 1e3, "ms_per_step": step_ms,
                                  "tok_s": batch * gen_len / dec_s, "floor_ms": floor_ms}
+        self.mesh_family(cfg, model, prompt, toks, cache_len, step_ms, counts)
 
         from repro_torch.core import get_unit
         from repro_torch.kernels.rmsnorm import ops as rms_ops
@@ -3792,6 +3833,7 @@ class Smoke:
         self.family[cfg.name] = {"encoder_ms": enc_s * 1e3, "prefill_ms": pf_s * 1e3,
                                  "ms_per_step": step_ms, "tok_s": batch * gen_len / dec_s,
                                  "floor_ms": floor_ms}
+        self.mesh_family(cfg, model, prompt, toks, cache_len, step_ms, counts, audio=audio)
         if tuple(logits.shape) != (batch, 1, cfg.vocab) or tuple(toks.shape) != (batch, gen_len):
             raise AssertionError(f"shapes: logits {tuple(logits.shape)}, tokens "
                                  f"{tuple(toks.shape)}")
@@ -3977,9 +4019,8 @@ class Smoke:
 
     # -- phase 19 ----------------------------------------------------------
     def p19_mesh(self):
-        """Sharded serving on a one-device mesh: a one-rank process group
-        (NCCL on the card; this host has one card) and
-        ``make_production_mesh(shape=(1, 1))``, destroyed at the end.  On
+        """Sharded serving on the one-device mesh (:meth:`one_mesh`, made
+        by phase 16a's 19h or here), destroyed at the end.  On
         phase 4a's and 4d's models with phase 13's shapes and traces:
         (a) exact mode against 13a's tokens, launches and ms a step, the
         pool's placements kept; (b) the default tensor-parallel rules, the
@@ -3988,22 +4029,39 @@ class Smoke:
         unsharded int8 engine; (d) snapshots resumed across mesh shapes;
         (e) ``lm.prefill``/``generate_scan`` with ``mesh=`` on phase 4a's
         model and prompt against 4a's tokens, and ``serve.generate`` with
-        ``mesh=`` against it without."""
+        ``mesh=`` against it without; (f) phase 14c's faulted engine and
+        (g) phase 15g's SLO engines (:meth:`mesh_faults`,
+        :meth:`mesh_slo`).  (h) ran in phases 16-18 (:meth:`mesh_family`)."""
+        import torch.distributed as dist
+
+        try:
+            mesh = self.one_mesh()
+            self.mesh_engines(mesh)
+            self.mesh_resume(mesh)
+            self.mesh_generate(mesh)
+            self.mesh_faults(mesh)
+            self.mesh_slo(mesh)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            self.mesh = None
+
+    def one_mesh(self):
+        """The one-device mesh of phases 16-19: a one-rank process group
+        (NCCL on the card; this host has one card) and
+        ``make_production_mesh(shape=(1, 1))``, made on first use and
+        destroyed at the end of phase 19."""
         import torch.distributed as dist
 
         from repro_torch.launch.mesh import make_production_mesh
 
-        if dist.is_initialized():
-            raise AssertionError("a process group exists before phase 19")
-        mesh = make_production_mesh(shape=(1, 1), device=self.dev)
-        try:
-            print(f"  mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+        if self.mesh is None:
+            if dist.is_initialized():
+                raise AssertionError("a process group exists before the mesh phases")
+            self.mesh = make_production_mesh(shape=(1, 1), device=self.dev)
+            print(f"  mesh {dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))} on "
                   f"{dist.get_backend()}, world size {dist.get_world_size()} ({self.card})")
-            self.mesh_engines(mesh)
-            self.mesh_resume(mesh)
-            self.mesh_generate(mesh)
-        finally:
-            dist.destroy_process_group()
+        return self.mesh
 
     def same_tokens(self, done, ref, uids=None):
         import numpy as np
@@ -4011,7 +4069,8 @@ class Smoke:
         uids = sorted(ref) if uids is None else uids
         return sum(int(np.array_equal(done[u].tokens, ref[u].tokens)) for u in uids), len(uids)
 
-    def mesh_engine(self, cfg, model, mesh, rules, run, *, reqs, label, warm=True, **kw):
+    def mesh_engine(self, cfg, model, mesh, rules, run, *, reqs, label, warm=True, ref="13's",
+                    **kw):
         """An Engine on ``mesh`` by ``rules`` at ``run``'s shape serving
         ``reqs`` (warmed up and captured first), the counts set to 0 just
         before the trace and read just after.  Returns (engine, done,
@@ -4040,10 +4099,10 @@ class Smoke:
             for slot, req in enumerate(reqs[:sh["slots"]]):
                 eng._admit(req, slot, 0.0)
             step_ms = self.time_ms(eng._decode_chunk, iters=4) / sh["chunk"]
-        print(f"  {label}: makespan {eng.stats['makespan_s']:.3f} s (13's "
+        print(f"  {label}: makespan {eng.stats['makespan_s']:.3f} s ({ref} "
               f"{run['stats']['makespan_s']:.3f}), {eng.stats['tok_s']:.1f} tok/s, "
-              f"{eng.stats['decode_chunks']} chunks (13's {run['stats']['decode_chunks']}); "
-              f"ms a replayed step {step_ms if step_ms is None else round(step_ms, 4)} (13's "
+              f"{eng.stats['decode_chunks']} chunks ({ref} {run['stats']['decode_chunks']}); "
+              f"ms a replayed step {step_ms if step_ms is None else round(step_ms, 4)} ({ref} "
               f"{run['step_ms']:.4f}); launches {counts}; pool placements kept: {kept} "
               f"({self.card})")
         if not kept:
@@ -4187,6 +4246,141 @@ class Smoke:
         if not same or not torch.equal(on_mesh, plain):
             raise AssertionError("19e: mesh serving differs from phase 4a's tokens")
         self.free()
+
+    def mesh_faults(self, mesh):
+        """19f: phase 14c's faulted engine (``sqrt_man`` 1e-3, seed 7, in
+        every norm; 8 slots of 576 lines, chunks of 8, its 8 requests of
+        512 tokens and 32 steps) on the mesh under exact and tensor-parallel
+        rules: tokens identical to 14c's engine (run in 15c), ms a replayed
+        step beside 14c's (15c's CUDA events)."""
+        from repro_torch.distributed.sharding import serve_rules
+
+        ref = self.faulted_ref
+        if ref is None:
+            raise AssertionError("phase 15c left no faulted engine run")
+        cfg, model = ref["cfg"], self.serving[1]
+        for label, rules in (("19f faulted engine, exact", serve_rules(cfg, mesh,
+                                                                       replicate_params=True)),
+                             ("19f faulted engine, tensor parallel", serve_rules(cfg, mesh))):
+            eng, done, counts, step_ms = self.mesh_engine(
+                cfg, model, mesh, rules, ref, reqs=ref["reqs"], label=label, ref="14c's")
+            same, n = self.same_tokens(done, ref["done"])
+            print(f"  {label}: {same} of {n} requests token-identical to 14c's engine under "
+                  f"{cfg.sqrt_faults}")
+            if same != n or counts.get("rmsnorm"):
+                raise AssertionError(f"{label}: tokens differ from 14c's, or a fused norm ran")
+            key = "mesh_faulted_exact_launches" if "exact" in label else "mesh_faulted_tp_launches"
+            self.rows["decode_attention"][key] = counts["decode_attention"]
+            self.engine_runs[label] = dict(step_ms=step_ms, ref_ms=ref["step_ms"])
+            del eng
+            self.free()
+
+    def mesh_slo(self, mesh):
+        """19g: phase 15g's SLO engines on the mesh in exact mode: (b)'s
+        canaries at stride 8 with budgets that never trip, tokens and canary
+        counters identical to 15g's, ms a replayed step beside 15g's; (d)'s
+        pressure (``sqrt_man`` bit 21 at rate 1.0, stride 2): the same
+        demotions, rungs and probe tokens."""
+        from repro_torch.core.faults import FaultConfig
+        from repro_torch.distributed.sharding import serve_rules
+        from repro_torch.launch.engine import AccuracySLO, Request
+
+        ref = self.slo_ref
+        if ref is None or "pressure" not in ref:
+            raise AssertionError("phase 15g left no SLO runs")
+        cfg, model = self.serving[:2]
+        exact = serve_rules(cfg, mesh, replicate_params=True)
+        quiet = AccuracySLO(canary_stride=8, rel_err_budget=1e9, divergence_budget=None,
+                            promote_after=None)
+        run = dict(shape=ref["shape"], stats=ref["stats"], step_ms=ref["step_ms"])
+        eng, done, counts, step_ms = self.mesh_engine(
+            cfg, model, mesh, exact, run, reqs=ref["reqs"], label="19g SLO stride 8, exact",
+            ref="15g's", slo=quiet)
+        same, n = self.same_tokens(done, ref["done"])
+        keys = ("canary_checks", "canary_divergences", "demotions", "promotions")
+        st = {k: eng.stats[k] for k in keys}
+        want = {k: ref["stats"][k] for k in keys}
+        print(f"  19g stride 8: {same} of {n} requests token-identical to 15g's; counters {st} "
+              f"(15g's {want}); max relative logit error {eng.stats['canary_max_rel_err']:.4g} "
+              f"(15g's {ref['stats']['canary_max_rel_err']:.4g})")
+        if same != n or st != want:
+            raise AssertionError("19g: the SLO engine on the mesh differs from 15g's")
+        for k in ("rmsnorm", "decode_attention"):
+            self.rows[k]["mesh_slo_launches"] = counts[k]
+        self.engine_runs["19g SLO"] = dict(step_ms=step_ms, ref_ms=ref["step_ms"])
+        del eng
+        self.free()
+
+        p = ref["pressure"]
+        sh, chunk = ref["shape"], ref["shape"]["chunk"]
+        from repro_torch.launch.engine import Engine
+
+        ed = Engine(model, cfg, num_slots=sh["slots"], cache_len=sh["cache_len"], chunk=chunk,
+                    faults=FaultConfig("sqrt_man", 1.0, seed=7, bit=21),
+                    slo=AccuracySLO(canary_stride=2, rel_err_budget=0.05, divergence_budget=0,
+                                    promote_after=None), mesh=mesh, rules=exact)
+        ed.run([Request(uid=100 + i, prompt=r.prompt, max_new_tokens=chunk)
+                for i, r in enumerate(ref["reqs"][:sh["slots"]])])
+        first = {k: ed.stats[k] for k in keys}
+        want = {k: p["first"][k] for k in keys}
+        done_d = ed.run(p["probes"])
+        same, n = self.same_tokens(done_d, p["done"], [r.uid for r in p["probes"]])
+        trails = sum(done_d[r.uid].unit_trips == p["done"][r.uid].unit_trips for r in p["probes"])
+        print(f"  19g pressure: counters {first} (15g's {want}); rungs {ed.unit_names}; probes "
+              f"{same} of {n} token-identical to 15g's, {trails} rung trails identical")
+        if first != want or ed.unit_names != p["names"] or same != n or trails != n:
+            raise AssertionError("19g: demotion on the mesh differs from 15g's")
+        del ed
+        self.free()
+
+    def mesh_family(self, cfg, model, prompt, toks, cache_len, ms_per_step, counts, *,
+                    audio=None):
+        """19h, inside the family's phase (16a-c, 17a-b, 18a): its model,
+        prompt (and audio) placed on the one-device mesh by the default
+        tensor-parallel rules, through ``lm.precompute_cross``/``prefill``/
+        ``generate_scan(mesh=)`` for 16 greedy tokens, the counts set to 0
+        just before and read just after: the first 16 of the phase's
+        tokens, the kernels the phase's main path launched (``counts``), ms
+        a step (host clock, eager) beside the phase's."""
+        from repro_torch.distributed import sharding
+        from repro_torch.kernels import dispatch
+        from repro_torch.models import lm
+
+        n = 4 if self.rehearsal else 16
+        mesh = self.one_mesh()
+        batch, prompt_len = prompt.shape
+        rules = sharding.serve_rules(cfg, mesh)
+        local = sharding.place_model(model, cfg, mesh, rules)  # aliases: one device holds all
+        like = lm.init_cache(cfg, batch, cache_len, abstract=True)
+        cache = sharding.local_tree(sharding.zeros_tree(like, sharding.shardings_for(
+            lm.cache_specs(cfg), mesh, rules, like)))
+        self.sync()
+        dispatch.reset_launch_counts()
+        ckv = (None if audio is None else
+               lm.precompute_cross(local, cfg, audio, mesh=mesh, rules=rules)[0])
+        logits, cache = lm.prefill(local, cfg, cache, prompt, cross_kv=ckv, last_logit_only=True,
+                                   mesh=mesh, rules=rules)
+        self.sync()
+        t0 = time.perf_counter()
+        got, _, _ = lm.generate_scan(local, cfg, cache, logits[:, -1:].argmax(-1), prompt_len, n,
+                                     cross_kv=ckv, mesh=mesh, rules=rules)
+        self.sync()
+        step_ms = (time.perf_counter() - t0) / n * 1e3
+        mesh_counts = dispatch.launch_counts()
+        same = bool(self.torch.equal(got, toks[:, :n]))
+        ran = sorted(k for k, v in counts.items() if v)
+        print(f"  19h {cfg.name} on the one-device mesh, default tensor-parallel rules: {n} "
+              f"greedy tokens identical to the phase's: {same}; launches "
+              f"{ {k: v for k, v in mesh_counts.items() if v} } (the phase's kernels {ran}); "
+              f"{step_ms:.3f} ms a step on the mesh (the phase's {ms_per_step:.3f}; host clock "
+              f"with synchronize, eager; {self.card})")
+        self.family[cfg.name]["mesh_ms_per_step"] = step_ms
+        del local, cache, ckv
+        if not same:
+            raise AssertionError(f"19h {cfg.name}: tokens on the mesh differ from its phase's")
+        if not self.rehearsal and sorted(k for k, v in mesh_counts.items() if v) != ran:
+            raise AssertionError(f"19h {cfg.name}: the mesh run launched {mesh_counts}, the "
+                                 f"phase's main path {ran}")
 
     # -- phase 7 -----------------------------------------------------------
     def p7_sobel(self):

@@ -19,15 +19,22 @@ Three fault surfaces, one :class:`FaultConfig`:
 Determinism: a device fault decision is a pure function of (value bits,
 flat element index, seed), an integer avalanche hash per element, so a run
 replays the same schedule on the CPU and the card, eagerly or inside a
-captured CUDA graph.  Torch has no uint32 multiply on every device, so the
-32-bit words ride in int64 and :func:`_mul32` splits the products (the
-sampling stream of ``models/lm.py`` uses the same :func:`_mix32`).  Host
-dispatch faults draw from ``random.Random(seed)``, as in the reference.
+captured CUDA graph.  The index is the element's in the WHOLE tensor,
+wrapped to 32 bits as the reference's ``uint32`` arange: on a device mesh a
+rank hashes its block at its global coordinates (:func:`block`, which the
+fault sites open with ``distributed.constraints.block_origin``), so every
+layout strikes the elements one device strikes.  Torch has no uint32
+multiply on every device, so the 32-bit words ride in int64 and
+:func:`_mul32` splits the products (the sampling stream of
+``models/lm.py`` uses the same :func:`_mix32`).  Host dispatch faults draw
+from ``random.Random(seed)``, as in the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import random
+import threading
 from typing import Callable, Optional
 
 import torch
@@ -38,6 +45,7 @@ from repro_torch.core.numerics import FloatFormat, format_of
 __all__ = [
     "FAULT_SITES",
     "FaultConfig",
+    "block",
     "fault_mask",
     "flip_fields",
     "flip_float_bits",
@@ -106,10 +114,56 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
+_block = threading.local()
+
+
+@contextlib.contextmanager
+def block(origin, shape):
+    """Hash the tensors struck inside as the block at global coordinates
+    ``origin`` of a tensor of global ``shape`` (one entry a dim of the
+    struck tensor): a rank's share of a sharded fault site.  Outside a
+    block a tensor is hashed as the whole."""
+    prev = getattr(_block, "at", None)
+    _block.at = (tuple(origin), tuple(shape))
+    try:
+        yield
+    finally:
+        _block.at = prev
+
+
+def _flat_index(shape, device) -> torch.Tensor:
+    """Each element's flat index in the whole tensor (int64, wrapped to 32
+    bits): ``sum((i_d + origin_d) * stride_d)`` over the strides of the
+    open :func:`block`'s global shape; a plain ``arange`` outside one."""
+    shape = tuple(shape)
+    origin, whole = getattr(_block, "at", None) or ((0,) * len(shape), shape)
+    if origin == (0,) * len(shape) and whole == shape:
+        n = 1
+        for s in shape:
+            n *= s
+        idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+        return idx & _M32 if n > _M32 else idx
+    if len(origin) != len(shape) or len(whole) != len(shape) or any(
+            o + s > w for o, s, w in zip(origin, shape, whole)):
+        raise ValueError(f"a block of {shape} at {origin} does not lie in a tensor of {whole}")
+    idx = torch.zeros((), dtype=torch.int64, device=device)
+    stride = 1
+    for d in reversed(range(len(shape))):
+        coord = torch.arange(shape[d], dtype=torch.int64, device=device) + int(origin[d])
+        term = (coord * (stride & _M32)) & _M32  # int64 wrap-around keeps the low 32 bits
+        idx = idx + term.reshape((-1,) + (1,) * (len(shape) - 1 - d))
+        stride *= int(whole[d])
+    return idx.expand(shape) & _M32
+
+
 def _entropy(bits: torch.Tensor, seed: int) -> torch.Tensor:
     """Per-element 32-bit hash (in int64) of (value bits, flat index, seed);
-    ``bits`` any integer tensor, read as its low 32 bits."""
-    idx = torch.arange(bits.numel(), dtype=torch.int64, device=bits.device).reshape(bits.shape)
+    ``bits`` any integer tensor, read as its low 32 bits.  The index is the
+    element's in the whole tensor: inside :func:`block`, ``bits`` is that
+    block of a tensor of the block's global shape (a rank's share of a
+    sharded fault site), else ``bits`` is the whole tensor; it wraps to 32
+    bits as the reference's ``uint32`` arange."""
+    idx = _flat_index(bits.shape, bits.device)
     h = (bits.to(torch.int64) & _M32) ^ _mix32(idx ^ (seed & _M32))
     return _mix32(h ^ ((seed * _GOLDEN) & _M32))
 
@@ -117,7 +171,8 @@ def _entropy(bits: torch.Tensor, seed: int) -> torch.Tensor:
 def fault_mask(bits: torch.Tensor, rate: float, seed: int) -> torch.Tensor:
     """Boolean fault-strike mask, elementwise over ``bits``: a pure function
     of (bits, index, seed), so replaying the same values under the same seed
-    strikes the same elements."""
+    strikes the same elements.  Inside :func:`block` it is that slice of the
+    whole tensor's mask."""
     if rate <= 0.0:
         return torch.zeros(bits.shape, dtype=torch.bool, device=bits.device)
     thr = min(int(rate * float(1 << 32)), (1 << 32) - 1)

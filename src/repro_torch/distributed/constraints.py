@@ -38,8 +38,13 @@ __all__ = [
     "current_rules",
     "mesh_axes",
     "block_index",
+    "mesh_parts",
     "partial_sum",
     "shard_of",
+    "gather_dim",
+    "reduce_sum",
+    "block_origin",
+    "fault_block",
 ]
 
 _state = threading.local()
@@ -57,26 +62,38 @@ def current_rules():
     return getattr(_state, "ctx", None)
 
 
+def current_extents() -> dict:
+    """The global sizes of logical axes the innermost scope declared (see
+    :func:`axis_rules`); {} outside a scope."""
+    return getattr(_state, "extents", None) or {}
+
+
 @contextlib.contextmanager
-def axis_rules(mesh, rules: Rules):
-    prev = getattr(_state, "ctx", None)
-    _state.ctx = (mesh, rules)
+def axis_rules(mesh, rules: Rules, extents: Optional[Dict[str, int]] = None):
+    """The scope of ``(mesh, rules)``.  ``extents`` ({logical axis: global
+    size}) declares the whole extent of an axis whose blocks the scope's
+    tensors are, where the local size does not tell it: the engine's pool
+    rows (``{"batch": num_slots}``, replicated when the mesh does not divide
+    them), or an admission's rows, which are the rank's own (``{"batch":
+    k}``).  :func:`block_origin` reads them."""
+    prev = getattr(_state, "ctx", None), getattr(_state, "extents", None)
+    _state.ctx, _state.extents = (mesh, rules), dict(extents or {})
     try:
         yield
     finally:
-        _state.ctx = prev
+        _state.ctx, _state.extents = prev
 
 
-def maybe_axis_rules(mesh, rules: Optional[Rules]):
-    """``axis_rules(mesh, rules)`` when a mesh is given, else a no-op
-    context: the mesh-optional entry points (``lm.prefill(..., mesh=)``,
-    the Engine's mesh mode) wrap their bodies in it, so one model code
-    serves one device and a mesh."""
+def maybe_axis_rules(mesh, rules: Optional[Rules], extents: Optional[Dict[str, int]] = None):
+    """``axis_rules(mesh, rules, extents)`` when a mesh is given, else a
+    no-op context: the mesh-optional entry points (``lm.prefill(...,
+    mesh=)``, the Engine's mesh mode) wrap their bodies in it, so one model
+    code serves one device and a mesh."""
     if mesh is None:
         return contextlib.nullcontext()
     if rules is None:
         raise ValueError("maybe_axis_rules: a mesh needs a rule table (rules=None)")
-    return axis_rules(mesh, rules)
+    return axis_rules(mesh, rules, extents)
 
 
 def logical_to_spec(axes: Sequence[Optional[str]], rules: Rules) -> Spec:
@@ -135,6 +152,71 @@ def block_index(axes: Sequence[str]) -> int:
     return idx
 
 
+def mesh_parts(axes: Sequence[str], mesh=None) -> int:
+    """The blocks the mesh axes ``axes`` cut a dim into (1 for none), on
+    ``mesh`` (default: the current scope's)."""
+    if not axes:
+        return 1
+    from repro_torch.distributed.sharding import mesh_sizes
+
+    sizes = mesh_sizes(current_rules()[0] if mesh is None else mesh)
+    n = 1
+    for a in axes:
+        n *= sizes[a]
+    return n
+
+
+def block_origin(axes: Sequence[Optional[str]], shape,
+                 extents: Optional[Dict[str, int]] = None) -> Tuple[tuple, tuple]:
+    """(origin, global shape) of this rank's block, of local ``shape``, of a
+    tensor of logical ``axes`` in the current scope: the global coordinates
+    of the block's first element and the whole tensor's shape, which a fault
+    site hashes an element's global flat index from.
+
+    A dim's global size is ``extents[axis]`` (the caller's, e.g.
+    ``{"heads": cfg.n_heads}``), else the scope's declared extent, else the
+    local size times the mesh axes the rules give it (a block placed by the
+    rules); the rules then place it as ``divisible_spec`` does, and the
+    block's origin is its index over those mesh axes (the first major) times
+    the local size.  Outside a scope: (zeros, ``shape``), the identity."""
+    shape = tuple(int(n) for n in shape)
+    ctx = current_rules()
+    if ctx is None:
+        return (0,) * len(shape), shape
+    mesh, rules = ctx
+    from repro_torch.distributed.sharding import divisible_spec
+
+    known = {**current_extents(), **(extents or {})}
+    spec = logical_to_spec(axes, rules)
+    glob = [int(known[ax]) if ax in known else n * mesh_parts(_names(spec[d]), mesh)
+            for d, (ax, n) in enumerate(zip(axes, shape))]
+    part = divisible_spec(spec, tuple(glob), mesh)
+    origin = []
+    for d, n in enumerate(shape):
+        names = _names(part[d])
+        parts = mesh_parts(names, mesh)
+        if glob[d] == n:  # the whole dim on every rank
+            origin.append(0)
+            continue
+        if glob[d] != n * parts:
+            raise ValueError(f"a block of {n} is not 1/{parts} of the global {glob[d]} along "
+                             f"logical axis {axes[d]!r} (spec {part})")
+        origin.append(block_index(names) * n if names else 0)
+    return tuple(origin), tuple(glob)
+
+
+def fault_block(axes: Sequence[Optional[str]], shape, extents: Optional[Dict[str, int]] = None):
+    """The context a fault site opens around its unit call on this rank's
+    block (local ``shape``, logical ``axes``): ``core.faults.block`` at the
+    :func:`block_origin`, so the strike hash reads each element's index in
+    the whole tensor.  Outside a scope a no-op."""
+    if current_rules() is None:
+        return contextlib.nullcontext()
+    from repro_torch.core import faults
+
+    return faults.block(*block_origin(axes, shape, extents))
+
+
 def _submesh(axes):
     mesh, _ = current_rules()
     return mesh[axes[0]] if len(axes) == 1 else mesh[tuple(axes)]
@@ -161,6 +243,29 @@ def shard_of(x: torch.Tensor, axes: Sequence[str], dim: int):
 
     return DTensor.from_local(x, _submesh(axes), [Shard(dim % x.ndim)] * len(axes),
                               run_check=False)
+
+
+def gather_dim(x: torch.Tensor, axes: Sequence[str], dim: int) -> torch.Tensor:
+    """The whole of dim ``dim`` from this rank's block ``x`` of it, sharded
+    over the mesh axes ``axes`` (first major): an all-gather; ``x`` itself
+    when ``axes`` is empty."""
+    if not axes:
+        return x
+    from torch.distributed.tensor import Replicate
+
+    sub = _submesh(axes)
+    return shard_of(x.contiguous(), axes, dim).redistribute(
+        sub, [Replicate()] * len(axes)).to_local()
+
+
+def reduce_sum(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """The sum over the mesh axes ``axes`` of every rank's addend ``x``, on
+    every rank (an all-reduce); ``x`` itself when ``axes`` is empty."""
+    from torch.distributed.tensor import Replicate
+
+    for a in axes:  # one all-reduce a mesh axis
+        x = partial_sum(x.contiguous(), (a,)).redistribute(_submesh((a,)), [Replicate()]).to_local()
+    return x
 
 
 def constrain(x, axes: Sequence[Optional[str]]):

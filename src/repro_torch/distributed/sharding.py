@@ -25,7 +25,6 @@ parameter as a model of plain tensors, which the layers compute on.
 from __future__ import annotations
 
 import dataclasses
-import re
 from typing import NamedTuple
 
 import torch
@@ -52,6 +51,7 @@ __all__ = [
     "gather",
     "full_tensor",
     "place_model",
+    "local_group",
 ]
 
 
@@ -462,54 +462,67 @@ def full_tensor(x) -> torch.Tensor:
     return _gather(x.to_local(), x.device_mesh, x.placements)
 
 
-# the parameters a tensor-parallel rank may hold a block of: the layers
-# reduce the products of these (the embedding, the attention's and the
-# MLP's output projections) and gather the logits; any other weight sharded
-# over an axis wider than one has no reduction in the port's layers yet
-_TP_LEAVES = re.compile(r"(embed|unembed|layers\.\d+\.attn\.(wq|wk|wv|wo)"
-                        r"|layers\.\d+\.mlp\.(wi_gate|wi_up|wo|bi))")
-
-
 def place_model(model, cfg: ModelConfig, mesh, rules: Rules):
     """Put a model's parameters on ``mesh`` by ``rules`` (the reference's
     ``device_put(params, shardings_for(specs, mesh, rules, params))``).
 
     Returns a model of this rank's blocks (``place`` of each parameter) as
-    plain tensors, which the layers compute on.  Raises
-    NotImplementedError for a layout the port's layers do not reduce
-    (ROADMAP A.7c): a sharded weight outside the attention, the dense MLP
-    and the embedding, or query heads sharded over other axes than their
-    KV heads."""
+    plain tensors, which the layers compute on.  Every leaf of
+    ``lm.named_param_specs`` places, each block the :class:`Sharding`'s
+    block of the reference's layout: under the default ``serve_rules`` the
+    embedding and unembedding over the vocabulary, attention heads, MLP and
+    expert hidden units, the SSD's packed ``in_proj`` columns and
+    ``conv_w`` channels (which do not line up with its heads), its heads'
+    ``a_log``/``d_skip``/``dt_bias`` and ``out_proj`` rows, the RG-LRU's
+    channels, the encoder's and the cross-attention's heads over 'model';
+    experts over 'data' where the rules say so (qwen3-moe-235b-a22b at full
+    size); query heads over 'model' above replicated KV heads (one KV head:
+    gemma3-1b, recurrentgemma-2b), a rank then reading the KV heads its
+    query heads map to.  The layers gather, slice and reduce what their
+    blocks need (``layers/attention.py``, ``mlp.py``, ``moe.py``,
+    ``ssd.py``, ``rglru.py``).
+
+    Raises ValueError, before any device work, where the rank's query heads
+    a KV head (the local group) is a size ``decode_attention.cu`` does not
+    instantiate and the kernel would run (a CUDA mesh and
+    ``cfg.decode_kernel="fused"``): recurrentgemma-2b's 10 over a 2-wide
+    'model' axis would be 5."""
     from torch import nn
 
     from repro_torch.models import lm
 
     specs = lm.named_param_specs(cfg)
-    sizes = mesh_sizes(mesh)
     named = dict(model.named_parameters())
     shardings = {n: Sharding.of(mesh, divisible_spec(logical_to_spec(specs[n], rules),
                                                      tuple(p.shape), mesh))
                  for n, p in named.items()}
+    attends = any(b in ("global", "window") for b in cfg.blocks)
+    if mesh.device_type == "cuda" and cfg.decode_kernel == "fused" and attends:
+        from repro_torch.kernels.attention.ops import GROUPS, supports_group
 
-    def wide(n, d):
-        return tuple(a for a in _names(shardings[n].spec[d]) if sizes[a] > 1)
-
-    for n, sh in shardings.items():
-        if any(wide(n, d) for d in range(len(sh.spec))) and not _TP_LEAVES.fullmatch(n):
-            raise NotImplementedError(
-                f"{cfg.name}: parameter {n} is sharded {sh.spec} on this mesh; the port's "
-                f"layers reduce only the embedding, attention and dense-MLP weights "
-                f"(ROADMAP A.7c): serve it with serve_rules(..., replicate_params=True)")
-    for i, block in enumerate(cfg.blocks):
-        q, kv = f"layers.{i}.attn.wq", f"layers.{i}.attn.wk"
-        if q in shardings and wide(q, 1) != wide(kv, 1):
-            raise NotImplementedError(
-                f"{cfg.name}: query heads sharded over {wide(q, 1)} but KV heads over "
-                f"{wide(kv, 1)} ({cfg.n_kv_heads} KV heads on a {sizes} mesh); a rank "
-                f"would need a slice of the KV heads (ROADMAP A.7c)")
+        g = local_group(cfg, mesh, rules)
+        if not supports_group(g):
+            raise ValueError(
+                f"{cfg.name}: {cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads on a "
+                f"{mesh_sizes(mesh)} mesh give a rank a local group of {g} query heads a KV "
+                f"head, which decode_attention.cu does not instantiate (it serves "
+                f"{GROUPS}); serve it with serve_rules(..., "
+                f"replicate_params=True) or another 'model' width")
     local = lm.LM(cfg, device=torch.device("meta"))
     for n, p in named.items():
         owner, _, leaf = n.rpartition(".")
         block = place(p.detach(), shardings[n]).to_local()
         setattr(local.get_submodule(owner), leaf, nn.Parameter(block, requires_grad=False))
     return local
+
+
+def local_group(cfg: ModelConfig, mesh, rules: Rules) -> int:
+    """Query heads a KV head on each rank (the group the decode-attention
+    kernel runs at) under ``rules`` on ``mesh`` (a ``DeviceMesh`` or a
+    :class:`MeshShape`: every rank's group is the first's)."""
+    from repro_torch.distributed.constraints import axis_rules
+    from repro_torch.layers.attention import rank_kv_heads
+
+    with axis_rules(mesh, rules):
+        q_parts, kv_parts, sel = rank_kv_heads(cfg, q_index=0)
+    return (cfg.n_heads // q_parts) // (cfg.n_kv_heads // kv_parts if sel is None else sel[1])

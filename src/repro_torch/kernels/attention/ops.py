@@ -17,7 +17,7 @@ import torch
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.attention.ref import ref_decode_attention
 
-__all__ = ["decode_attention", "ref_decode_attention"]
+__all__ = ["decode_attention", "ref_decode_attention", "supports_group", "GROUPS"]
 
 _DTYPE_CODE = {torch.bfloat16: 1, torch.float32: 2}
 # query heads per KV head that decode_attention.cu instantiates: the powers of
@@ -29,6 +29,14 @@ _WIDE_GROUPS = (6, 10, 12, 16)
 # the largest G x hd the card's tests hold (recurrentgemma-2b's 10 x 256; the
 # kernel reduces the warps' partial outputs through its ring in passes of heads)
 _MAX_GROUP_DIMS = 2560
+GROUPS = _GROUPS + _WIDE_GROUPS
+
+
+def supports_group(g: int) -> bool:
+    """Whether ``decode_attention.cu`` instantiates ``g`` query heads a KV
+    head."""
+    return g in GROUPS
+
 _PLAN_ARGTYPES = (ctypes.c_int,) * 7 + (ctypes.POINTER(ctypes.c_longlong),)
 _ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
@@ -47,9 +55,8 @@ def _check(q, k, v, pos, k_scale, v_scale):
     if t < 1:
         raise ValueError("decode attention needs a cache of at least one line")
     g = h // kv
-    if g not in _GROUPS + _WIDE_GROUPS:
-        raise ValueError(f"the kernel serves {_GROUPS + _WIDE_GROUPS} query heads per KV head, "
-                         f"got {g}")
+    if not supports_group(g):
+        raise ValueError(f"the kernel serves {GROUPS} query heads per KV head, got {g}")
     vec = 4 if k.dtype == torch.float32 else 8  # elements per vector load
     vectors = hd // vec  # a lane takes one, or two when a float32 line has 64
     most = 64 if k.dtype == torch.float32 else 32

@@ -78,8 +78,23 @@ layers reduce and gather across the 'model' axis.  The host scheduler is
 the same program on every rank and must take the same decisions: the
 chunk's one host copy is an all-gather of every rank's slot rows, rank 0's
 clock is broadcast wherever the loop reads the time, a slot is admitted
-(prefilled) only by the ranks that hold it, at its local row, and rank 0
-alone writes the journal, the telemetry and the snapshots' files.
+(prefilled) only by the ranks that hold it, at its local row (every rank
+runs the prefill where experts shard over a wider axis than the slot's
+ranks: their collectives span it), and rank 0 alone writes the journal,
+the telemetry and the snapshots' files.  Every family serves on a mesh:
+dense, window, MoE (experts over 'data' too), SSD and RG-LRU, and query
+heads over one replicated KV head.
+
+Faults and the accuracy SLO on a mesh: a sqrt-site strike hashes each
+element's index in the whole tensor (``core.faults.block``; the chunk's
+scope declares the pool's rows, ``{"batch": num_slots}``), and the logits
+hook strikes a slot's row at its global row, so the exact mode strikes the
+elements the one-device engine strikes.  The seeded dispatch schedule
+draws alike on every rank (every rank dispatches every admission and
+chunk).  The health latches and the canary stats ride the chunk's
+all-gather, so quarantine, the exact fallback, the ladder's rungs and the
+telemetry counters decide alike everywhere; a rank's rung tensor holds its
+slot rows' rungs.
 """
 from __future__ import annotations
 
@@ -101,7 +116,7 @@ from repro_torch.core.faults import DispatchFault, DispatchFaultInjector, FaultC
 from repro_torch.core.faults import logits_hook as _make_logits_hook
 from repro_torch.core.units import resolve_ladder
 from repro_torch.distributed import sharding
-from repro_torch.distributed.constraints import maybe_axis_rules
+from repro_torch.distributed.constraints import maybe_axis_rules, mesh_axes
 from repro_torch.kernels import dispatch
 from repro_torch.launch.journal import (RequestJournal, read_journal, replay_plan,
                                         replay_unit_levels)
@@ -358,9 +373,11 @@ class Engine:
     it with the same requests) runs the scheduler on the mesh, ``rules=``
     defaulting to ``serve_rules(cfg, mesh)`` (tensor parallel; see the
     module docstring).  With ``serve_rules(..., replicate_params=True)``
-    the tokens are bit-identical to the one-device engine's.  ``spec=``
-    does not run on a mesh (ValueError, as in the reference), and neither
-    do ``faults=`` (ROADMAP A.7a) nor ``slo=`` (ROADMAP A.7b).
+    the tokens are bit-identical to the one-device engine's, ``faults=``
+    and ``slo=`` included: a fault site hashes each element's global index
+    (the rank's rows at their slots), and the SLO's rungs and canary stats
+    are the rank's slot rows of the engine's.  ``spec=`` does not run on a
+    mesh (ValueError, as in the reference).
     """
 
     def __init__(self, model: lm.LM, cfg: ModelConfig, *, num_slots: int = 4,
@@ -420,13 +437,6 @@ class Engine:
             raise ValueError("draft_model= without spec= has no effect; pass "
                              "spec=SpecConfig(draft='model')")
         if mesh is not None:
-            # the sqrt fault schedule hashes an element's index in the whole
-            # tensor, which a rank's block does not know; the SLO's canaries
-            # have no test on a mesh yet
-            if faults is not None:
-                raise NotImplementedError("faults= does not run on a mesh yet (ROADMAP A.7a)")
-            if slo is not None:
-                raise NotImplementedError("slo= does not run on a mesh yet (ROADMAP A.7b)")
             if mesh.size() != dist.get_world_size():
                 raise ValueError(f"the engine's mesh must span the process group: mesh of "
                                  f"{mesh.size()} ranks, world size {dist.get_world_size()}")
@@ -460,8 +470,15 @@ class Engine:
         self._writer = mesh is None or dist.get_rank() == 0
         self._telemetry = (telemetry if telemetry is None or isinstance(telemetry, Telemetry)
                            else Telemetry(telemetry)) if self._writer else None
+        # experts sharded over a mesh axis: their collectives span ranks that
+        # do not hold an admitted slot, so every rank runs each admission
+        self._admit_everywhere = False
         if mesh is not None:  # this rank's blocks of the weights
             model = sharding.place_model(model, cfg, mesh, self.rules)
+            if cfg.moe is not None:
+                with maybe_axis_rules(mesh, self.rules):
+                    self._admit_everywhere = bool(mesh_axes(("expert",),
+                                                            (cfg.moe.n_experts,), 0))
         self.model = model
         self.cfg = cfg
         self.num_slots = num_slots
@@ -609,9 +626,11 @@ class Engine:
         r = slot - self._row0
         return r if 0 <= r < self._slots.shape[0] else None
 
-    def _scope(self):
-        """The rule scope of a device step: the mesh's, or none."""
-        return maybe_axis_rules(self.mesh, self.rules)
+    def _scope(self, rows: Optional[int] = None):
+        """The rule scope of a device step: the mesh's, or none.  Its tensors'
+        rows are blocks of ``rows`` (default: the pool's slots)."""
+        return maybe_axis_rules(self.mesh, self.rules,
+                                {"batch": self.num_slots if rows is None else rows})
 
     def _now(self, t0: float) -> float:
         """Seconds since ``t0`` on rank 0's clock, which every rank of a mesh
@@ -990,12 +1009,16 @@ class Engine:
         its own.  On a mesh only the ranks that hold the slot do, at its
         local row."""
         row = self._row(slot)
-        if row is None:
+        if row is None and not self._admit_everywhere:
             return
         pool, dev = self.pool, self.device
         prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int32, device=dev)[None]
         s = prompt.shape[1]
         cfg = self._rung_cfg(int(self._unit_levels[slot]))
+        if row is None:  # the same prefill into a scratch row, for its collectives
+            lm.prefill_into_slots(self.model, cfg, lm.slot_rows_like(cfg, pool["cache"], 1),
+                                  prompt, self._slots[:1], mesh=self.mesh, rules=self.rules)
+            return
         logits, _ = lm.prefill_into_slots(self.model, cfg, pool["cache"], prompt,
                                           self._slots[row:row + 1], mesh=self.mesh,
                                           rules=self.rules)
@@ -1113,7 +1136,8 @@ class Engine:
         place, if one changed since the last write (never inside a chunk:
         a graph holds the tensor's address, not a host copy)."""
         if self._levels_stale:
-            self._levels.copy_(torch.from_numpy(self._unit_levels))
+            rows = self._unit_levels[self._row0:self._row0 + self._levels.shape[0]]
+            self._levels.copy_(torch.from_numpy(rows))
             self._levels_stale = False
 
     def _run_chunk(self, fire: tuple):
@@ -1234,7 +1258,7 @@ class Engine:
                                  abstract=True)
             cache = sharding.local_tree(sharding.zeros_tree(like, sharding.shardings_for(
                 lm.cache_specs(ecfg, quantized=self.quantized_kv), self.mesh, self.rules, like)))
-        with self._scope():
+        with self._scope(rows=1):
             logits, cache, s = _prefill_alone(self.model, ecfg, req.prompt,
                                               cache_len=self.cache_len,
                                               quantized_kv=self.quantized_kv, cache=cache)

@@ -16,8 +16,14 @@ drops can differ from the loop's, which routes a token at a time: the
 stats' ``token_exact_vs_loop`` is False for such a model, as in the
 reference.
 
+An encoder-decoder (whisper-small) serves with audio: random frames (b,
+n_ctx, d) drawn from a generator seeded with ``seed + 1`` go through the
+encoder (:func:`lm.precompute_cross`, inside the timed prefill) and every
+decode step attends to them.
+
 ``mesh=`` (a ``launch.mesh`` DeviceMesh; every rank of it calls
-:func:`generate` alike) serves the scan path sharded by ``rules=``.
+:func:`generate` alike) serves the scan path sharded by ``rules=``, every
+model id, whisper-small's audio included (each rank's rows of it).
 """
 from __future__ import annotations
 
@@ -96,6 +102,11 @@ def generate(arch="qwen3-4b", *, batch=2, prompt_len=8, gen_len=16, sqrt_unit="e
     model = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
     prompt = torch.randint(0, cfg.vocab, (batch, prompt_len),
                            generator=torch.Generator(device=dev).manual_seed(seed), device=dev)
+    audio = None
+    if cfg.kind == "encdec":
+        audio = torch.randn((batch, cfg.encoder.n_ctx, cfg.d_model),
+                            generator=torch.Generator(device=dev).manual_seed(seed + 1),
+                            device=dev)
 
     feed = prompt
     if mesh is not None:  # this rank's blocks of the weights, the prompt and the cache
@@ -109,6 +120,14 @@ def generate(arch="qwen3-4b", *, batch=2, prompt_len=8, gen_len=16, sqrt_unit="e
                                     cache_abs)
         rows_sh = sh.shardings_for(("batch", None), mesh, rules, prompt)
         feed = sh.place(prompt, rows_sh).to_local()
+        if audio is not None:
+            audio = sh.place(audio, sh.shardings_for(("batch", None, None), mesh, rules,
+                                                     audio)).to_local()
+
+    def encode():
+        if audio is None:
+            return None
+        return lm.precompute_cross(model, cfg, audio, mesh=mesh, rules=rules)[0]
 
     def new_cache():
         if mesh is None:
@@ -117,11 +136,13 @@ def generate(arch="qwen3-4b", *, batch=2, prompt_len=8, gen_len=16, sqrt_unit="e
         return sh.local_tree(sh.zeros_tree(cache_abs, cache_sh))
 
     if mode == "loop":
-        def decode(m, c, t, pos):
-            return lm.decode_step(m, cfg, c, t, pos)
-
         def run_once(cache):
             t0 = time.perf_counter()
+            cross_kv = encode()
+
+            def decode(m, c, t, pos):
+                return lm.decode_step(m, cfg, c, t, pos, cross_kv=cross_kv)
+
             logits, cache = prefill_loop(decode, model, cache, prompt)
             _sync(dev)
             t_pf = time.perf_counter()
@@ -132,13 +153,14 @@ def generate(arch="qwen3-4b", *, batch=2, prompt_len=8, gen_len=16, sqrt_unit="e
     else:
         def run_once(cache):
             t0 = time.perf_counter()
-            logits, cache = lm.prefill(model, cfg, cache, feed, last_logit_only=True, mesh=mesh,
-                                       rules=rules)
+            cross_kv = encode()
+            logits, cache = lm.prefill(model, cfg, cache, feed, cross_kv=cross_kv,
+                                       last_logit_only=True, mesh=mesh, rules=rules)
             _sync(dev)
             t_pf = time.perf_counter()
             tok = logits[:, -1:].argmax(dim=-1)
-            gen, _, _ = lm.generate_scan(model, cfg, cache, tok, prompt_len, gen_len, mesh=mesh,
-                                         rules=rules)
+            gen, _, _ = lm.generate_scan(model, cfg, cache, tok, prompt_len, gen_len,
+                                         cross_kv=cross_kv, mesh=mesh, rules=rules)
             _sync(dev)
             return gen, t_pf - t0, time.perf_counter() - t_pf
 

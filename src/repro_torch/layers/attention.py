@@ -19,7 +19,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.distributed.constraints import constrain, mesh_axes, partial_sum
+from repro_torch.distributed.constraints import (block_index, constrain, current_rules,
+                                                 mesh_axes, mesh_parts, partial_sum)
 from repro_torch.layers.norms import rmsnorm_cfg
 from repro_torch.layers.param import parameter
 from repro_torch.layers.rope import rope_tables, rotate
@@ -62,6 +63,70 @@ class Attention(nn.Module):
             self.k_norm = parameter((hd,), dtype, device)
 
 
+def _Q_SITE(cfg) -> dict:
+    """A query qk-norm's logical axes and heads, for its fault hash on a
+    mesh."""
+    return {"axes": ("batch", "seq", "heads", None), "extents": {"heads": cfg.n_heads}}
+
+
+def _K_SITE(cfg) -> dict:
+    return {"axes": ("batch", "seq", "kv_heads", None), "extents": {"kv_heads": cfg.n_kv_heads}}
+
+
+def local_kv_heads(cfg, q_parts: int, q_index: int, kv_parts: int):
+    """(first, count) of the KV heads the query heads of block ``q_index``
+    of ``q_parts`` read, when the KV heads are in ``kv_parts`` blocks; None
+    when they are the rank's own block of KV heads (q and KV heads sharded
+    alike, or neither).  Query head ``j`` reads KV head ``j // G``: a block
+    of ``h / q_parts`` query heads reads ``h / (q_parts G)`` whole KV heads,
+    or one KV head when its group is wider than the block (G = 10 over two
+    ranks: 5 query heads a rank, the local group 5).  A block that
+    straddles KV heads unevenly raises."""
+    if q_parts == kv_parts:
+        return None
+    h, kv = cfg.n_heads, cfg.n_kv_heads
+    if kv_parts != 1:
+        raise NotImplementedError(f"{cfg.name}: query heads in {q_parts} blocks over KV heads "
+                                  f"in {kv_parts}")
+    g, h_l = h // kv, h // q_parts
+    h0 = q_index * h_l
+    if h_l % g == 0:
+        return h0 // g, h_l // g
+    if g % h_l == 0:
+        return h0 // g, 1
+    raise NotImplementedError(
+        f"{cfg.name}: {h_l} query heads a rank straddle the KV heads ({h} query heads over "
+        f"{kv} KV heads, {g} a KV head)")
+
+
+def rank_kv_heads(cfg, q_index=None):
+    """(q_parts, kv_parts, selection) in the current scope: the blocks the
+    rules cut the query heads and the KV heads into, and
+    :func:`local_kv_heads` of block ``q_index`` of query heads (default:
+    this rank's); (1, 1, None) outside a scope."""
+    if current_rules() is None:
+        return 1, 1, None
+    d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    qa = mesh_axes(Attention.SPECS["wq"], (d, h, hd), 1)
+    q_parts = mesh_parts(qa)
+    kv_parts = mesh_parts(mesh_axes(Attention.SPECS["wk"], (d, kv, hd), 1))
+    q_index = block_index(qa) if q_index is None else q_index
+    return q_parts, kv_parts, local_kv_heads(cfg, q_parts, q_index, kv_parts)
+
+
+def _rank_kv(cfg, *tensors):
+    """The KV heads (dim 2) of ``tensors`` that this rank's query heads
+    read, in a scope that shards the query heads and replicates the KV
+    heads (gemma3-1b's and recurrentgemma-2b's one KV head over 'model');
+    the tensors themselves elsewhere.  A strict subset is copied contiguous
+    (the kernel takes contiguous planes)."""
+    sel = rank_kv_heads(cfg)[2]
+    if sel is None or sel == (0, cfg.n_kv_heads):
+        return tensors
+    k0, n = sel
+    return tuple(None if t is None else t[:, :, k0:k0 + n].contiguous() for t in tensors)
+
+
 def _project(x: torch.Tensor, w: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") as one contiguous matmul (``mm``)."""
     b, s, d = x.shape
@@ -74,8 +139,8 @@ def _project_qkv(p: Attention, cfg, xq, xkv, q_positions, kv_positions, *, use_r
     k = _project(xkv, p.wk, mm)
     v = _project(xkv, p.wv, mm)
     if cfg.qk_norm:
-        q = rmsnorm_cfg(p.q_norm, q, cfg, fused=fused_norm, levels=norm_levels)
-        k = rmsnorm_cfg(p.k_norm, k, cfg, fused=fused_norm, levels=norm_levels)
+        q = rmsnorm_cfg(p.q_norm, q, cfg, fused=fused_norm, levels=norm_levels, **_Q_SITE(cfg))
+        k = rmsnorm_cfg(p.k_norm, k, cfg, fused=fused_norm, levels=norm_levels, **_K_SITE(cfg))
     if use_rope:
         q_tables = rope_tables(q_positions, q.shape[-1], theta=cfg.rope_theta)
         kv_tables = q_tables if kv_positions is q_positions else rope_tables(
@@ -192,12 +257,13 @@ def attention_train(p: Attention, cfg, x, *, mode: str = "causal",
         pos if kv_x is None else torch.arange(xkv.shape[1], device=x.device))
     q, k, v = _project_qkv(p, cfg, x, xkv, pos, kp, use_rope=cfg.pos == "rope" and mode != "cross",
                            fused_norm=False)
+    k, v = _rank_kv(cfg, k, v)
     scale = cfg.d_head**-0.5
     sdt = getattr(torch, cfg.scores_dtype)
     remat = cfg.remat == "minimal"
     if s <= q_chunk or s % q_chunk:
         return _out_proj(_scored_attention(q, k, v, _mask(mode, pos, kp, window), scale, sdt,
-                                           x.dtype, remat_scores=remat), p.wo)
+                                           x.dtype, remat_scores=remat), p.wo, cfg=cfg)
     banded = mode == "window" and window is not None
     if banded:  # in padded coordinates chunk i's band is [i * q_chunk, i * q_chunk + band)
         band = window + q_chunk
@@ -211,7 +277,7 @@ def attention_train(p: Attention, cfg, x, *, mode: str = "causal",
         chunks.append(_scored_attention(q[:, sl], k[:, kv_sl], v[:, kv_sl],
                                         _mask(mode, pos[sl], kp[kv_sl], window), scale, sdt,
                                         x.dtype, remat_scores=remat))
-    return _out_proj(torch.cat(chunks, dim=1), p.wo)
+    return _out_proj(torch.cat(chunks, dim=1), p.wo, cfg=cfg)
 
 
 def _fold_masked_attention(q, k, v, mask, scale, k_scale, v_scale, out_dtype):
@@ -346,6 +412,7 @@ def attention_prefill(p: Attention, cfg, x, cache, positions, *, window: Optiona
     else:
         _prefill_write_entries(cache, {"k": k, "v": v}, layer_idx=layer_idx, ring=ring)
 
+    k, v, k_scale, v_scale = _rank_kv(cfg, k, v, k_scale, v_scale)
     scale = cfg.d_head**-0.5
     mode = "window" if window else "causal"
     if s <= q_chunk or s % q_chunk:
@@ -423,6 +490,7 @@ def _write_and_attend(cfg, cache, q, k_new, v_new, pos_b, slot, *, window, layer
         _write_line(cache["v"], v_new, slot, layer_idx)
     k = _plane(cache["k"], layer_idx)
     v = _plane(cache["v"], layer_idx)
+    k, v, k_scale, v_scale = _rank_kv(cfg, k, v, k_scale, v_scale)
 
     from repro_torch.kernels.attention import ops as attn_kernel
 
@@ -546,7 +614,7 @@ def precompute_cross_kv(p: Attention, cfg, enc_out: torch.Tensor) -> dict:
     k = _project(enc_out, p.wk)
     v = _project(enc_out, p.wv)
     if cfg.qk_norm:
-        k = rmsnorm_cfg(p.k_norm, k, cfg)
+        k = rmsnorm_cfg(p.k_norm, k, cfg, **_K_SITE(cfg))
     return {"ck": k, "cv": v}
 
 
@@ -559,9 +627,10 @@ def cross_attention_decode(p: Attention, cfg, x: torch.Tensor, cross_kv: dict) -
     path's "cross" mode folds in its mask instead).  Returns (b, s, d)."""
     q = _project(x, p.wq)
     if cfg.qk_norm:
-        q = rmsnorm_cfg(p.q_norm, q, cfg)
+        q = rmsnorm_cfg(p.q_norm, q, cfg, **_Q_SITE(cfg))
     h = q.shape[2]
-    scores = torch.einsum("bshk,bthk->bhst", q, _expand_kv(cross_kv["ck"], h)).float()
+    ck, cv = _rank_kv(cfg, cross_kv["ck"], cross_kv["cv"])
+    scores = torch.einsum("bshk,bthk->bhst", q, _expand_kv(ck, h)).float()
     w = _softmax(scores * cfg.d_head**-0.5).to(x.dtype)
-    out = torch.einsum("bhst,bthk->bshk", w, _expand_kv(cross_kv["cv"], h))
-    return _out_proj(out, p.wo)
+    out = torch.einsum("bhst,bthk->bshk", w, _expand_kv(cv, h))
+    return _out_proj(out, p.wo, cfg=cfg)

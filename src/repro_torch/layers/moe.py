@@ -10,6 +10,17 @@ the tokens into (b, E, C, d) expert buffers, the SwiGLU expert FFN runs
 batched over the expert axis, and the combine mask, weighted by the
 renormalised gates, brings the outputs back.  The router runs in float32.
 
+On a mesh (``distributed.constraints`` scope) the router stays replicated
+and routes the full hidden state, each row on its own, as above.  Under
+tensor parallelism ("mlp" over 'model') a rank holds a block of every
+expert's hidden units, and the combined outputs are partial sums, reduced
+over 'model'.  With "expert" over a mesh axis (qwen3-moe-235b-a22b's
+``rules["expert"] = "data"``) a rank holds E/n experts: the dispatched
+buffers of the rows that share the axis are gathered (every row of the data
+group reaches the rank's experts), the rank's experts run on them, and the
+outputs, summed over the axis, come back to each row's rank.  Capacity
+stays per batch row.
+
 The one-hots compare with an ``arange`` and the top-k is a stable
 descending sort: no host read and no data-dependent shape, so the routing
 can be captured in a CUDA graph, and ties go to the lower expert index as
@@ -22,7 +33,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.distributed.constraints import constrain
+from repro_torch.distributed.constraints import (block_index, block_origin, constrain,
+                                                 gather_dim, mesh_axes, reduce_sum)
 from repro_torch.layers.param import parameter
 
 __all__ = ["MoE", "capacity", "moe_apply", "route"]
@@ -96,10 +108,29 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, *, capacity_factor: float = 1.25):
     combine = constrain(combine, ("batch", None, "expert", None))
     xe = torch.einsum("bsec,bsd->becd", dispatch, x)
     xe = constrain(xe, ("batch", "expert", None, None))
+    # on a mesh: the rank's experts (a block over ``ex``) and hidden units
+    # (a block over ``hid``), and the rows that share ``ex`` gathered
+    f = cfg.moe.d_ff_expert
+    ex = mesh_axes(MoE.SPECS["wi_gate"], (e, cfg.d_model, f), 0)
+    hid = mesh_axes(MoE.SPECS["wo"], (e, f, cfg.d_model), 1)
+    rows = ()
+    if ex:
+        whole = block_origin(("batch",), (b,))[1][0]
+        if whole != b:  # the rows are a block: gather the ones sharing ``ex``
+            rows = tuple(a for a in mesh_axes(("batch",), (whole,), 0) if a in ex)
+        e_l = p.wi_gate.shape[0]
+        e0 = block_index(ex) * e_l
+        xe = gather_dim(xe, rows, 0)[:, e0:e0 + e_l]
+        combine = gather_dim(combine, rows, 0)[:, :, e0:e0 + e_l]
     g = torch.einsum("becd,edf->becf", xe, p.wi_gate.to(dt))
     u = torch.einsum("becd,edf->becf", xe, p.wi_up.to(dt))
     ye = torch.einsum("becf,efd->becd", torch.nn.functional.silu(g) * u, p.wo.to(dt))
     y = torch.einsum("becd,bsec->bsd", ye, combine)
+    if ex or hid:  # the addends of the experts and hidden units the rank holds
+        y = reduce_sum(y, ex + tuple(a for a in hid if a not in ex))
+        if rows:
+            r0 = block_index(rows) * b
+            y = y[r0:r0 + b]
     me = probs.mean(dim=(0, 1))
     ce = ((idx[..., None] == experts).any(dim=2)).float().mean(dim=(0, 1))
     return y, e * torch.sum(me * ce)

@@ -25,9 +25,12 @@ The model reaches every norm through :func:`norm_init` and :func:`norm_cfg`
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from repro_torch.core import get_unit, resolve_ladder
+from repro_torch.distributed.constraints import fault_block
 from repro_torch.layers.param import parameter
 
 __all__ = ["rmsnorm", "rmsnorm_select", "rmsnorm_cfg", "layernorm", "layernorm_select",
@@ -112,19 +115,33 @@ def rmsnorm_select(scale: torch.Tensor, x: torch.Tensor, levels: torch.Tensor, *
     return torch.where(lv == 0, first, rest)
 
 
+def _site(cfg, x: torch.Tensor, axes, extents):
+    """The fault block of a norm's rsqrt input (x's shape with the last dim
+    1) on a mesh: x's logical ``axes`` (default: the residual stream's,
+    ("batch", "seq", ..., "embed")) with the normalised dim reduced."""
+    if cfg.sqrt_faults is None:
+        return contextlib.nullcontext()
+    if axes is None:
+        axes = ("batch",) + ("seq",) * (x.ndim - 2) + ("embed",)
+    return fault_block(tuple(axes[:-1]) + (None,), tuple(x.shape[:-1]) + (1,), extents)
+
+
 def rmsnorm_cfg(scale: torch.Tensor, x: torch.Tensor, cfg, *, fused: bool = True,
-                levels=None) -> torch.Tensor:
+                levels=None, axes=None, extents=None) -> torch.Tensor:
     """An RMSNorm of the model under its config: with ``levels`` ((b,),
     accuracy-SLO decode) each row through its rung of ``cfg.sqrt_ladder``
     (:func:`rmsnorm_select`); else through ``cfg.sqrt_unit`` and
     ``cfg.sqrt_faults``, on the fused kernel where ``fused`` asks and the
-    kernel computes the norm ("e2afs", no sqrt fault active)."""
-    if levels is not None:
-        return rmsnorm_select(scale, x, levels, ladder=cfg.sqrt_ladder, faults=cfg.sqrt_faults,
-                              fused=fused)
-    clean = not get_unit(cfg.sqrt_unit, faults=cfg.sqrt_faults)._fault_active()
-    return rmsnorm(scale, x, sqrt_unit=cfg.sqrt_unit, faults=cfg.sqrt_faults,
-                   fused=fused and cfg.sqrt_unit == "e2afs" and clean)
+    kernel computes the norm ("e2afs", no sqrt fault active).  ``axes`` and
+    ``extents``: x's logical axes and the global sizes of its sharded ones
+    (a qk-norm's heads), for the fault hash on a mesh (:func:`_site`)."""
+    with _site(cfg, x, axes, extents):
+        if levels is not None:
+            return rmsnorm_select(scale, x, levels, ladder=cfg.sqrt_ladder,
+                                  faults=cfg.sqrt_faults, fused=fused)
+        clean = not get_unit(cfg.sqrt_unit, faults=cfg.sqrt_faults)._fault_active()
+        return rmsnorm(scale, x, sqrt_unit=cfg.sqrt_unit, faults=cfg.sqrt_faults,
+                       fused=fused and cfg.sqrt_unit == "e2afs" and clean)
 
 
 def layernorm(scale: torch.Tensor, bias: torch.Tensor, x: torch.Tensor, *,
@@ -161,7 +178,8 @@ def norm_cfg(p: torch.nn.Module, name: str, x: torch.Tensor, cfg, *, fused: bool
     if cfg.norm == "rmsnorm":
         return rmsnorm_cfg(getattr(p, name), x, cfg, fused=fused, levels=levels)
     scale, bias = getattr(p, f"{name}_scale"), getattr(p, f"{name}_bias")
-    if levels is not None:
-        return layernorm_select(scale, bias, x, levels, ladder=cfg.sqrt_ladder,
-                                faults=cfg.sqrt_faults)
-    return layernorm(scale, bias, x, sqrt_unit=cfg.sqrt_unit, faults=cfg.sqrt_faults)
+    with _site(cfg, x, None, None):
+        if levels is not None:
+            return layernorm_select(scale, bias, x, levels, ladder=cfg.sqrt_ladder,
+                                    faults=cfg.sqrt_faults)
+        return layernorm(scale, bias, x, sqrt_unit=cfg.sqrt_unit, faults=cfg.sqrt_faults)

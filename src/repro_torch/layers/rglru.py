@@ -23,6 +23,15 @@ about 2 log2(s) elementwise passes, no loop over positions.  XLA may fuse
 the multiply-adds, so the states agree with the reference within a
 tolerance, not bit for bit.  ``lam`` is kept in float32 whatever the
 activation dtype (the reference reads its float32 master).
+
+Tensor parallelism (a ``distributed.constraints`` scope with "mlp" over
+'model'): a rank holds a block of the recurrence's channels (x_proj's and
+gate_proj's columns, conv_w, lam, the state) and of w_r's, w_i's and
+out_proj's rows.  The gate products contract over the sharded channels, so
+``xr @ w_r`` is a partial sum: it is reduced over 'model' and the rank keeps
+its channels' block; the recurrence and its sqrt run on the block (the
+fault hash at the block's global channels), and out_proj's products are
+reduced as the MLP's.
 """
 from __future__ import annotations
 
@@ -31,6 +40,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import get_unit
+from repro_torch.distributed.constraints import (block_index, constrain, fault_block, mesh_axes,
+                                                 partial_sum, reduce_sum)
 from repro_torch.layers.param import parameter
 from repro_torch.layers.ssd import CONV_W, causal_conv, conv_step, conv_tail, softplus
 
@@ -65,16 +76,38 @@ class RGLRU(nn.Module):
         self.out_proj = parameter((dr, d), dtype, device)
 
 
+def _gate(p: RGLRU, cfg, xr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``xr @ w`` for the rank's channels: the product over its block of
+    the contraction, reduced over the mesh axes sharding it, then its own
+    block of the output channels (the whole product outside a scope)."""
+    dr = cfg.rglru.d_rnn
+    y = xr @ w.to(xr.dtype)
+    rows = mesh_axes(RGLRU.SPECS["w_r"], (dr, dr), 0)
+    if not rows:
+        return y
+    n = xr.shape[-1]
+    c0 = block_index(rows) * n
+    return reduce_sum(y, rows)[..., c0:c0 + n]
+
+
 def _gates(p: RGLRU, cfg, xr: torch.Tensor):
     """(a_t, the gated input) of the recurrence, float32, xr's shape."""
-    r = torch.sigmoid((xr @ p.w_r.to(xr.dtype)).float())
-    i = torch.sigmoid((xr @ p.w_i.to(xr.dtype)).float())
+    r = torch.sigmoid(_gate(p, cfg, xr, p.w_r).float())
+    i = torch.sigmoid(_gate(p, cfg, xr, p.w_i).float())
     log_a = r * (-_C * softplus(p.lam.float()))
     a = torch.exp(log_a)
     unit = get_unit(cfg.sqrt_unit, faults=cfg.sqrt_faults)
     kernel = unit.name == "e2afs" and not unit._fault_active()
-    norm = unit.sqrt(torch.clamp_min(1.0 - a * a, 1e-12), kernel=kernel)
+    axes = ("batch",) + ("seq",) * (xr.ndim - 2) + ("mlp",)
+    with fault_block(axes, xr.shape, {"mlp": cfg.rglru.d_rnn}):
+        norm = unit.sqrt(torch.clamp_min(1.0 - a * a, 1e-12), kernel=kernel)
     return a, norm * i * xr.float()
+
+
+def _out(p: RGLRU, cfg, y: torch.Tensor) -> torch.Tensor:
+    """out_proj of y, its partial sums over the rank's channels reduced."""
+    axes = mesh_axes(RGLRU.SPECS["out_proj"], (cfg.rglru.d_rnn, cfg.d_model), 0)
+    return constrain(partial_sum(y @ p.out_proj.to(y.dtype), axes), ("batch", "seq", "embed"))
 
 
 def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
@@ -112,7 +145,7 @@ def rglru_train(p: RGLRU, cfg, x: torch.Tensor, *, return_state: bool = False):
     xr = causal_conv(xr_raw, p.conv_w.to(dt))
     a, b_in = _gates(p, cfg, xr)
     _, h = linear_scan(a, b_in)
-    out = (h.to(dt) * gate) @ p.out_proj.to(dt)
+    out = _out(p, cfg, h.to(dt) * gate)
     if not return_state:
         return out
     return out, {"conv": conv_tail(xr_raw, x.shape[1]), "h": h[:, -1]}
@@ -141,4 +174,4 @@ def rglru_decode(p: RGLRU, cfg, x: torch.Tensor, state: dict):
     xr = conv_step(conv_in, p.conv_w.to(dt))  # (b, dr)
     a, b_in = _gates(p, cfg, xr)
     h = a * state["h"] + b_in
-    return (h[:, None].to(dt) * gate) @ p.out_proj.to(dt), {"conv": conv_in[:, 1:], "h": h}
+    return _out(p, cfg, h[:, None].to(dt) * gate), {"conv": conv_in[:, 1:], "h": h}

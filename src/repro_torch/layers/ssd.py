@@ -14,6 +14,17 @@ XLA's, so prefill, stepping and the reference agree within a tolerance
 deliberate difference: the intra-chunk decay is masked before its exp, so
 the gradient stays finite where the reference's is NaN (ROADMAP C.28).
 
+Tensor parallelism (a ``distributed.constraints`` scope with "heads" and
+"heads_mix" over 'model'): each placed weight is the rank's block of the
+reference's layout, so a block of ``in_proj``'s packed [z | x | B | C | dt]
+columns, and of ``conv_w``'s and the conv state's [x | B | C] channels, does
+not line up with heads.  A rank gathers the projection and ``conv_w``
+(and in a decode step the conv state) over 'model', runs the conv on every
+channel, keeps its own heads' z, x and dt and all of B and C, steps its
+heads' SSM state, and writes back its block of the conv state; the output
+projection's rows are its heads' channels, so the products are partial
+sums, reduced over 'model'.
+
 The head count is ``d_inner // head_dim`` (80 at mamba2-2.7b's full width),
 not ``cfg.n_heads``.  ``a_log``, ``d_skip`` and ``dt_bias`` are kept in
 float32 whatever the activation dtype: the reference reads its float32
@@ -25,6 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.distributed.constraints import (block_index, constrain, gather_dim, mesh_axes,
+                                                 mesh_parts, partial_sum)
 from repro_torch.layers.param import parameter
 
 __all__ = ["CONV_W", "SSD", "causal_conv", "conv_step", "conv_tail", "init_ssd_state",
@@ -81,6 +94,41 @@ def conv_step(conv_in: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (conv_in.float() * w.float()).sum(dim=1).to(conv_in.dtype)
 
 
+class _Shards:
+    """A rank's share of the mixer in the current scope: its heads [h0, h0 +
+    nh) and their channels, the mesh axes its in_proj columns, conv_w
+    channels and conv-state channels are gathered over, and the output
+    projection's rows it multiplies (``out``, the slice of its heads'
+    channels) with the axes their partial sums are reduced over.  Outside a
+    scope: every head, no axes."""
+
+    def __init__(self, p: "SSD", cfg):
+        s = cfg.ssm
+        d, d_in, n, hp = cfg.d_model, s.d_inner, s.d_state, s.head_dim
+        nh = d_in // hp
+        heads = mesh_axes(SSD.SPECS["a_log"], (nh,), 0)
+        self.nh = p.a_log.shape[0]
+        self.h0 = block_index(heads) * self.nh if heads else 0
+        self.proj = mesh_axes(SSD.SPECS["in_proj"], (d, 2 * d_in + 2 * n + nh), 1)
+        self.conv = mesh_axes(SSD.SPECS["conv_w"], (CONV_W, d_in + 2 * n), 1)
+        self.state = mesh_axes(ssd_state_specs()["conv"], (1, CONV_W - 1, d_in + 2 * n), 2)
+        self.width = (d_in + 2 * n) // mesh_parts(self.state)
+        self.c0 = block_index(self.state) * self.width if self.state else 0
+        rows = mesh_axes(SSD.SPECS["out_proj"], (d_in, d), 0)
+        if heads and rows and heads != rows:
+            raise NotImplementedError(f"{cfg.name}: SSD heads over {heads}, out_proj rows over "
+                                      f"{rows}")
+        ch = slice(self.h0 * hp, (self.h0 + self.nh) * hp)
+        if rows and not heads:  # every head here, a block of the rows
+            r_l = p.out_proj.shape[0]
+            ch = slice(block_index(rows) * r_l, (block_index(rows) + 1) * r_l)
+        self.ch, self.out = ch, slice(ch.start - self.h0 * hp, ch.stop - self.h0 * hp)
+        self.sum = heads or rows
+
+    def reduce(self, y):
+        return constrain(partial_sum(y, self.sum), ("batch", "seq", "embed"))
+
+
 def _split_proj(cfg, proj):
     s = cfg.ssm
     d_in, n = s.d_inner, s.d_state
@@ -114,11 +162,14 @@ def ssd_train(p: SSD, cfg, x: torch.Tensor, *, chunk: int = 128, return_state: b
     slen_p = slen + pad
     dt_act = x.dtype
 
-    proj = x @ p.in_proj.to(dt_act)
+    sh = _Shards(p, cfg)
+    proj = gather_dim(x @ p.in_proj.to(dt_act), sh.proj, -1)
     z, xbc, dt = _split_proj(cfg, proj)
     xbc_raw = xbc  # the decode conv state is the tail of the pre-conv inputs
-    xbc = F.silu(causal_conv(xbc, p.conv_w.to(dt_act)))
-    xs, B, C = xbc[..., :d_in], xbc[..., d_in: d_in + n], xbc[..., d_in + n:]
+    xbc = F.silu(causal_conv(xbc, gather_dim(p.conv_w, sh.conv, 1).to(dt_act)))
+    hs = slice(sh.h0 * hp, (sh.h0 + sh.nh) * hp)
+    xs, B, C = xbc[..., :d_in][..., hs], xbc[..., d_in: d_in + n], xbc[..., d_in + n:]
+    z, dt, nh = z[..., hs], dt[..., sh.h0:sh.h0 + sh.nh], sh.nh
 
     dt = softplus(dt.float() + p.dt_bias.float())  # (b, s, nh)
     a = -torch.exp(p.a_log.float())
@@ -161,11 +212,12 @@ def ssd_train(p: SSD, cfg, x: torch.Tensor, *, chunk: int = 128, return_state: b
 
     y = (y_intra + y_inter).reshape(b, slen_p, nh, hp)
     y = y + p.d_skip.float()[None, None, :, None] * xs.reshape(b, slen_p, nh, hp).float()
-    y = y.reshape(b, slen_p, d_in).to(dt_act) * F.silu(z)
-    out = (y @ p.out_proj.to(dt_act))[:, pad:]
+    y = y.reshape(b, slen_p, nh * hp).to(dt_act) * F.silu(z)
+    out = sh.reduce(y[..., sh.out] @ p.out_proj.to(dt_act))[:, pad:]
     if not return_state:
         return out
-    return out, {"conv": conv_tail(xbc_raw, slen), "ssm": state}
+    tail = conv_tail(xbc_raw, slen)[..., sh.c0:sh.c0 + sh.width]
+    return out, {"conv": tail, "ssm": state}
 
 
 def init_ssd_state(cfg, batch: int, dtype, *, device=None, layers=None) -> dict:
@@ -197,19 +249,22 @@ def ssd_decode(p: SSD, cfg, x: torch.Tensor, state: dict):
     b = x.shape[0]
     dt_act = x.dtype
 
-    proj = x @ p.in_proj.to(dt_act)
+    sh = _Shards(p, cfg)
+    proj = gather_dim(x @ p.in_proj.to(dt_act), sh.proj, -1)
     z, xbc, dt = _split_proj(cfg, proj)
-    conv_in = torch.cat([state["conv"], xbc], dim=1)  # (b, 4, c)
-    conv_out = F.silu(conv_step(conv_in, p.conv_w.to(dt_act)))
+    conv_in = torch.cat([gather_dim(state["conv"], sh.state, -1), xbc], dim=1)  # (b, 4, c)
+    conv_out = F.silu(conv_step(conv_in, gather_dim(p.conv_w, sh.conv, 1).to(dt_act)))
 
-    xs = conv_out[:, :d_in].reshape(b, nh, hp).float()
+    hs, nh = slice(sh.h0 * hp, (sh.h0 + sh.nh) * hp), sh.nh
+    xs = conv_out[:, :d_in][:, hs].reshape(b, nh, hp).float()
     B = conv_out[:, d_in: d_in + n].float()
     C = conv_out[:, d_in + n:].float()
-    dtv = softplus(dt[:, 0].float() + p.dt_bias.float())  # (b, nh)
+    dtv = softplus(dt[:, 0, sh.h0:sh.h0 + nh].float() + p.dt_bias.float())  # (b, nh)
     a = torch.exp(dtv * -torch.exp(p.a_log.float()))
 
     h = state["ssm"] * a[..., None, None] + B[:, None, :, None] * (dtv[..., None] * xs)[:, :, None]
     y = torch.einsum("bn,bhnp->bhp", C, h)
     y = y + p.d_skip.float()[None, :, None] * xs
-    y = y.reshape(b, 1, d_in).to(dt_act) * F.silu(z)
-    return y @ p.out_proj.to(dt_act), {"conv": conv_in[:, 1:], "ssm": h}
+    y = y.reshape(b, 1, nh * hp).to(dt_act) * F.silu(z[..., hs])
+    return (sh.reduce(y[..., sh.out] @ p.out_proj.to(dt_act)),
+            {"conv": conv_in[:, 1:, sh.c0:sh.c0 + sh.width], "ssm": h})

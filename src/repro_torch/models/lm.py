@@ -77,8 +77,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.faults import _M32, _mix32
-from repro_torch.distributed.constraints import (block_index, constrain, maybe_axis_rules,
-                                                 mesh_axes, partial_sum, shard_of)
+from repro_torch.distributed.constraints import (block_index, constrain, fault_block,
+                                                 maybe_axis_rules, mesh_axes, partial_sum,
+                                                 shard_of)
 from repro_torch.device import resolve_device
 from repro_torch.layers import attention as attn
 from repro_torch.layers import rglru, rowwise, ssd
@@ -315,14 +316,14 @@ def cross_kv_specs() -> dict:
             "cv": ("layers", "batch", "kv_seq", "kv_heads", None)}
 
 
-def _mesh_scope(cfg, mesh, rules):
+def _mesh_scope(cfg, mesh, rules, extents=None):
     """The ``axis_rules`` scope of a mesh-optional entry point: ``rules``
     default to ``serve_rules(cfg, mesh)``; no mesh, no scope."""
     if mesh is not None and rules is None:
         from repro_torch.distributed.sharding import serve_rules
 
         rules = serve_rules(cfg, mesh)
-    return maybe_axis_rules(mesh, rules)
+    return maybe_axis_rules(mesh, rules, extents)
 
 
 def _cache_lines(cfg, block, cache_len):
@@ -737,11 +738,18 @@ def param_count(model: nn.Module) -> int:
 
 
 @torch.no_grad()
-def precompute_cross(model: LM, cfg: ModelConfig, audio: torch.Tensor):
+def precompute_cross(model: LM, cfg: ModelConfig, audio: torch.Tensor, *, mesh=None, rules=None):
     """An encoder-decoder's serving start: the encoder once over ``audio``
     (b, frames, d), on the serving norm route, then every decoder layer's
     cross K/V over its output, stacked as the reference's ``{"ck", "cv"}``
-    of (L, b, frames, kv, hd).  Returns (cross_kv, enc_out)."""
+    of (L, b, frames, kv, hd).  Returns (cross_kv, enc_out).  ``mesh=`` /
+    ``rules=`` as in :func:`prefill`: ``audio`` is this rank's rows, the
+    encoder's attention and MLP reduce their partial sums over 'model', and
+    ``cross_kv`` is the rank's block of :func:`cross_kv_specs` (its KV heads
+    where the rules shard them)."""
+    if mesh is not None:
+        with _mesh_scope(cfg, mesh, rules):
+            return precompute_cross(model, cfg, audio)
     enc_out = _run_encoder(model, cfg, audio, fused=True)
     per_layer = [attn.precompute_cross_kv(layer.xattn, cfg, enc_out) for layer in model.layers]
     return {k: torch.stack([c[k] for c in per_layer]) for k in ("ck", "cv")}, enc_out
@@ -845,9 +853,10 @@ def prefill_into_slots(model: LM, cfg: ModelConfig, cache, tokens: torch.Tensor,
     a graph captured over the pool's rows keeps their addresses).  Returns
     (last-token logits (k, 1, vocab), cache).  ``mesh=`` / ``rules=`` as in
     :func:`prefill`: ``cache`` is this rank's block of the pool and
-    ``slots`` index it locally."""
+    ``slots`` index it locally; the admitted rows are the rank's own (not a
+    block of a batch), as the fault hash reads them."""
     if mesh is not None:
-        with _mesh_scope(cfg, mesh, rules):
+        with _mesh_scope(cfg, mesh, rules, {"batch": tokens.shape[0]}):
             return prefill_into_slots(model, cfg, cache, tokens, slots, cross_kv=cross_kv,
                                       pool_cross_kv=pool_cross_kv)
     rows = slot_rows_like(cfg, cache, tokens.shape[0])
@@ -961,7 +970,8 @@ def decode_slots_step(model: LM, cfg: ModelConfig, pool: dict, toks: torch.Tenso
                             unit_levels=unit_levels)
     lg = logits[:, -1].float()
     if logits_hook is not None:
-        lg = logits_hook(lg)
+        with fault_block(("batch", None), lg.shape):  # the rows' global indices on a mesh
+            lg = logits_hook(lg)
     if canary:
         _canary_update(lg, exact[:, -1].float(), active, canary_stats)
     if health is not None:

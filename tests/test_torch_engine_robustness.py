@@ -533,18 +533,15 @@ def test_journal_only_replay_without_snapshot(setup, tmp_path):
 
 def test_resume_rejects_pool_shape_change_and_a_mesh(setup, tmp_path):
     """The pool's shape is part of the snapshot: another num_slots raises.
-    Resuming onto a mesh is ported (``tests/test_torch_mesh.py``), but not
-    with the options that have no mesh path yet: faults= and slo= raise
-    naming their ROADMAP items, before the mesh is touched."""
+    faults= and slo= resume."""
     _, _, cfg, model = setup
     eng = Engine(model, cfg, num_slots=2, cache_len=CACHE, chunk=3, snapshot_dir=tmp_path)
     eng.snapshot()
     with pytest.raises(ValueError, match="num_slots"):
         Engine.resume(model, cfg, tmp_path, num_slots=4)
-    for kw, item in ((dict(faults=FaultConfig(site="sqrt_man", rate=0.1)), "A.7a"),
-                     (dict(slo=AccuracySLO()), "A.7b")):
-        with pytest.raises(NotImplementedError, match=item):
-            Engine.resume(model, cfg, tmp_path, mesh=object(), **kw)
+    for kw in (dict(faults=FaultConfig(site="sqrt_man", rate=0.1)), dict(slo=AccuracySLO())):
+        again = Engine.resume(model, cfg, tmp_path, **kw)
+        assert (again.faults, again.slo) == (kw.get("faults"), kw.get("slo"))
 
 
 def test_snapshot_requires_directory(setup):

@@ -1849,3 +1849,89 @@ def test_restore_onto_the_card_mesh(card_mesh, tmp_path):
     back = checkpoint.restore(tmp_path, 2, {"pool": pool})["pool"]
     for got, want in zip(lm.pool_tensors(back), lm.pool_tensors(pool)):
         assert torch.equal(got, want)
+
+
+def _served(done, eng):
+    return ({uid: (c.tokens.tolist(), c.status, c.trips, c.unit_final, repr(c.unit_trips))
+             for uid, c in done.items()},
+            {k: eng.stats[k] for k in ("faults_detected", "exact_fallbacks", "canary_checks",
+                                       "canary_divergences", "demotions", "promotions")})
+
+
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "tensor_parallel"])
+def test_mesh_faulted_engine_equals_unsharded_on_the_card(card_mesh, exact):
+    """Phase 19f at smoke width: sqrt mantissa flips in every norm (the
+    unfused datapath, each element hashed at its global index) on the
+    one-device mesh give the unsharded faulted engine's tokens, statuses
+    and counters, exact or tensor parallel."""
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.distributed import sharding
+
+    dev = torch.device("cuda")
+    faults = FaultConfig("sqrt_man", 0.05, seed=7)
+    cfg, plain = _engine(dev, "qwen3-4b", "bfloat16", False, faults=faults)
+    reqs = _trace(cfg)
+    ref = _served(plain.run(reqs), plain)
+    eng = Engine(plain.model, cfg, num_slots=3, cache_len=40, chunk=4, faults=faults,
+                 mesh=card_mesh, rules=sharding.serve_rules(cfg, card_mesh,
+                                                            replicate_params=exact))
+    del plain
+    eng.warmup(prompt_lens={3, 4, 5, 8, 12})
+    assert _served(eng.run(reqs), eng) == ref
+
+
+def test_mesh_slo_engine_equals_unsharded_on_the_card(card_mesh):
+    """Phase 19g at smoke width: the accuracy SLO under a pinned high-bit
+    sqrt schedule (canaries every other step demote the struck slots) on
+    the one-device mesh in exact mode: the unsharded SLO engine's tokens,
+    rung trails and counters, and its rungs after the run."""
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.engine import AccuracySLO
+
+    dev = torch.device("cuda")
+    kw = dict(faults=FaultConfig("sqrt_man", 1.0, seed=7, bit=21),
+              slo=AccuracySLO(canary_stride=2, rel_err_budget=0.05, divergence_budget=0,
+                              promote_after=2))
+    cfg, plain = _engine(dev, "qwen3-4b", "bfloat16", False, **kw)
+    reqs = _trace(cfg)
+    ref = _served(plain.run(reqs), plain)
+    assert ref[1]["canary_checks"] and ref[1]["demotions"]
+    eng = Engine(plain.model, cfg, num_slots=3, cache_len=40, chunk=4, mesh=card_mesh,
+                 rules=sharding.serve_rules(cfg, card_mesh, replicate_params=True), **kw)
+    levels = plain.unit_levels
+    del plain
+    assert _served(eng.run(reqs), eng) == ref and eng.unit_levels == levels
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-15b", "mixtral-8x22b", "qwen3-moe-235b-a22b",
+                                  "mamba2-2.7b", "recurrentgemma-2b", "whisper-small"])
+def test_mesh_family_equals_unsharded_on_the_card(card_mesh, arch):
+    """Phase 19h at smoke width: each family on the kernels (constant starts
+    moved), ``precompute_cross``/``prefill``/``generate_scan`` with
+    ``mesh=`` under the default tensor-parallel rules: the unsharded run's
+    logits and tokens, bit for bit."""
+    from repro_torch.distributed import sharding
+
+    dev = torch.device("cuda")
+    cfg = get_smoke_config(arch, sqrt_unit="e2afs", decode_kernel="fused")
+    model = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    with torch.no_grad():
+        for _, p in lm.constant_start_parameters(model):
+            p.add_((0.3 * torch.randn(p.shape, generator=gen, device=dev)).to(p.dtype))
+    b, s, n = 3, 12, 8
+    prompt = torch.randint(0, cfg.vocab, (b, s), generator=gen, device=dev)
+    audio = (torch.randn(b, cfg.encoder.n_ctx, cfg.d_model, generator=gen, device=dev)
+             if cfg.kind == "encdec" else None)
+    rules = sharding.serve_rules(cfg, card_mesh)
+    out = []
+    for m, mesh in ((model, None), (sharding.place_model(model, cfg, card_mesh, rules),
+                                    card_mesh)):
+        ckv = None if audio is None else lm.precompute_cross(m, cfg, audio, mesh=mesh)[0]
+        cache = lm.init_cache(cfg, b, s + n, device=dev)
+        logits, cache = lm.prefill(m, cfg, cache, prompt, cross_kv=ckv, mesh=mesh)
+        toks, _, _ = lm.generate_scan(m, cfg, cache, logits[:, -1:].argmax(-1), s, n,
+                                      cross_kv=ckv, mesh=mesh)
+        out.append((logits, toks))
+    assert _same_bits(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])

@@ -13,8 +13,9 @@ no JAX (this module imports it lazily, in the parent's fixtures), run with
 one torch thread each, meet through a ``file://`` rendezvous under the test's
 temporary directory (no port, so xdist workers never collide), and each
 writes its results to a file the parent reads; the parent builds its
-references (the port's unsharded engines, the JAX package's engines on the
-port's weights) while the ranks run.  The models are smoke configs, in
+references (the port's unsharded engines and logits, the JAX package's
+engines on the port's weights) while the ranks run, and one more spawned
+process the JAX package's tensor-parallel reference logits.  The models are smoke configs, in
 their default bfloat16, where a row of a CPU product does not depend on
 how many rows it is multiplied with, so a rank's block of slots computes
 the bits the whole pool does; and in float32, where the port's engine is
@@ -23,12 +24,19 @@ torch and XLA round bfloat16 products apart, so greedy bf16 tokens of the
 two packages can part after a few steps).
 
 Tolerances: exact-mode bf16 tokens bit-identical to the port's unsharded
-engine (dense, ring, int8); exact-mode float32 tokens equal to the JAX
-package's engine's (dense and ring); every rank's host results identical.  Tensor parallel (the default ``serve_rules``): the
-'model' axis's partial sums reassociate, so the contract is integrity
-(every request completes with its budget, tokens in the vocabulary) and
-float32 first-step logits within 1e-5 absolute of the unsharded ones
-(largest |logit| about 3.4).
+engine (dense, ring, int8, every family: MoE, SSD, RG-LRU, LayerNorm, and
+whisper-small through ``serve.generate``), with ``faults=`` (sqrt flips,
+logit NaNs, dispatch failures) and with ``slo=`` (tokens, rung history,
+counters); exact-mode float32 tokens equal to the JAX package's engine's
+(dense and ring, and a rate-1.0 pinned-bit fault schedule); every rank's
+host results identical.  Tensor parallel (the default ``serve_rules``):
+the 'model' axis's partial sums reassociate, so the contract is integrity
+(every request completes with its budget, tokens in the vocabulary, faults
+included) and float32 logits (prefill and one decode step) within 1e-5 x
+max(1, max |logit|) of the unsharded port's and of the JAX package's, for
+each family and for experts over 'data'.  A MoE routing choice that flips
+across the sum order (ROADMAP C.21) would hold that model on the unsharded
+run's choices (``route(choices=)``); the count of flips is printed.
 """
 import os
 import pickle
@@ -310,6 +318,68 @@ def test_refusals_before_any_device_work():
         Engine(None, cfg, spec=SpecConfig(k=2), mesh=_mesh())
 
 
+class _CudaMesh(MeshShape):
+    """A mesh's names and sizes on the card, for the refusals that come
+    before any device work."""
+
+    device_type = "cuda"
+
+
+def test_local_group_the_kernel_lacks_refuses_where_it_would_run():
+    """recurrentgemma-2b's 10 query heads a KV head over a 2-wide 'model'
+    axis leave a rank 5 (one KV head, replicated): the decode-attention
+    kernel does not instantiate G = 5, so placing it on a CUDA mesh with the
+    fused kernel raises before any device work, naming the group (the CPU's
+    plain route serves it: the world's tensor-parallel logits); the local
+    groups of the other ids are instantiated."""
+    mesh = _CudaMesh(("data", "model"), (2, 2))
+    cfg = get_config("recurrentgemma-2b", decode_kernel="fused")
+    assert sharding.local_group(cfg, mesh, serve_rules(cfg, mesh)) == 5
+    assert sharding.local_group(cfg, mesh, serve_rules(cfg, mesh, replicate_params=True)) == 10
+    model = lm.LM(cfg, device=torch.device("meta"))
+    with pytest.raises(ValueError, match="local group of 5"):
+        sharding.place_model(model, cfg, mesh, serve_rules(cfg, mesh))
+    from repro_torch.kernels.attention.ops import supports_group
+
+    for arch in LM_IDS:
+        full = get_config(arch)
+        if arch != "recurrentgemma-2b" and any(b in ("global", "window") for b in full.blocks):
+            assert supports_group(sharding.local_group(full, mesh, serve_rules(full, mesh))), arch
+
+
+def test_fault_mask_of_a_block_is_the_slice_of_the_whole():
+    """A (b, s, h, 1) qk-norm input cut over batch and heads (a tensor-
+    parallel rank's block): each block's ``fault_mask`` at its global origin
+    equals that slice of the whole tensor's, for every block and at every
+    rate, through ``faults.block`` (the fault sites' route).  Past 2^32
+    the index wraps as the reference's ``uint32`` arange: a block at global
+    offset 2^32 + 5 of a (2^33,) tensor strikes as elements 5.. of the
+    reference's own mask."""
+    import jax.numpy as jnp
+    from repro.core import faults as jax_faults
+
+    from repro_torch.core import faults
+
+    b, s, h = 4, 3, 6
+    bits = torch.randint(0, 2**31 - 1, (b, s, h, 1), generator=torch.Generator().manual_seed(0))
+    for rate in (0.3, 0.9):
+        whole = faults.fault_mask(bits, rate, 11)
+        np.testing.assert_array_equal(
+            whole.numpy(), np.asarray(jax_faults.fault_mask(jnp.asarray(bits.numpy()), rate, 11)))
+        for rows in ((0, 2), (2, 4)):
+            for heads in ((0, 3), (3, 6)):
+                blk = bits[rows[0]:rows[1], :, heads[0]:heads[1]]
+                with faults.block((rows[0], 0, heads[0], 0), (b, s, h, 1)):
+                    got = faults.fault_mask(blk, rate, 11)
+                np.testing.assert_array_equal(
+                    got.numpy(), whole[rows[0]:rows[1], :, heads[0]:heads[1]].numpy())
+    small = torch.randint(0, 2**31 - 1, (13,), generator=torch.Generator().manual_seed(1))
+    ref = np.asarray(jax_faults.fault_mask(jnp.asarray(small.numpy()), 0.5, 3))
+    with faults.block((2**32 + 5,), (2**33,)):
+        far = faults.fault_mask(small[5:], 0.5, 3)
+    np.testing.assert_array_equal(far.numpy(), ref[5:])
+
+
 # ---------------------------------------------------------------------------
 # The spawned world: 4 gloo ranks on a (2, 2) mesh
 # ---------------------------------------------------------------------------
@@ -325,13 +395,142 @@ def _requests(vocab, n, *, seed=0, prompts=(3, 5), gens=(2, 4, 7), stagger=True)
 
 
 def _model(arch, **kw):
+    """The smoke model of ``arch`` from seed 0, its constant starts moved
+    (a fresh RG-LRU computes nothing; ROADMAP C.24)."""
     cfg = get_smoke_config(arch, sqrt_unit="e2afs", **kw)
-    return cfg, lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    model = lm.init(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for _, p in lm.constant_start_parameters(model):
+            p.add_((0.1 * torch.randn(p.shape, generator=gen)).to(p.dtype))
+    return cfg, model
+
+
+def _tp_inputs(cfg):
+    """(prompt (b, s), the decode step's tokens (b, 1), audio or None)."""
+    gen = torch.Generator().manual_seed(1)
+    b = TP_PROMPT[0]
+    prompt = torch.randint(0, cfg.vocab, TP_PROMPT, generator=gen)
+    tok = torch.randint(0, cfg.vocab, (b, 1), generator=gen)
+    audio = (torch.randn((b, cfg.encoder.n_ctx, cfg.d_model), generator=gen)
+             if cfg.kind == "encdec" else None)
+    return prompt, tok, audio
+
+
+class _Routing:
+    """Record every ``moe.route`` call's choices (``record``), or hold the
+    calls to given ones (``replay``, the whole batch's; a rank takes its
+    rows)."""
+
+    def __init__(self, replay=None):
+        self.record, self.replay = [], list(replay) if replay is not None else None
+
+    def __enter__(self):
+        from repro_torch.distributed.constraints import block_origin
+        from repro_torch.layers import moe
+
+        self._route = plain = moe.route
+
+        def route(router, x, k, cap, choices=None):
+            if self.replay is not None:
+                (r0,), _ = block_origin(("batch",), (x.shape[0],))
+                choices = self.replay.pop(0)[r0:r0 + x.shape[0]]
+            out = plain(router, x, k, cap, choices)
+            self.record.append(out[2])
+            return out
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import moe
+
+        moe.route = self._route
+
+
+def _tp_logits(cfg, model, mesh=None, rules=None):
+    """Prefill and one decode step of ``model`` (float32) over
+    :func:`_tp_inputs`: (prefill logits (b, s, V), step logits (b, 1, V)),
+    the whole batch.  With a mesh, ``model`` is placed by ``rules`` and the
+    rows are the rank's."""
+    from repro_torch.distributed.constraints import maybe_axis_rules
+
+    prompt, tok, audio = _tp_inputs(cfg)
+    cache = lm.init_cache(cfg, TP_PROMPT[0], TP_CACHE, device="cpu")
+    if mesh is not None:
+        model = sharding.place_model(model, cfg, mesh, rules)
+        like = lm.init_cache(cfg, TP_PROMPT[0], TP_CACHE, abstract=True)
+        cache = sharding.local_tree(sharding.zeros_tree(like, sharding.shardings_for(
+            lm.cache_specs(cfg), mesh, rules, like)))
+        rows = sharding.shardings_for(("batch", None), mesh, rules, prompt)
+        prompt, tok = sharding.place(prompt, rows).to_local(), sharding.place(tok, rows).to_local()
+        if audio is not None:
+            audio = sharding.place(audio, sharding.shardings_for(
+                ("batch", None, None), mesh, rules, audio)).to_local()
+    ckv = None if audio is None else lm.precompute_cross(model, cfg, audio, mesh=mesh,
+                                                         rules=rules)[0]
+    first, cache = lm.prefill(model, cfg, cache, prompt, cross_kv=ckv, mesh=mesh, rules=rules)
+    with maybe_axis_rules(mesh, rules):
+        step, _ = lm.decode_step(model, cfg, cache, tok, TP_PROMPT[1], cross_kv=ckv)
+    if mesh is not None:
+        out = sharding.shardings_for(("batch", None, None), mesh, rules, first)
+        first, step = sharding.gather(first, out), sharding.gather(step, out)
+    return first.numpy(), step.numpy()
+
+
+def _tp_family(mesh, arch, expert) -> dict:
+    """The rank's side of a TP logits case: the gathered logits and, for
+    experts, the routing flips against the unsharded run (then the logits
+    held to its choices)."""
+    cfg, model = _model(arch, act_dtype="float32")
+    rules = serve_rules(cfg, mesh)
+    if expert is not None:
+        rules["expert"] = expert
+    if cfg.moe is None:
+        return {"logits": _tp_logits(cfg, model, mesh, rules), "flips": None}
+    with _Routing() as plain:
+        _tp_logits(cfg, model)
+    with _Routing() as free:
+        logits = _tp_logits(cfg, model, mesh, rules)
+    from repro_torch.distributed.constraints import block_origin, maybe_axis_rules
+
+    flips = 0
+    with maybe_axis_rules(mesh, rules):
+        for a, b in zip(plain.record, free.record):
+            (r0,), _ = block_origin(("batch",), (b.shape[0],))
+            flips += int((a[r0:r0 + b.shape[0]] != b).sum())
+    if flips:
+        with _Routing(replay=plain.record):
+            logits = _tp_logits(cfg, model, mesh, rules)
+    return {"logits": logits, "flips": flips}
 
 
 # (arch, slots, requests, quantized): 4 slots, one a rank; 2 slots, over
-# 'data' and replicated over 'model'; 3 slots, indivisible, replicated
-EXACT = (("qwen3-4b", 4, 7, False), ("gemma3-1b", 2, 7, False), ("qwen3-4b", 3, 5, True))
+# 'data' and replicated over 'model'; 3 slots, indivisible, replicated; and
+# each family the port serves, 4 slots
+FAMILIES = ("mixtral-8x22b", "qwen3-moe-235b-a22b", "mamba2-2.7b", "recurrentgemma-2b",
+            "gemma3-1b", "starcoder2-15b", "whisper-small")
+EXACT = (("qwen3-4b", 4, 7, False), ("gemma3-1b", 2, 7, False), ("qwen3-4b", 3, 5, True),
+         ("mixtral-8x22b", 4, 5, False), ("qwen3-moe-235b-a22b", 4, 5, False),
+         ("mamba2-2.7b", 4, 5, False), ("recurrentgemma-2b", 4, 5, False),
+         ("starcoder2-15b", 4, 5, False))
+# tensor-parallel logits: (arch, rules["expert"] override)
+TP = tuple((arch, None) for arch in FAMILIES) + (("qwen3-moe-235b-a22b", "data"),)
+TP_CACHE = 12
+# the fault schedules the exact mode serves (bf16 qwen3-4b, 4 slots)
+FAULTS = {"sqrt": dict(site="sqrt_man", rate=0.3, seed=3),
+          "nan": dict(site="logit_nan", rate=0.5, seed=1),
+          "dispatch": dict(site="dispatch", rate=0.4, seed=5)}
+FAULT_KW = {"nan": dict(quarantine_retries=1)}
+# float32 against the JAX package: a rate-1.0 pinned-bit schedule (C.17)
+PINNED = dict(site="sqrt_man", rate=1.0, seed=7, bit=5)
+# the accuracy SLO under pressure: canaries every other step demote the
+# struck slots, clean streaks promote them
+PRESSURE = dict(site="sqrt_man", rate=1.0, seed=7, bit=21)
+SLO = dict(canary_stride=2, rel_err_budget=0.05, divergence_budget=0, promote_after=2)
+COUNTERS = ("faults_detected", "quarantine_retries", "exact_fallbacks", "dispatch_faults",
+            "dispatch_retries", "canary_checks", "canary_divergences", "canary_max_rel_err",
+            "demotions", "promotions", "n_ok", "n_degraded", "n_failed")
 # (arch, slots): float32, against the JAX package's engine
 EXACT_F32 = (("qwen3-4b", 4), ("gemma3-1b", 2))
 TP_PROMPT = (4, 6)
@@ -339,6 +538,24 @@ TP_PROMPT = (4, 6)
 
 def _tokens(done) -> dict:
     return {uid: np.asarray(c.tokens) for uid, c in done.items()}
+
+
+def _served(eng, done) -> dict:
+    """What an engine under faults or an SLO must reproduce: each request's
+    tokens, status, trips and rung trail, and the run's counters."""
+    return {"tokens": _tokens(done),
+            "audit": {uid: (c.status, c.trips, c.unit_final, c.canary_checks,
+                            c.canary_divergences, repr(c.unit_trips))
+                      for uid, c in done.items()},
+            "counters": {k: eng.stats[k] for k in COUNTERS}}
+
+
+def _telemetry(path) -> list:
+    """The telemetry's chunk records without their clock fields."""
+    from repro_torch.launch.telemetry import read_telemetry
+
+    return [{k: v for k, v in r.items() if k not in ("t", "tok_s")}
+            for r in read_telemetry(path) if r.get("kind") == "chunk"]
 
 
 def _finished(path) -> list:
@@ -355,6 +572,7 @@ def _rank_scenarios(rank: int, tmp: str) -> dict:
 
     from repro_torch.launch.mesh import make_production_mesh
 
+    t0 = time.perf_counter()
     mesh = make_production_mesh(shape=(2, 2), device="cpu")
     out = {"coordinate": tuple(mesh.get_coordinate())}
     kw = dict(cache_len=CACHE, chunk=3)
@@ -396,16 +614,55 @@ def _rank_scenarios(rank: int, tmp: str) -> dict:
                            mesh=mesh, rules=rules)
     out["tp/logits"] = sharding.gather(logits, rows).numpy()
 
-    # serve.generate on the mesh, exact rules
-    gcfg = get_smoke_config("qwen3-4b", sqrt_unit="e2afs")
-    out["generate"] = serve.generate(
-        "qwen3-4b", batch=4, prompt_len=5, gen_len=6, reps=1, verbose=False, device="cpu",
-        mesh=mesh, rules=serve_rules(gcfg, mesh, replicate_params=True))[0].numpy()
+    # serve.generate on the mesh, exact rules (whisper-small with its audio)
+    for arch in ("qwen3-4b", "whisper-small"):
+        gcfg = get_smoke_config(arch, sqrt_unit="e2afs")
+        out[f"generate/{arch}"] = serve.generate(
+            arch, batch=4, prompt_len=5, gen_len=6, reps=1, verbose=False, device="cpu",
+            mesh=mesh, rules=serve_rules(gcfg, mesh, replicate_params=True))[0].numpy()
 
-    # the options that refuse a mesh
+    # every family under the default tensor-parallel rules: float32 logits
+    for arch, expert in TP:
+        out[f"tp/{arch}/{expert}"] = _tp_family(mesh, arch, expert)
+    # every model id places, and an Engine takes it, under both rule tables
+    placed = {}
+    for arch in LM_IDS:
+        pcfg, pmodel = _model(arch)
+        for name, prules in (("tp", serve_rules(pcfg, mesh)),
+                             ("exact", serve_rules(pcfg, mesh, replicate_params=True))):
+            Engine(pmodel, pcfg, num_slots=4, mesh=mesh, rules=prules, **kw)
+            placed[f"{arch}/{name}"] = True
+    out["placed"] = placed
+    # experts over 'data' in the engine: every rank runs each admission
+    mcfg, mmodel = _model("qwen3-moe-235b-a22b")
+    mrules = serve_rules(mcfg, mesh)
+    mrules["expert"] = "data"
+    eng = Engine(mmodel, mcfg, num_slots=4, mesh=mesh, rules=mrules, **kw)
+    out["tp/expert-data/tokens"] = _tokens(eng.run(_requests(mcfg.vocab, 5)))
+
+    # faults= and slo= on the mesh
     from repro_torch.core.faults import FaultConfig
     from repro_torch.launch.engine import AccuracySLO
 
+    exact = serve_rules(cfg, mesh, replicate_params=True)
+    for name, fc in FAULTS.items():
+        eng = Engine(model, cfg, num_slots=4, mesh=mesh, rules=exact,
+                     faults=FaultConfig(**fc), **FAULT_KW.get(name, {}), **kw)
+        out[f"faults/{name}"] = _served(eng, eng.run(_requests(cfg.vocab, 6)))
+    eng = Engine(model, cfg, num_slots=4, mesh=mesh, rules=serve_rules(cfg, mesh),
+                 faults=FaultConfig(**FAULTS["sqrt"]), **kw)
+    out["faults/tp"] = _tokens(eng.run(_requests(cfg.vocab, 6)))
+    eng = Engine(model32, cfg32, num_slots=4, mesh=mesh, faults=FaultConfig(**PINNED),
+                 rules=serve_rules(cfg32, mesh, replicate_params=True), **kw)
+    out["faults/pinned_f32"] = _tokens(eng.run(_requests(cfg32.vocab, 7)))
+    tele = os.path.join(tmp, "telemetry-mesh.jsonl")
+    eng = Engine(model, cfg, num_slots=4, mesh=mesh, rules=exact, faults=FaultConfig(**PRESSURE),
+                 slo=AccuracySLO(**SLO), telemetry=tele, **kw)
+    out["slo"] = _served(eng, eng.run(_requests(cfg.vocab, 6)))
+    if rank == 0:
+        out["slo/telemetry"] = _telemetry(tele)
+
+    # spec= still refuses a mesh; faults= and slo= do not
     refusals = {}
     for name, extra in (("spec", dict(spec=SpecConfig(k=2))),
                         ("faults", dict(faults=FaultConfig(site="sqrt_man", rate=1.0))),
@@ -437,6 +694,7 @@ def _rank_scenarios(rank: int, tmp: str) -> dict:
         Engine.resume(model, cfg, snap, journal=jpath, chunk=3).run([])
         out["off_mesh"] = _finished(jpath)
     dist.barrier()
+    out["seconds"] = time.perf_counter() - t0
     return out
 
 
@@ -456,7 +714,7 @@ def _rank_main(rank: int, init_file: str, tmp: str) -> None:
         dist.destroy_process_group()
 
 
-def _references() -> dict:
+def _references(tmp) -> dict:
     """The parent's side: the port's unsharded engines, the JAX package's
     engines on the port's weights, unsharded float32 logits and
     ``generate``."""
@@ -471,21 +729,59 @@ def _references() -> dict:
     threads = torch.get_num_threads()
     torch.set_num_threads(1)  # these smoke shapes run fastest on one thread
     try:
-        ref.update(_port_references())
+        ref.update(_port_references(tmp))
     finally:
         torch.set_num_threads(threads)
-    for arch, _ in EXACT_F32:
+    from repro.core.faults import FaultConfig as JaxFaultConfig
+
+    for arch, faults in [(a, None) for a, _ in EXACT_F32] + [("qwen3-4b", PINNED)]:
         cfg, model = _model(arch, act_dtype="float32")
         params = jax.tree.map(jax.numpy.asarray, convert.params_to_numpy(model))
         jreqs = [JaxRequest(uid=r.uid, prompt=r.prompt, max_new_tokens=r.max_new_tokens,
                             arrival_s=r.arrival_s) for r in _requests(cfg.vocab, 7)]
         jeng = JaxEngine(params, jax_smoke(arch, sqrt_unit="e2afs", act_dtype="float32"),
-                         num_slots=2, **kw)
-        ref[f"jax/{arch}"] = _tokens(jeng.run(jreqs))
+                         num_slots=2, faults=faults and JaxFaultConfig(**faults), **kw)
+        ref[f"jax/{arch}" + ("/pinned" if faults else "")] = _tokens(jeng.run(jreqs))
     return ref
 
 
-def _port_references() -> dict:
+def _jax_main(tmp: str) -> None:
+    """The JAX package's unsharded float32 logits of every family over
+    :func:`_tp_inputs` on the port's weights (prefill, then one decode
+    step; one jitted call a family), in a process beside the parent's,
+    pickled to ``jax_tp.pkl``."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.models import lm as jax_lm
+
+    torch.set_num_threads(1)
+
+    @functools.partial(jax.jit, static_argnums=1)
+    def logits(params, jcfg, cache, prompt, tok, audio):
+        ckv = None if audio is None else jax_lm.precompute_cross(params, jcfg, audio)[0]
+        first, cache = jax_lm.prefill(params, jcfg, cache, prompt, cross_kv=ckv)
+        step, _ = jax_lm.decode_step(params, jcfg, cache, tok, jnp.int32(TP_PROMPT[1]),
+                                     cross_kv=ckv)
+        return first, step
+
+    out = {}
+    for arch in FAMILIES:
+        cfg, model = _model(arch, act_dtype="float32")
+        params = jax.tree.map(jnp.asarray, convert.params_to_numpy(model))
+        jcfg = jax_smoke(arch, sqrt_unit="e2afs", act_dtype="float32")
+        cache, _ = jax_lm.init_cache(jcfg, TP_PROMPT[0], TP_CACHE)
+        inputs = (None if t is None else jnp.asarray(t.numpy()) for t in _tp_inputs(cfg))
+        out[f"jax/tp/{arch}"] = tuple(np.asarray(x, np.float32)
+                                      for x in logits(params, jcfg, cache, *inputs))
+    with open(os.path.join(tmp, "jax_tp.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _port_references(tmp) -> dict:
     ref = {}
     kw = dict(cache_len=CACHE, chunk=3)
     for arch, slots, n, quantized in EXACT:
@@ -501,8 +797,23 @@ def _port_references() -> dict:
     logits, _ = lm.prefill(model32, cfg32, lm.init_cache(cfg32, TP_PROMPT[0], 16, device="cpu"),
                            prompt)
     ref["tp/logits"] = logits.numpy()
-    ref["generate"] = serve.generate("qwen3-4b", batch=4, prompt_len=5, gen_len=6, reps=1,
-                                     verbose=False, device="cpu")[0].numpy()
+    for arch in ("qwen3-4b", "whisper-small"):
+        ref[f"generate/{arch}"] = serve.generate(arch, batch=4, prompt_len=5, gen_len=6, reps=1,
+                                                 verbose=False, device="cpu")[0].numpy()
+    for arch in FAMILIES:
+        ref[f"tp/{arch}"] = _tp_logits(*_model(arch, act_dtype="float32"))
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.launch.engine import AccuracySLO
+
+    for name, fc in FAULTS.items():
+        eng = Engine(model, cfg, num_slots=4, faults=FaultConfig(**fc),
+                     **FAULT_KW.get(name, {}), **kw)
+        ref[f"faults/{name}"] = _served(eng, eng.run(_requests(cfg.vocab, 6)))
+    tele = os.path.join(tmp, "telemetry-one.jsonl")
+    eng = Engine(model, cfg, num_slots=4, faults=FaultConfig(**PRESSURE), slo=AccuracySLO(**SLO),
+                 telemetry=tele, **kw)
+    ref["slo"] = _served(eng, eng.run(_requests(cfg.vocab, 6)))
+    ref["slo/telemetry"] = _telemetry(tele)
     return ref
 
 
@@ -516,15 +827,23 @@ def world(tmp_path_factory):
     t0 = time.perf_counter()
     ctx = mp.start_processes(_rank_main, args=(str(tmp / "rendezvous"), str(tmp)),
                              nprocs=WORLD, join=False, start_method="spawn")
+    helper = mp.get_context("spawn").Process(target=_jax_main, args=(str(tmp),))
+    helper.start()
     try:
-        ref = _references()
-        while not ctx.join(timeout=5):
+        ref = _references(str(tmp))
+        ref["seconds"] = time.perf_counter() - t0
+        helper.join(timeout=max(1.0, 240 - (time.perf_counter() - t0)))
+        if helper.exitcode != 0:
+            raise RuntimeError(f"the JAX helper process ended with {helper.exitcode}")
+        while not ctx.join(timeout=0.5):
             if time.perf_counter() - t0 > 240:
                 raise TimeoutError("the 4-rank world did not finish in 240 s")
     finally:
-        for p in ctx.processes:
+        for p in ctx.processes + [helper]:
             if p.is_alive():
                 p.terminate()
+    with open(tmp / "jax_tp.pkl", "rb") as f:
+        ref.update(pickle.load(f))
     ranks = []
     for r in range(WORLD):
         with open(tmp / f"rank{r}.pkl", "rb") as f:
@@ -537,7 +856,9 @@ def _equal(a: dict, b: dict) -> bool:
 
 
 def test_world_coordinates_are_data_major(world):
-    ranks, _ = world
+    ranks, ref = world
+    print(f"world: ranks {[round(r['seconds'], 1) for r in ranks]} s, parent "
+          f"{ref['seconds']:.1f} s")
     assert [r["coordinate"] for r in ranks] == [(0, 0), (0, 1), (1, 0), (1, 1)]
 
 
@@ -593,18 +914,108 @@ def test_tp_mode_integrity_and_logits(world):
 
 
 def test_generate_on_mesh_equals_unsharded(world):
+    """``serve.generate(mesh=)`` in exact mode: qwen3-4b, and whisper-small
+    with its audio through the encoder, the unsharded tokens on every
+    rank."""
     ranks, ref = world
-    for r in ranks:
-        np.testing.assert_array_equal(r["generate"], ref["generate"])
+    for arch in ("qwen3-4b", "whisper-small"):
+        for r in ranks:
+            np.testing.assert_array_equal(r[f"generate/{arch}"], ref[f"generate/{arch}"])
 
 
 def test_options_without_a_mesh_path_refuse(world):
-    """spec= is refused as in the reference; faults= and slo= raise naming
-    their ROADMAP items."""
+    """spec= is still refused on a mesh, as in the reference; faults= and
+    slo= now build an engine on it."""
     refusals = world[0][0]["refusals"]
     assert refusals["spec"].startswith("ValueError") and "mesh" in refusals["spec"]
-    assert refusals["faults"].startswith("NotImplementedError") and "A.7a" in refusals["faults"]
-    assert refusals["slo"].startswith("NotImplementedError") and "A.7b" in refusals["slo"]
+    assert refusals["faults"] is None and refusals["slo"] is None
+
+
+@pytest.mark.parametrize("arch,expert", TP)
+def test_tp_logits_per_family(world, arch, expert):
+    """Float32 under the default ``serve_rules`` (experts over 'data' for
+    the override): prefill and one decode step's logits on every rank within
+    1e-5 x max(1, max |logit|) of the unsharded port's and of the JAX
+    package's on the same weights and inputs.  A MoE model's routing flips
+    (none expected) are printed, and the logits are then held on the
+    unsharded run's choices."""
+    ranks, ref = world
+    want, jax_want = ref[f"tp/{arch}"], ref[f"jax/tp/{arch}"]
+    for r in ranks:
+        got = r[f"tp/{arch}/{expert}"]
+        if got["flips"] is not None:
+            print(f"{arch} (experts over {expert}): {got['flips']} routing choices flip on rank "
+                  f"{r['coordinate']}")
+        for g, w, j in zip(got["logits"], want, jax_want):
+            assert g.shape == w.shape == j.shape
+            tol = 1e-5 * max(1.0, float(np.abs(w).max()))
+            np.testing.assert_allclose(g, w, atol=tol, rtol=0)
+            np.testing.assert_allclose(g, j, atol=tol, rtol=0)
+
+
+def test_every_model_id_places_under_both_rule_tables(world):
+    """``place_model`` and ``Engine(mesh=)`` take every model id under the
+    default tensor-parallel rules and under exact mode on the (2, 2) world
+    (the CPU runs no kernel, so no local group is refused)."""
+    for r in world[0]:
+        assert r["placed"] == {f"{a}/{m}": True for a in LM_IDS for m in ("tp", "exact")}
+
+
+@pytest.mark.parametrize("name", sorted(FAULTS))
+def test_faults_in_exact_mode_match_the_unsharded_engine(world, name):
+    """Exact mode under ``faults=``: sqrt mantissa flips at rate 0.3 (each
+    element hashed at its global index), logit NaNs at rate 0.5 (quarantine,
+    the exact fallback) and dispatch failures at rate 0.4 (retries): the
+    unsharded engine's tokens, statuses, trips and counters on every
+    rank."""
+    ranks, ref = world
+    want = ref[f"faults/{name}"]
+    if name == "nan":
+        assert want["counters"]["faults_detected"] > 0
+    if name == "dispatch":
+        assert want["counters"]["dispatch_retries"] > 0
+    for r in ranks:
+        got = r[f"faults/{name}"]
+        assert _equal(got["tokens"], want["tokens"]), (name, r["coordinate"])
+        assert got["audit"] == want["audit"] and got["counters"] == want["counters"]
+
+
+def test_pinned_faults_token_exact_against_the_jax_engine(world):
+    """Float32 exact mode under a rate-1.0 pinned-bit sqrt schedule serves
+    the JAX package's unsharded faulted engine's tokens (C.17)."""
+    ranks, ref = world
+    for r in ranks:
+        assert _equal(r["faults/pinned_f32"], ref["jax/qwen3-4b/pinned"]), r["coordinate"]
+
+
+def test_faults_under_tp_and_experts_over_data_keep_integrity(world):
+    """Tensor parallel with sqrt faults, and a MoE engine with experts over
+    'data' (every rank runs each admission): every request completes with
+    its budget, tokens in the vocabulary, the same on every rank."""
+    ranks, _ = world
+    for key, arch, n in (("faults/tp", "qwen3-4b", 6),
+                         ("tp/expert-data/tokens", "qwen3-moe-235b-a22b", 5)):
+        cfg = get_smoke_config(arch)
+        reqs = {r.uid: r for r in _requests(cfg.vocab, n)}
+        toks = ranks[0][key]
+        assert set(toks) == set(reqs), key
+        for uid, t in toks.items():
+            assert len(t) == reqs[uid].max_new_tokens and t.min() >= 0 and t.max() < cfg.vocab
+        assert all(_equal(r[key], toks) for r in ranks), key
+
+
+def test_slo_in_exact_mode_bit_identical_to_unsharded(world):
+    """``Engine(mesh=, slo=)`` in exact mode, canaries every other step under
+    a pinned high-bit sqrt schedule: the unsharded SLO engine's tokens, each
+    request's rung history and canary audit, the counters and rank 0's
+    telemetry records (clock fields aside), bit for bit."""
+    ranks, ref = world
+    want = ref["slo"]
+    assert want["counters"]["demotions"] > 0 and want["counters"]["canary_checks"] > 0
+    for r in ranks:
+        assert _equal(r["slo"]["tokens"], want["tokens"]), r["coordinate"]
+        assert r["slo"]["audit"] == want["audit"] and r["slo"]["counters"] == want["counters"]
+    assert ranks[0]["slo/telemetry"] == ref["slo/telemetry"]
 
 
 def test_snapshot_resumes_across_mesh_shapes(world):
