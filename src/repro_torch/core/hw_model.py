@@ -28,7 +28,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Tuple
 
-__all__ = ["Netlist", "NETLISTS", "cost", "calibrated_table", "PAPER_TABLE3"]
+__all__ = ["Netlist", "NETLISTS", "cost", "calibrated_table", "PAPER_TABLE3", "ChipModel",
+           "H100_SXM", "chip_for_device"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +98,72 @@ def cost(name: str) -> Dict[str, float]:
     switching += n.rom_bits * _TOGGLE["rom"]
     switching += 6.0  # I/O register floor
     return {"area": area, "depth": depth, "switching": switching}
+
+
+# ---------------------------------------------------------------------------
+# Chip-level roofline constants
+# ---------------------------------------------------------------------------
+#
+# The unit-gate model above prices one datapath; kernel tiling needs what one
+# chip sustains a second and what one block of a launch costs.  The
+# roofline that narrows a tile sweep (kernels/tuning.py) and the dry run's
+# roofline (launch/dryrun.py) read them from here.
+
+
+@dataclasses.dataclass(frozen=True)
+class ChipModel:
+    """Per-chip roofline terms for the tile-time prior (the reference's
+    dataclass, field for field).
+
+    ``peak_flops`` is the op rate the tile's work is priced at, ``hbm_bw``
+    the device memory rate, ``vmem_bytes`` the fast memory a tile must fit
+    in (a block's shared memory on the card), ``step_overhead_s`` the fixed
+    cost of one grid step (one block of a launch on the card)."""
+
+    name: str
+    peak_flops: float  # op/s the tile pipeline retires
+    hbm_bw: float  # bytes/s
+    vmem_bytes: int  # per-block fast-memory budget a tile must fit in
+    step_overhead_s: float  # fixed cost per grid step
+
+
+H100_SXM = ChipModel(
+    name="nvidia-h100-sxm",
+    # dense bf16 tensor-core peak, NVIDIA H100 SXM data sheet (989.4 TFLOP/s
+    # at the 700 W limit)
+    peak_flops=989.4e12,
+    # HBM3 rate, the same data sheet; the rate every bound in PERF.md uses
+    hbm_bw=3.35e12,
+    # shared memory one block can use (232,448 bytes of the SM's 256 KB),
+    # the CUDA C++ programming guide's table for compute capability 9.0
+    vmem_bytes=232_448,
+    # fitted: RMSNorm's (8, 2560) bfloat16 decode launch, which moves 82 KB
+    # (0.000026 ms at the HBM rate) in 8 blocks, took 0.00214 ms of device
+    # time on an NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py phase 5, the
+    # kernel table of PERF.md): (0.00214 - 0.000026) ms / 8 blocks.  Phase 20
+    # prints the same fit from its own run.
+    step_overhead_s=(0.00214e-3 - 0.000026e-3) / 8,
+)
+
+# the name torch.cuda.get_device_name gives the card H100_SXM models (the
+# PCIe and NVL parts have other rates and names)
+_H100_NAME = "NVIDIA H100 80GB HBM3"
+
+
+def chip_for_device(device) -> ChipModel:
+    """The chip model of ``device``'s card: :data:`H100_SXM` for an H100.
+    Raises for the CPU and for any other card, naming it, rather than
+    guessing its constants."""
+    import torch
+
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"no chip model for device {device}: the tile prior models the card")
+    name = torch.cuda.get_device_name(device)
+    if name != _H100_NAME:
+        raise ValueError(f"no chip model for {name!r}: only the H100 ({H100_SXM.name}) is "
+                         f"modelled")
+    return H100_SXM
 
 
 def calibrated_table() -> Dict[str, Dict[str, float]]:

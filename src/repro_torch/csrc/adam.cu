@@ -9,6 +9,10 @@
 // an element for float32 p and g) against about 15 float and 14 integer
 // operations.  Design: one grid-stride pass, one thread per element, a few
 // resident blocks per SM; nothing is staged, since no element is read twice.
+// The tile, threads a block x blocks an SM, is a launch argument
+// (kernels/adam/ops.py's TilingSpec; today's launch and the default: 256 x
+// 8); every tile gives the same bits, each element's arithmetic being the
+// same.
 //
 // Arithmetic: the plain version's order (kernels/adam/ref.py, the
 // reference's ref_adam_update and TPU kernel), ((1 - b2) * g) * g included,
@@ -30,10 +34,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
-constexpr int THREADS = 256;
-constexpr int BLOCKS_PER_SM = 8;
-
-template <class P, class G>
+template <class P, class G, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 adam_kernel(P* __restrict__ p, const G* __restrict__ g, float* __restrict__ m,
             float* __restrict__ v, const float* __restrict__ sched, long long n, float b1,
@@ -56,35 +57,55 @@ adam_kernel(P* __restrict__ p, const G* __restrict__ g, float* __restrict__ m,
   }
 }
 
-template <class P, class G>
-int launch(void* p, const void* g, void* m, void* v, const void* sched, long long n, float b1,
-           float omb1, float b2, float omb2, float eps, float wd, cudaStream_t stream) {
+template <class P, class G, int THREADS>
+int launch_tile(void* p, const void* g, void* m, void* v, const void* sched, long long n,
+                float b1, float omb1, float b2, float omb2, float eps, float wd,
+                int blocks_per_sm, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   const long long want = (n + THREADS - 1) / THREADS;
-  const long long cap = static_cast<long long>(sms > 0 ? sms : 132) * BLOCKS_PER_SM;
+  const long long cap = static_cast<long long>(sms > 0 ? sms : 132) * blocks_per_sm;
   const int blocks = static_cast<int>(want < cap ? want : cap);
-  adam_kernel<P, G><<<blocks, THREADS, 0, stream>>>(
+  adam_kernel<P, G, THREADS><<<blocks, THREADS, 0, stream>>>(
       static_cast<P*>(p), static_cast<const G*>(g), static_cast<float*>(m),
       static_cast<float*>(v), static_cast<const float*>(sched), n, b1, omb1, b2, omb2, eps, wd);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The threads a block the kernel is instantiated for: those of the
+// TilingSpec's candidates of kernels/adam/ops.py.
+template <class P, class G>
+int launch(void* p, const void* g, void* m, void* v, const void* sched, long long n, float b1,
+           float omb1, float b2, float omb2, float eps, float wd, int threads, int blocks_per_sm,
+           cudaStream_t stream) {
+  if (blocks_per_sm < 1 || blocks_per_sm > 64) return static_cast<int>(cudaErrorInvalidValue);
+  switch (threads) {
+    case 128: return launch_tile<P, G, 128>(p, g, m, v, sched, n, b1, omb1, b2, omb2, eps, wd, blocks_per_sm, stream);
+    case 256: return launch_tile<P, G, 256>(p, g, m, v, sched, n, b1, omb1, b2, omb2, eps, wd, blocks_per_sm, stream);
+    case 512: return launch_tile<P, G, 512>(p, g, m, v, sched, n, b1, omb1, b2, omb2, eps, wd, blocks_per_sm, stream);
+    case 1024: return launch_tile<P, G, 1024>(p, g, m, v, sched, n, b1, omb1, b2, omb2, eps, wd, blocks_per_sm, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // p, g: n elements of float32 (code 0) or bfloat16 (code 1); m, v: n
-// float32; sched: 3 float32 on the device.  All contiguous, n >= 1.
-// Returns cudaGetLastError().
+// float32; sched: 3 float32 on the device.  All contiguous, n >= 1.  The
+// tile: threads a block (128, 256, 512 or 1024) x blocks an SM (1-64).
+// Returns cudaGetLastError(), or cudaErrorInvalidValue for what it does not
+// take.
 extern "C" int adam_launch(void* p, const void* g, void* m, void* v, const void* sched,
                            long long n, int p_code, int g_code, float b1, float omb1, float b2,
-                           float omb2, float eps, float wd, void* stream) {
+                           float omb2, float eps, float wd, int threads, int blocks_per_sm,
+                           void* stream) {
   if (n < 1 || p_code < 0 || p_code > 1 || g_code < 0 || g_code > 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (p_code == 0 && g_code == 0) return launch<float, float>(p, g, m, v, sched, n, b1, omb1, b2, omb2, eps, wd, s);
-  if (p_code == 0) return launch<float, __nv_bfloat16>(p, g, m, v, sched, n, b1, omb1, b2, omb2, eps, wd, s);
-  if (g_code == 0) return launch<__nv_bfloat16, float>(p, g, m, v, sched, n, b1, omb1, b2, omb2, eps, wd, s);
-  return launch<__nv_bfloat16, __nv_bfloat16>(p, g, m, v, sched, n, b1, omb1, b2, omb2, eps, wd, s);
+  if (p_code == 0 && g_code == 0) return launch<float, float>(p, g, m, v, sched, n, b1, omb1, b2, omb2, eps, wd, threads, blocks_per_sm, s);
+  if (p_code == 0) return launch<float, __nv_bfloat16>(p, g, m, v, sched, n, b1, omb1, b2, omb2, eps, wd, threads, blocks_per_sm, s);
+  if (g_code == 0) return launch<__nv_bfloat16, float>(p, g, m, v, sched, n, b1, omb1, b2, omb2, eps, wd, threads, blocks_per_sm, s);
+  return launch<__nv_bfloat16, __nv_bfloat16>(p, g, m, v, sched, n, b1, omb1, b2, omb2, eps, wd, threads, blocks_per_sm, s);
 }

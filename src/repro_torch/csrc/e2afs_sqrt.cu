@@ -26,8 +26,11 @@
 //    value the integer lanes have half the time they have in float32, so
 //    the 16-bit formats look the mantissa's share of the word up in a table
 //    in shared memory (fill_terms below) instead of computing it.
-// kUnroll 2, 4 or 8 and 128 to 512 threads a block read within a few
-// percent of each other on the H100 (PERF.md, section 6).
+// The tile, threads a block x loads in flight a thread, is a launch
+// argument (kernels/e2afs_sqrt/ops.py's TilingSpec; today's launch and the
+// default: 256 x 4).  kUnroll 2, 4 or 8 and 128 to 512 threads a block read
+// within a few percent of each other on the H100 (PERF.md, section 6); every
+// tile gives the same bits (each element's datapath is the same).
 //
 // Deliberate difference from the TPU kernel: a positive subnormal gives +inf
 // under ftz, as the plain version (repro/core/e2afs.py::e2afs_rsqrt) does;
@@ -38,9 +41,6 @@
 #include "e2afs.cuh"
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kUnroll = 4;  // 16-byte loads a thread in flight
 
 template <class F>
 __host__ __device__ constexpr int values_per_vector() {
@@ -121,13 +121,13 @@ __device__ __forceinline__ uint4 unit_vector(uint4 v, const short* terms) {
   return make_uint4(packed[0], packed[1], packed[2], packed[3]);
 }
 
-// A thread's batch: the vectors i, i + stride, ..., i + (kUnroll - 1)
-// stride that lie below nvec, all loaded before any is computed on.
-template <class I>
+// A thread's batch: the vectors i, i + stride, ..., i + (U - 1) stride
+// that lie below nvec, all loaded before any is computed on.
+template <int U, class I>
 __device__ __forceinline__ void load_batch(const uint4* __restrict__ xv, I i, I stride, I nvec,
-                                           uint4 (&v)[kUnroll]) {
+                                           uint4 (&v)[U]) {
 #pragma unroll
-  for (int u = 0; u < kUnroll; ++u) {
+  for (int u = 0; u < U; ++u) {
     if (i + u * stride < nvec) v[u] = __ldcs(xv + i + u * stride);
   }
 }
@@ -137,7 +137,7 @@ __device__ __forceinline__ void load_batch(const uint4* __restrict__ xv, I i, I 
 // A thread's first batch goes out before its block fills the table; the
 // last batch of a thread may be partial, so every thread keeps loads in
 // flight to the end.
-template <class F, bool RSQRT, class I>
+template <class F, bool RSQRT, class I, int kThreads, int kUnroll>
 __global__ void __launch_bounds__(kThreads)
     unit_kernel(const typename F::Bits* __restrict__ x, typename F::Bits* __restrict__ y,
                 long long n, I head, I nvec) {
@@ -165,7 +165,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <class F, bool RSQRT, class I>
+template <class F, bool RSQRT, class I, int kThreads, int kUnroll>
 int launch_unit(const void* x, void* y, long long n, cudaStream_t stream) {
   using B = typename F::Bits;
   constexpr int V = values_per_vector<F>();
@@ -176,7 +176,7 @@ int launch_unit(const void* x, void* y, long long n, cudaStream_t stream) {
   static int resident = 0;  // blocks an SM holds at once, asked once
   if (resident == 0) {
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &resident, unit_kernel<F, RSQRT, I>, kThreads, 0);
+        &resident, unit_kernel<F, RSQRT, I, kThreads, kUnroll>, kThreads, 0);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   int device = 0, sms = 0;
@@ -185,24 +185,40 @@ int launch_unit(const void* x, void* y, long long n, cudaStream_t stream) {
   const long long want = (nvec + kThreads - 1) / kThreads;
   const long long fit = static_cast<long long>(sms) * resident;
   const int blocks = static_cast<int>(want < 1 ? 1 : (want < fit ? want : fit));
-  unit_kernel<F, RSQRT, I><<<blocks, kThreads, 0, stream>>>(
+  unit_kernel<F, RSQRT, I, kThreads, kUnroll><<<blocks, kThreads, 0, stream>>>(
       static_cast<const B*>(x), static_cast<B*>(y), n, static_cast<I>(head),
       static_cast<I>(nvec));
   return static_cast<int>(cudaGetLastError());
 }
 
+// The tiles the kernel is instantiated for (threads x unroll): the
+// TilingSpec's candidates of kernels/e2afs_sqrt/ops.py.
 template <class F, bool RSQRT>
-int launch(const void* x, void* y, long long n, cudaStream_t stream) {
+int launch_tile(const void* x, void* y, long long n, int threads, int unroll,
+                cudaStream_t stream) {
   // 32-bit offsets while vector indices, plus a pass of the grid, stay
-  // below 2^31 (the grid is at most a few hundred thousand threads)
+  // below 2^31 (the grid is at most a few hundred thousand threads); past
+  // that, the default tile on 64-bit offsets
   const long long nvec = n / values_per_vector<F>();
-  if (nvec < (1LL << 30)) return launch_unit<F, RSQRT, unsigned>(x, y, n, stream);
-  return launch_unit<F, RSQRT, unsigned long long>(x, y, n, stream);
+  if (nvec >= (1LL << 30)) {
+    return launch_unit<F, RSQRT, unsigned long long, 256, 4>(x, y, n, stream);
+  }
+  const int tile = threads * 100 + unroll;
+  switch (tile) {
+    case 128 * 100 + 16: return launch_unit<F, RSQRT, unsigned, 128, 16>(x, y, n, stream);
+    case 256 * 100 + 4: return launch_unit<F, RSQRT, unsigned, 256, 4>(x, y, n, stream);
+    case 256 * 100 + 8: return launch_unit<F, RSQRT, unsigned, 256, 8>(x, y, n, stream);
+    case 512 * 100 + 2: return launch_unit<F, RSQRT, unsigned, 512, 2>(x, y, n, stream);
+    case 512 * 100 + 4: return launch_unit<F, RSQRT, unsigned, 512, 4>(x, y, n, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 template <class F>
-int launch_format(const void* x, void* y, long long n, int rsqrt, cudaStream_t stream) {
-  return rsqrt ? launch<F, true>(x, y, n, stream) : launch<F, false>(x, y, n, stream);
+int launch_format(const void* x, void* y, long long n, int rsqrt, int threads, int unroll,
+                  cudaStream_t stream) {
+  return rsqrt ? launch_tile<F, true>(x, y, n, threads, unroll, stream)
+               : launch_tile<F, false>(x, y, n, threads, unroll, stream);
 }
 
 // The first design, kept as phase 5's yardstick: a grid-stride loop of one
@@ -324,20 +340,21 @@ extern "C" int e2afs_sqrt_unit_check(int dtype, int rsqrt, void* mismatches, voi
 }
 
 // dtype: 0 = float16, 1 = bfloat16, 2 = float32.  x and y hold n elements
-// each, on the element's alignment, at the same address mod 16.  Returns
-// cudaGetLastError(), or cudaErrorInvalidValue for what the kernel does not
-// take.
+// each, on the element's alignment, at the same address mod 16.  The tile:
+// threads a block x 16-byte loads in flight a thread, one of the
+// instantiated pairs.  Returns cudaGetLastError(), or cudaErrorInvalidValue
+// for what the kernel does not take.
 extern "C" int e2afs_sqrt_launch(const void* x, void* y, long long n, int dtype, int rsqrt,
-                                 void* stream) {
+                                 int threads, int unroll, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return 0;
   const uintptr_t a = reinterpret_cast<uintptr_t>(x), b = reinterpret_cast<uintptr_t>(y);
   const uintptr_t size = dtype == 2 ? 4 : 2;
   if (a % size != 0 || (a - b) % 16 != 0) return static_cast<int>(cudaErrorInvalidValue);
   switch (dtype) {
-    case 0: return launch_format<e2afs::Fp16>(x, y, n, rsqrt, s);
-    case 1: return launch_format<e2afs::Bf16>(x, y, n, rsqrt, s);
-    case 2: return launch_format<e2afs::Fp32>(x, y, n, rsqrt, s);
+    case 0: return launch_format<e2afs::Fp16>(x, y, n, rsqrt, threads, unroll, s);
+    case 1: return launch_format<e2afs::Bf16>(x, y, n, rsqrt, threads, unroll, s);
+    case 2: return launch_format<e2afs::Fp32>(x, y, n, rsqrt, threads, unroll, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -27,8 +27,11 @@
 //  * d/VEC <= 32 (the qk-norms, d = 128): a row a group of d/VEC lanes
 //    rounded up to a power of two (16 lanes for bf16 at 128), several rows a
 //    warp, 128 threads a block; the shuffle reduction stays inside the
-//    group.  With rows enough for eight such blocks an SM (prefill), a group
-//    takes four rows at once.
+//    group.  A group takes the tile's rows at once (a launch argument,
+//    kernels/rmsnorm/ops.py's TilingSpec): 1, 2 or 4, or 0, the default,
+//    for this source's own choice: four rows where one a group would still
+//    give eight blocks an SM (prefill), else one.  In the one-row-a-block
+//    layout the tile is one row.
 // A d that is not a multiple of VEC, or a pointer that is not 16-byte
 // aligned, runs the same kernel with one element a load (VEC = 1).  Each
 // thread sums its own elements in order, then the fixed shuffle tree, then
@@ -237,11 +240,12 @@ int sm_count(int& sms) {
 
 // The layout from d (see the header).  A row of more vectors than the
 // block has threads holds kRegVecs of them a thread in registers, else one.
-// Where several rows share a warp and one row a group would give at least
-// eight blocks an SM, a group takes four rows (one round trip to memory for
-// four rows; one row a group measured faster for the layer-norm rows).
+// Where several rows share a warp, a group takes `group_rows` rows (one
+// round trip to memory for them; one row a group measured faster for the
+// layer-norm rows, which keep one); 0 takes four where one row a group
+// would give at least eight blocks an SM, else one.
 template <class T, int V>
-int launch_v(const T* x, const T* scale, T* y, long long rows, int d, float eps,
+int launch_v(const T* x, const T* scale, T* y, long long rows, int d, float eps, int group_rows,
              cudaStream_t stream) {
   const int nv = d / V;
   int gs = 1, threads;
@@ -254,40 +258,49 @@ int launch_v(const T* x, const T* scale, T* y, long long rows, int d, float eps,
   if (nv > threads) {
     return launch_rows<T, V, 1, kRegVecs>(x, scale, y, rows, d, eps, gs, threads, stream);
   }
-  if (gs < threads) {
+  if (gs < threads && group_rows == 0) {
     int sms = 0;
     const int err = sm_count(sms);
     if (err != 0) return err;
-    if (rows >= 8LL * sms * (threads / gs)) {
-      return launch_rows<T, V, 4, 1>(x, scale, y, rows, d, eps, gs, threads, stream);
-    }
+    group_rows = rows >= 8LL * sms * (threads / gs) ? 4 : 1;
+  }
+  if (gs < threads && group_rows == 4) {
+    return launch_rows<T, V, 4, 1>(x, scale, y, rows, d, eps, gs, threads, stream);
+  }
+  if (gs < threads && group_rows == 2) {
+    return launch_rows<T, V, 2, 1>(x, scale, y, rows, d, eps, gs, threads, stream);
   }
   return launch_rows<T, V, 1, 1>(x, scale, y, rows, d, eps, gs, threads, stream);
 }
 
 template <class T>
 int launch(const void* x, const void* scale, void* y, long long rows, int d, float eps,
-           cudaStream_t stream) {
+           int group_rows, cudaStream_t stream) {
   constexpr int VEC = 16 / static_cast<int>(sizeof(T));
   const T* xt = static_cast<const T*>(x);
   const T* st = static_cast<const T*>(scale);
   T* yt = static_cast<T*>(y);
   const bool aligned = ((reinterpret_cast<size_t>(x) | reinterpret_cast<size_t>(scale) |
                          reinterpret_cast<size_t>(y)) & 15) == 0;
-  if (d % VEC == 0 && aligned) return launch_v<T, VEC>(xt, st, yt, rows, d, eps, stream);
-  return launch_v<T, 1>(xt, st, yt, rows, d, eps, stream);
+  if (d % VEC == 0 && aligned) return launch_v<T, VEC>(xt, st, yt, rows, d, eps, group_rows, stream);
+  return launch_v<T, 1>(xt, st, yt, rows, d, eps, group_rows, stream);
 }
 
 }  // namespace
 
-// dtype: 1 = bfloat16, 2 = float32.  Returns cudaGetLastError().
+// dtype: 1 = bfloat16, 2 = float32; group_rows: the tile, 1, 2 or 4 rows a
+// group where several rows share a warp, or 0 for this source's choice.
+// Returns cudaGetLastError().
 extern "C" int rmsnorm_launch(const void* x, const void* scale, void* y, long long rows, int d,
-                              float eps, int dtype, void* stream) {
+                              float eps, int dtype, int group_rows, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (group_rows != 0 && group_rows != 1 && group_rows != 2 && group_rows != 4) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   if (rows <= 0 || d <= 0) return 0;
   switch (dtype) {
-    case 1: return launch<__nv_bfloat16>(x, scale, y, rows, d, eps, s);
-    case 2: return launch<float>(x, scale, y, rows, d, eps, s);
+    case 1: return launch<__nv_bfloat16>(x, scale, y, rows, d, eps, group_rows, s);
+    case 2: return launch<float>(x, scale, y, rows, d, eps, group_rows, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -7,8 +7,11 @@
 // Bound on the H100: bytes.  Each input pixel is read once and each output
 // written once (8 bytes a pixel) against 40 float and 14 integer operations,
 // below the card's ratio of operations to bytes.  Design: no shared memory
-// and no barrier.  A thread takes a run of 4 outputs along a row and 4 down
-// its strip: it loads the 6 x 6 input pixels under them into registers
+// and no barrier.  A thread takes a run of 4 outputs along a row and ROWS
+// down its strip (the tile, ROWS x threads a block, is a launch argument:
+// kernels/sobel/ops.py's TilingSpec; today's launch and the default 4 x
+// 128; every tile gives the same bits, each output's arithmetic being the
+// same); for the default tile: it loads the 6 x 6 input pixels under them into registers
 // first, all loads in flight at once (a 16-byte and an 8-byte load where
 // the row's address allows, which is every row of an image whose width is
 // a multiple of 4; 4-byte loads otherwise), then computes and stores the 16
@@ -34,9 +37,7 @@
 
 namespace {
 
-constexpr int THREADS = 128;  // threads of a block, side by side along a row
 constexpr int COLS = 4;       // outputs a thread takes along a row
-constexpr int ROWS = 4;       // and down its strip
 constexpr int MAX_GRID_Y = 65535;
 static_assert(COLS == 4, "load_run reads 4 + 2 columns as a float4 and a float2");
 
@@ -87,6 +88,9 @@ __device__ __forceinline__ float magnitude(float mag2) {
   return __uint_as_float(mag2 == INFINITY ? e2afs::Fp32::INF_BITS : e2afs::Fp32::NAN_BITS);
 }
 
+// THREADS threads of a block side by side along a row; ROWS outputs down a
+// thread's strip
+template <int ROWS, int THREADS>
 __global__ void __launch_bounds__(THREADS)
 sobel_kernel(const float* __restrict__ img, float* __restrict__ out, int h, int w) {
   const int j = (blockIdx.x * THREADS + threadIdx.x) * COLS;
@@ -123,19 +127,39 @@ sobel_kernel(const float* __restrict__ img, float* __restrict__ out, int h, int 
   }
 }
 
-}  // namespace
-
-// The largest image height the grid takes (65535 strips of ROWS output
-// rows), read once by the wrapper.
-extern "C" int sobel_max_rows() { return MAX_GRID_Y * ROWS + 2; }
-
-// img: (h, w) float32, h, w >= 3, h <= sobel_max_rows(), h * w < 2^31,
-// contiguous; out: (h-2, w-2) float32.  Returns cudaGetLastError().
-extern "C" int sobel_launch(const void* img, void* out, int h, int w, void* stream) {
-  if (h < 3 || w < 3 || h > sobel_max_rows()) return static_cast<int>(cudaErrorInvalidValue);
+template <int ROWS, int THREADS>
+int launch_tile(const float* img, float* out, int h, int w, cudaStream_t stream) {
+  if (h - 2 > static_cast<long long>(MAX_GRID_Y) * ROWS) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const int per_row = (w - 2 + COLS - 1) / COLS;  // threads along a row
   const dim3 grid((per_row + THREADS - 1) / THREADS, (h - 2 + ROWS - 1) / ROWS);
-  sobel_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(img), static_cast<float*>(out), h, w);
+  sobel_kernel<ROWS, THREADS><<<grid, THREADS, 0, stream>>>(img, out, h, w);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The most strips the grid takes (its y extent): an image of h rows needs
+// h - 2 <= sobel_max_strips() x the tile's rows.  Read once by the wrapper.
+extern "C" int sobel_max_strips() { return MAX_GRID_Y; }
+
+// img: (h, w) float32, h, w >= 3, h * w < 2^31, contiguous; out: (h-2, w-2)
+// float32; the tile: rows down a strip x threads a block, one of the
+// instantiated pairs (kernels/sobel/ops.py's candidates).  Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for what it does not take.
+extern "C" int sobel_launch(const void* img, void* out, int h, int w, int rows, int threads,
+                            void* stream) {
+  if (h < 3 || w < 3) return static_cast<int>(cudaErrorInvalidValue);
+  const float* in = static_cast<const float*>(img);
+  float* o = static_cast<float*>(out);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (rows * 10000 + threads) {
+    case 2 * 10000 + 512: return launch_tile<2, 512>(in, o, h, w, s);
+    case 4 * 10000 + 128: return launch_tile<4, 128>(in, o, h, w, s);
+    case 4 * 10000 + 256: return launch_tile<4, 256>(in, o, h, w, s);
+    case 8 * 10000 + 64: return launch_tile<8, 64>(in, o, h, w, s);
+    case 8 * 10000 + 128: return launch_tile<8, 128>(in, o, h, w, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

@@ -404,6 +404,10 @@ def place(t: torch.Tensor, sh: Sharding):
 
 
 def _mesh_device(mesh) -> torch.device:
+    from repro_torch.launch.mesh import is_fake_group
+
+    if mesh.device_type == "cuda" and is_fake_group():
+        return torch.device("cuda", 0)  # fake tensors' card: none is opened
     if mesh.device_type == "cuda":
         return torch.device("cuda", torch.cuda.current_device())
     return torch.device(mesh.device_type)

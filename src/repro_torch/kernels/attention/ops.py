@@ -5,7 +5,10 @@ the kernel, which splits the cache length over blocks), a CPU tensor to the
 plain version in :mod:`.ref`.  The kernel reads an int8 cache as stored; no
 pre-cast copy of the cache is made.  The ``.cu`` file plans the split from
 the shapes and the card (:func:`plan`, asked once a shape); the wrapper
-allocates the float32 workspace the plan asks for.
+allocates the float32 workspace the plan asks for.  The registry holds one
+tile, that planned split (``(0,)``): the split is part of the bit-identity of
+a graph's replays and of speculative verify rows, which a tuned split would
+break.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ import torch
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.attention.ref import ref_decode_attention
 
-__all__ = ["decode_attention", "ref_decode_attention", "supports_group", "GROUPS"]
+__all__ = ["decode_attention", "ref_decode_attention", "supports_group", "GROUPS", "TILING"]
 
 _DTYPE_CODE = {torch.bfloat16: 1, torch.float32: 2}
 # query heads per KV head that decode_attention.cu instantiates: the powers of
@@ -82,7 +85,7 @@ def _check(q, k, v, pos, k_scale, v_scale):
         raise ValueError(f"pos must be a contiguous ({b},) int32 tensor")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("decode attention needs contiguous q, k and v")
-    if k.data_ptr() % 16 or v.data_ptr() % 16:
+    if not dispatch.is_fake(k) and (k.data_ptr() % 16 or v.data_ptr() % 16):
         raise ValueError("the K/V caches must start on a 16-byte boundary (vector loads)")
     return quantized
 
@@ -109,12 +112,19 @@ def plan(q, k) -> dict:
     return {"workspace": ws, "chunks": chunks, "chunk_lines": lines, "slots": slots}
 
 
+# (0,): the split plan() computes from the shapes and the card, the one tile
+TILING = dispatch.TilingSpec(default=(0,), candidates=((0,),))
+
+
 def decode_attention(q, k, v, pos, k_scale=None, v_scale=None, *, scale: float,
-                     wrap: bool = False) -> torch.Tensor:
+                     wrap: bool = False, block=None, tune=None) -> torch.Tensor:
     """One fused decode-attention step.  q: (b, h, hd); k/v: (b, t, kv, hd)
     cache in q's dtype, or int8 with float32 scales (b, t, kv); pos: (b,)
     int32 per-row positions; ``wrap=True`` for ring caches.  Returns
-    (b, h, hd) in q's dtype."""
+    (b, h, hd) in q's dtype.  ``block``: None or :data:`TILING`'s one tile;
+    ``tune`` has nothing to choose."""
+    if block is not None and tuple(block) != TILING.default:
+        raise ValueError(f"decode_attention takes only the tile {TILING.default}, got {block}")
     if not dispatch.use_kernel(q, k, v, pos, k_scale, v_scale):
         return ref_decode_attention(q, k, v, pos, k_scale, v_scale, scale=scale, wrap=wrap)
     quantized = _check(q, k, v, pos, k_scale, v_scale)
@@ -122,6 +132,11 @@ def decode_attention(q, k, v, pos, k_scale=None, v_scale=None, *, scale: float,
     t, kv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     if b == 0:
+        return out
+    detail = "wrap" if wrap else "no wrap"
+    reads = (q, k, v, pos, k_scale, v_scale)
+    if dispatch.is_fake(q):  # the dry run: the output and the count, no library
+        dispatch.count_launch("decode_attention", detail, reads=reads, writes=(out,))
         return out
     workspace = torch.empty(plan(q, k)["workspace"], dtype=torch.float32, device=q.device)
     fn = _build.function("decode_attention", "decode_attention_launch", _ARGTYPES)
@@ -132,5 +147,10 @@ def decode_attention(q, k, v, pos, k_scale=None, v_scale=None, *, scale: float,
            workspace.data_ptr(), out.data_ptr(), b, t, h, kv, hd, scale, int(wrap),
            _DTYPE_CODE[q.dtype], int(quantized),
            torch.cuda.current_stream(q.device).cuda_stream)
-    dispatch.count_launch("decode_attention", "wrap" if wrap else "no wrap")
+    dispatch.count_launch("decode_attention", detail, reads=reads, writes=(out,),
+                          block=TILING.default)
     return out
+
+
+dispatch.register(dispatch.KernelSpec(name="decode_attention", reference=ref_decode_attention,
+                                      kernel=decode_attention, tiling=TILING))

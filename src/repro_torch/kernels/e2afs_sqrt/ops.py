@@ -1,7 +1,10 @@
 """Public wrappers: elementwise E2AFS sqrt/rsqrt of a tensor of any shape.
 
 A CUDA tensor goes to ``csrc/e2afs_sqrt.cu`` (one launch, counted), a CPU
-tensor to the plain version in :mod:`.ref`.  Both carry the reference's
+tensor to the plain version in :mod:`.ref`.  The launch's tile (threads a
+block x 16-byte loads in flight a thread) is the registry's
+(``dispatch.resolve_block``; :data:`TILING`), and every tile gives the same
+bits.  Both carry the reference's
 gradient (``repro.kernels.e2afs_sqrt.ops``'s ``custom_jvp`` rules, taken at
 the approximate value: ``dispatch.make_differentiable_sqrt/rsqrt``), whose
 backward is plain elementwise torch and launches no kernel.
@@ -12,14 +15,36 @@ import ctypes
 
 import torch
 
+from repro_torch.core.hw_model import cost
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.e2afs_sqrt.ref import ref_rsqrt, ref_sqrt
 
-__all__ = ["sqrt", "rsqrt", "scalar_design", "sqrt_normal_mismatches", "unit_mismatches"]
+__all__ = ["sqrt", "rsqrt", "scalar_design", "sqrt_normal_mismatches", "unit_mismatches",
+           "TILING"]
 
 _DTYPE_CODE = {torch.float16: 0, torch.bfloat16: 1, torch.float32: 2}
 _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
              ctypes.c_int, ctypes.c_void_p)
+_LAUNCH_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
+                    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p)
+# today's launch before the tile became an argument, and the default
+_DEFAULT = (256, 4)
+
+
+def _geometry(args) -> dict:
+    """The roofline's geometry (it narrows a sweep): the 16-byte vectors of
+    x are its rows (a thread moves one a pass), and a block takes
+    ``block[0]`` (its threads) of them; the kernel stages no tile."""
+    x = args[0]
+    per = 16 // x.element_size()
+    return {"rows": max(-(-x.numel() // per), 1), "row_elems": per,
+            "ops_per_elem": cost("e2afs")["depth"], "streams": 2, "staged": False}
+
+
+# threads x unroll
+TILING = dispatch.TilingSpec(default=_DEFAULT,
+                             candidates=((128, 16), (256, 4), (256, 8), (512, 2), (512, 4)),
+                             geometry=_geometry)
 
 
 def _check(x: torch.Tensor) -> None:
@@ -42,25 +67,54 @@ def _output_like(x: torch.Tensor) -> torch.Tensor:
     return buf[skip:skip + x.numel()].view(x.shape)
 
 
-def _launch(x: torch.Tensor, *, rsqrt: bool) -> torch.Tensor:
+def _run(x: torch.Tensor, y: torch.Tensor, rsqrt: bool, block) -> None:
+    """One launch of the kernel with tile ``block`` (threads, unroll); not
+    counted (a sweep's launches run here too)."""
+    threads, unroll = block
+    fn = _build.function("e2afs_sqrt", "e2afs_sqrt_launch", _LAUNCH_ARGTYPES)
+    with torch.cuda.device(x.device):
+        fn(x.data_ptr(), y.data_ptr(), x.numel(), _DTYPE_CODE[x.dtype], int(rsqrt), threads,
+           unroll, torch.cuda.current_stream(x.device).cuda_stream)
+
+
+def _sweep_run(x: torch.Tensor, y: torch.Tensor, rsqrt: bool):
+    """What a sweep times: a launch with a given tile."""
+    return lambda block: _run(x, y, rsqrt, block)
+
+
+def _launch(x: torch.Tensor, *, rsqrt: bool, block=None, tune=None) -> torch.Tensor:
     _check(x)
+    name = "e2afs_rsqrt" if rsqrt else "e2afs_sqrt"
+    if dispatch.is_fake(x):  # the dry run: the output and the count, no library
+        y = torch.empty_like(x)
+        dispatch.count_launch(name, reads=(x,), writes=(y,))
+        return y
     y = _output_like(x)
     if x.numel() == 0:
         return y
-    fn = _build.function("e2afs_sqrt", "e2afs_sqrt_launch", _ARGTYPES)
-    with torch.cuda.device(x.device):
-        fn(x.data_ptr(), y.data_ptr(), x.numel(), _DTYPE_CODE[x.dtype], int(rsqrt),
-           torch.cuda.current_stream(x.device).cuda_stream)
-    dispatch.count_launch("e2afs_rsqrt" if rsqrt else "e2afs_sqrt")
+    if block is None:
+        block = dispatch.resolve_block(name, (x,), _sweep_run, (x, y, rsqrt), tune=tune)
+    _run(x, y, rsqrt, block)
+    dispatch.count_launch(name, reads=(x,), writes=(y,), block=block)
     return y
 
 
-def _sqrt(x: torch.Tensor) -> torch.Tensor:
-    return _launch(x, rsqrt=False) if dispatch.use_kernel(x) else ref_sqrt(x)
+def _sqrt(x: torch.Tensor, *, block=None, tune=None) -> torch.Tensor:
+    if dispatch.use_kernel(x):
+        return _launch(x, rsqrt=False, block=block, tune=tune)
+    return ref_sqrt(x)
 
 
-def _rsqrt(x: torch.Tensor) -> torch.Tensor:
-    return _launch(x, rsqrt=True) if dispatch.use_kernel(x) else ref_rsqrt(x)
+def _rsqrt(x: torch.Tensor, *, block=None, tune=None) -> torch.Tensor:
+    if dispatch.use_kernel(x):
+        return _launch(x, rsqrt=True, block=block, tune=tune)
+    return ref_rsqrt(x)
+
+
+dispatch.register(dispatch.KernelSpec(name="e2afs_sqrt", reference=ref_sqrt, kernel=_sqrt,
+                                      tiling=TILING))
+dispatch.register(dispatch.KernelSpec(name="e2afs_rsqrt", reference=ref_rsqrt, kernel=_rsqrt,
+                                      tiling=TILING))
 
 
 _differentiable_sqrt = dispatch.make_differentiable_sqrt(_sqrt)

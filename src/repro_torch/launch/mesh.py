@@ -8,7 +8,9 @@ when the mesh holds one device and no group exists yet, a one-rank group
 that the builder starts itself.  On the card each rank takes
 ``cuda:LOCAL_RANK`` (NCCL), on the CPU it runs gloo.  Every rank runs the
 same program on its own block of each tensor (see
-``distributed/constraints.py``).
+``distributed/constraints.py``).  In a process that joined torch's ``fake``
+process group (the dry run, ``launch/dryrun.py``) the mesh is a "cuda" mesh
+for fake tensors: no card is opened and no rank is set.
 """
 from __future__ import annotations
 
@@ -21,7 +23,13 @@ import torch.distributed as dist
 
 from repro_torch.device import resolve_device
 
-__all__ = ["make_production_mesh", "make_mesh_for"]
+__all__ = ["make_production_mesh", "make_mesh_for", "is_fake_group"]
+
+
+def is_fake_group() -> bool:
+    """True in a process that joined torch's ``fake`` process group (every
+    collective a no-op, for lowering on fake tensors)."""
+    return dist.is_initialized() and dist.get_backend() == "fake"
 
 
 def make_production_mesh(*, multi_pod: bool = False, shape: Optional[Tuple[int, ...]] = None,
@@ -63,9 +71,14 @@ def make_mesh_for(shape, axes, *, device=None):
     :func:`make_production_mesh`."""
     from torch.distributed.device_mesh import DeviceMesh
 
-    dev = resolve_device(device)
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     n = int(np.prod(shape))
+    if is_fake_group():
+        if dist.get_world_size() < n:
+            raise RuntimeError(f"mesh {shape} needs {n} ranks, the fake group has "
+                               f"{dist.get_world_size()}")
+        return DeviceMesh("cuda", torch.arange(n).reshape(shape), mesh_dim_names=axes)
+    dev = resolve_device(device)
     if not dist.is_initialized() and n != 1:
         raise RuntimeError(
             f"mesh {shape} needs a process group of {n} ranks (world size {n}), have none: "

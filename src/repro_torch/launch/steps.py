@@ -1,11 +1,15 @@
-"""The training step (torch port of the training part of
-``repro.launch.steps``; the prefill and serve steps are ``launch/serve.py``'s).
+"""The train, prefill and serve steps (torch port of ``repro.launch.steps``;
+the dry run, ``launch/dryrun.py``, runs the last two).
 
 ``loss_fn(model, cfg, batch)`` is the masked next-token cross-entropy over
 the padded vocab, computed in sequence chunks so the float32 (b, s, vocab)
 logits are never whole.  ``make_train_step`` returns
 ``train_step(model, opt_state, batch) -> (model, opt_state, metrics)``,
 which updates the model's parameters and the optimizer state IN PLACE.
+``make_prefill_step(cfg)`` returns ``prefill_step(model, batch) -> logits``
+of the last position (``lm.forward``); ``make_serve_step(cfg, with_cross=)``
+returns ``serve_step(model, cache, tokens, pos[, cross_kv]) -> (logits,
+cache)`` (``lm.decode_step``).
 """
 from __future__ import annotations
 
@@ -15,7 +19,7 @@ from repro_torch.models import lm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import AdamWConfig, adamw_update, compress_decompress
 
-__all__ = ["loss_fn", "make_train_step", "LOSS_CHUNK"]
+__all__ = ["loss_fn", "make_train_step", "make_prefill_step", "make_serve_step", "LOSS_CHUNK"]
 
 MOE_AUX_COEF = 0.01
 LOSS_CHUNK = 1024
@@ -94,3 +98,28 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, *, compress_grads: b
         return model, state, dict(metrics, total=t, **opt_metrics)
 
     return train_step
+
+
+def make_prefill_step(cfg: ModelConfig):
+    """Prefill as the reference's dry run prices it: the forward over the
+    batch, returning the last position's logits (b, vocab_padded) (the
+    cache fill is left out: the compute and memory are the forward's)."""
+
+    @torch.no_grad()
+    def prefill_step(model, batch):
+        logits, _ = lm.forward(model, cfg, batch)
+        return logits[:, -1]
+
+    return prefill_step
+
+
+def make_serve_step(cfg: ModelConfig, *, with_cross: bool = False):
+    """``serve_step(model, cache, tokens, pos[, cross_kv]) -> (logits,
+    cache)``: one ``lm.decode_step`` (the cache updated in place)."""
+    if with_cross:
+        def serve_step(model, cache, tokens, pos, cross_kv):
+            return lm.decode_step(model, cfg, cache, tokens, pos, cross_kv=cross_kv)
+    else:
+        def serve_step(model, cache, tokens, pos):
+            return lm.decode_step(model, cfg, cache, tokens, pos)
+    return serve_step

@@ -73,45 +73,60 @@ def _K_SITE(cfg) -> dict:
     return {"axes": ("batch", "seq", "kv_heads", None), "extents": {"kv_heads": cfg.n_kv_heads}}
 
 
-def local_kv_heads(cfg, q_parts: int, q_index: int, kv_parts: int):
-    """(first, count) of the KV heads the query heads of block ``q_index``
-    of ``q_parts`` read, when the KV heads are in ``kv_parts`` blocks; None
-    when they are the rank's own block of KV heads (q and KV heads sharded
-    alike, or neither).  Query head ``j`` reads KV head ``j // G``: a block
-    of ``h / q_parts`` query heads reads ``h / (q_parts G)`` whole KV heads,
-    or one KV head when its group is wider than the block (G = 10 over two
-    ranks: 5 query heads a rank, the local group 5).  A block that
-    straddles KV heads unevenly raises."""
+def local_kv_heads(cfg, q_parts: int, q_index: int, kv_parts: int,
+                   kv_index: Optional[int] = None):
+    """(first, count) of the KV heads, within the rank's block of them, that
+    the query heads of block ``q_index`` of ``q_parts`` read, when the KV
+    heads are in ``kv_parts`` blocks (the rank's block ``kv_index``; default:
+    the block those query heads read); None when they read the rank's whole
+    block (q and KV heads sharded alike, or neither).  Query head ``j``
+    reads KV head ``j // G``: a block of ``h / q_parts`` query heads reads
+    ``h / (q_parts G)`` whole KV heads, or one KV head when its group is
+    wider than the block (G = 10 over two ranks: 5 query heads a rank, the
+    local group 5; G = 4 over query heads in 16 blocks and KV heads in 8, the
+    reference's (kv, qg) decode mesh: the rank's one KV head).  A block that
+    straddles KV heads unevenly, or reads KV heads outside the rank's block,
+    raises."""
     if q_parts == kv_parts:
         return None
     h, kv = cfg.n_heads, cfg.n_kv_heads
-    if kv_parts != 1:
-        raise NotImplementedError(f"{cfg.name}: query heads in {q_parts} blocks over KV heads "
-                                  f"in {kv_parts}")
-    g, h_l = h // kv, h // q_parts
+    g, h_l, kv_l = h // kv, h // q_parts, kv // kv_parts
     h0 = q_index * h_l
     if h_l % g == 0:
-        return h0 // g, h_l // g
-    if g % h_l == 0:
-        return h0 // g, 1
-    raise NotImplementedError(
-        f"{cfg.name}: {h_l} query heads a rank straddle the KV heads ({h} query heads over "
-        f"{kv} KV heads, {g} a KV head)")
+        first, count = h0 // g, h_l // g
+    elif g % h_l == 0:
+        first, count = h0 // g, 1
+    else:
+        raise NotImplementedError(
+            f"{cfg.name}: {h_l} query heads a rank straddle the KV heads ({h} query heads over "
+            f"{kv} KV heads, {g} a KV head)")
+    if kv_index is None:
+        kv_index = first // kv_l
+    first -= kv_index * kv_l
+    if first < 0 or first + count > kv_l:
+        raise NotImplementedError(f"{cfg.name}: query heads in {q_parts} blocks read KV heads "
+                                  f"outside the rank's block of {kv_parts}")
+    if kv_parts > 1 and (first, count) == (0, kv_l):
+        return None
+    return first, count
 
 
 def rank_kv_heads(cfg, q_index=None):
     """(q_parts, kv_parts, selection) in the current scope: the blocks the
     rules cut the query heads and the KV heads into, and
     :func:`local_kv_heads` of block ``q_index`` of query heads (default:
-    this rank's); (1, 1, None) outside a scope."""
+    this rank's, over this rank's block of KV heads); (1, 1, None) outside a
+    scope."""
     if current_rules() is None:
         return 1, 1, None
     d, h, kv, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     qa = mesh_axes(Attention.SPECS["wq"], (d, h, hd), 1)
-    q_parts = mesh_parts(qa)
-    kv_parts = mesh_parts(mesh_axes(Attention.SPECS["wk"], (d, kv, hd), 1))
-    q_index = block_index(qa) if q_index is None else q_index
-    return q_parts, kv_parts, local_kv_heads(cfg, q_parts, q_index, kv_parts)
+    ka = mesh_axes(Attention.SPECS["wk"], (d, kv, hd), 1)
+    q_parts, kv_parts = mesh_parts(qa), mesh_parts(ka)
+    kv_index = None
+    if q_index is None:
+        q_index, kv_index = block_index(qa), block_index(ka)
+    return q_parts, kv_parts, local_kv_heads(cfg, q_parts, q_index, kv_parts, kv_index)
 
 
 def _rank_kv(cfg, *tensors):

@@ -115,6 +115,15 @@ class ModelConfig:
         """True if no layer needs an unbounded dense KV cache."""
         return all(b != "global" for b in self.blocks)
 
+    @property
+    def long_context_capable(self) -> bool:
+        """Policy for the long_500k shape: SSM, hybrid and windowed archs run
+        it, and so do mostly-local archs whose global layers are at most a
+        quarter of the stack (a bounded count of global KV caches); pure
+        full-attention archs skip."""
+        n_global = sum(b == "global" for b in self.blocks)
+        return n_global == 0 or (n_global / self.n_layers) <= 0.25
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 

@@ -24,6 +24,8 @@ card's one-device mesh, exact or tensor parallel, bit-identical to the
 unsharded engine, and a pool restored onto it bit for bit.  Only the order
 of float32 sums differs between a kernel and its plain version.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -1935,3 +1937,119 @@ def test_mesh_family_equals_unsharded_on_the_card(card_mesh, arch):
                                       cross_kv=ckv, mesh=mesh)
         out.append((logits, toks))
     assert _same_bits(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+
+
+# ---------------------------------------------------------------------------
+# tiles: every candidate of a tiled kernel gives the default's bits; a sweep
+# persists its winner and the next call is a cache hit that launches it
+# ---------------------------------------------------------------------------
+
+
+def _tile_inputs(name, dev, shape, dtype):
+    g = torch.Generator(device=dev).manual_seed(7)
+    if name.startswith("e2afs"):
+        x = (torch.rand(shape, generator=g, device=dev) * 1e4 - 10).to(dtype)
+        flat = x.view(-1)
+        flat[:5] = torch.tensor([0.0, -0.0, -1.0, float("inf"), float("nan")]).to(dtype)
+        return (x,)
+    if name == "rmsnorm":
+        x = (torch.randn(shape, generator=g, device=dev) * 3).to(dtype)
+        return (x, (torch.randn(shape[-1:], generator=g, device=dev) * 0.1).to(dtype))
+    if name == "sobel":
+        return (torch.rand(shape, generator=g, device=dev) * 255,)
+    p, gr, m = (torch.randn(shape, generator=g, device=dev) for _ in range(3))
+    v = torch.rand(shape, generator=g, device=dev) * 1e-2
+    return (p.to(dtype), gr.to(dtype), m * 0.1, v, torch.tensor([1e-3, 0.5, 0.25], device=dev))
+
+
+_TILED = {"e2afs_sqrt": lambda *a, **k: e2afs_ops._sqrt(*a, **k),
+          "e2afs_rsqrt": lambda *a, **k: e2afs_ops._rsqrt(*a, **k),
+          "rmsnorm": rms_ops.rmsnorm, "sobel": sobel_ops.sobel_magnitude}
+
+
+def _tiled_call(name, args, **kw):
+    if name == "adam":  # in place: on copies, returning p, m and v
+        p, g, m, v, sched = args
+        return adam_ops.adam_update(p.clone(), g, m.clone(), v.clone(), sched, **kw)
+    return (_TILED[name](*args, **kw),)
+
+
+def _bit_views(ts):
+    return [t.contiguous().view(_INT[t.dtype]) for t in ts]
+
+
+@pytest.mark.parametrize("name,shape,dtype", [
+    ("e2afs_sqrt", (1000003,), torch.float32), ("e2afs_sqrt", (3, 7, 4099), torch.bfloat16),
+    ("e2afs_rsqrt", (1000003,), torch.float16), ("e2afs_rsqrt", (8, 512, 2560), torch.float32),
+    ("rmsnorm", (8, 2560), torch.bfloat16), ("rmsnorm", (256, 128), torch.bfloat16),
+    ("rmsnorm", (9000, 128), torch.float32), ("rmsnorm", (65536, 256), torch.bfloat16),
+    ("rmsnorm", (37, 100), torch.float32), ("rmsnorm", (5, 9000), torch.bfloat16),
+    ("sobel", (67, 93), torch.float32), ("sobel", (2160, 3840), torch.float32),
+    ("sobel", (3, 3), torch.float32), ("sobel", (1001, 7), torch.float32),
+    ("adam", (100003,), torch.float32), ("adam", (2560, 9728), torch.float32),
+    ("adam", (1000,), torch.bfloat16)])
+def test_every_tile_gives_the_default_s_bits(cuda_device, name, shape, dtype):
+    spec = dispatch.get(name).tiling
+    args = _tile_inputs(name, cuda_device, shape, dtype)
+    want = _bit_views(_tiled_call(name, args, block=spec.default))
+    for cand in spec.candidates:
+        got = _bit_views(_tiled_call(name, args, block=cand))
+        assert all(torch.equal(a, b) for a, b in zip(got, want)), cand
+        assert dispatch.last_blocks()[name] == tuple(cand)
+
+
+def test_e2afs_tiles_on_unaligned_views(cuda_device):
+    base = torch.rand(70001, device=cuda_device) + 0.01
+    for k in (1, 3):
+        x = base[k:]
+        want = e2afs_ops._sqrt(x, block=(256, 4))
+        for cand in dispatch.get("e2afs_sqrt").tiling.candidates:
+            assert torch.equal(e2afs_ops._sqrt(x, block=cand).view(torch.int32),
+                               want.view(torch.int32))
+
+
+def test_kernels_refuse_a_tile_they_do_not_take(cuda_device):
+    x = torch.rand(64, 256, device=cuda_device)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        e2afs_ops._sqrt(x, block=(64, 3))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rms_ops.rmsnorm(x, torch.zeros(256, device=cuda_device), block=(3,))
+    with pytest.raises(ValueError, match="only the tile"):
+        kmeans_ops.kmeans_assign(torch.rand(10, 3, device=cuda_device),
+                                 torch.rand(2, 3, device=cuda_device), block=(512,))
+
+
+@pytest.mark.parametrize("name,shape,dtype", [("e2afs_sqrt", (8, 512, 2560), torch.float32),
+                                              ("rmsnorm", (131072, 128), torch.bfloat16),
+                                              ("adam", (2560, 9728), torch.float32)])
+def test_sweep_persists_its_winner_and_the_next_call_hits(cuda_device, tmp_path, monkeypatch,
+                                                          name, shape, dtype):
+    from repro_torch.kernels import tuning
+
+    monkeypatch.setenv(tuning.ENV_CACHE, str(tmp_path / "tune.json"))
+    monkeypatch.delenv(tuning.ENV_AUTOTUNE, raising=False)
+    dispatch.forget_choices()
+    try:
+        args = _tile_inputs(name, cuda_device, shape, dtype)
+        before = [t.clone() for t in args]
+        want = _bit_views(_tiled_call(name, args, block=dispatch.get(name).tiling.default))
+        got = _bit_views(_tiled_call(name, args, tune=True))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert all(torch.equal(a, b) for a, b in  # a sweep leaves the args as they were
+                   zip(_bit_views(args[:4]), _bit_views(before[:4])))
+        entries = json.loads((tmp_path / "tune.json").read_text())["entries"]
+        (key, entry), = entries.items()
+        assert key == tuning.problem_key(name, args)
+        winner = tuple(entry["block"])
+        assert winner in dispatch.get(name).tiling.candidates and entry["timings_us"]
+        dispatch.forget_choices()
+        tuning._mem.clear()
+
+        def boom(*a, **k):
+            raise AssertionError("a sweep ran on a cache hit")
+
+        monkeypatch.setattr(tuning, "sweep", boom)
+        _tiled_call(name, args)
+        assert dispatch.last_blocks()[name] == winner
+    finally:
+        dispatch.forget_choices()
