@@ -282,7 +282,7 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    ``generate_scan(mesh=)`` under the default tensor-parallel rules: the
    first 16 of the phase's tokens, the kernels its main path launched, ms
    a step beside the phase's.
-20. the tooling, last: the kernel registry's seven names (the script
+20. the tooling, after 14d: the kernel registry's seven names (the script
    refuses to start with ``REPRO_KERNEL_BACKEND`` other than "auto" or with
    ``REPRO_AUTOTUNE`` on, and gives the run an empty tune cache of its own,
    so every launch takes its tile's prior); each tiled kernel (e2afs
@@ -304,7 +304,19 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    ``memory_allocated`` before it), its roofline memory term beside 13a's
    replayed step, and the dry run's CLI at production size: qwen3-4b
    ``decode_32k --mesh both`` and mamba2-2.7b ``long_500k --mesh single``,
-   each ok.
+   each ok; and a train step at phase 11's shape (qwen3-4b, 8 layers, batch
+   4 x 2048, block remat, fused AdamW) counted on real tensors against
+   ``lower_cell`` of the same step under ``train_rules`` on a one-rank mesh
+   with the same ``AdamWConfig``: dot flops and launches equal, the dry
+   run's peak within 5% of the real ``max_memory_allocated``;
+21. the sharded train step on a one-device mesh, last: phase 11's
+   config, start and batches, two steps unsharded and then two under
+   ``train_rules`` on one NCCL rank (``place_train_state``,
+   ``make_train_step(mesh=)``), each run with the launch counts set to 0
+   just before and read just after: the losses, grad norms and every
+   updated leaf of params, m and v bit-identical (a one-wide mesh splits
+   no sum), the same launches (adam a leaf a step: no plain route), and
+   ms a step beside phase 11's.
 
 Before the last line it prints the card's name and power limit and one JSON
 line of kernels; the last line is ``{"ok": true, "device": {...}}``.  Without
@@ -4920,6 +4932,103 @@ class Smoke:
         for p in params.values():
             p.grad = None
 
+    # -- phase 21 ----------------------------------------------------------
+    def p21_sharded_train(self):
+        """Phase 11's training under ``train_rules`` on a one-device mesh
+        (one NCCL rank, destroyed at the end) against the same two steps
+        unsharded, one run after the other: the first run's p, m and v stay
+        on the card (19 GB) beside the second run's state, gradients and
+        activations, and are compared there."""
+        import torch.distributed as dist
+
+        from repro_torch.configs import get_config, get_smoke_config
+        from repro_torch.data import DataConfig, SyntheticLM
+        from repro_torch.distributed.sharding import (place_batch, place_train_state,
+                                                      train_rules)
+        from repro_torch.kernels import dispatch
+        from repro_torch.launch.mesh import make_production_mesh
+        from repro_torch.launch.steps import make_train_step
+        from repro_torch.models import lm
+        from repro_torch.optim import AdamWConfig, adamw_init
+
+        torch = self.torch
+        kw = dict(n_layers=8, sqrt_unit="e2afs", remat="block")
+        if self.rehearsal:
+            cfg, batch, seq = get_smoke_config("qwen3-4b", **kw), 2, 64
+        else:
+            cfg, batch, seq = get_config("qwen3-4b", **kw), 4, 2048
+        # phase 11's optimizer and data
+        opt_cfg = AdamWConfig(lr=3e-3 if self.rehearsal else 3e-4, warmup_steps=1, fused=True,
+                              sqrt_unit="e2afs")
+        data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=batch, seed=0))
+        batches = [{k: torch.from_numpy(a).to(self.dev) for k, a in data.batch(i).items()}
+                   for i in range(2)]
+
+        def run(mesh):
+            self.free()
+            model = lm.init(cfg, self.gen(0), device=self.dev, trainable=True)
+            rules, feed = None, batches
+            if mesh is None:
+                opt = adamw_init(model)
+            else:
+                rules = train_rules(cfg, mesh)
+                model, opt = place_train_state(model, cfg, mesh, rules)
+                feed = [place_batch(b, mesh, rules) for b in batches]  # the rank's rows
+            step = make_train_step(cfg, opt_cfg, mesh=mesh, rules=rules)
+            metrics, ms = [], []
+            dispatch.reset_launch_counts()
+            for b in feed:
+                self.sync()
+                t0 = time.perf_counter()
+                model, opt, m = step(model, opt, b)
+                self.sync()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                metrics.append({k: m[k].detach() for k in ("loss", "grad_norm")})
+            counts = dispatch.launch_counts()
+            state = {"params": {n: p.detach() for n, p in model.named_parameters()},
+                     "m": opt["m"], "v": opt["v"], "step": opt["step"]}
+            return metrics, counts, ms, state
+
+        plain = run(None)
+        try:
+            mesh = make_production_mesh(shape=(1, 1), device=self.dev)
+            print(f"  mesh {dict(zip(mesh.mesh_dim_names, mesh.shape))} on "
+                  f"{dist.get_backend()}, world size {dist.get_world_size()} ({self.card})")
+            sharded = run(mesh)
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+        n_tensors = len(plain[3]["params"])
+        rsqrt, _ = self.train_launches(cfg)
+        want = {"adam": n_tensors * 2, "e2afs_rsqrt": rsqrt * 2}
+        for label, (metrics, counts, ms, _) in (("unsharded", plain), ("train_rules", sharded)):
+            print(f"  {label}: losses {[float(m['loss']) for m in metrics]}, grad norms "
+                  f"{[float(m['grad_norm']) for m in metrics]}, ms a step "
+                  f"{[round(x, 1) for x in ms]}, launches { {k: v for k, v in counts.items() if v} }")
+        ref_ms = self.training.get(cfg.name, {}).get("ms_per_step")
+        print(f"  ms a step (the second): train_rules {sharded[2][1]:.1f}, unsharded "
+              f"{plain[2][1]:.1f}, phase 11's {ref_ms if ref_ms is None else round(ref_ms, 1)} "
+              f"(host clock with synchronize; {self.card})")
+        same = lambda a, b: torch.equal(a.view(torch.int32), b.view(torch.int32))  # noqa: E731
+        bad = [f"{part}/{n}" for part in ("params", "m", "v") for n, t in plain[3][part].items()
+               if not same(t, sharded[3][part][n])]
+        same_metrics = all(same(a[k], b[k]) for a, b in zip(plain[0], sharded[0]) for k in a)
+        print(f"  after 2 steps: {len(bad)} of {3 * n_tensors} leaves of params, m and v differ "
+              f"from the unsharded step's; losses and grad norms "
+              f"{'bit-identical' if same_metrics else 'DIFFER'}; steps "
+              f"{int(plain[3]['step'])} / {int(sharded[3]['step'])}")
+        del plain[3]["params"], sharded[3]["params"]
+        self.rows["adam"]["mesh_train_launches"] = sharded[1]["adam"]
+        self.rows["e2afs_rsqrt"]["mesh_train_launches"] = sharded[1]["e2afs_rsqrt"]
+        self.training["mesh " + cfg.name] = {"ms_per_step": sharded[2][1],
+                                             "unsharded_ms": plain[2][1]}
+        if bad or not same_metrics:
+            raise AssertionError(f"the one-device sharded step differs: {bad[:5]}")
+        if sharded[1] != plain[1]:
+            raise AssertionError(f"launches differ: {sharded[1]} vs {plain[1]}")
+        if not self.rehearsal and any(sharded[1][k] != v for k, v in want.items()):
+            raise AssertionError(f"launches {sharded[1]}, want {want}")
+
     # -- phase 20 ----------------------------------------------------------
     def p20_tooling(self):
         """The kernel registry's seven names; each tiled kernel's candidates
@@ -5072,6 +5181,7 @@ class Smoke:
             else:
                 os.environ[tuning.ENV_CACHE] = saved
 
+        self.free()  # the subprocess trains phase 11's model: return this process's cache
         tmp = tempfile.mkdtemp(prefix="tooling-")
         out_path, log = os.path.join(tmp, "tooling.json"), os.path.join(tmp, "tooling.log")
         env = dict(os.environ, PYTHONPATH=str(SRC) + (
@@ -5119,6 +5229,17 @@ class Smoke:
                   f"{r.get('memory_s')} s, collective {r.get('collective_s')} s, quantized_kv "
                   f"{rec.get('quantized_kv')}, launches {rec.get('launches')}")
         print(f"  CLI seconds: {res['cell_seconds']}")
+        treal, tdry = res["train_real"], res["train_dry"]
+        tratio = tdry["peak_bytes"] / treal["peak_bytes"] if treal["peak_bytes"] else None
+        print(f"  qwen3-4b train step, 8 layers, batch 4 x 2048, fused AdamW: real op_cost "
+              f"flops {treal['flops']:.6g}, bytes {treal['bytes']:.6g}, launches "
+              f"{treal['launches']}, peak {treal['peak_bytes']} (the step's increase "
+              f"{treal['step_peak_bytes']}); dry run under train_rules on one rank: flops "
+              f"{tdry['flops']:.6g}, bytes {tdry['bytes']:.6g}, launches {tdry['launches']}, "
+              f"peak {tdry['peak_bytes']} (x{tratio if tratio is None else round(tratio, 4)} of "
+              f"the real peak), less the arguments {tdry['step_peak_bytes']}, collectives "
+              f"{tdry['collectives']}, roofline {tdry['roofline']}, lowered in "
+              f"{tdry['seconds']:.1f} s ({self.card})")
         self.dry = res
         if len(res["cells"]) != 3 or any(r["status"] != "ok" for r in res["cells"].values()):
             raise AssertionError("a production dry-run cell is not ok")
@@ -5135,6 +5256,11 @@ class Smoke:
         if not DRY_PEAK_RANGE[0] <= step_ratio <= DRY_PEAK_RANGE[1]:
             raise AssertionError(f"the dry run's step peak (less the arguments) is "
                                  f"x{step_ratio:.3f} of the real step's increase")
+        if tdry["flops"] != treal["flops"] or tdry["launches"] != treal["launches"]:
+            raise AssertionError("the dry train cell's flops or launches differ from the real "
+                                 "step's")
+        if abs(tratio - 1.0) > DRY_TRAIN_PEAK_RTOL:
+            raise AssertionError(f"the dry train cell's peak is x{tratio:.4f} of the real step's")
 
     # -- phase 12 ----------------------------------------------------------
     def p12_resume(self):
@@ -5178,6 +5304,8 @@ TILE_SHAPES = {
 # the arguments), and its bytes
 DRY_PEAK_RANGE = (0.8, 1.25)
 DRY_BYTES_RTOL = 0.01
+# a train cell's peak against the real train step's
+DRY_TRAIN_PEAK_RTOL = 0.05
 
 
 def tooling_child(out_path: str, rehearsal: bool) -> int:
@@ -5226,6 +5354,43 @@ def tooling_child(out_path: str, rehearsal: bool) -> int:
         k: n - before[k] for k, n in dispatch.launch_counts().items() if n != before[k]},
         peak_bytes=peak, step_peak_bytes=None if rehearsal else peak - base)
     del model, cache
+    if not rehearsal:
+        torch.cuda.empty_cache()
+
+    # a train step at phase 11's shape (8 layers, batch 4 x 2048, block
+    # remat, fused AdamW), counted on real tensors after a warm-up step
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    tcfg = (get_smoke_config if rehearsal else get_config)(
+        "qwen3-4b", sqrt_unit="e2afs", n_layers=8, remat="block")
+    tb, ts = (2, 64) if rehearsal else (4, 2048)
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, fused=True, sqrt_unit="e2afs")
+    model = lm.init(tcfg, torch.Generator(device=dev).manual_seed(0), device=dev, trainable=True)
+    opt = adamw_init(model)
+    data = SyntheticLM(DataConfig(vocab=tcfg.vocab, seq_len=ts, global_batch=tb, seed=0))
+    tbatch = {k: torch.from_numpy(a).to(dev) for k, a in data.batch(0).items()}
+    tbatch.setdefault("loss_mask", torch.ones(tbatch["labels"].shape, device=dev))
+    train = make_train_step(tcfg, opt_cfg)
+    train(model, opt, tbatch)  # warm-up
+    if not rehearsal:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    before = dispatch.launch_counts()
+    _, treal = op_cost.count(train, model, opt, tbatch)
+    tpeak = None
+    if not rehearsal:
+        torch.cuda.synchronize()
+        tpeak = torch.cuda.max_memory_allocated()
+    out["train_real"] = dict(flops=treal.flops, bytes=treal.bytes, launches={
+        k: n - before[k] for k, n in dispatch.launch_counts().items() if n != before[k]},
+        peak_bytes=tpeak, step_peak_bytes=None if rehearsal else tpeak - base)
+    del model, opt, tbatch
+    if not rehearsal:
+        torch.cuda.empty_cache()
+
     dryrun._join_fake_group(512 if not rehearsal else 8)
     case = ShapeCase("decode_32k", cache_len, batch, "decode")
     t0 = time.perf_counter()
@@ -5235,6 +5400,16 @@ def tooling_child(out_path: str, rehearsal: bool) -> int:
                       launches=rec["launches"], peak_bytes=rec["memory"]["peak_estimate_bytes"],
                       step_peak_bytes=rec["memory"]["step_peak_bytes"],
                       roofline=rec["roofline"], seconds=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    rec = dryrun.lower_cell("qwen3-4b", "train_4k", "single", mesh_shape=(1, 1),
+                            case=ShapeCase("train_4k", ts, tb, "train"), smoke=rehearsal,
+                            extra_overrides=dict(n_layers=8, remat="block"), opt_cfg=opt_cfg)
+    out["train_dry"] = dict(flops=rec["flops_per_device"], bytes=rec["bytes_per_device"],
+                            launches=rec["launches"],
+                            peak_bytes=rec["memory"]["peak_estimate_bytes"],
+                            step_peak_bytes=rec["memory"]["step_peak_bytes"],
+                            collectives=rec["collectives"], roofline=rec["roofline"],
+                            seconds=time.perf_counter() - t0)
     cells = {}
     outdir = Path(out_path).with_suffix(".cells")
     for args in (["--arch", "qwen3-4b", "--shape", "decode_32k", "--mesh", "both"],
@@ -5326,7 +5501,8 @@ def main(argv=None) -> int:
     smoke.phase("11d train recurrentgemma-2b", smoke.p11d_train_recurrentgemma)
     smoke.phase("12 train_loop resume", smoke.p12_resume)
     smoke.phase("14d remat", smoke.p14d_remat)
-    smoke.phase("20 tooling", smoke.p20_tooling)  # last: its subprocess beside no timed phase
+    smoke.phase("20 tooling", smoke.p20_tooling)  # its subprocess beside no timed phase
+    smoke.phase("21 sharded train qwen3-4b, one-device mesh", smoke.p21_sharded_train)
     if smoke.failed:
         print(f"FAILED phases: {smoke.failed}", file=sys.stderr)
         return 1

@@ -20,7 +20,10 @@ the mesh, the spec and its DTensor placements, one ``Shard(dim)`` or
 ``Replicate()`` a mesh dim.  Every rank runs its own process and holds the
 whole of each host tree it places, so :func:`place` cuts the rank's block
 without communicating; :func:`place_model` gives a rank its block of every
-parameter as a model of plain tensors, which the layers compute on.
+parameter as a model of plain tensors, which the layers compute on, and
+:func:`place_train_state` its blocks of a training model's float32
+masters and of AdamW's state (:func:`gather_train_state` the whole
+tensors back).
 """
 from __future__ import annotations
 
@@ -51,6 +54,9 @@ __all__ = [
     "gather",
     "full_tensor",
     "place_model",
+    "place_train_state",
+    "gather_train_state",
+    "place_batch",
     "local_group",
 ]
 
@@ -488,20 +494,18 @@ def place_model(model, cfg: ModelConfig, mesh, rules: Rules):
 
     Raises ValueError, before any device work, where the rank's query heads
     a KV head (the local group) is a size ``decode_attention.cu`` does not
-    instantiate and the kernel would run (a CUDA mesh and
-    ``cfg.decode_kernel="fused"``): recurrentgemma-2b's 10 over a 2-wide
-    'model' axis would be 5."""
+    instantiate and the kernel would run (a CUDA mesh, or the dry run's
+    fake CPU mesh, and ``cfg.decode_kernel="fused"``): recurrentgemma-2b's
+    10 over a 2-wide 'model' axis would be 5."""
     from torch import nn
 
+    from repro_torch.kernels import dispatch
     from repro_torch.models import lm
 
-    specs = lm.named_param_specs(cfg)
     named = dict(model.named_parameters())
-    shardings = {n: Sharding.of(mesh, divisible_spec(logical_to_spec(specs[n], rules),
-                                                     tuple(p.shape), mesh))
-                 for n, p in named.items()}
+    shardings = _param_shardings(model, cfg, mesh, rules)
     attends = any(b in ("global", "window") for b in cfg.blocks)
-    if mesh.device_type == "cuda" and cfg.decode_kernel == "fused" and attends:
+    if dispatch.kernel_device(mesh.device_type) and cfg.decode_kernel == "fused" and attends:
         from repro_torch.kernels.attention.ops import GROUPS, supports_group
 
         g = local_group(cfg, mesh, rules)
@@ -518,6 +522,93 @@ def place_model(model, cfg: ModelConfig, mesh, rules: Rules):
         block = place(p.detach(), shardings[n]).to_local()
         setattr(local.get_submodule(owner), leaf, nn.Parameter(block, requires_grad=False))
     return local
+
+
+def _param_shardings(model, cfg: ModelConfig, mesh, rules: Rules) -> dict:
+    """{parameter name: its ``Sharding``} under ``rules``: each leaf of
+    ``lm.named_param_specs`` placed as the reference's ``shardings_for``
+    does (indivisible dims replicated)."""
+    from repro_torch.models import lm
+
+    specs = lm.named_param_specs(cfg)
+    return {n: Sharding.of(mesh, divisible_spec(logical_to_spec(specs[n], rules),
+                                                tuple(p.shape), mesh))
+            for n, p in model.named_parameters()}
+
+
+def place_train_state(model, cfg: ModelConfig, mesh, rules: Rules):
+    """Put a model and a fresh AdamW state on ``mesh`` for training by
+    ``rules`` (``train_rules``: FSDP over the data axes x TP over 'model',
+    experts over 'model' where it divides them), as the reference's dry run
+    places its params and ``opt_state_specs``.
+
+    Returns (model, opt_state): a model of this rank's blocks as float32
+    masters that require gradients, its ``placement`` attribute the
+    ``Sharding`` of each parameter name (the training forward gathers each
+    layer's blocks over the data axes by it); and ``{"m", "v", "step"}``,
+    m and v zero blocks placed as the parameters (``opt_state_specs``
+    mirrors the parameters' axes), the step a replicated int32 zero.  A
+    block may share storage with ``model``'s tensor (a one-wide mesh cuts
+    nothing)."""
+    from torch import nn
+
+    from repro_torch.models import lm
+
+    shardings = _param_shardings(model, cfg, mesh, rules)
+    dev = _mesh_device(mesh)
+    local = lm.LM(cfg, device=torch.device("meta"), trainable=True)
+    m, v = {}, {}
+    for n, p in model.named_parameters():
+        owner, _, leaf = n.rpartition(".")
+        block = p.detach()[_block(tuple(p.shape), shardings[n])[0]]
+        block = block.to(device=dev, dtype=torch.float32).contiguous()
+        setattr(local.get_submodule(owner), leaf, nn.Parameter(block, requires_grad=True))
+        m[n], v[n] = torch.zeros_like(block), torch.zeros_like(block)
+    local.placement = shardings
+    return local, {"m": m, "v": v, "step": torch.zeros((), dtype=torch.int32, device=dev)}
+
+
+def gather_train_state(model, opt_state=None) -> dict:
+    """The whole tensors, on every rank, of a model placed by
+    :func:`place_train_state` (``{"params": {name: tensor}}``) and of its
+    optimizer state if given (``"m"``, ``"v"``, ``"step"``): for the tests
+    and for checkpoints."""
+    placement = model.placement
+    out = {"params": {n: gather(p.detach(), placement[n])
+                      for n, p in model.named_parameters()}}
+    if opt_state is not None:
+        for k in ("m", "v"):
+            out[k] = {n: gather(t, placement[n]) for n, t in opt_state[k].items()}
+        out["step"] = opt_state["step"].clone()
+    return out
+
+
+def place_batch(batch: dict, mesh, rules: Rules, microbatches: int = 1) -> dict:
+    """This rank's rows of a train batch (``{name: (B, ...) tensor}``, the
+    whole batch on every rank) under ``rules``, as
+    ``launch.steps.make_train_step(mesh=, microbatches=)`` takes them.
+    Microbatch ``i`` of the whole batch is rows ``[i*B/M, (i+1)*B/M)``, as
+    the unsharded step slices it; each is split over the batch's mesh axes,
+    and the rank's blocks of microbatches 0..M-1 follow one another, so
+    that slice ``i`` of the rank's rows is its block of microbatch ``i``.
+    Raises where the batch's axes do not divide a microbatch's rows."""
+    sizes = mesh_sizes(mesh)
+    parts = 1
+    for a in _names(logical_to_spec(("batch",), rules)[0]):
+        parts *= sizes[a]
+    out = {}
+    for name, t in batch.items():
+        rows = t.shape[0]
+        if rows % (microbatches * parts):
+            raise ValueError(f"{name}: {rows} rows do not split into {microbatches} "
+                             f"microbatches over {parts} batch blocks")
+        grouped = t.reshape(microbatches, rows // microbatches, *t.shape[1:])
+        sh = Sharding.of(mesh, divisible_spec(logical_to_spec((None, "batch"), rules)
+                                              + (None,) * (t.ndim - 1), tuple(grouped.shape),
+                                              mesh))
+        block = place(grouped, sh).to_local()
+        out[name] = block.reshape(-1, *t.shape[1:])
+    return out
 
 
 def local_group(cfg: ModelConfig, mesh, rules: Rules) -> int:

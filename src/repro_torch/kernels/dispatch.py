@@ -60,6 +60,8 @@ __all__ = [
     "forget_choices",
     "get",
     "is_fake",
+    "fake_cpu_kernel_route",
+    "kernel_device",
     "last_blocks",
     "launch_counts",
     "launch_details",
@@ -137,6 +139,30 @@ def resolve_backend() -> str:
     return req
 
 
+_fake_cpu_route = False
+
+
+@contextlib.contextmanager
+def fake_cpu_kernel_route() -> Iterator[None]:
+    """Within the block, fake CPU tensors take the kernel route (the output
+    and the count, no library) as fake CUDA tensors do.  A torch built
+    without CUDA can neither index nor differentiate a fake CUDA tensor
+    (both ask the missing CUDA guard), so the dry run's cells run on fake
+    CPU tensors there."""
+    global _fake_cpu_route
+    prev, _fake_cpu_route = _fake_cpu_route, True
+    try:
+        yield
+    finally:
+        _fake_cpu_route = prev
+
+
+def kernel_device(device_type: str) -> bool:
+    """True where tensors of ``device_type`` go to the CUDA kernels: "cuda",
+    and "cpu" within :func:`fake_cpu_kernel_route`."""
+    return device_type == "cuda" or (device_type == "cpu" and _fake_cpu_route)
+
+
 def use_kernel(*tensors: Optional[torch.Tensor]) -> bool:
     """True when these operands go to the CUDA kernel, False for the plain
     version.  All operands must lie on one device."""
@@ -146,7 +172,7 @@ def use_kernel(*tensors: Optional[torch.Tensor]) -> bool:
         if t.device != dev:
             raise ValueError(f"kernel operands on different devices: {dev} and {t.device}")
     if dev.type == "cpu":
-        return False
+        return _fake_cpu_route and is_fake(present[0]) and resolve_backend() != "reference"
     if dev.type != "cuda":
         raise ValueError(f"no kernel route for device {dev}")
     return resolve_backend() != "reference"

@@ -1,25 +1,32 @@
-"""Dry run of every serving cell at production scale, without the cluster
-(torch port of ``repro.launch.dryrun``).
+"""Dry run of every cell at production scale, without the cluster (torch
+port of ``repro.launch.dryrun``).
 
 For each (arch x shape x mesh) cell the process joins torch's ``fake``
 process group as rank 0 of the mesh's ranks (256 or 512; 4 or 8 with
 ``--smoke``), builds the production mesh with ``launch/mesh.py``, places
-the model with ``sharding.place_model`` and runs one prefill or serve step
-inside ``FakeTensorMode`` on fake ``cuda`` tensors, so every kernel wrapper
-takes its kernel route (allocating its outputs and counting its launch,
-calling no library) and every collective is the fake group's no-op.  The
-step is counted by ``launch/op_cost.py`` and its memory by torch's
-``MemTracker``.  That proves the sharding is coherent at 256/512 cards (the
-step runs), that it fits (the peak), and gives the roofline's inputs
-against the H100 model (``core/hw_model.py``).
+the model (``sharding.place_model`` for a prefill or serve step under
+``serve_rules``; ``sharding.place_train_state`` for a train step under
+``train_rules``: float32 masters and AdamW's m and v, FSDP x TP x EP) and
+runs one step inside ``FakeTensorMode`` on fake ``cuda`` tensors (fake
+``cpu`` tensors under ``dispatch.fake_cpu_kernel_route`` on a torch built
+without CUDA), so every kernel wrapper takes its kernel route (allocating
+its outputs and counting its launch, calling no library) and every
+collective is the fake group's no-op.  The step (a train step's backward,
+its layers' FSDP gathers and gradient reduce-scatters, and the optimizer
+included) is counted by ``launch/op_cost.py`` and its memory by torch's
+``MemTracker``.  That
+proves the sharding is coherent at 256/512 cards (the step runs), that it
+fits (the peak), and gives the roofline's inputs against the H100 model
+(``core/hw_model.py``).
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-4b --shape decode_32k --mesh single
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --shape train_4k --mesh both --remat block
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --smoke --mesh both --out experiments/dryrun
 
-``train_4k`` cells need the sharded train step under ``train_rules`` (FSDP x
-TP x EP), which the port does not have yet (ROADMAP A.8b): they raise
-``NotImplementedError`` and are recorded as failures.
+A train cell takes ``--microbatches``, ``--remat`` (the config's own,
+"block", unless named) and ``--seq-parallel`` (``train_rules(seq_parallel=
+True)``: the residual stream's sequence over 'model' between blocks).
 """
 from __future__ import annotations
 
@@ -41,12 +48,14 @@ from repro_torch.configs.shapes import (SHAPES, SMOKE_SHAPES, ShapeCase, cache_l
 from repro_torch.core.hw_model import H100_SXM
 from repro_torch.distributed.constraints import axis_rules, logical_to_spec
 from repro_torch.distributed.sharding import (Sharding, _block, _param_gib, divisible_spec,
-                                              local_tree, mesh_sizes, place_model, serve_rules,
-                                              shardings_for, zeros_tree)
+                                              local_tree, mesh_sizes, place_model,
+                                              place_train_state, serve_rules, shardings_for,
+                                              train_rules, zeros_tree)
 from repro_torch.launch import op_cost
 from repro_torch.launch.mesh import is_fake_group, make_mesh_for, make_production_mesh
-from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.launch.steps import make_prefill_step, make_serve_step, make_train_step
 from repro_torch.models import lm
+from repro_torch.optim import AdamWConfig
 
 __all__ = ["LM_ARCHS", "lower_cell", "decode_hbm_estimate_gib", "main"]
 
@@ -66,10 +75,6 @@ LINK_BW = 450e9
 # same 14/16 of the H100's 80 GB (74.5 GiB): 65.2 GiB.
 HBM_GIB = 80e9 / 2**30
 QUANTIZE_ABOVE_GIB = HBM_GIB * 14 / 16
-
-TRAIN_NOT_PORTED = ("train_4k cells need the sharded train step under train_rules (FSDP x TP x "
-                    "EP), which the port does not have yet: ROADMAP A.8b")
-
 
 def decode_hbm_estimate_gib(cfg, case: ShapeCase, mesh) -> float:
     """bf16 KV cache + bf16 params a device (the decode fit policy), on a
@@ -112,15 +117,15 @@ def _join_fake_group(world: int) -> None:
     dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
 
 
-def _mesh(mesh_kind: str, *, smoke: bool, mesh_shape=None):
+def _mesh(mesh_kind: str, *, smoke: bool, mesh_shape=None, device=None):
     if mesh_shape is not None:
         axes = ("pod", "data", "model") if len(mesh_shape) == 3 else ("data", "model")
-        return make_mesh_for(mesh_shape, axes)
+        return make_mesh_for(mesh_shape, axes, device=device)
     if smoke:
         if mesh_kind == "multi":
-            return make_mesh_for((2, 2, 2), ("pod", "data", "model"))
-        return make_mesh_for((2, 2), ("data", "model"))
-    return make_production_mesh(multi_pod=mesh_kind == "multi")
+            return make_mesh_for((2, 2, 2), ("pod", "data", "model"), device=device)
+        return make_mesh_for((2, 2), ("data", "model"), device=device)
+    return make_production_mesh(multi_pod=mesh_kind == "multi", device=device)
 
 
 def _mesh_ranks(mesh_kind: str, smoke: bool, mesh_shape=None) -> int:
@@ -137,7 +142,7 @@ def _local_zeros(shape, dtype, axes, mesh, rules) -> torch.Tensor:
     logical ``axes`` (fake, under the caller's ``FakeTensorMode``)."""
     spec = divisible_spec(logical_to_spec(axes[:len(shape)], rules), tuple(shape), mesh)
     local = _block(tuple(shape), Sharding.of(mesh, spec))[1]
-    return torch.zeros(local, dtype=dtype, device="cuda")
+    return torch.zeros(local, dtype=dtype, device=mesh.device_type)
 
 
 def _tensors(tree) -> list:
@@ -146,130 +151,50 @@ def _tensors(tree) -> list:
     return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
 
 
-class _FakeCudaOps:
-    """Python-level calls on fake cuda tensors, for a torch built without
-    CUDA: indexing (``Tensor.__getitem__``/``__setitem__``) and the methods
-    whose Python binding opens a device guard (``contiguous``, ``copy_``, ...)
-    fail there for want of a CUDA guard, even on a fake tensor.  This mode
-    runs indexing as the aten ops it dispatches (select, slice, unsqueeze,
-    index, index_put_, copy_) and such a method as its aten op, which the
-    fake mode takes without a guard.  Entered only on such a build; a CUDA
-    build runs fake cuda tensors itself."""
-
-    def __init__(self):
-        from torch.overrides import TorchFunctionMode
-
-        class Mode(TorchFunctionMode):
-            def __torch_function__(mode, func, types, args=(), kwargs=None):
-                kwargs = kwargs or {}
-                if func is torch.Tensor.__getitem__ and _is_fake_cuda(args[0]):
-                    with torch._C.DisableTorchFunction():
-                        return _getitem(args[0], args[1])
-                if func is torch.Tensor.__setitem__ and _is_fake_cuda(args[0]):
-                    with torch._C.DisableTorchFunction():
-                        return _setitem(args[0], args[1], args[2])
-                try:
-                    return func(*args, **kwargs)
-                except RuntimeError as e:
-                    op = getattr(torch.ops.aten, getattr(func, "__name__", ""), None)
-                    if "not linked with support for cuda" not in str(e) or op is None:
-                        raise
-                with torch._C.DisableTorchFunction():
-                    return op(*args, **kwargs)
-
-        self.mode = Mode()
-
-    def __enter__(self):
-        self.mode.__enter__()
-        return self
-
-    def __exit__(self, *exc):
-        return self.mode.__exit__(*exc)
-
-
-def _is_fake_cuda(t) -> bool:
-    from torch._subclasses.fake_tensor import FakeTensor
-
-    return isinstance(t, FakeTensor) and t.device.type == "cuda"
-
-
-def _basic_index(t: torch.Tensor, index):
-    """(the view of ``t`` under the basic part of ``index``, the advanced
-    indices a dim of it, None for a basic dim), as torch's ``applySlicing``."""
-    aten = torch.ops.aten
-    idx = index if isinstance(index, tuple) else (index,)
-    consumed = sum(1 if not (i is None or i is Ellipsis) else 0 for i in idx)
-    consumed += sum(int(i.ndim) - 1 for i in idx
-                    if isinstance(i, torch.Tensor) and i.dtype == torch.bool)
-    out, dim, adv = t, 0, []
-    for i in idx:
-        if i is Ellipsis:
-            skip = t.ndim - consumed
-            adv += [None] * skip
-            dim += skip
-        elif i is None:
-            out = aten.unsqueeze.default(out, dim)
-            adv.append(None)
-            dim += 1
-        elif isinstance(i, bool):
-            raise NotImplementedError("a Python bool index of a fake cuda tensor")
-        elif isinstance(i, int):
-            out = aten.select.int(out, dim, i)
-        elif isinstance(i, slice):
-            step = 1 if i.step is None else i.step
-            out = aten.slice.Tensor(out, dim, i.start, i.stop, step)
-            adv.append(None)
-            dim += 1
-        else:
-            i = torch.as_tensor(i, device=t.device) if not isinstance(i, torch.Tensor) else i
-            adv.append(i)
-            dim += int(i.ndim) if i.dtype == torch.bool else 1
-    return out, adv
-
-
-def _getitem(t: torch.Tensor, index):
-    out, adv = _basic_index(t, index)
-    if any(a is not None for a in adv):
-        while adv and adv[-1] is None:
-            adv.pop()
-        return torch.ops.aten.index.Tensor(out, adv)
-    return out if out is not t else torch.ops.aten.alias.default(t)
-
-
-def _setitem(t: torch.Tensor, index, value) -> None:
-    out, adv = _basic_index(t, index)
-    if not isinstance(value, torch.Tensor):
-        value = torch.full((), value, dtype=t.dtype, device=t.device)
-    if any(a is not None for a in adv):
-        while adv and adv[-1] is None:
-            adv.pop()
-        torch.ops.aten.index_put_.default(out, adv, value)
-    else:
-        torch.ops.aten.copy_.default(out, value)
-
-
 def _argument_bytes(model, tensors) -> int:
     """The bytes of a step's arguments as ``MemTracker`` counts them: each
-    storage once, rounded up to the caching allocator's 512 bytes."""
+    storage once, a CUDA one rounded up to the caching allocator's 512
+    bytes (a CPU one, the dry run on a torch built without CUDA, is not:
+    a difference of under 512 bytes a tensor)."""
     seen, total = set(), 0
     for t in [*model.parameters(), *model.buffers(), *tensors]:
         st = t.untyped_storage()
         if st._cdata not in seen:
             seen.add(st._cdata)
-            total += -(-st.nbytes() // 512) * 512
+            total += -(-st.nbytes() // 512) * 512 if t.device.type == "cuda" else st.nbytes()
     return total
 
 
+def _batch(cfg, case: ShapeCase, mesh, rules, microbatches: int = 1) -> dict:
+    """This rank's block of each input of a train or prefill cell, zeros:
+    the rows of each of the ``microbatches`` microbatches over the batch's
+    axes (``sharding.place_batch``'s layout; the reference's
+    ``_batch_shardings`` for one), each row's sequence whole (under
+    sequence parallelism the train step splits it itself)."""
+    out = {}
+    for name, spec in input_specs(cfg, case).items():
+        shape = (microbatches, spec.shape[0] // microbatches) + tuple(spec.shape[1:])
+        block = _local_zeros(shape, spec.dtype, (None, "batch") + (None,) * (spec.ndim - 1),
+                             mesh, rules)
+        out[name] = block.reshape(-1, *block.shape[2:])
+    return out
+
+
 def lower_cell(arch: str, shape_name: str, mesh_kind: str, *, quantized_kv=None,
-               sqrt_unit="e2afs", extra_overrides=None, smoke=False, attribute_top=0,
-               case: Optional[ShapeCase] = None, mesh_shape=None) -> dict:
+               sqrt_unit="e2afs", microbatches=1, seq_parallel=False, extra_overrides=None,
+               smoke=False, attribute_top=0, case: Optional[ShapeCase] = None, mesh_shape=None,
+               opt_cfg: Optional[AdamWConfig] = None) -> dict:
     """Run one cell's step on fake tensors; returns its record (a dict).
 
     ``quantized_kv=None`` is the policy: an int8 KV cache where the bf16
     cache and params would pass :data:`QUANTIZE_ABOVE_GIB` a card.
     ``smoke`` takes the smoke configs and shapes on a (2, 2 [, 2]) mesh.
     ``case`` replaces the named shape's case and ``mesh_shape`` the mesh
-    (e.g. (1, 1), one rank), to hold a cell against a real step."""
+    (e.g. (1, 1), one rank), to hold a cell against a real step.  A train
+    cell runs ``make_train_step(cfg, opt_cfg, microbatches=)`` under
+    ``train_rules``, ``opt_cfg`` by default the reference's
+    ``AdamWConfig(sqrt_unit=)`` (the unfused update), under
+    ``train_rules(seq_parallel=)``."""
     # DTensor warns at each two-axis reduction of the (kv, qg) mesh; the
     # record counts them
     logging.getLogger("torch.distributed.tensor._redistribute").setLevel(logging.ERROR)
@@ -280,18 +205,23 @@ def lower_cell(arch: str, shape_name: str, mesh_kind: str, *, quantized_kv=None,
     skip = shape_applies(cfg, shape_name)
     if skip:
         return {"arch": arch, "shape": shape_name, "mesh": mesh_kind, "status": skip}
-    if case.kind == "train":
-        raise NotImplementedError(TRAIN_NOT_PORTED)
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed._tools.mem_tracker import MemTracker
 
     from repro_torch.kernels import dispatch
 
     _join_fake_group(_mesh_ranks(mesh_kind, smoke, mesh_shape))
-    mesh = _mesh(mesh_kind, smoke=smoke, mesh_shape=mesh_shape)
+    # a torch built without CUDA runs fake CPU tensors on the kernel route
+    # (dispatch.fake_cpu_kernel_route): it can neither index nor
+    # differentiate a fake CUDA tensor (ROADMAP C.45)
+    fake_cpu = not torch.backends.cuda.is_built()
+    device = "cpu" if fake_cpu else None
+    mesh = _mesh(mesh_kind, smoke=smoke, mesh_shape=mesh_shape, device=device)
     t0 = time.time()
     rules = None
-    if case.kind == "decode":
+    if case.kind == "train":
+        rules = train_rules(cfg, mesh, seq_parallel=seq_parallel)
+    elif case.kind == "decode":
         # 'model' reshaped into (kv, qg) where kv_heads divides it: the cache
         # then stays kv-head-sharded from step to step
         model_size = mesh_sizes(mesh)["model"]
@@ -301,9 +231,10 @@ def lower_cell(arch: str, shape_name: str, mesh_kind: str, *, quantized_kv=None,
                 and any(b in ("global", "window") for b in cfg.blocks)):
             if mesh_kind == "multi":
                 mesh = make_mesh_for((2, 16, kvh, model_size // kvh),
-                                     ("pod", "data", "kv", "qg"))
+                                     ("pod", "data", "kv", "qg"), device=device)
             else:
-                mesh = make_mesh_for((16, kvh, model_size // kvh), ("data", "kv", "qg"))
+                mesh = make_mesh_for((16, kvh, model_size // kvh), ("data", "kv", "qg"),
+                                     device=device)
         seq_shard = case.global_batch < mesh_sizes(mesh)["data"]
         rules = serve_rules(cfg, mesh, seq_shard_kv=seq_shard)
         if quantized_kv is None:
@@ -313,19 +244,19 @@ def lower_cell(arch: str, shape_name: str, mesh_kind: str, *, quantized_kv=None,
     n_chips = mesh.size()
 
     meta_model = lm.LM(cfg, device=torch.device("meta"))
-    indexing = (contextlib.nullcontext() if torch.backends.cuda.is_built()
-                else _FakeCudaOps())
-    with FakeTensorMode(allow_non_fake_inputs=True), indexing:
-        model = place_model(meta_model, cfg, mesh, rules)
-        if case.kind == "prefill":
-            batch = {}
-            for name, spec in input_specs(cfg, case).items():
-                axes = ("batch", "seq") if name in ("tokens", "labels", "loss_mask") else (
-                    "batch", "seq", None)
-                batch[name] = _local_zeros(spec.shape, spec.dtype, axes, mesh, rules)
-            args = (model, batch)
+    route = dispatch.fake_cpu_kernel_route() if fake_cpu else contextlib.nullcontext()
+    with FakeTensorMode(allow_non_fake_inputs=True), route:
+        if case.kind == "train":
+            model, opt_state = place_train_state(meta_model, cfg, mesh, rules)
+            args = (model, opt_state, _batch(cfg, case, mesh, rules, microbatches))
+            step = make_train_step(cfg, opt_cfg or AdamWConfig(sqrt_unit=sqrt_unit),
+                                   microbatches=microbatches, mesh=mesh, rules=rules)
+        elif case.kind == "prefill":
+            model = place_model(meta_model, cfg, mesh, rules)
+            args = (model, _batch(cfg, case, mesh, rules))
             step = make_prefill_step(cfg)
         else:
+            model = place_model(meta_model, cfg, mesh, rules)
             clen = cache_len_for(cfg, case)
             cache_abs = lm.init_cache(cfg, case.global_batch, clen, quantized=quantized_kv,
                                       abstract=True)
@@ -365,6 +296,7 @@ def lower_cell(arch: str, shape_name: str, mesh_kind: str, *, quantized_kv=None,
         "status": "ok",
         "n_chips": n_chips,
         "chip": H100_SXM.name,
+        "fake_device": mesh.device_type,
         "seconds": round(seconds, 1),
         # the peak counts the arguments (weights, cache, inputs); the step's
         # own is the rest
@@ -380,10 +312,10 @@ def lower_cell(arch: str, shape_name: str, mesh_kind: str, *, quantized_kv=None,
             "collective_s": cost.collective_bytes / LINK_BW,
         },
         "quantized_kv": quantized_kv,
-        # the reference's keys for its train step's options; the serving
-        # steps have neither (the train step is ROADMAP A.8b)
-        "microbatches": 1,
-        "seq_parallel": False,
+        # the train step's options (the serving steps have neither)
+        "microbatches": microbatches if case.kind == "train" else 1,
+        "seq_parallel": bool(seq_parallel) and case.kind == "train",
+        "remat": cfg.remat,
     }
     if attribute_top:
         from repro_torch.launch.attribution import attribute
@@ -407,6 +339,13 @@ def main(argv=None):
                     type=lambda s: {"true": True, "false": False}[s.lower()],
                     help="force the int8 KV cache on or off; default: the fit policy")
     ap.add_argument("--sqrt-unit", default="e2afs")
+    ap.add_argument("--microbatches", type=int, default=1,
+                    help="a train cell's gradient-accumulation steps")
+    ap.add_argument("--seq-parallel", action="store_true",
+                    help="a train cell's sequence parallelism ('seq' over 'model' between "
+                         "blocks)")
+    ap.add_argument("--remat", default=None, choices=("none", "block", "minimal"),
+                    help="a train cell's remat; default: the config's")
     ap.add_argument("--smoke", action="store_true", help="smoke configs on a 2x2[x2] mesh")
     ap.add_argument("--attribute", type=int, default=0, metavar="N",
                     help="record the top-N ops by bytes and by flops in the JSON")
@@ -429,6 +368,8 @@ def main(argv=None):
         for shape in shapes:
             for mesh_kind in meshes:
                 tag = f"{arch}_{shape}_{mesh_kind}" + ("_qkv" if args.quantized_kv is True else "")
+                if args.seq_parallel and SHAPES[shape].kind == "train":
+                    tag += "_sp"
                 if args.tag:
                     tag += f"_{args.tag}"
                 path = outdir / f"{tag}.json"
@@ -437,8 +378,11 @@ def main(argv=None):
                     continue
                 try:
                     rec = lower_cell(arch, shape, mesh_kind, quantized_kv=args.quantized_kv,
-                                     sqrt_unit=args.sqrt_unit, smoke=args.smoke,
-                                     attribute_top=args.attribute)
+                                     sqrt_unit=args.sqrt_unit, microbatches=args.microbatches,
+                                     seq_parallel=args.seq_parallel, smoke=args.smoke,
+                                     attribute_top=args.attribute,
+                                     extra_overrides={"remat": args.remat} if args.remat
+                                     else None)
                 except Exception as e:  # noqa: BLE001 -- record the failure and go on
                     rec = {"arch": arch, "shape": shape, "mesh": mesh_kind,
                            "status": f"FAIL: {type(e).__name__}: {e}",

@@ -73,11 +73,12 @@ def make_mesh_for(shape, axes, *, device=None):
 
     shape, axes = tuple(int(s) for s in shape), tuple(axes)
     n = int(np.prod(shape))
-    if is_fake_group():
+    if is_fake_group():  # fake cuda tensors unless a device is named
         if dist.get_world_size() < n:
             raise RuntimeError(f"mesh {shape} needs {n} ranks, the fake group has "
                                f"{dist.get_world_size()}")
-        return DeviceMesh("cuda", torch.arange(n).reshape(shape), mesh_dim_names=axes)
+        kind = "cuda" if device is None else torch.device(device).type
+        return DeviceMesh(kind, torch.arange(n).reshape(shape), mesh_dim_names=axes)
     dev = resolve_device(device)
     if not dist.is_initialized() and n != 1:
         raise RuntimeError(

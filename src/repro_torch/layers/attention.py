@@ -20,7 +20,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed.constraints import (block_index, constrain, current_rules,
-                                                 mesh_axes, mesh_parts, partial_sum)
+                                                 mesh_axes, mesh_parts, tp_entry, tp_in, tp_out)
 from repro_torch.layers.norms import rmsnorm_cfg
 from repro_torch.layers.param import parameter
 from repro_torch.layers.rope import rope_tables, rotate
@@ -149,13 +149,21 @@ def _project(x: torch.Tensor, w: torch.Tensor, mm=torch.matmul) -> torch.Tensor:
 
 
 def _project_qkv(p: Attention, cfg, xq, xkv, q_positions, kv_positions, *, use_rope,
-                 fused_norm=True, norm_levels=None, mm=torch.matmul):
+                 fused_norm=True, norm_levels=None, mm=torch.matmul, split=(), kv_split=()):
+    """q, k and v of the query and K/V inputs, qk-normed and rotated.  In
+    training, ``split``: the mesh axes that split the query heads, over
+    which the replicated qk-norm scales, used for the rank's heads only,
+    have their gradients summed; ``kv_split``: those of them that do not
+    split the KV heads, over which wk and wv, replicated and used for the
+    rank's query heads only, have theirs summed."""
     q = _project(xq, p.wq, mm)
-    k = _project(xkv, p.wk, mm)
-    v = _project(xkv, p.wv, mm)
+    k = _project(xkv, tp_entry(p.wk, kv_split), mm)
+    v = _project(xkv, tp_entry(p.wv, kv_split), mm)
     if cfg.qk_norm:
-        q = rmsnorm_cfg(p.q_norm, q, cfg, fused=fused_norm, levels=norm_levels, **_Q_SITE(cfg))
-        k = rmsnorm_cfg(p.k_norm, k, cfg, fused=fused_norm, levels=norm_levels, **_K_SITE(cfg))
+        q = rmsnorm_cfg(tp_entry(p.q_norm, split), q, cfg, fused=fused_norm, levels=norm_levels,
+                        **_Q_SITE(cfg))
+        k = rmsnorm_cfg(tp_entry(p.k_norm, split), k, cfg, fused=fused_norm,
+                        levels=norm_levels, **_K_SITE(cfg))
     if use_rope:
         q_tables = rope_tables(q_positions, q.shape[-1], theta=cfg.rope_theta)
         kv_tables = q_tables if kv_positions is q_positions else rope_tables(
@@ -173,8 +181,7 @@ def _out_proj(out: torch.Tensor, wo: torch.Tensor, mm=torch.matmul, cfg=None) ->
     y = mm(out.reshape(b, s, h * hd), wo.to(out.dtype).reshape(h * hd, -1))
     if cfg is None:
         return y
-    axes = mesh_axes(Attention.SPECS["wo"], (cfg.n_heads, cfg.d_head, cfg.d_model), 0)
-    return constrain(partial_sum(y, axes), ("batch", "seq", "embed"))
+    return tp_out(y, mesh_axes(Attention.SPECS["wo"], (cfg.n_heads, cfg.d_head, cfg.d_model), 0))
 
 
 def _constrain_qkv(q, k, v):
@@ -264,14 +271,29 @@ def attention_train(p: Attention, cfg, x, *, mode: str = "causal",
     in "window" mode against a band of ``window + q_chunk`` lines (K/V
     left-padded by ``window`` lines at position ``-10**9``, which the mask
     drops), so the scores are ``(b, h, q_chunk, window + q_chunk)``; other
-    lengths (whisper's 1500 frames) take one block of (b, h, s, t) scores."""
+    lengths (whisper's 1500 frames) take one block of (b, h, s, t) scores.
+
+    In training on a mesh x enters the rank's heads through
+    ``constraints.tp_in`` (its gradient summed over the axes that split
+    them; under sequence parallelism the rank's block of the sequence is
+    gathered), ``kv_x`` (the encoder's output, whole on every rank) through
+    ``tp_entry``, and the output leaves through ``tp_out``.  K/V heads
+    replicated over an axis that splits the query heads are computed whole
+    on every rank and read by the rank's query heads only: their weights'
+    gradients are summed over that axis."""
+    d, h, kvh, hd = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    split = mesh_axes(Attention.SPECS["wq"], (d, h, hd), 1)
+    kv_split = tuple(a for a in split
+                     if a not in mesh_axes(Attention.SPECS["wk"], (d, kvh, hd), 1))
+    x = tp_in(x, split)
+    xkv = x if kv_x is None else tp_entry(kv_x, split)
     s = x.shape[1]
-    xkv = x if kv_x is None else kv_x
     pos = positions if positions is not None else torch.arange(s, device=x.device)
     kp = kv_positions if kv_positions is not None else (
         pos if kv_x is None else torch.arange(xkv.shape[1], device=x.device))
-    q, k, v = _project_qkv(p, cfg, x, xkv, pos, kp, use_rope=cfg.pos == "rope" and mode != "cross",
-                           fused_norm=False)
+    q, k, v = _project_qkv(p, cfg, x, xkv, pos, kp,
+                           use_rope=cfg.pos == "rope" and mode != "cross", fused_norm=False,
+                           split=split, kv_split=kv_split)
     k, v = _rank_kv(cfg, k, v)
     scale = cfg.d_head**-0.5
     sdt = getattr(torch, cfg.scores_dtype)

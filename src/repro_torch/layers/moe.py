@@ -21,6 +21,14 @@ group reaches the rank's experts), the rank's experts run on them, and the
 outputs, summed over the axis, come back to each row's rank.  Capacity
 stays per batch row.
 
+In training (``train_rules``) experts go over 'model' where it divides
+them, else their hidden units do (mixtral-8x22b's 8 experts on a 16-wide
+axis): the buffers and combine weights enter the rank's share through
+``constraints.tp_entry``, and the load-balance loss's means run over the
+whole batch (the rows' sums and counts summed over the data axes: the
+loss is a product of two means, so a mean of each rank's would be another
+number).
+
 The one-hots compare with an ``arange`` and the top-k is a stable
 descending sort: no host read and no data-dependent shape, so the routing
 can be captured in a CUDA graph, and ties go to the lower expert index as
@@ -34,7 +42,8 @@ import torch
 from torch import nn
 
 from repro_torch.distributed.constraints import (block_index, block_origin, constrain,
-                                                 gather_dim, mesh_axes, reduce_sum)
+                                                 data_axes, gather_dim, mesh_axes, mesh_parts,
+                                                 reduce_sum, tp_entry)
 from repro_torch.layers.param import parameter
 
 __all__ = ["MoE", "capacity", "moe_apply", "route"]
@@ -86,9 +95,14 @@ def route(router: torch.Tensor, x: torch.Tensor, k: int, cap: int, choices=None)
     return probs, gates, idx, pos, pos < cap
 
 
-def moe_apply(p: MoE, cfg, x: torch.Tensor, *, capacity_factor: float = 1.25):
+def moe_apply(p: MoE, cfg, x: torch.Tensor, *, capacity_factor: float = 1.25,
+              whole_batch_aux: bool = False):
     """x (b, s, d) -> (y (b, s, d), the Switch load-balance aux loss, a
-    float32 scalar ``E * sum(me * ce)``)."""
+    float32 scalar ``E * sum(me * ce)``).  ``whole_batch_aux`` (the training
+    forward): in a scope whose data axes shard the batch, the aux's means
+    run over the whole batch, its sums and counts all-reduced over those
+    axes (serving leaves it unset: an admission runs on the ranks holding
+    its slot only, and drops the aux)."""
     b, s, _ = x.shape
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     dt = x.dtype
@@ -113,6 +127,10 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, *, capacity_factor: float = 1.25):
     f = cfg.moe.d_ff_expert
     ex = mesh_axes(MoE.SPECS["wi_gate"], (e, cfg.d_model, f), 0)
     hid = mesh_axes(MoE.SPECS["wo"], (e, f, cfg.d_model), 1)
+    # the buffers and the combine weights, replicated over the axes that
+    # split the experts or their hidden units, enter the rank's share there
+    split = ex + tuple(a for a in hid if a not in ex)
+    xe, combine = tp_entry(xe, split), tp_entry(combine, split)
     rows = ()
     if ex:
         whole = block_origin(("batch",), (b,))[1][0]
@@ -126,11 +144,17 @@ def moe_apply(p: MoE, cfg, x: torch.Tensor, *, capacity_factor: float = 1.25):
     u = torch.einsum("becd,edf->becf", xe, p.wi_up.to(dt))
     ye = torch.einsum("becf,efd->becd", torch.nn.functional.silu(g) * u, p.wo.to(dt))
     y = torch.einsum("becd,bsec->bsd", ye, combine)
-    if ex or hid:  # the addends of the experts and hidden units the rank holds
-        y = reduce_sum(y, ex + tuple(a for a in hid if a not in ex))
+    if split:  # the addends of the experts and hidden units the rank holds
+        y = reduce_sum(y, split)
         if rows:
             r0 = block_index(rows) * b
             y = y[r0:r0 + b]
-    me = probs.mean(dim=(0, 1))
-    ce = ((idx[..., None] == experts).any(dim=2)).float().mean(dim=(0, 1))
+    chosen = (idx[..., None] == experts).any(dim=2).float()
+    data = data_axes() if whole_batch_aux else ()
+    if not data:
+        me, ce = probs.mean(dim=(0, 1)), chosen.mean(dim=(0, 1))
+    else:  # means over the whole batch: the rows' sums and counts over the data axes
+        n = probs.new_full((), float(b * s * mesh_parts(data)))
+        me = reduce_sum(probs.sum(dim=(0, 1)), data) / n
+        ce = reduce_sum(chosen.sum(dim=(0, 1)), data) / n
     return y, e * torch.sum(me * ce)

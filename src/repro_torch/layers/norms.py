@@ -30,7 +30,7 @@ import contextlib
 import torch
 
 from repro_torch.core import get_unit, resolve_ladder
-from repro_torch.distributed.constraints import fault_block
+from repro_torch.distributed.constraints import fault_block, stream_param
 from repro_torch.layers.param import parameter
 
 __all__ = ["rmsnorm", "rmsnorm_select", "rmsnorm_cfg", "layernorm", "layernorm_select",
@@ -170,14 +170,19 @@ def norm_init(module: torch.nn.Module, name: str, cfg, *, dtype, device) -> None
 
 
 def norm_cfg(p: torch.nn.Module, name: str, x: torch.Tensor, cfg, *, fused: bool = True,
-             levels=None) -> torch.Tensor:
+             levels=None, stream: bool = False) -> torch.Tensor:
     """The norm ``name`` of module ``p`` over ``x`` under the config: an
     RMSNorm through :func:`rmsnorm_cfg` (the fused kernel where ``fused``
     asks and it applies), a LayerNorm through :func:`layernorm`, or with
-    ``levels`` ((b,), accuracy-SLO decode) :func:`layernorm_select`."""
+    ``levels`` ((b,), accuracy-SLO decode) :func:`layernorm_select`.
+    ``stream``: x is the residual stream of a training forward, whose
+    sequence a sequence-parallel scope splits, so the norm's parameters
+    enter through ``constraints.stream_param``."""
+    names = (name,) if cfg.norm == "rmsnorm" else (f"{name}_scale", f"{name}_bias")
+    params = [stream_param(getattr(p, n)) if stream else getattr(p, n) for n in names]
     if cfg.norm == "rmsnorm":
-        return rmsnorm_cfg(getattr(p, name), x, cfg, fused=fused, levels=levels)
-    scale, bias = getattr(p, f"{name}_scale"), getattr(p, f"{name}_bias")
+        return rmsnorm_cfg(params[0], x, cfg, fused=fused, levels=levels)
+    scale, bias = params
     with _site(cfg, x, None, None):
         if levels is not None:
             return layernorm_select(scale, bias, x, levels, ladder=cfg.sqrt_ladder,

@@ -40,8 +40,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core import get_unit
-from repro_torch.distributed.constraints import (block_index, constrain, fault_block, mesh_axes,
-                                                 partial_sum, reduce_sum)
+from repro_torch.distributed.constraints import (fault_block, mesh_axes, reduce_scatter_dim,
+                                                 tp_in, tp_out, whole_sequence)
 from repro_torch.layers.param import parameter
 from repro_torch.layers.ssd import CONV_W, causal_conv, conv_step, conv_tail, softplus
 
@@ -78,16 +78,12 @@ class RGLRU(nn.Module):
 
 def _gate(p: RGLRU, cfg, xr: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``xr @ w`` for the rank's channels: the product over its block of
-    the contraction, reduced over the mesh axes sharding it, then its own
-    block of the output channels (the whole product outside a scope)."""
+    the contraction, reduce-scattered over the mesh axes sharding it into
+    its own block of the output channels (the whole product outside a
+    scope); the backward all-gathers the blocks' gradients, since every
+    rank's addend reached every channel."""
     dr = cfg.rglru.d_rnn
-    y = xr @ w.to(xr.dtype)
-    rows = mesh_axes(RGLRU.SPECS["w_r"], (dr, dr), 0)
-    if not rows:
-        return y
-    n = xr.shape[-1]
-    c0 = block_index(rows) * n
-    return reduce_sum(y, rows)[..., c0:c0 + n]
+    return reduce_scatter_dim(xr @ w.to(xr.dtype), mesh_axes(RGLRU.SPECS["w_r"], (dr, dr), 0), -1)
 
 
 def _gates(p: RGLRU, cfg, xr: torch.Tensor):
@@ -107,7 +103,7 @@ def _gates(p: RGLRU, cfg, xr: torch.Tensor):
 def _out(p: RGLRU, cfg, y: torch.Tensor) -> torch.Tensor:
     """out_proj of y, its partial sums over the rank's channels reduced."""
     axes = mesh_axes(RGLRU.SPECS["out_proj"], (cfg.rglru.d_rnn, cfg.d_model), 0)
-    return constrain(partial_sum(y @ p.out_proj.to(y.dtype), axes), ("batch", "seq", "embed"))
+    return tp_out(y @ p.out_proj.to(y.dtype), axes)
 
 
 def _interleave(even: torch.Tensor, odd: torch.Tensor) -> torch.Tensor:
@@ -140,11 +136,14 @@ def rglru_train(p: RGLRU, cfg, x: torch.Tensor, *, return_state: bool = False):
     state after the last token, ``{"conv": (b, 3, dr), "h": (b, dr)
     float32}``."""
     dt = x.dtype
-    gate = F.gelu(x @ p.gate_proj.to(dt), approximate="tanh")  # jax.nn.gelu's default
-    xr_raw = x @ p.x_proj.to(dt)
-    xr = causal_conv(xr_raw, p.conv_w.to(dt))
-    a, b_in = _gates(p, cfg, xr)
-    _, h = linear_scan(a, b_in)
+    # x enters the rank's channels (its gradient summed over their axes)
+    x = tp_in(x, mesh_axes(RGLRU.SPECS["x_proj"], (cfg.d_model, cfg.rglru.d_rnn), 1))
+    with whole_sequence():  # the sequence is whole from here to the output's sum
+        gate = F.gelu(x @ p.gate_proj.to(dt), approximate="tanh")  # jax.nn.gelu's default
+        xr_raw = x @ p.x_proj.to(dt)
+        xr = causal_conv(xr_raw, p.conv_w.to(dt))
+        a, b_in = _gates(p, cfg, xr)
+        _, h = linear_scan(a, b_in)
     out = _out(p, cfg, h.to(dt) * gate)
     if not return_state:
         return out

@@ -36,8 +36,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.distributed.constraints import (block_index, constrain, gather_dim, mesh_axes,
-                                                 mesh_parts, partial_sum)
+from repro_torch.distributed.constraints import (block_index, gather_dim, mesh_axes, mesh_parts,
+                                                 tp_entry, tp_in, tp_out)
 from repro_torch.layers.param import parameter
 
 __all__ = ["CONV_W", "SSD", "causal_conv", "conv_step", "conv_tail", "init_ssd_state",
@@ -107,6 +107,7 @@ class _Shards:
         d, d_in, n, hp = cfg.d_model, s.d_inner, s.d_state, s.head_dim
         nh = d_in // hp
         heads = mesh_axes(SSD.SPECS["a_log"], (nh,), 0)
+        self.heads = heads
         self.nh = p.a_log.shape[0]
         self.h0 = block_index(heads) * self.nh if heads else 0
         self.proj = mesh_axes(SSD.SPECS["in_proj"], (d, 2 * d_in + 2 * n + nh), 1)
@@ -126,7 +127,7 @@ class _Shards:
         self.sum = heads or rows
 
     def reduce(self, y):
-        return constrain(partial_sum(y, self.sum), ("batch", "seq", "embed"))
+        return tp_out(y, self.sum)
 
 
 def _split_proj(cfg, proj):
@@ -154,6 +155,11 @@ def ssd_train(p: SSD, cfg, x: torch.Tensor, *, chunk: int = 128, return_state: b
     s_cfg = cfg.ssm
     d_in, n, hp = s_cfg.d_inner, s_cfg.d_state, s_cfg.head_dim
     nh = d_in // hp
+    # in training on a mesh x enters the rank's projection columns (its
+    # gradient summed over their axes; under sequence parallelism the
+    # rank's block of the sequence gathered)
+    sh = _Shards(p, cfg)
+    x = tp_in(x, sh.proj)
     b, slen, _ = x.shape
     chunk = min(chunk, slen)
     pad = (-slen) % chunk
@@ -162,11 +168,15 @@ def ssd_train(p: SSD, cfg, x: torch.Tensor, *, chunk: int = 128, return_state: b
     slen_p = slen + pad
     dt_act = x.dtype
 
-    sh = _Shards(p, cfg)
-    proj = gather_dim(x @ p.in_proj.to(dt_act), sh.proj, -1)
+    if sh.proj:  # the rank's columns, gathered (the gradient reduce-scattered)
+        proj = gather_dim(x @ p.in_proj.to(dt_act), sh.proj, -1)
+    else:  # the whole projection, used for the rank's heads only
+        proj = tp_entry(x @ p.in_proj.to(dt_act), sh.heads)
     z, xbc, dt = _split_proj(cfg, proj)
     xbc_raw = xbc  # the decode conv state is the tail of the pre-conv inputs
-    xbc = F.silu(causal_conv(xbc, gather_dim(p.conv_w, sh.conv, 1).to(dt_act)))
+    conv_w = (gather_dim(p.conv_w, sh.conv, 1) if sh.conv
+              else tp_entry(p.conv_w, sh.heads))
+    xbc = F.silu(causal_conv(xbc, conv_w.to(dt_act)))
     hs = slice(sh.h0 * hp, (sh.h0 + sh.nh) * hp)
     xs, B, C = xbc[..., :d_in][..., hs], xbc[..., d_in: d_in + n], xbc[..., d_in + n:]
     z, dt, nh = z[..., hs], dt[..., sh.h0:sh.h0 + sh.nh], sh.nh
@@ -213,7 +223,7 @@ def ssd_train(p: SSD, cfg, x: torch.Tensor, *, chunk: int = 128, return_state: b
     y = (y_intra + y_inter).reshape(b, slen_p, nh, hp)
     y = y + p.d_skip.float()[None, None, :, None] * xs.reshape(b, slen_p, nh, hp).float()
     y = y.reshape(b, slen_p, nh * hp).to(dt_act) * F.silu(z)
-    out = sh.reduce(y[..., sh.out] @ p.out_proj.to(dt_act))[:, pad:]
+    out = sh.reduce((y[..., sh.out] @ p.out_proj.to(dt_act))[:, pad:])
     if not return_state:
         return out
     tail = conv_tail(xbc_raw, slen)[..., sh.c0:sh.c0 + sh.width]

@@ -77,9 +77,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.faults import _M32, _mix32
-from repro_torch.distributed.constraints import (block_index, constrain, fault_block,
-                                                 maybe_axis_rules, mesh_axes, partial_sum,
-                                                 shard_of)
+from repro_torch.distributed.constraints import (block_index, constrain, fault_block, gathered,
+                                                 maybe_axis_rules, mesh_axes, reduce_sum,
+                                                 shard_of, tp_in, tp_out, whole_sequence)
 from repro_torch.device import resolve_device
 from repro_torch.layers import attention as attn
 from repro_torch.layers import rglru, rowwise, ssd
@@ -379,11 +379,17 @@ def _write_state(state: dict, new: dict) -> None:
         t.copy_(new[k])
 
 
-def _ffn(layer: Block, cfg, h, mm=torch.matmul):
+def _ffn(layer: Block, cfg, h, mm=torch.matmul, train: bool = False):
     """The block's MLP over h, or its mixture of experts (one routing group
-    a batch row): (output, the router's aux loss, or None for an MLP)."""
+    a batch row): (output, the router's aux loss, or None for an MLP).
+    ``train``: the training forward's aux, over the whole batch."""
     if cfg.moe is not None:
-        return moe_apply(layer.moe, cfg, h, capacity_factor=cfg.moe.capacity_factor)
+        if not train:
+            return moe_apply(layer.moe, cfg, h, capacity_factor=cfg.moe.capacity_factor)
+        # the experts see whole sequences: sequence parallelism ends here
+        y, aux = moe_apply(layer.moe, cfg, tp_in(h, ()),
+                           capacity_factor=cfg.moe.capacity_factor, whole_batch_aux=True)
+        return tp_out(y, ()), aux
     return mlp_apply(layer.mlp, cfg, h, mm=mm), None
 
 
@@ -396,23 +402,34 @@ def _layer_train(layer: Block, cfg, block, x, positions, enc_out=None):
     MLP ("rglru").  Returns (x, the layer's float32 aux loss, 0 without
     experts)."""
     x = constrain(x, ("batch", "seq", "embed"))
-    h = _norm(layer, "ln1", x, cfg, fused=False)
+    h = _norm(layer, "ln1", x, cfg, fused=False, stream=True)
     if block in ("ssd", "rglru"):
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         if block == "ssd":
             return x + ssd.ssd_train(layer.mixer, cfg, h), aux
         x = x + rglru.rglru_train(layer.mixer, cfg, h)
-        return x + mlp_apply(layer.mlp, cfg, _norm(layer, "ln2", x, cfg, fused=False)), aux
+        return x + mlp_apply(layer.mlp, cfg, _norm(layer, "ln2", x, cfg, fused=False,
+                                                        stream=True)), aux
     mode = "causal" if block == "global" else "window"
     x = x + attn.attention_train(layer.attn, cfg, h, mode=mode, window=cfg.window,
                                  positions=positions)
     if enc_out is not None:
-        h = _norm(layer, "lnx", x, cfg, fused=False)
+        h = _norm(layer, "lnx", x, cfg, fused=False, stream=True)
         x = x + attn.attention_train(layer.xattn, cfg, h, mode="cross", kv_x=enc_out)
-    h, aux = _ffn(layer, cfg, _norm(layer, "ln2", x, cfg, fused=False))
+    h, aux = _ffn(layer, cfg, _norm(layer, "ln2", x, cfg, fused=False, stream=True), train=True)
     if aux is None:
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return constrain(x + h, ("batch", "seq", "embed")), aux
+
+
+def _layer_train_fsdp(layer: Block, prefix, placement, cfg, block, x, positions, enc_out=None):
+    """:func:`_layer_train` on the layer's weights gathered over the
+    data-parallel axes (``placement``: a training model's ``Sharding`` a
+    parameter name, ``sharding.place_train_state``; None off a mesh).  Under
+    block remat the recompute gathers again; the backward reduce-scatters
+    each weight's gradient (``constraints.fsdp_param``)."""
+    with gathered(layer, placement, prefix):
+        return _layer_train(layer, cfg, block, x, positions, enc_out)
 
 
 def _sinusoidal(n: int, d: int, device) -> torch.Tensor:
@@ -449,6 +466,14 @@ def _enc_layer(layer: EncoderLayer, cfg, x, fused: bool):
     return x + mlp_apply(layer.mlp, cfg, _norm(layer, "ln2", x, cfg, fused=fused))
 
 
+def _enc_layer_fsdp(layer: EncoderLayer, prefix, placement, cfg, x, fused: bool):
+    """:func:`_enc_layer` on the layer's FSDP-gathered weights (a training
+    model placed on a mesh, see :func:`_layer_train_fsdp`), over whole
+    frame sequences (no sequence parallelism in the encoder)."""
+    with whole_sequence(), gathered(layer, placement, prefix):
+        return _enc_layer(layer, cfg, x, fused)
+
+
 def _run_encoder(model: LM, cfg, audio: torch.Tensor, *, fused: bool) -> torch.Tensor:
     """The encoder over the audio frames (b, frames, d) (the reference's
     ``_run_encoder``): the sinusoidal table added, each layer rematerialised
@@ -458,12 +483,15 @@ def _run_encoder(model: LM, cfg, audio: torch.Tensor, *, fused: bool) -> torch.T
     dt = act_dtype(cfg)
     x = audio.to(dt)
     x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device).to(dt)[None]
-    for layer in model.encoder:
+    placement = getattr(model, "placement", None)
+    for i, layer in enumerate(model.encoder):
+        args = (layer, f"encoder.{i}.", placement, cfg, x, fused)
         if cfg.remat == "block":
-            x = checkpoint(_enc_layer, layer, cfg, x, fused, use_reentrant=False)
+            x = checkpoint(_enc_layer_fsdp, *args, use_reentrant=False)
         else:
-            x = _enc_layer(layer, cfg, x, fused)
-    return _norm(model.enc_extra, "enc_ln_f", x, cfg, fused=fused)
+            x = _enc_layer_fsdp(*args)
+    with whole_sequence(), gathered(model.enc_extra, placement, "enc_extra."):
+        return _norm(model.enc_extra, "enc_ln_f", x, cfg, fused=fused)
 
 
 def _audio(cfg, batch: dict, b: int) -> torch.Tensor:
@@ -483,7 +511,7 @@ def _embed_inputs(model: LM, cfg, batch: dict) -> torch.Tensor:
     positions."""
     dt = act_dtype(cfg)
     tokens = batch["tokens"]
-    x = model.embed.to(dt)[tokens]
+    x = _embed(model, cfg, tokens, dt)
     if cfg.vision_tokens:
         v = batch.get("vision")
         want = (tokens.shape[0], cfg.vision_tokens, cfg.d_model)
@@ -514,25 +542,39 @@ def forward(model: LM, cfg: ModelConfig, batch: dict, *, return_hidden: bool = F
     over both, and the text positions are sliced out after the final norm:
     logits (and ``return_hidden``'s x) cover the tokens only.  An
     encoder-decoder runs the encoder over ``batch["audio"]`` (b, frames, d)
-    first, and every decoder layer attends to its output."""
-    x = _embed_inputs(model, cfg, batch)
-    positions = torch.arange(x.shape[1], device=x.device)
-    enc_out = None
-    if cfg.kind == "encdec":
-        enc_out = _run_encoder(model, cfg, _audio(cfg, batch, x.shape[0]), fused=False)
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for layer, block in zip(model.layers, cfg.blocks):
-        if cfg.remat == "block":
-            x, a = checkpoint(_layer_train, layer, cfg, block, x, positions, enc_out,
-                              use_reentrant=False)
-        else:
-            x, a = _layer_train(layer, cfg, block, x, positions, enc_out)
-        aux_total = aux_total + a
-    x = _norm(model, "ln_f", x, cfg, fused=False)
-    if cfg.vision_tokens:
-        x = x[:, cfg.vision_tokens:]
-    aux = {"moe_aux": aux_total / max(1, cfg.n_layers)}
-    unembed = model.unembed_matrix().to(x.dtype)
+    first, and every decoder layer attends to its output.
+
+    In a training scope on a mesh (``launch.steps.make_train_step(mesh=)``,
+    a model placed by ``sharding.place_train_state``) ``batch`` is the
+    rank's rows, each layer runs on its weights gathered over the data axes
+    (:func:`_layer_train_fsdp`), and the hidden state returned has entered
+    the unembedding's vocabulary blocks; under sequence parallelism the
+    residual stream between the embedding and the final norm is the rank's
+    block of the sequence."""
+    placement = getattr(model, "placement", None)
+    # embed, unembed, ln_f (and vision_proj)
+    with gathered(model, placement, recurse=False):
+        x = _embed_inputs(model, cfg, batch)
+        positions = torch.arange(x.shape[1], device=x.device)
+        x = tp_out(x, ())  # sequence parallelism: the rank's block of the sequence
+        enc_out = None
+        if cfg.kind == "encdec":
+            enc_out = _run_encoder(model, cfg, _audio(cfg, batch, x.shape[0]), fused=False)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, (layer, block) in enumerate(zip(model.layers, cfg.blocks)):
+            args = (layer, f"layers.{i}.", placement, cfg, block, x, positions, enc_out)
+            if cfg.remat == "block":
+                x, a = checkpoint(_layer_train_fsdp, *args, use_reentrant=False)
+            else:
+                x, a = _layer_train_fsdp(*args)
+            aux_total = aux_total + a
+        x = _norm(model, "ln_f", x, cfg, fused=False, stream=True)
+        # x enters the unembedding's vocabulary blocks (whole sequences)
+        x = tp_in(x, unembed_axes(cfg))
+        if cfg.vision_tokens:
+            x = x[:, cfg.vision_tokens:]
+        aux = {"moe_aux": aux_total / max(1, cfg.n_layers)}
+        unembed = model.unembed_matrix().to(x.dtype)
     if return_hidden:
         return (x, unembed), aux
     return constrain(x @ unembed, ("batch", "seq", "vocab")), aux
@@ -548,19 +590,28 @@ def _vocab_axes(cfg) -> tuple:
     return mesh_axes(LM.SPECS["embed"], (cfg.padded_vocab, cfg.d_model), 0)
 
 
-def _embed(model: LM, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """The token embeddings ``embed[tokens]``.  Where the rules shard the
-    vocabulary, a rank holds a block of the table's rows: it looks up the
-    ids in its block, zeros elsewhere, and the constraint sums the blocks
-    (one addend nonzero, so the sum is exact)."""
+def unembed_axes(cfg) -> tuple:
+    """The mesh axes that shard the vocabulary of the unembedding (the
+    embedding table's, tied) in the current scope."""
+    if cfg.tie_embeddings:
+        return _vocab_axes(cfg)
+    return mesh_axes(LM.SPECS["unembed"], (cfg.d_model, cfg.padded_vocab), 1)
+
+
+def _embed(model: LM, cfg, tokens: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The token embeddings ``embed[tokens]`` (the table cast to ``dtype``
+    first, if given).  Where the rules shard the vocabulary, a rank holds a
+    block of the table's rows: it looks up the ids in its block, zeros
+    elsewhere, and the blocks are summed over the mesh (one addend nonzero,
+    so the sum is exact; every rank then has the whole gradient)."""
+    table = model.embed if dtype is None else model.embed.to(dtype)
     axes = _vocab_axes(cfg)
     if not axes:
-        return constrain(model.embed[tokens], ("batch", "seq", "embed"))
-    n = model.embed.shape[0]
+        return constrain(table[tokens], ("batch", "seq", "embed"))
+    n = table.shape[0]
     local = tokens.long() - block_index(axes) * n
     hit = (local >= 0) & (local < n)
-    x = torch.where(hit[..., None], model.embed[local.clamp(0, n - 1)], 0)
-    return constrain(partial_sum(x, axes), ("batch", "seq", "embed"))
+    return reduce_sum(torch.where(hit[..., None], table[local.clamp(0, n - 1)], 0), axes)
 
 
 def _logits(model: LM, cfg, x, levels=None, mm=torch.matmul):
@@ -569,9 +620,7 @@ def _logits(model: LM, cfg, x, levels=None, mm=torch.matmul):
     sampling reads whole rows, so the blocks are gathered."""
     x = _norm(model, "ln_f", x, cfg, levels=levels)
     logits = mm(x, model.unembed_matrix().to(x.dtype))
-    axes = (_vocab_axes(cfg) if cfg.tie_embeddings
-            else mesh_axes(LM.SPECS["unembed"], (cfg.d_model, cfg.padded_vocab), 1))
-    logits = constrain(shard_of(logits, axes, -1), ("batch", "seq", None))
+    logits = constrain(shard_of(logits, unembed_axes(cfg), -1), ("batch", "seq", None))
     return logits[..., : cfg.vocab]
 
 

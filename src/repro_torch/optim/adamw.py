@@ -93,14 +93,37 @@ def bias_corrections(cfg: AdamWConfig, step: torch.Tensor):
             1.0 - torch.pow(s.new_full((), cfg.b2), s))
 
 
+def _summed_over_shards(sums: dict, shardings: dict) -> dict:
+    """Each leaf's local sum summed over the mesh axes that shard it (a
+    replicated copy counted once, ``constraints.over_shards``): one
+    all-reduce a set of axes, of the leaves' sums stacked."""
+    from repro_torch.distributed.constraints import over_shards, shard_axes
+
+    by_axes = {}
+    for n in sums:
+        axes = shard_axes(shardings.get(n))
+        if axes:
+            by_axes.setdefault(axes, []).append(n)
+    out = dict(sums)
+    for names in by_axes.values():
+        total = over_shards("sum", torch.stack([sums[n] for n in names]), shardings[names[0]])
+        out.update(zip(names, total.unbind()))
+    return out
+
+
 @torch.no_grad()
-def global_norm_clip(grads: dict, clip: float, sqrt_unit: str):
+def global_norm_clip(grads: dict, clip: float, sqrt_unit: str, shardings: Optional[dict] = None):
     """Scales every gradient IN PLACE by ``min(1, clip / (norm + 1e-6))``,
-    the norm taken through the unit's sqrt.  Returns (grads, norm)."""
+    the norm taken through the unit's sqrt.  Returns (grads, norm).
+    ``shardings`` ({name: ``Sharding``}, a sharded model's ``placement``):
+    the gradients are each rank's blocks, and each leaf's squares are
+    summed over the mesh axes that shard it, and only those."""
     unit = get_unit(sqrt_unit)
+    sums = {n: torch.sum(torch.square(g.to(torch.float32))) for n, g in grads.items()}
+    if shardings:
+        sums = _summed_over_shards(sums, shardings)
     sq = None
-    for g in grads.values():
-        s = torch.sum(torch.square(g.to(torch.float32)))
+    for s in sums.values():
         sq = s if sq is None else sq + s
     norm = unit.sqrt(sq[None])[0]
     scale = torch.clamp(norm.new_full((), clip) / (norm + 1e-6), max=1.0)
@@ -113,15 +136,19 @@ def global_norm_clip(grads: dict, clip: float, sqrt_unit: str):
 
 
 @torch.no_grad()
-def adamw_update(cfg: AdamWConfig, grads: dict, state: dict, params):
+def adamw_update(cfg: AdamWConfig, grads: dict, state: dict, params,
+                 shardings: Optional[dict] = None):
     """One AdamW step over every parameter in ``grads``, in place.  Returns
     (params, state, metrics) with metrics ``lr`` and, when clipping,
-    ``grad_norm``."""
+    ``grad_norm``.  ``shardings`` (a sharded model's ``placement``): the
+    tensors are each rank's blocks (the clip's norm sums over the blocks;
+    the update is elementwise, on the rank's contiguous blocks)."""
     params = _named(params)
     unit = get_unit(cfg.sqrt_unit)
     metrics = {}
     if cfg.clip_norm is not None:
-        grads, metrics["grad_norm"] = global_norm_clip(grads, cfg.clip_norm, cfg.sqrt_unit)
+        grads, metrics["grad_norm"] = global_norm_clip(grads, cfg.clip_norm, cfg.sqrt_unit,
+                                                       shardings)
 
     step = state["step"] + 1
     lr = cosine_lr(cfg, step)

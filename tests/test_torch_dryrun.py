@@ -16,6 +16,14 @@ policies, the prefill and serve steps, and the op count against
 * One subprocess runs the CLI with ``--smoke --mesh both`` on the
   reference test's decode cells (mamba2-2.7b and whisper-small
   ``decode_32k``), on 4 and 8 fake ranks.
+* The train cells (the sharded train step under ``train_rules``): seven
+  CLI subprocesses, started together, run every LM arch's smoke
+  ``train_4k`` cell on both meshes (one of them the reference test's
+  cells, qwen3-4b and mixtral-8x22b); an eighth lowers a qwen3-4b train
+  cell on one rank (``remat none``), whose dot flops are held within 2%
+  of ``analyze_hlo`` on the JAX package's train step compiled for the CPU,
+  and runs the CLI's train options (``--microbatches``, ``--remat``); a
+  ninth runs the reference test's cells with ``--seq-parallel``.
 """
 import importlib
 import json
@@ -125,11 +133,6 @@ def test_decode_hbm_estimate_equals_reference(arch, jax_dryrun):
 def test_quantize_threshold_is_h100_share():
     assert dryrun.QUANTIZE_ABOVE_GIB == pytest.approx(80e9 / 2**30 * 14 / 16)
     assert round(dryrun.QUANTIZE_ABOVE_GIB, 1) == 65.2
-
-
-def test_train_cells_need_the_sharded_train_step():
-    with pytest.raises(NotImplementedError, match="A.8b"):
-        dryrun.lower_cell("qwen3-4b", "train_4k", "single", smoke=True)
 
 
 # ---------------------------------------------------------------------------
@@ -270,9 +273,148 @@ def test_cli_smoke_decode_cells(tmp_path):
 
 
 def test_port_tooling_imports_no_jax():
-    code = ("import sys; import repro_torch.launch.dryrun, repro_torch.kernels.tuning; "
+    code = ("import sys; import repro_torch.launch.dryrun, repro_torch.kernels.tuning, "
+            "repro_torch.launch.steps, repro_torch.distributed.sharding, "
+            "repro_torch.distributed.constraints, repro_torch.optim; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules if 'jax' in m)")
     env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
                          timeout=120)
     assert res.returncode == 0, res.stderr[-2000:]
+
+
+# ---------------------------------------------------------------------------
+# the train cells: every LM arch's smoke train_4k cell on both meshes, a
+# train cell's dot flops against analyze_hlo, and the CLI's train options
+# ---------------------------------------------------------------------------
+
+# the CLI's groups of (archs, meshes), one subprocess each, all started
+# together and balanced by their cells' seconds (the first: the reference
+# test's train cells)
+TRAIN_GROUPS = ((("qwen3-4b", "mixtral-8x22b"), "both"),
+                (("whisper-small", "internvl2-76b"), "single"),
+                (("whisper-small", "internvl2-76b"), "multi"),
+                (("gemma3-1b", "mamba2-2.7b"), "single"),
+                (("gemma3-1b", "mamba2-2.7b"), "multi"),
+                (("recurrentgemma-2b", "starcoder2-15b"), "both"),
+                (("qwen3-moe-235b-a22b", "deepseek-67b"), "both"))
+# the one-rank train cell held against the reference's step, and the
+# options' cells (a fourth subprocess)
+_ONE_RANK = """
+import json, sys
+from repro_torch.launch import dryrun
+dryrun.main(["--arch", "qwen3-4b", "--shape", "train_4k", "--mesh", "single", "--smoke",
+             "--microbatches", "2", "--remat", "minimal", "--out", sys.argv[1]])
+rec = dryrun.lower_cell("qwen3-4b", "train_4k", "single", mesh_shape=(1, 1), smoke=True,
+                        sqrt_unit="exact", extra_overrides={"remat": "none"})
+print(json.dumps(rec))
+"""
+
+
+def _port_env():
+    # one thread a subprocess: fake tensors compute nothing, and nine run at once
+    return dict(os.environ, PYTHONPATH=str(REPO / "src"), OMP_NUM_THREADS="1")
+
+
+@pytest.fixture(scope="module")
+def train_cells(tmp_path_factory):
+    """Start the subprocesses together, compile the reference's one-device
+    train step meanwhile; returns (the CLI groups' records by (arch, mesh),
+    their (returncode, stderr), the one-rank record, the options' record,
+    the reference's dot flops, the ``--seq-parallel`` records by tag)."""
+    tmp = tmp_path_factory.mktemp("train_cells")
+    procs = []
+    for i, (archs, meshes) in enumerate(TRAIN_GROUPS):
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", *archs, "--shape",
+               "train_4k", "--mesh", meshes, "--smoke", "--out", str(tmp / f"group{i}")]
+        procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True, env=_port_env()))
+    one = subprocess.Popen([sys.executable, "-c", _ONE_RANK, str(tmp / "options")],
+                           stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+                           env=_port_env())
+    seq_parallel = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", *TRAIN_GROUPS[0][0],
+         "--shape", "train_4k", "--mesh", "both", "--smoke", "--seq-parallel", "--out",
+         str(tmp / "seq_parallel")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=_port_env())
+    try:
+        from repro.optim import AdamWConfig as JaxAdamW
+
+        jcfg = jax_smoke_config("qwen3-4b", sqrt_unit="exact", remat="none")
+        case = jax_shapes.SMOKE_SHAPES["train_4k"]
+        params, _ = jax_lm.init(jcfg, jax.random.key(0), abstract=True)
+        opt = {"m": params, "v": params, "step": jax.ShapeDtypeStruct((), jnp.int32)}
+        step = jax_steps.make_train_step(jcfg, JaxAdamW(sqrt_unit="exact"))
+        text = jax.jit(step).lower(params, opt, jax_shapes.input_specs(jcfg, case)).compile()
+        want = analyze_hlo(text.as_text()).flops
+        outs = [p.communicate(timeout=300) for p in procs]
+        one_out = one.communicate(timeout=300)
+        sp_err = seq_parallel.communicate(timeout=300)[1]
+    finally:
+        for p in procs + [one, seq_parallel]:
+            if p.poll() is None:
+                p.kill()
+    records = dict.fromkeys(((a, m) for a in ARCHS for m in ("single", "multi")))
+    for i in range(len(TRAIN_GROUPS)):
+        for path in (tmp / f"group{i}").glob("*_train_4k_*.json"):
+            rec = json.loads(path.read_text())
+            records[rec["arch"], rec["mesh"]] = rec
+    runs = [(p.returncode, err) for p, (_, err) in zip(procs, outs)]
+    assert one.returncode == 0, one_out[1][-3000:]
+    options = json.loads((tmp / "options" / "qwen3-4b_train_4k_single.json").read_text())
+    assert seq_parallel.returncode == 0, sp_err[-3000:]
+    sp = {path.stem: json.loads(path.read_text())
+          for path in (tmp / "seq_parallel").glob("*.json")}
+    return records, runs, json.loads(one_out[0].strip().splitlines()[-1]), options, want, sp
+
+
+@pytest.mark.parametrize("mesh,n", [("single", 4), ("multi", 8)])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_smoke_train_cell_runs(train_cells, arch, mesh, n):
+    rec = train_cells[0][arch, mesh]
+    assert rec is not None and rec["status"] == "ok", rec and rec["status"]
+    assert rec["n_chips"] == n and rec["chip"] == "nvidia-h100-sxm"
+    assert rec["flops_per_device"] > 0 and rec["bytes_per_device"] > 0
+    assert rec["memory"]["peak_estimate_bytes"] > 0
+    # the layers' FSDP gathers and their gradients' reduce-scatters
+    assert rec["collectives"]["all-gather"]["bytes"] > 0
+    assert rec["collectives"]["reduce-scatter"]["bytes"] > 0
+    assert rec["launches"].get("e2afs_rsqrt", 0) > 0
+    assert (rec["microbatches"], rec["seq_parallel"], rec["remat"]) == (1, False, "block")
+
+
+def test_cli_reference_train_cells(train_cells):
+    """The reference test's train cells (qwen3-4b, mixtral-8x22b) ran in the
+    first CLI group, which, like the others, exited 0 without JAX."""
+    for code, err in train_cells[1]:
+        assert code == 0, err[-3000:]
+        assert "jax" not in err
+    assert {m for (a, m), r in train_cells[0].items()
+            if a in ("qwen3-4b", "mixtral-8x22b") and r["status"] == "ok"} == {"single", "multi"}
+
+
+def test_train_cell_dot_flops_within_2pct_of_analyze_hlo(train_cells):
+    rec, want = train_cells[2], train_cells[4]
+    assert rec["n_chips"] == 1 and rec["remat"] == "none"
+    assert rec["flops_per_device"] == pytest.approx(want, rel=0.02)
+    assert "all-gather" not in rec["collectives"]  # a one-wide mesh splits nothing
+
+
+def test_cli_train_options_recorded(train_cells):
+    rec = train_cells[3]
+    assert rec["status"] == "ok"
+    assert (rec["microbatches"], rec["remat"], rec["seq_parallel"]) == (2, "minimal", False)
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+@pytest.mark.parametrize("arch", TRAIN_GROUPS[0][0])
+def test_cli_seq_parallel_train_cells(train_cells, arch, mesh):
+    """``--seq-parallel``: the residual stream's sequence over 'model'
+    between blocks, so each block's exit reduce-scatters the sequence where
+    it all-reduced (more reduce-scatters, fewer all-reduces than the same
+    cell without it)."""
+    rec, plain = train_cells[5][f"{arch}_train_4k_{mesh}_sp"], train_cells[0][arch, mesh]
+    assert rec["status"] == "ok" and rec["seq_parallel"] is True
+    count = lambda r, kind: r["collectives"].get(kind, {}).get("count", 0)  # noqa: E731
+    assert count(rec, "reduce-scatter") > count(plain, "reduce-scatter")
+    assert count(rec, "all-reduce") < count(plain, "all-reduce")

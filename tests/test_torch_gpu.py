@@ -21,8 +21,10 @@ plain engine's; whisper-small's kernel route within 4 bf16 ulps of the
 largest |logit| of its plain route, tokens identical, and its cross-K/V
 slot step replayed bit-identical to the eager one; an engine on the
 card's one-device mesh, exact or tensor parallel, bit-identical to the
-unsharded engine, and a pool restored onto it bit for bit.  Only the order
-of float32 sums differs between a kernel and its plain version.
+unsharded engine, and a pool restored onto it bit for bit; the sharded
+train step on that mesh bit-identical to the unsharded step, with the same
+launches.  Only the order of float32 sums differs between a kernel and its
+plain version.
 """
 import json
 
@@ -1937,6 +1939,83 @@ def test_mesh_family_equals_unsharded_on_the_card(card_mesh, arch):
                                       cross_kv=ckv, mesh=mesh)
         out.append((logits, toks))
     assert _same_bits(out[0][0], out[1][0]) and torch.equal(out[0][1], out[1][1])
+
+
+# ---------------------------------------------------------------------------
+# The sharded train step (train_rules) on the card's one-device mesh: the
+# unsharded step's bits and launches (multi-rank training is held on 4 gloo
+# ranks in tests/test_torch_mesh_train.py)
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH_ARCHS = ("qwen3-4b", "gemma3-1b", "starcoder2-15b", "deepseek-67b", "internvl2-76b",
+                    "mixtral-8x22b", "qwen3-moe-235b-a22b", "mamba2-2.7b", "recurrentgemma-2b",
+                    "whisper-small")
+
+
+def _train_mesh_runs(mesh, arch, microbatches=1, steps=2):
+    """``steps`` train steps of the smoke model (bf16 activations, e2afs,
+    fused AdamW, constant starts moved) on the kernels, unsharded and under
+    ``train_rules`` on ``mesh``: per run (losses, grad norms, params, m, v,
+    launches)."""
+    from repro_torch.configs.shapes import ShapeCase, input_specs
+    from repro_torch.distributed import sharding
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    dev = torch.device("cuda")
+    cfg = get_smoke_config(arch, sqrt_unit="e2afs")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=1, fused=True, sqrt_unit="e2afs")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    batch = {}
+    for name, spec in input_specs(cfg, ShapeCase("train", 16, 4, "train")).items():
+        shape = tuple(spec.shape)
+        batch[name] = (torch.randint(0, cfg.vocab, shape, generator=gen, device=dev,
+                                     dtype=torch.int32) if name in ("tokens", "labels") else
+                       torch.ones(shape, device=dev) if name == "loss_mask" else
+                       torch.randn(shape, generator=gen, device=dev).to(spec.dtype))
+    runs = []
+    for m in (None, mesh):
+        model = lm.init(cfg, torch.Generator(device=dev).manual_seed(0), device=dev,
+                        trainable=True)
+        g = torch.Generator(device=dev).manual_seed(1)
+        with torch.no_grad():
+            for _, p in lm.constant_start_parameters(model):
+                p.add_(0.1 * torch.randn(p.shape, generator=g, device=dev))
+        if m is None:
+            opt = adamw_init(model)
+        else:
+            model, opt = sharding.place_train_state(model, cfg, m, sharding.train_rules(cfg, m))
+        step = make_train_step(cfg, opt_cfg, microbatches=microbatches, mesh=m)
+        dispatch.reset_launch_counts()
+        metrics = [step(model, opt, batch)[2] for _ in range(steps)]
+        torch.cuda.synchronize()
+        runs.append(([x["loss"] for x in metrics], [x["grad_norm"] for x in metrics],
+                     {n: p.detach() for n, p in model.named_parameters()}, opt["m"], opt["v"],
+                     dispatch.launch_counts()))
+    return runs
+
+
+def _train_runs_equal(a, b):
+    same = lambda x, y: torch.equal(x.view(torch.int32), y.view(torch.int32))  # noqa: E731
+    return (all(same(x, y) for x, y in zip(a[0] + a[1], b[0] + b[1]))
+            and all(same(a[i][n], b[i][n]) for i in (2, 3, 4) for n in a[i]))
+
+
+@pytest.mark.parametrize("arch", TRAIN_MESH_ARCHS)
+def test_train_mesh_step_equals_unsharded_on_the_card(card_mesh, arch):
+    """Two train steps under ``train_rules`` on the one-device mesh: every
+    collective skipped, so the losses, grad norms and every leaf of params,
+    m and v equal the unsharded steps' bit for bit, with the same launches
+    (adam once a leaf a step: the kernel route, no plain fallback)."""
+    plain, sharded = _train_mesh_runs(card_mesh, arch)
+    assert _train_runs_equal(plain, sharded)
+    assert sharded[5] == plain[5] and sharded[5]["adam"] == 2 * len(plain[2])
+    assert sharded[5]["e2afs_rsqrt"] > 0
+
+
+def test_train_mesh_microbatches_equal_unsharded_on_the_card(card_mesh):
+    plain, sharded = _train_mesh_runs(card_mesh, "qwen3-4b", microbatches=2)
+    assert _train_runs_equal(plain, sharded) and sharded[5] == plain[5]
 
 
 # ---------------------------------------------------------------------------
