@@ -28,6 +28,13 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    query heads on 1, head_dim 256, bf16, float and int8 caches, t = 2048
    and 2112) and whisper-small's (12 KV heads of one query head, head_dim
    64, bf16, float and int8 caches, t = 192), two calls bit-identical;
+   then the reference kernel's wider domain at b = 8: groups run padded
+   (recurrentgemma-2b's rank on a 2-wide 'model' axis, G 5 at head_dim 256,
+   t = 2112, a ring, bf16 and int8 caches; G 3 on 8 KV heads and G 7 on 4,
+   head_dim 128, t = 576), in passes (G 48 on one KV head), float32 at G 10
+   and head_dim 256, and lines of 10 and 12 vectors (G 1 on 32 KV heads,
+   head_dim 80 and 96): max |diff|, two calls bit-identical, and the
+   kernel's and SDPA's ms by CUDA events beside the byte bound;
 4. the main paths, each with the launch counts set to 0 just before and read
    just after: (a) qwen3-4b at full width cut to 12 layers (SERVE_DEPTH;
    every qwen3-4b phase after it runs this model) serving batch 8 (prompt 512, 64
@@ -222,7 +229,9 @@ Phases, one line or more each; any failure makes the run exit non-zero:
    carries a one-ulp norm difference past 4 ulps), the first token
    wherever the plain top-2 margin exceeds twice the diff (the count of such
    slots printed); then the same weights with float32 activations held to
-   a fixed limit: first-step logits within 4 bf16 ulps of the largest
+   a fixed limit, decode attention on the kernel (recurrentgemma-2b: a
+   float32 line of head_dim 256 at G = 10; a "wrap" launch a window layer a
+   step, asserted): first-step logits within 4 bf16 ulps of the largest
    |logit| and the first two tokens 8 of 8; prefill ms and ms
    a step beside the floor of the bytes a step moves; then phase 13b's
    engine shape (8 slots of 2112, 12 requests, prompts {512, 1000, 2048}):
@@ -961,6 +970,102 @@ class Smoke:
                          "launch)".format(**ops.plan(*args[:2])))
                 self.check_attention(y, r, torch.bfloat16, f"whisper-small kv=12 g=1 hd=64 "
                                      f"t={t:5d} int8={quant!s:5s} wrap={wrap!s:5s}{split}")
+
+        self.attention_domain()
+
+    def attention_domain(self):
+        """decode_attention.cu over the reference kernel's shape domain at b =
+        8: groups it runs padded (recurrentgemma-2b's rank on a 2-wide
+        'model' axis, G 5 as 6; Llama-3.2-3B's G 3 as 4; Qwen2.5-7B's G 7 as
+        8), in passes (G 48 over one KV head: three of 16), float32 at G 10
+        and head_dim 256 (two vectors a lane), and lines of 10 and 12 vectors
+        (phi-2's head_dim 80, Phi-3-mini's 96).  Each shape: max |diff| from
+        the plain version (wrap off and on, mixed per-row positions), a
+        bit-identical second call, then at every line live the kernel's and
+        SDPA's ms per call by CUDA events over copies of the cache that
+        stream past the L2, beside the byte bound."""
+        torch = self.torch
+        F = torch.nn.functional
+        from repro_torch.kernels.attention import ops
+
+        rows = self.rows["decode_attention"]["domain_shapes"] = []
+        # (label, kv, g, hd, t, dtype, int8 cache, ring)
+        shapes = (("recurrentgemma-2b rank (model 2)", 1, 5, 256, 2112, torch.bfloat16, False,
+                   True),
+                  ("recurrentgemma-2b rank (model 2)", 1, 5, 256, 2112, torch.bfloat16, True,
+                   True),
+                  ("recurrentgemma-2b float32", 1, 10, 256, 2112, torch.float32, False, True),
+                  ("Llama-3.2-3B", 8, 3, 128, 576, torch.bfloat16, False, False),
+                  ("Qwen2.5-7B", 4, 7, 128, 576, torch.bfloat16, False, False),
+                  ("multi-query", 1, 48, 128, 576, torch.bfloat16, False, False),
+                  ("phi-2", 32, 1, 80, 576, torch.bfloat16, False, False),
+                  ("Phi-3-mini", 32, 1, 96, 576, torch.bfloat16, False, False))
+        b = 8
+        for label, kv, g, hd, t, dtype, quant, ring in shapes:
+            if self.rehearsal:
+                t = 40
+            h, err = g * kv, 0.0
+            for wrap in (False, True):
+                args = self.attn_inputs(b, h, kv, hd, t, dtype, quant, t + g + hd + quant)
+                r = ops.ref_decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                y = ops.decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                again = ops.decode_attention(*args, scale=hd**-0.5, wrap=wrap)
+                self.sync()
+                if not torch.equal(y, again):
+                    raise AssertionError(f"decode attention {label}: two calls differ")
+                split = ("" if self.rehearsal else
+                         " (S={chunks} of {chunk_lines} lines, {passes} pass(es) as G={group}, "
+                         "{slots} slots a launch)".format(**ops.plan(*args[:2])))
+                self.check_attention(y, r, dtype, f"{label} kv={kv} g={g} hd={hd} t={t} "
+                                     f"int8={quant} wrap={wrap}{split}")
+                err = max(err, float((y.float() - r.float()).abs().max()))
+            # the timed call: every line live (a ring wrapped at its last step)
+            pos = torch.full((b,), t + 100 if ring else t - 1, dtype=torch.int32,
+                             device=self.dev)
+            size = 1 if quant else torch.finfo(dtype).bits // 8
+            cache_bytes = 2 * b * t * kv * hd * size + (2 * b * t * kv * 4 if quant else 0)
+            copies = 1 if self.rehearsal else max(1, -(-100_000_000 // cache_bytes))
+            sets = [self.attn_inputs(b, h, kv, hd, t, dtype, quant, 90 + i, pos=pos)
+                    for i in range(copies)]
+            it = {"i": 0}
+
+            def rotating(fn, sets=sets, it=it):
+                def call():
+                    a = sets[it["i"] % len(sets)]
+                    it["i"] += 1
+                    return fn(a)
+                return call
+
+            mask = torch.ones(b, 1, 1, t, dtype=torch.bool, device=self.dev)
+            # SDPA on the cache in q's dtype (an int8 cache dequantized first)
+            lib_sets = [(a[0], a[1].to(dtype), a[2].to(dtype)) if quant else a for a in sets]
+            lib_it = {"i": 0}
+
+            def sdpa(a, mask=mask):
+                return F.scaled_dot_product_attention(a[0][:, :, None], a[1].transpose(1, 2),
+                                                      a[2].transpose(1, 2), attn_mask=mask,
+                                                      enable_gqa=True)
+
+            nbytes = 2 * b * h * hd * torch.finfo(dtype).bits // 8 + cache_bytes + b * 4
+            t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            t_ops = 4 * b * h * t * hd / PEAK_FLOPS[str(dtype).removeprefix("torch.")] * 1e3
+            bnd = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+            at = {"shape": label, "b": b, "kv": kv, "g": g, "hd": hd, "t": t,
+                  "dtype": str(dtype), "int8": quant, "wrap": ring, "max_abs_err": err,
+                  "bound_ms": bnd[0], "bound_by": bnd[1],
+                  "ms": self.time_ms(rotating(
+                      lambda a, w=ring: ops.decode_attention(*a, scale=hd**-0.5, wrap=w))),
+                  "library_ms": self.time_ms(rotating(sdpa, lib_sets, lib_it))}
+            if not self.rehearsal:
+                at.update({k: v for k, v in ops.plan(sets[0][0], sets[0][1]).items()
+                           if k != "workspace"})
+            rows.append(at)
+            share = f"{bnd[0] / at['ms']:.3f}" if at["ms"] else "not measured"
+            print(f"  decode_attention {label} b={b} h={h} kv={kv} hd={hd} t={t} {dtype} "
+                  f"int8={quant} wrap={ring} ({copies} cache copies): events ms per call: "
+                  f"kernel {at['ms']}, SDPA {at['library_ms']}; bound {bnd[0]:.6f} ms "
+                  f"({bnd[1]}); bound / kernel {share} ({self.card})")
+            del sets, lib_sets
 
     def check_attention(self, y, r, dtype, label):
         torch = self.torch
@@ -3682,10 +3787,10 @@ class Smoke:
         # with float32 activations, where the stack no longer amplifies a
         # bf16 rounding flip into the logits, on the same prompt; first-step
         # logits within 4 bf16 ulps of the largest |logit| and the first two
-        # tokens 8 of 8.  A float32 cache at G = 10, head_dim 256 has no
-        # decode-attention kernel, so both sides decode attention plainly
-        # here (the bf16 run above holds that kernel)
-        cfg32 = cfg.replace(act_dtype="float32", decode_kernel="reference")
+        # tokens 8 of 8.  The served side decodes attention on the kernel
+        # (recurrentgemma-2b: a float32 line of head_dim 256, G = 10, two
+        # vectors a lane), one "wrap" launch a window layer a step
+        cfg32 = cfg.replace(act_dtype="float32")
         m32 = lm.init(cfg32, self.gen(0), device=self.dev)
         with torch.no_grad():
             for a, b in zip(m32.parameters(), model.parameters()):
@@ -3693,6 +3798,13 @@ class Smoke:
         dispatch.reset_launch_counts()
         logits32, toks32 = run(cfg32, 2, m32)[:2]
         launched32 = {k: v for k, v in dispatch.launch_counts().items() if v}
+        attn32 = {k: v for k, v in dispatch.launch_details().items()
+                  if k.startswith("decode_attention")}
+        want32 = {"decode_attention wrap": n_window * 2} if n_window else {}
+        print(f"  float32 run's decode_attention launches {attn32} (want {want32}: "
+              f"{n_window} window layers x 2 steps)")
+        if not self.rehearsal and attn32 != want32:
+            raise AssertionError(f"float32 decode_attention launches {attn32}, want {want32}")
         ref32, rtoks32 = plain(cfg32, 2, m32)[:2]
         diff32 = float((logits32 - ref32).abs().max())
         top32 = ref32.abs().max().reshape(1)

@@ -4,8 +4,11 @@
 //
 // Replaces the TPU kernel src/repro/kernels/attention/attention.py (_kernel
 // and _kernel_quant, body _attend, reached through
-// decode_attention_kernel_call).  The fold points are those of _attend and
-// of layers/attention.py::_fold_masked_attention:
+// decode_attention_kernel_call), over its whole shape domain: any number of
+// query heads a KV head, and any head_dim up to 256 that is a multiple of the
+// vector width (8 elements of a bf16 or int8 line, 4 of a float32 line).  The
+// fold points are those of _attend and of
+// layers/attention.py::_fold_masked_attention:
 //   s   = T(sum_k q*k)                (float32 sum, rounded to the activation
 //                                      dtype T, as the einsum returns T)
 //   s   = float(s) * scale [* k_scale] + (valid ? 0 : -2e38)
@@ -34,25 +37,40 @@
 // One cooperative launch (cudaLaunchCooperativeKernel) runs every block of
 // a call at once, and grid syncs separate the steps: the blocks write their
 // chunk maxima, then their chunk sums, then their float32 partial outputs
-// (b, h, S, hd) to a workspace that the wrapper allocates, and read the
-// others' back in chunk order.  A chunk's scores stay in shared memory
-// across the syncs.  Its K tiles and then its V tiles stream through a ring
-// of kRing tiles of shared memory with cp.async (16-byte copies; 8 bytes
-// for an int8 line of hd = 8), so the first V tiles land while the scores'
-// last tiles, the max, the exp and the sum are formed.  A group of hd/VEC
+// to a workspace that the wrapper allocates, and read the others' back in
+// chunk order.  A chunk's scores stay in shared memory across the syncs.
+// Its K tiles and then its V tiles stream through a ring of kRing tiles of
+// shared memory with cp.async (16-byte copies; 8 bytes for an int8 line of
+// an odd number of 8-byte vectors), so the first V tiles land while the
+// scores' last tiles, the max, the exp and the sum are formed.  A group of
 // lanes reads one K line from the ring (a 16-byte load a lane, 8 bytes of
-// int8; a float32 line of hd = 256 is 64 vectors, so 32 lanes take two
-// each, hd/2 elements apart) and its g dot products meet in a transposing
-// shuffle reduction (g - 1 + log2(lanes / g) shuffles, not g * log2(lanes),
-// for g a power of two; g = 6, 10 and 12 shuffle each head).  Every sum, max
-// and combine runs in a fixed order, so two calls on the same inputs are
-// bit-identical (no atomics).
+// int8; a float32 line of more than 32 vectors takes two a lane, 32 vectors
+// apart) and its g dot products meet in a transposing shuffle reduction
+// (g - 1 + log2(lanes / g) shuffles, not g * log2(lanes), for g a power of
+// two; g = 6, 10 and 12 shuffle each head).  Every sum, max and combine runs
+// in a fixed order, so two calls on the same inputs are bit-identical (no
+// atomics).
 //
-// How the split is chosen (plan_of): as many chunks a (slot, KV head) as the
-// blocks that fit on the card at once allow (asked of the occupancy API
-// once a device), but no chunk shorter than a tile (32 lines of a bf16
+// The shape domain.  The kernel is instantiated for G = 1, 2, 4, 6, 8, 10, 12
+// and 16 query heads a block (kGroups).  A group of another size runs as
+// the next instantiated size with the extra heads masked (3 as 4, 5 as 6, 7
+// as 8, 9 as 10, 11 as 12, 13-15 as 16): a masked head loads a zero query
+// and stores nothing.  A group larger than 16 runs in passes of at most 16
+// heads, each pass its own launch over the same (slot, KV head), so each
+// pass reads the lines again and needs no more resident blocks than one
+// group of 16: G = 48 is three passes of 16, G = 20 two of 10.  A line
+// whose vector count is not a power of two takes the
+// next power of two of lanes; the lanes past the line hold zeros, which
+// add nothing to the shuffle reductions.  The workspace and the scores'
+// room are sized for the padded group.  A head's output is a function of
+// its own query and the lines alone; padding and passes add work, not
+// terms.
+//
+// How the split is chosen (plan_of): as many chunks a (slot, KV head)
+// as the blocks that fit on the card at once allow (asked of the occupancy
+// API once a device), but no chunk shorter than a tile (32 lines of a bf16
 // hd = 128 cache) and none longer than the scores' room (960 lines at
-// g = 4).  Serving shape b = 8, kv = 8 on 132 SMs at 4 blocks an SM: t = 576
+// G = 4).  Serving shape b = 8, kv = 8 on 132 SMs at 4 blocks an SM: t = 576
 // gives 8 chunks of 72 lines (512 blocks), t = 4096 8 chunks of 512.  A
 // cache no longer than a tile is one chunk (S = 1), whose output is written
 // directly, with no sync.  Where the slots' chunks outnumber the resident
@@ -75,6 +93,8 @@ constexpr int kTileMaxLines = 128;
 constexpr int kRing = 4;             // tiles in flight a block
 constexpr int kScoreFloats = 3840;   // a chunk's g x cl scores (15 KB)
 constexpr int kMaxDevices = 64;
+constexpr int kMaxHeadDim = 256;     // the longest line a lane group takes
+constexpr int kMaxGroup = 16;        // the most query heads a block serves (a pass)
 constexpr float kNegInf = -2.0e38f;  // the reference's additive mask
 constexpr unsigned int kMinusInfBits = 0xff800000u;
 
@@ -121,16 +141,24 @@ __device__ __forceinline__ void load_vec(const signed char* p, float (&out)[8]) 
   }
 }
 
-// A lane's NV vectors of one line: vector n at p + n * part (part = hd / NV
-// elements), so that each of the NV loads of a lane group covers one
-// contiguous run of the line.
+// A lane's NV vectors of one line: vector n at p + n * part (part = lanes x
+// VEC elements), so that each of the NV loads of a lane group covers one
+// contiguous run of the line.  A vector past the line (has[n] false: a lane
+// past a line of a non-power-of-two vector count) reads nothing and holds
+// zeros.
 template <int NV, class KV, int E>
-__device__ __forceinline__ void load_lane(const KV* p, int part, float (&out)[E]) {
+__device__ __forceinline__ void load_lane(const KV* p, int part, const bool (&has)[NV],
+                                          float (&out)[E]) {
   constexpr int V = E / NV;
 #pragma unroll
   for (int n = 0; n < NV; ++n) {
     float v[V];
-    load_vec(p + n * part, v);
+    if (has[n]) {
+      load_vec(p + n * part, v);
+    } else {
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[e] = 0.f;
+    }
 #pragma unroll
     for (int e = 0; e < V; ++e) out[n * V + e] = v[e];
   }
@@ -160,11 +188,14 @@ __device__ __forceinline__ void stage(KV* dst, const KV* src, long long stride, 
           __cvta_generic_to_shared(reinterpret_cast<char*>(dst + l * hd) + u * 16));
       asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(s) : "memory");
     }
-  } else {  // an int8 line of hd = 8: one 8-byte copy
-    for (int l = threadIdx.x; l < lines; l += kThreads) {
-      const unsigned int d = static_cast<unsigned int>(__cvta_generic_to_shared(dst + l * hd));
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(src + l * stride)
-                   : "memory");
+  } else {  // an int8 line of an odd number of 8-byte vectors: 8-byte copies
+    const int per = line_bytes / 8;
+    for (int i = threadIdx.x; i < lines * per; i += kThreads) {
+      const int l = i / per, u = i - l * per;
+      const char* s = reinterpret_cast<const char*>(src + l * stride) + u * 8;
+      const unsigned int d = static_cast<unsigned int>(
+          __cvta_generic_to_shared(reinterpret_cast<char*>(dst + l * hd) + u * 8));
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d), "l"(s) : "memory");
     }
   }
 }
@@ -257,12 +288,19 @@ struct Args {
   const int* pos;
   const float* k_scale;  // null for float caches
   const float* v_scale;
-  float* cmax;  // (b, h, S) chunk maxima
-  float* csum;  // (b, h, S) chunk sums of exp(s - M)
-  float* part;  // (b, h, S, hd) partial outputs
+  // workspace rows: (b, kvh, G) a padded head each, the pass's
+  float* cmax;  // (rows, S) chunk maxima
+  float* csum;  // (rows, S) chunk sums of exp(s - M)
+  float* part;  // (rows, S, hd) partial outputs
   void* out;
   int b, t_len, h, kvh, hd;  // b: the slots of this launch
-  int S;   // chunks a (slot, KV head)
+  int grp;     // query heads a KV head, h / kvh
+  int passes;  // passes over a (slot, KV head), each of at most kMaxGroup heads
+  int gp;      // query heads a pass (the last may hold fewer); G >= gp are instantiated
+  int ps;      // the pass of this launch
+  int vecs;    // vectors a line, hd / VEC
+  int lanes;   // lanes a line: vecs rounded up to a power of two, at most 32
+  int S;   // chunks a (slot, KV head, pass)
   int cl;  // cache lines a chunk (the last may be shorter)
   int tl;  // cache lines a tile
   float scale;
@@ -281,18 +319,27 @@ __global__ void __launch_bounds__(kThreads, (G <= 8 ? 4 : 2)) decode_attention_k
   __shared__ float red[G * kWarps];
   __shared__ float slots[G];
   const int hd = a.hd, tl = a.tl, cl = a.cl, S = a.S;
-  const int lpl = hd / EPL;  // lanes a cache line: a power of two <= 32
+  const int lpl = a.lanes;   // lanes a cache line: a power of two <= 32
   const int lpw = 32 / lpl;  // lines a warp
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int sub = lane / lpl, sl = lane % lpl;
-  const int d0 = sl * VEC;   // this lane's first head_dim element
-  const int part = hd / NV;  // its NV vectors sit part elements apart (dim(e) below)
+  const int d0 = sl * VEC;         // this lane's first head_dim element
+  const int part = lpl * VEC;      // its NV vectors sit part elements apart (dim(e) below)
+  bool has[NV];                    // which of them lie inside the line
+#pragma unroll
+  for (int v = 0; v < NV; ++v) has[v] = v * lpl + sl < a.vecs;
 
-  // this block: slot bi, KV head kh, chunk c of lines [c0, c0 + n)
+  // this block: slot bi, KV head kh, chunk c of lines [c0, c0 + n), in
+  // the launch's pass over the group's query heads
   const int c = blockIdx.x % S;
-  const int kh = (blockIdx.x / S) % a.kvh, bi = blockIdx.x / S / a.kvh;
+  const int row = blockIdx.x / S;  // (slot, KV head)
+  const int kh = row % a.kvh, bi = row / a.kvh;
   const int c0 = c * cl, n = min(cl, a.t_len - c0);
-  const long long head0 = static_cast<long long>(bi) * a.h + static_cast<long long>(kh) * G;
+  // the pass's heads jq .. jq + real - 1 of the group; heads real .. G - 1
+  // of the block are padding (a zero query, nothing stored)
+  const int jq = a.ps * a.gp, real = min(a.gp, a.grp - jq);
+  const long long head0 = static_cast<long long>(row) * G;  // its first workspace row
+  const long long out0 = (static_cast<long long>(bi) * a.kvh + kh) * a.grp + jq;  // output head
   const long long line0 = static_cast<long long>(bi) * a.t_len * a.kvh + kh;  // line(t) = line0 + t * kvh
   const long long stride = static_cast<long long>(a.kvh) * hd;
   const long long first = (line0 + static_cast<long long>(c0) * a.kvh) * hd;
@@ -319,11 +366,13 @@ __global__ void __launch_bounds__(kThreads, (G <= 8 ? 4 : 2)) decode_attention_k
   // the head_dim element that a lane's e-th value stands for
   auto dim = [&](int e) { return (e / VEC) * part + d0 + e % VEC; };
   float qr[G][EPL];
-  const T* q = static_cast<const T*>(a.q) + head0 * hd;
+  const T* q = static_cast<const T*>(a.q) + out0 * hd;
 #pragma unroll
   for (int j = 0; j < G; ++j) {
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) qr[j][e] = to_f(q[j * hd + dim(e)]);
+    for (int e = 0; e < EPL; ++e) {
+      qr[j][e] = j < real && has[e / VEC] ? to_f(q[j * hd + dim(e)]) : 0.f;
+    }
   }
   const int p = a.pos[bi];
   const bool all_valid = a.wrap != 0 && p >= a.t_len;
@@ -347,7 +396,7 @@ __global__ void __launch_bounds__(kThreads, (G <= 8 ? 4 : 2)) decode_attention_k
       const int l = l0 + sub;
       float kx[EPL];
       if (l < nl) {
-        load_lane<NV>(tile + l * hd + d0, part, kx);
+        load_lane<NV>(tile + l * hd + d0, part, has, kx);
       } else {
 #pragma unroll
         for (int e = 0; e < EPL; ++e) kx[e] = 0.f;
@@ -439,7 +488,7 @@ __global__ void __launch_bounds__(kThreads, (G <= 8 ? 4 : 2)) decode_attention_k
 #pragma unroll 2
     for (int l = warp * lpw + sub; l < nl; l += kWarps * lpw) {
       float vx[EPL];
-      load_lane<NV>(tile + l * hd + d0, part, vx);
+      load_lane<NV>(tile + l * hd + d0, part, has, vx);
 #pragma unroll
       for (int j = 0; j < G; ++j) {
         const float wj = sc[j * cl + ti * tl + l];
@@ -476,7 +525,9 @@ __global__ void __launch_bounds__(kThreads, (G <= 8 ? 4 : 2)) decode_attention_k
       for (int j = 0; j < G; ++j) {
         if (j < j0 || j >= j0 + nh) continue;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) wsum[(warp * nh + j - j0) * hd + dim(e)] = acc[j][e];
+        for (int e = 0; e < EPL; ++e) {
+          if (has[e / VEC]) wsum[(warp * nh + j - j0) * hd + dim(e)] = acc[j][e];
+        }
       }
     }
     __syncthreads();
@@ -485,7 +536,7 @@ __global__ void __launch_bounds__(kThreads, (G <= 8 ? 4 : 2)) decode_attention_k
       for (int wp = 0; wp < kWarps; ++wp) s += wsum[wp * nh * hd + i];
       const int j = j0 + i / hd, d = i % hd;
       if (S == 1) {
-        out[(head0 + j) * hd + d] = from_f<T>(s);
+        if (j < real) out[(out0 + j) * hd + d] = from_f<T>(s);
       } else {
         a.part[((head0 + j) * S + c) * hd + d] = s;
       }
@@ -496,14 +547,16 @@ __global__ void __launch_bounds__(kThreads, (G <= 8 ? 4 : 2)) decode_attention_k
 
   // -- out = T(sum over the chunks of the partials), in chunk order --
   cg::this_grid().sync();
-  const long long outs = static_cast<long long>(a.b) * a.h * hd;
+  // the pass's outputs: head j < real of each (slot, KV head) bk
+  const long long outs = static_cast<long long>(a.b) * a.kvh * real * hd;
   for (long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x; i < outs;
        i += static_cast<long long>(gridDim.x) * kThreads) {
-    const long long row = i / hd;
-    const float* pp = a.part + row * S * hd + (i - row * hd);
+    const long long ol = i / hd, bk = ol / real;
+    const long long j = ol - bk * real, d = i - ol * hd;
+    const float* pp = a.part + (bk * G + j) * S * hd + d;
     float s = 0.f;
     for (int k = 0; k < S; ++k) s += __ldcg(pp + static_cast<long long>(k) * hd);
-    out[i] = from_f<T>(s);
+    out[(bk * a.grp + jq + j) * hd + d] = from_f<T>(s);
   }
 }
 
@@ -532,40 +585,44 @@ struct Plan {
   int S, cl, tl;
   int slots;  // slots a launch
   long long ws_floats;
+  int passes, group;  // passes over a (slot, KV head); the group each runs as
 };
 
 template <class T, class KV, int G, int NV>
-int plan_of(int b, int t_len, int h, int kvh, int hd, Plan& p) {
+int plan_of(const Args& a, Plan& p) {
   int cap = 0;
   const int err = capacity<T, KV, G, NV>(cap);
   if (err != 0) return err;
+  const int t_len = a.t_len, hd = a.hd;
   // a pass of the partial outputs through the ring holds at least one head
   if (static_cast<long long>(kWarps) * hd * 4 > kRing * kTileBytes) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const long long rows = a.kvh;  // block rows a slot
   p.tl = min(kTileMaxLines, kTileBytes / (hd * static_cast<int>(sizeof(KV))));
   const long long lines_max = kScoreFloats / G;  // the scores' room
   const long long s_min = (t_len + lines_max - 1) / lines_max;
-  if (kvh * s_min > cap) return static_cast<int>(cudaErrorInvalidValue);  // too long a cache
+  if (rows * s_min > cap) return static_cast<int>(cudaErrorInvalidValue);  // too long a cache
   // as many chunks as the resident blocks allow, none shorter than a tile
   long long s = min(static_cast<long long>((t_len + p.tl - 1) / p.tl),
-                    cap / (static_cast<long long>(b) * kvh));
+                    cap / (static_cast<long long>(a.b) * rows));
   s = max(max(s, s_min), 1LL);
   // as even as the chunk count allows, no chunk empty
   p.cl = static_cast<int>((t_len + s - 1) / s);
   p.S = (t_len + p.cl - 1) / p.cl;
-  p.slots = static_cast<int>(min(static_cast<long long>(b), cap / (static_cast<long long>(kvh) * p.S)));
-  p.ws_floats = p.S > 1 ? static_cast<long long>(p.slots) * h * p.S * (hd + 2) : 0;
+  p.slots = static_cast<int>(min(static_cast<long long>(a.b), cap / (rows * p.S)));
+  p.ws_floats = p.S > 1 ? static_cast<long long>(p.slots) * rows * G * p.S * (hd + 2) : 0;
   return 0;
 }
 
 template <class T, class KV, int G, int NV>
 int run(const Args& a, cudaStream_t stream) {
   Plan p;
-  int err = plan_of<T, KV, G, NV>(a.b, a.t_len, a.h, a.kvh, a.hd, p);
+  int err = plan_of<T, KV, G, NV>(a, p);
   if (err != 0) return err;
-  const long long rows = static_cast<long long>(p.slots) * a.h;
-  for (int b0 = 0; b0 < a.b; b0 += p.slots) {  // one launch for each run of slots that fits
+  const long long rows = static_cast<long long>(p.slots) * a.kvh * G;  // workspace
+  // one launch for each run of slots that fits, and each pass over the group
+  for (int b0 = 0; b0 < a.b; b0 += p.slots) {
     Args s = a;
     s.b = min(p.slots, a.b - b0);
     s.S = p.S;
@@ -583,62 +640,80 @@ int run(const Args& a, cudaStream_t stream) {
     }
     s.csum = a.cmax + rows * p.S;
     s.part = s.csum + rows * p.S;
-    void* args[] = {&s};
-    err = static_cast<int>(cudaLaunchCooperativeKernel(
-        reinterpret_cast<void*>(decode_attention_kernel<T, KV, G, NV>),
-        dim3(static_cast<unsigned int>(s.b * a.kvh * p.S)), dim3(kThreads), args, 0, stream));
-    if (err != 0) return err;
+    for (s.ps = 0; s.ps < a.passes; ++s.ps) {
+      void* args[] = {&s};
+      err = static_cast<int>(cudaLaunchCooperativeKernel(
+          reinterpret_cast<void*>(decode_attention_kernel<T, KV, G, NV>),
+          dim3(static_cast<unsigned int>(s.b * a.kvh * p.S)), dim3(kThreads), args, 0, stream));
+      if (err != 0) return err;
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
+// The instantiated groups: the powers of two, and starcoder2-15b's 12,
+// mixtral-8x22b's 6 and recurrentgemma-2b's 10 (qwen3-moe-235b-a22b's 16 is
+// kMaxGroup).  A pass of gp heads runs as the first of them >= gp.
+constexpr int kGroups[] = {1, 2, 4, 6, 8, 10, 12, 16};
+
+constexpr int padded_group(int gp) {
+  for (int g : kGroups) {
+    if (g >= gp) return g;
+  }
+  return 0;
+}
+
 template <class T, class KV, int NV>
 int dispatch_group(const Args& a, Plan* plan, cudaStream_t stream) {
-#define REPRO_GROUP(G)                                                                      \
-  case G:                                                                                   \
-    return plan != nullptr ? plan_of<T, KV, G, NV>(a.b, a.t_len, a.h, a.kvh, a.hd, *plan) \
-                           : run<T, KV, G, NV>(a, stream);
-  switch (a.h / a.kvh) {
+#define REPRO_GROUP(G) \
+  case G:              \
+    return plan != nullptr ? plan_of<T, KV, G, NV>(a, *plan) : run<T, KV, G, NV>(a, stream);
+  switch (padded_group(a.gp)) {
     REPRO_GROUP(1)
     REPRO_GROUP(2)
     REPRO_GROUP(4)
+    REPRO_GROUP(6)
     REPRO_GROUP(8)
+    REPRO_GROUP(10)
+    REPRO_GROUP(12)
+    REPRO_GROUP(16)
     default: break;
-  }
-  // starcoder2-15b's G = 12, mixtral-8x22b's 6, recurrentgemma-2b's 10 and
-  // qwen3-moe-235b-a22b's 16, for one vector a lane (the float32 line of
-  // hd = 256 stays at G <= 8)
-  if constexpr (NV == 1) {
-    switch (a.h / a.kvh) {
-      REPRO_GROUP(6)
-      REPRO_GROUP(10)
-      REPRO_GROUP(12)
-      REPRO_GROUP(16)
-      default: break;
-    }
   }
   return static_cast<int>(cudaErrorInvalidValue);
 #undef REPRO_GROUP
 }
 
-// One vector a lane where a line has at most 32 of them; a float32 line of
-// 64 vectors (hd = 256) takes two a lane.
+// One vector a lane where a line has at most 32 of them, on the next power
+// of two of lanes; a float32 line of 33 to 64 vectors (hd 132 to 256) takes
+// two a lane on 32 lanes.
 template <class T, class KV>
-int dispatch_vectors(const Args& a, Plan* plan, cudaStream_t stream) {
+int dispatch_vectors(Args a, Plan* plan, cudaStream_t stream) {
   constexpr int VEC = vec_of<KV>();
-  const int vectors = a.hd / VEC;
-  if (a.hd % VEC != 0 || a.t_len < 1) return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (sizeof(KV) == 4) {
-    if (vectors == 64) return dispatch_group<T, KV, 2>(a, plan, stream);
-  }
-  if (vectors < 1 || vectors > 32 || (vectors & (vectors - 1)) != 0) {
+  if (a.hd % VEC != 0 || a.hd < VEC || a.hd > kMaxHeadDim || a.t_len < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  a.vecs = a.hd / VEC;
+  if constexpr (sizeof(KV) == 4) {
+    if (a.vecs > 32) {
+      a.lanes = 32;
+      return dispatch_group<T, KV, 2>(a, plan, stream);
+    }
+  }
+  for (a.lanes = 1; a.lanes < a.vecs;) a.lanes <<= 1;
   return dispatch_group<T, KV, 1>(a, plan, stream);
 }
 
-int dispatch(const Args& a, int act_dtype, int kv_int8, Plan* plan, cudaStream_t stream) {
-  if (a.kvh <= 0 || a.h % a.kvh != 0) return static_cast<int>(cudaErrorInvalidValue);
+// Query heads a KV head (grp), passes of at most kMaxGroup heads over each
+// (slot, KV head), and the heads a pass (gp): as even as the passes allow.
+int dispatch(Args a, int act_dtype, int kv_int8, Plan* plan, cudaStream_t stream) {
+  if (a.kvh <= 0 || a.h <= 0 || a.h % a.kvh != 0) return static_cast<int>(cudaErrorInvalidValue);
+  a.grp = a.h / a.kvh;
+  a.passes = (a.grp + kMaxGroup - 1) / kMaxGroup;
+  a.gp = (a.grp + a.passes - 1) / a.passes;
+  if (plan != nullptr) {
+    plan->passes = a.passes;
+    plan->group = padded_group(a.gp);
+  }
   if (act_dtype == 1 && !kv_int8) return dispatch_vectors<__nv_bfloat16, __nv_bfloat16>(a, plan, stream);
   if (act_dtype == 1 && kv_int8) return dispatch_vectors<__nv_bfloat16, signed char>(a, plan, stream);
   if (act_dtype == 2 && !kv_int8) return dispatch_vectors<float, float>(a, plan, stream);
@@ -660,7 +735,8 @@ Args args_of(int b, int t_len, int h, int kvh, int hd) {
 
 // The split for these shapes on the current device: out[0] = float32
 // workspace elements a launch needs, out[1] = S, out[2] = cache lines a
-// chunk, out[3] = slots a launch.  Returns a CUDA error code.
+// chunk, out[3] = slots a launch, out[4] = passes over a (slot, KV head),
+// out[5] = the instantiated group a pass runs as.  Returns a CUDA error code.
 extern "C" int decode_attention_plan(int b, int t_len, int h, int kvh, int hd, int act_dtype,
                                      int kv_int8, long long* out) {
   Plan p = {};
@@ -670,15 +746,15 @@ extern "C" int decode_attention_plan(int b, int t_len, int h, int kvh, int hd, i
   out[1] = p.S;
   out[2] = p.cl;
   out[3] = p.slots;
+  out[4] = p.passes;
+  out[5] = p.group;
   return 0;
 }
 
 // act_dtype: 1 = bfloat16, 2 = float32; kv_int8: the cache holds int8 values
-// (then k_scale and v_scale are given).  h / kv must be 1, 2, 4, 6, 8, 10, 12
-// or 16, and hd / VEC a power of two <= 32 (VEC = 4
-// for a float32 cache, else 8), or 64 for a float32 cache (hd = 256, two
-// vectors a lane, h / kv <= 8); the
-// K/V base pointers must be 16-byte aligned; workspace holds the elements
+// (then k_scale and v_scale are given).  Any h / kv >= 1; hd a multiple of
+// VEC (4 for a float32 cache, else 8) no larger than 256; the K/V base
+// pointers must be 16-byte aligned; workspace holds the elements
 // decode_attention_plan gives for the same shapes.  Returns the first launch
 // error, or cudaGetLastError() after the last launch.
 extern "C" int decode_attention_launch(const void* q, const void* k, const void* v,

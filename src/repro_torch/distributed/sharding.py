@@ -490,32 +490,15 @@ def place_model(model, cfg: ModelConfig, mesh, rules: Rules):
     gemma3-1b, recurrentgemma-2b), a rank then reading the KV heads its
     query heads map to.  The layers gather, slice and reduce what their
     blocks need (``layers/attention.py``, ``mlp.py``, ``moe.py``,
-    ``ssd.py``, ``rglru.py``).
-
-    Raises ValueError, before any device work, where the rank's query heads
-    a KV head (the local group) is a size ``decode_attention.cu`` does not
-    instantiate and the kernel would run (a CUDA mesh, or the dry run's
-    fake CPU mesh, and ``cfg.decode_kernel="fused"``): recurrentgemma-2b's
-    10 over a 2-wide 'model' axis would be 5."""
+    ``ssd.py``, ``rglru.py``).  Any local group (a rank's query heads a KV
+    head, :func:`local_group`) runs on ``decode_attention.cu``:
+    recurrentgemma-2b's 10 over a 2-wide 'model' axis give 5."""
     from torch import nn
 
-    from repro_torch.kernels import dispatch
     from repro_torch.models import lm
 
     named = dict(model.named_parameters())
     shardings = _param_shardings(model, cfg, mesh, rules)
-    attends = any(b in ("global", "window") for b in cfg.blocks)
-    if dispatch.kernel_device(mesh.device_type) and cfg.decode_kernel == "fused" and attends:
-        from repro_torch.kernels.attention.ops import GROUPS, supports_group
-
-        g = local_group(cfg, mesh, rules)
-        if not supports_group(g):
-            raise ValueError(
-                f"{cfg.name}: {cfg.n_heads} query heads over {cfg.n_kv_heads} KV heads on a "
-                f"{mesh_sizes(mesh)} mesh give a rank a local group of {g} query heads a KV "
-                f"head, which decode_attention.cu does not instantiate (it serves "
-                f"{GROUPS}); serve it with serve_rules(..., "
-                f"replicate_params=True) or another 'model' width")
     local = lm.LM(cfg, device=torch.device("meta"))
     for n, p in named.items():
         owner, _, leaf = n.rpartition(".")

@@ -5,7 +5,12 @@ the kernel, which splits the cache length over blocks), a CPU tensor to the
 plain version in :mod:`.ref`.  The kernel reads an int8 cache as stored; no
 pre-cast copy of the cache is made.  The ``.cu`` file plans the split from
 the shapes and the card (:func:`plan`, asked once a shape); the wrapper
-allocates the float32 workspace the plan asks for.  The registry holds one
+allocates the float32 workspace the plan asks for.  The kernel takes the
+reference kernel's whole shape domain: any number of query heads a KV head
+(padded to an instantiated group, or in passes of at most 16 heads) and any
+``head_dim`` up to 256 that is a multiple of the cache line's vector width
+(8 elements of bf16 or int8, 4 of float32); other shapes raise before any
+launch.  The registry holds one
 tile, that planned split (``(0,)``): the split is part of the bit-identity of
 a graph's replays and of speculative verify rows, which a tuned split would
 break.
@@ -20,25 +25,10 @@ import torch
 from repro_torch.kernels import _build, dispatch
 from repro_torch.kernels.attention.ref import ref_decode_attention
 
-__all__ = ["decode_attention", "ref_decode_attention", "supports_group", "GROUPS", "TILING"]
+__all__ = ["decode_attention", "ref_decode_attention", "TILING"]
 
 _DTYPE_CODE = {torch.bfloat16: 1, torch.float32: 2}
-# query heads per KV head that decode_attention.cu instantiates: the powers of
-# two for every head_dim, 6, 10, 12 and 16 (starcoder2-15b's 12,
-# mixtral-8x22b's 6, recurrentgemma-2b's 10, qwen3-moe-235b-a22b's 16) for one
-# vector a lane
-_GROUPS = (1, 2, 4, 8)
-_WIDE_GROUPS = (6, 10, 12, 16)
-# the largest G x hd the card's tests hold (recurrentgemma-2b's 10 x 256; the
-# kernel reduces the warps' partial outputs through its ring in passes of heads)
-_MAX_GROUP_DIMS = 2560
-GROUPS = _GROUPS + _WIDE_GROUPS
-
-
-def supports_group(g: int) -> bool:
-    """Whether ``decode_attention.cu`` instantiates ``g`` query heads a KV
-    head."""
-    return g in GROUPS
+MAX_HEAD_DIM = 256  # decode_attention.cu's kMaxHeadDim
 
 _PLAN_ARGTYPES = (ctypes.c_int,) * 7 + (ctypes.POINTER(ctypes.c_longlong),)
 _ARGTYPES = (ctypes.c_void_p,) * 8 + (ctypes.c_int,) * 5 + (
@@ -57,19 +47,10 @@ def _check(q, k, v, pos, k_scale, v_scale):
         raise ValueError(f"shapes do not match: q {tuple(q.shape)}, k {tuple(k.shape)}")
     if t < 1:
         raise ValueError("decode attention needs a cache of at least one line")
-    g = h // kv
-    if not supports_group(g):
-        raise ValueError(f"the kernel serves {GROUPS} query heads per KV head, got {g}")
     vec = 4 if k.dtype == torch.float32 else 8  # elements per vector load
-    vectors = hd // vec  # a lane takes one, or two when a float32 line has 64
-    most = 64 if k.dtype == torch.float32 else 32
-    if hd % vec or not 1 <= vectors <= most or vectors & (vectors - 1):
-        raise ValueError(f"head_dim {hd} must be {vec} x a power of two <= {most} "
-                         f"for a {k.dtype} cache")
-    if g * hd > _MAX_GROUP_DIMS or (g in _WIDE_GROUPS and vectors > 32):
-        raise ValueError(f"{g} query heads per KV head of head_dim {hd}: the kernel takes "
-                         f"G * hd <= {_MAX_GROUP_DIMS}, and G = {_WIDE_GROUPS} one vector a "
-                         f"lane")
+    if hd % vec or not vec <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {hd} must be a multiple of {vec} no larger than "
+                         f"{MAX_HEAD_DIM} for a {k.dtype} cache")
     quantized = k.dtype == torch.int8
     if not quantized and (k.dtype != q.dtype or v.dtype != q.dtype):
         raise ValueError(f"k/v must be int8 or {q.dtype}, got {k.dtype}, {v.dtype}")
@@ -93,7 +74,7 @@ def _check(q, k, v, pos, k_scale, v_scale):
 @functools.lru_cache(maxsize=None)
 def _plan(device: int, b: int, t: int, h: int, kv: int, hd: int, dtype_code: int,
           int8: int) -> tuple:
-    out = (ctypes.c_longlong * 4)()
+    out = (ctypes.c_longlong * 6)()
     fn = _build.function("decode_attention", "decode_attention_plan", _PLAN_ARGTYPES)
     with torch.cuda.device(device):
         fn(b, t, h, kv, hd, dtype_code, int8, out)
@@ -102,14 +83,16 @@ def _plan(device: int, b: int, t: int, h: int, kv: int, hd: int, dtype_code: int
 
 def plan(q, k) -> dict:
     """How ``decode_attention.cu`` splits these shapes on q's card: the
-    chunks a (slot, KV head) and the cache lines a chunk, the slots a launch,
-    and the float32 workspace elements.  Needs the built kernel; asked once
-    a shape."""
+    chunks a (slot, KV head) and the cache lines a chunk, the slots a
+    launch, the float32 workspace elements, the passes over a (slot, KV
+    head) (one launch each) and the instantiated group each pass runs as.
+    Needs the built kernel; asked once a shape."""
     b, h, hd = q.shape
     t, kv = k.shape[1], k.shape[2]
-    ws, chunks, lines, slots = _plan(q.device.index, b, t, h, kv, hd, _DTYPE_CODE[q.dtype],
-                                     int(k.dtype == torch.int8))
-    return {"workspace": ws, "chunks": chunks, "chunk_lines": lines, "slots": slots}
+    ws, chunks, lines, slots, passes, group = _plan(
+        q.device.index, b, t, h, kv, hd, _DTYPE_CODE[q.dtype], int(k.dtype == torch.int8))
+    return {"workspace": ws, "chunks": chunks, "chunk_lines": lines, "slots": slots,
+            "passes": passes, "group": group}
 
 
 # (0,): the split plan() computes from the shapes and the card, the one tile

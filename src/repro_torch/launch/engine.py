@@ -105,7 +105,7 @@ import math
 import time
 from collections import deque
 from pathlib import Path
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -632,10 +632,10 @@ class Engine:
         return maybe_axis_rules(self.mesh, self.rules,
                                 {"batch": self.num_slots if rows is None else rows})
 
-    def _now(self, t0: float) -> float:
-        """Seconds since ``t0`` on rank 0's clock, which every rank of a mesh
-        reads (a broadcast), so their schedulers decide alike."""
-        now = time.perf_counter() - t0
+    def _now(self, clock: Callable[[], float], t0: float) -> float:
+        """Seconds since ``t0`` on rank 0's ``clock``, which every rank of a
+        mesh reads (a broadcast), so their schedulers decide alike."""
+        now = clock() - t0
         if self.mesh is None or self.mesh.size() == 1:
             return now
         t = torch.tensor([now], dtype=torch.float64, device=self.device)
@@ -1297,10 +1297,11 @@ class Engine:
     # -- the serve loop -----------------------------------------------------
 
     def run(self, requests=(), *, deadline_s: float = 600.0,
-            max_chunks: Optional[int] = None) -> dict:
+            max_chunks: Optional[int] = None,
+            clock: Optional[Callable[[], float]] = None) -> dict:
         """Serve ``requests`` (admitted no earlier than their ``arrival_s``,
-        on the wall clock from call start; equal arrivals in uid order) until
-        all complete.  Returns {uid: Completion}, one per request with a
+        on ``clock`` from call start; equal arrivals in uid order) until all
+        complete.  Returns {uid: Completion}, one per request with a
         structured ``status``; aggregate stats and fault counters go to
         ``self.stats``.  Nothing raises mid-batch but an exhausted dispatch
         retry budget.  On an engine built by :meth:`resume`, restored work is
@@ -1328,7 +1329,13 @@ class Engine:
         writes a ``finished`` record; ``snapshot_every_chunks=`` autosaves.
         ``max_chunks=`` is the chaos hook: stop dead at that chunk boundary,
         with no draining and no terminal records for in-flight work, as a
-        SIGKILL leaves it (``stats["killed"]``)."""
+        SIGKILL leaves it (``stats["killed"]``).
+
+        ``clock`` (seconds; default ``time.perf_counter``, the wall clock)
+        is every time the loop reads: arrivals, deadlines, ``Completion``
+        times and ``stats``.  A deterministic clock (one that advances a
+        fixed step a reading) makes admission order and slots a function of
+        the trace alone, whatever the host's load."""
         requests = list(requests)
         for req in requests:
             self._validate(req)
@@ -1343,7 +1350,8 @@ class Engine:
                     "deadline_evictions": 0, "shed_rejections": 0, "canary_checks": 0,
                     "canary_divergences": 0, "canary_max_rel_err": 0.0, "demotions": 0,
                     "promotions": 0}
-        t0 = time.perf_counter()
+        clock = time.perf_counter if clock is None else clock
+        t0 = clock()
         decode_chunks = 0
         spec0 = (self._spec_acc_total, self._spec_steps_total)
         peak_queue_depth = len(queue)
@@ -1374,7 +1382,7 @@ class Engine:
             return req.deadline_s is not None and now > req.arrival_s + req.deadline_s
 
         while queue or arrivals or any(o is not None for o in self._owner):
-            now = self._now(t0)
+            now = self._now(clock, t0)
             if now > deadline_s:
                 expired = True
                 break
@@ -1412,13 +1420,15 @@ class Engine:
             queue_depth_sum += depth
             queue_depth_samples += 1
             if not any(o is not None for o in self._owner):
-                if arrivals:  # pool idle: sleep until the next arrival or the deadline
+                # pool idle: on the wall clock, sleep until the next arrival
+                # or the deadline; another clock is read again at once
+                if arrivals and clock is time.perf_counter:
                     time.sleep(max(0.0, min(arrivals[0].req.arrival_s, deadline_s) - now))
                 continue
             toks, emitted, active, bad, mx, cc, cd, cmr, _ = self._decode_chunk()
             decode_chunks += 1
             self._chunks_total += 1
-            now = self._now(t0)
+            now = self._now(clock, t0)
             if self._canary is not None:
                 # the ladder first: a request finishing this chunk carries
                 # its final rung and canary trail
@@ -1441,7 +1451,7 @@ class Engine:
                     else:
                         counters["exact_fallbacks"] += 1
                         tokens, healthy = self._exact_fallback(req)
-                        now = self._now(t0)
+                        now = self._now(clock, t0)
                         finish(req, tokens, "degraded" if healthy else "failed", now,
                                self._admitted_s[slot], trips, slot)
                     continue
@@ -1471,7 +1481,7 @@ class Engine:
                     and decode_chunks % self.snapshot_every_chunks == 0):
                 self.snapshot()
         if expired:
-            now = self._now(t0)
+            now = self._now(clock, t0)
             for slot, req in enumerate(self._owner):
                 if req is not None:
                     counters["deadline_evictions"] += 1
@@ -1483,7 +1493,7 @@ class Engine:
                 finish(t.req, [], "evicted", now, -1.0, t.trips)
             queue.clear()
             arrivals.clear()
-        makespan = time.perf_counter() - t0
+        makespan = clock() - t0
         total_tokens = sum(len(c.tokens) for c in done.values())
         self.stats = {
             "makespan_s": makespan,

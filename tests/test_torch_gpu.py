@@ -269,16 +269,19 @@ def _assert_attention_close(out, plain, dtype):
 
 
 @pytest.mark.parametrize("length", _LENGTHS)
-@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("group", [1, 2, 4, 8, 3, 5, 7, 9, 14, 20])
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_attention_matches_plain(cuda_device, quantized, dtype, group, length):
-    """decode_attention.cu against the plain version: every group size,
-    float and int8 caches, wrap off and on, mixed per-row positions, cache
-    lengths around one chunk and at the serving lengths.  Two calls are
-    bit-identical."""
-    b, h, hd = 6, 32, 128
-    kv = h // group
+    """decode_attention.cu against the plain version: the instantiated
+    groups 1, 2, 4 and 8 on 32 query heads, and groups it runs padded (3 as
+    4, 5 as 6, 7 as 8, 9 as 10, 14 as 16) or in passes (20: two of 10) on
+    32 // G KV heads; float and int8 caches, wrap off and on, mixed per-row
+    positions, cache lengths around one chunk and at the serving lengths.
+    Two calls are bit-identical."""
+    b, hd = 6, 128
+    kv = 32 // group
+    h = kv * group
     q = torch.empty(b, h, hd, dtype=dtype, device=cuda_device)
     t = _length(length, q, kv, torch.int8 if quantized else dtype)
     q, k, v, pos, ks, vs = _attn_case(cuda_device, b, t, h, kv, hd, dtype, quantized, t + group)
@@ -309,16 +312,22 @@ def test_decode_attention_gemma3_shapes(cuda_device, dtype, quantized, t):
 
 
 @pytest.mark.parametrize("length", ("chunk-1", "chunk", "chunk+1", "576", "4096"))
-@pytest.mark.parametrize("group", [6, 12, 16])
+@pytest.mark.parametrize("group,hd", [(6, 128), (12, 128), (16, 128), (3, 80), (5, 96),
+                                      (7, 80), (9, 96), (14, 80), (20, 96), (1, 80), (5, 24),
+                                      (10, 192), (3, 136)])
 @pytest.mark.parametrize("quantized", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_attention_wide_groups(cuda_device, dtype, quantized, group, length):
+def test_decode_attention_wide_groups(cuda_device, dtype, quantized, group, hd, length):
     """The groups of starcoder2-15b (12 query heads a KV head), mixtral-8x22b
     (6) and qwen3-moe-235b-a22b (16) at head_dim 128 on 4 KV heads: G = 6
-    and 12 take the per-head shuffles, 16 the halving reduction; float and
-    int8 caches, wrap off and on, mixed per-row positions, around one chunk
-    and at the serving lengths.  Two calls are bit-identical."""
-    b, kv, hd = 6, 4, 128
+    and 12 take the per-head shuffles, 16 the halving reduction; padded and
+    multi-pass groups on lines of a non-power-of-two vector count: head_dim
+    80 and 96 (phi-2, Phi-3-mini: 10 and 12 vectors of bf16, 20 and 24 of
+    float32), 24 (an int8 line of three 8-byte vectors), 192 and 136 (a
+    float32 line of 48 and 34 vectors, two a lane); float and int8 caches,
+    wrap off and on, mixed per-row positions, around one chunk and at the
+    serving lengths.  Two calls are bit-identical."""
+    b, kv = 6, 4
     h = kv * group
     q = torch.empty(b, h, hd, dtype=dtype, device=cuda_device)
     t = _length(length, q, kv, torch.int8 if quantized else dtype)
@@ -344,18 +353,22 @@ def test_decode_attention_in_runs_of_slots(cuda_device):
     _assert_attention_close(ours, plain, dtype)
 
 
+@pytest.mark.parametrize("h,kv,passes,group", [(32, 8, 1, 4), (30, 6, 1, 6), (48, 1, 3, 16)])
 @pytest.mark.parametrize("b", [1, 8, 256])
 @pytest.mark.parametrize("t", [1, 31, 32, 33, 576, 4096, 32768])
-def test_decode_attention_plan_covers_every_line(cuda_device, b, t):
+def test_decode_attention_plan_covers_every_line(cuda_device, b, t, h, kv, passes, group):
     """The split: S chunks of chunk_lines cover lines 0..t-1 once, no chunk
     is empty, a cache of one tile (32 bf16 lines of hd = 128) is one chunk,
     a launch takes between 1 and b slots, and the workspace holds the chunk
-    maxima, sums and partial outputs of a launch's slots."""
-    h, kv, hd = 32, 8, 128
+    maxima, sums and partial outputs of a launch's slots, a pass's heads
+    padded to the group it runs as (G = 4 as it is, 5 as 6, 48 in three
+    passes of 16, a launch each)."""
+    hd = 128
     q = torch.empty(b, h, hd, dtype=torch.bfloat16, device=cuda_device)
     k = torch.empty(b, t, kv, hd, dtype=torch.bfloat16, device="meta")
     p = attn_ops.plan(q, k)
     s, cl = p["chunks"], p["chunk_lines"]
+    assert (p["passes"], p["group"]) == (passes, group)
     assert (s - 1) * cl < t <= s * cl
     if t <= 32:
         assert s == 1
@@ -363,7 +376,8 @@ def test_decode_attention_plan_covers_every_line(cuda_device, b, t):
         # room on the card for two chunks a (slot, KV head)
         assert s > 1
     assert 1 <= p["slots"] <= b
-    assert p["workspace"] == (p["slots"] * h * s * (hd + 2) if s > 1 else 0)
+    rows = kv * group  # workspace rows a slot
+    assert p["workspace"] == (p["slots"] * rows * s * (hd + 2) if s > 1 else 0)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
@@ -381,8 +395,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
     pos = torch.zeros(2, dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="int32"):
         attn_ops.decode_attention(q, k, k, pos.long(), scale=0.25)
-    with pytest.raises(ValueError, match="query heads per KV head"):
-        attn_ops.decode_attention(torch.ones(2, 6, 16, device=cuda_device), k, k, pos, scale=0.25)
+    with pytest.raises(ValueError, match="head_dim"):  # not a multiple of 4
+        attn_ops.decode_attention(torch.ones(2, 4, 18, device=cuda_device),
+                                  torch.ones(2, 8, 2, 18, device=cuda_device),
+                                  torch.ones(2, 8, 2, 18, device=cuda_device), pos, scale=0.25)
     with pytest.raises(ValueError, match="need k_scale and v_scale"):
         attn_ops.decode_attention(q, k.to(torch.int8), k.to(torch.int8), pos, scale=0.25)
 
@@ -1224,13 +1240,14 @@ def test_verify_rows_equal_sequential_steps_on_the_card(cuda_device, arch, act_d
 
 
 @pytest.mark.parametrize("arch,heads", [("starcoder2-15b", (12, 1)), ("qwen3-4b", (12, 2)),
-                                        ("gemma3-1b", (16, 1))])
+                                        ("gemma3-1b", (16, 1)), ("gemma3-1b", (10, 2))])
 @pytest.mark.parametrize("act_dtype", ["bfloat16", "float32"])
 def test_verify_rows_with_wide_groups(cuda_device, arch, heads, act_dtype):
-    """The same as above with 12, 6 and 16 query heads a KV head (the
-    groups of starcoder2-15b, mixtral-8x22b and qwen3-moe-235b-a22b) on
-    smoke models: starcoder2's LayerNorm stack, a global stack and
-    gemma3-1b's wrapped rings."""
+    """The same as above with 12, 6, 16 and 5 query heads a KV head (the
+    groups of starcoder2-15b, mixtral-8x22b, qwen3-moe-235b-a22b and a
+    recurrentgemma-2b rank on a 2-wide 'model' axis, which the kernel runs
+    padded to 6) on smoke models: starcoder2's LayerNorm stack, a global
+    stack and gemma3-1b's wrapped rings."""
     h, kv = heads
     cfg = get_smoke_config(arch, act_dtype=act_dtype, sqrt_unit="e2afs", decode_kernel="fused",
                            n_heads=h, n_kv_heads=kv)
@@ -1456,13 +1473,15 @@ def test_family_staggered_request_equals_the_request_alone(cuda_device, arch):
 
 @pytest.mark.parametrize("t", [2048, 2112])
 @pytest.mark.parametrize("quantized", [False, True])
-def test_decode_attention_ten_heads_a_kv_head(cuda_device, quantized, t):
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_decode_attention_ten_heads_a_kv_head(cuda_device, dtype, quantized, t):
     """recurrentgemma-2b's window layer: 8 slots, one KV head of 10 query
     heads (G = 10: per-head shuffles, the warps' partial outputs through the
-    ring in two passes), head_dim 256, bf16, float and int8 caches, the
+    ring in two passes), head_dim 256 (a float32 line of 64 vectors, two a
+    lane), bf16 and float32 activations, float and int8 caches, the
     2048-line ring and 2112 lines, wrap off and on, mixed per-row positions.
     Two calls are bit-identical."""
-    b, h, kv, hd, dtype = 8, 10, 1, 256, torch.bfloat16
+    b, h, kv, hd = 8, 10, 1, 256
     q, k, v, pos, ks, vs = _attn_case(cuda_device, b, t, h, kv, hd, dtype, quantized, t + 10)
     for wrap in (False, True):
         plain = attn_ops.ref_decode_attention(q, k, v, pos, ks, vs, scale=hd**-0.5, wrap=wrap)
@@ -1473,12 +1492,12 @@ def test_decode_attention_ten_heads_a_kv_head(cuda_device, quantized, t):
 
 
 def test_decode_attention_refuses_a_float32_line_of_ten_heads(cuda_device):
-    """G = 10 takes one vector a lane: a float32 cache of head_dim 256 (two a
-    lane) is refused with an error, never served by the plain version."""
-    q = torch.ones(1, 10, 256, device=cuda_device)
-    k = torch.ones(1, 8, 1, 256, device=cuda_device)
+    """A float32 line longer than 256 (head_dim 260 of ten heads) is refused
+    with an error naming head_dim, never served by the plain version."""
+    q = torch.ones(1, 10, 260, device=cuda_device)
+    k = torch.ones(1, 8, 1, 260, device=cuda_device)
     pos = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    with pytest.raises(ValueError, match="one vector a lane"):
+    with pytest.raises(ValueError, match="head_dim"):
         attn_ops.decode_attention(q, k, k, pos, scale=0.0625)
 
 

@@ -16,6 +16,8 @@ Tolerances and their reasons:
   (the reference's own kernel-vs-oracle bf16 tolerance): sums run in
   another order, and bf16 rounds weights and outputs after them.
 """
+import itertools
+
 import jax.numpy as jnp
 import ml_dtypes
 import numpy as np
@@ -183,12 +185,28 @@ def _attn_inputs(b, t, h, kv, hd, quantized, seed):
     return q, k, v, pos, ks, vs
 
 
-@pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("wrap", [False, True])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("h,kv", [(8, 2), (4, 4)])
-def test_decode_attention_matches_pallas(quantized, wrap, dtype, h, kv):
-    b, t, hd = 6, 16, 16
+def _attn_cases():
+    """(h, kv, hd, dtype, wrap, quantized): G = 4 and 1 at hd 16 in every
+    combination; the shapes the kernel pads or runs in passes (G = 3, 5, 7
+    and 20; head_dim 24 and 80, a line of 3 and 10 vectors) in two."""
+    for h, kv in ((8, 2), (4, 4)):
+        for dtype, wrap, quantized in itertools.product(("float32", "bfloat16"), (False, True),
+                                                        (False, True)):
+            yield pytest.param(h, kv, 16, dtype, wrap, quantized,
+                               id=f"{h}-{kv}-{dtype}-{wrap}-{quantized}")
+    for h, kv, hd in ((6, 2, 16), (5, 1, 16), (14, 2, 16), (20, 1, 16), (8, 2, 24), (4, 4, 80)):
+        for dtype, wrap, quantized in (("float32", True, False), ("bfloat16", False, True)):
+            yield pytest.param(h, kv, hd, dtype, wrap, quantized,
+                               id=f"{h}-{kv}-hd{hd}-{dtype}-{wrap}-{quantized}")
+
+
+@pytest.mark.parametrize("h,kv,hd,dtype,wrap,quantized", _attn_cases())
+def test_decode_attention_matches_pallas(quantized, wrap, dtype, h, kv, hd):
+    """The port's decode attention against the JAX package's kernel in
+    interpret mode, over the reference's shape domain.  Tolerance: 1e-5
+    absolute in float32, 1e-2 absolute and relative in bf16 (the same
+    function, its sums taken in another order and rounded to bf16)."""
+    b, t = 6, 16
     q, k, v, pos, ks, vs = _attn_inputs(b, t, h, kv, hd, quantized, h * 10 + kv)
     jdt = jnp.dtype(dtype)
     tdt = getattr(torch, dtype)
@@ -264,7 +282,7 @@ def test_other_devices_raise():
 
 
 @pytest.mark.parametrize("case,match", [
-    ("group", "query heads per KV head"),
+    ("long_line", "head_dim"),
     ("head_dim", "head_dim"),
     ("scales", "need k_scale and v_scale"),
     ("pos", "int32"),
@@ -276,10 +294,10 @@ def test_decode_attention_refusals(case, match):
     checks run on any device)."""
     q, k, v, pos, ks, vs = (torch.from_numpy(a) if a is not None else None
                             for a in _attn_inputs(2, 8, 8, 2, 16, False, 4))
-    if case == "group":
-        q = torch.ones(2, 6, 16)
-    elif case == "head_dim":
-        q, k, v = torch.ones(2, 8, 12), torch.ones(2, 8, 2, 12), torch.ones(2, 8, 2, 12)
+    if case == "long_line":  # past 256
+        q, k, v = torch.ones(2, 8, 264), torch.ones(2, 8, 2, 264), torch.ones(2, 8, 2, 264)
+    elif case == "head_dim":  # not a multiple of a float32 line's 4-element vectors
+        q, k, v = torch.ones(2, 8, 10), torch.ones(2, 8, 2, 10), torch.ones(2, 8, 2, 10)
     elif case == "scales":
         k, v = k.to(torch.int8), v.to(torch.int8)
     elif case == "pos":
@@ -290,6 +308,44 @@ def test_decode_attention_refusals(case, match):
         k, v = k[:, :0], v[:, :0]
     with pytest.raises(ValueError, match=match):
         attn_ops._check(q, k, v, pos, ks, vs)
+
+
+def test_decode_attention_takes_the_reference_domain():
+    """The wrapper's checks accept every shape of the reference kernel's
+    domain that ``decode_attention.cu`` takes (any group, head_dim a
+    multiple of the line's vector width up to 256, bf16, float32 and int8
+    caches) and refuse the rest by head_dim, on fake tensors; on the fake
+    kernel route a call counts one launch."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    groups = tuple(range(1, 21)) + (24, 32, 48, 64)
+    with FakeTensorMode():
+        pos = torch.empty(2, dtype=torch.int32)
+        for q_dtype, kv_dtype in ((torch.bfloat16, torch.bfloat16), (torch.bfloat16, torch.int8),
+                                  (torch.float32, torch.float32), (torch.float32, torch.int8)):
+            vec = 4 if kv_dtype == torch.float32 else 8
+            quantized = kv_dtype == torch.int8
+            scales = (torch.empty(2, 5, 2),) * 2 if quantized else (None, None)
+            for hd in range(1, 265):
+                k = torch.empty(2, 5, 2, hd, dtype=kv_dtype)
+                if hd % vec == 0 and hd <= 256:
+                    # every group at a few widths, a few groups at every width
+                    for g in groups if hd in (vec, 80, 96, 256) else (1, 5, 48):
+                        q = torch.empty(2, 2 * g, hd, dtype=q_dtype)
+                        assert attn_ops._check(q, k, k, pos, *scales) == quantized
+                else:
+                    q = torch.empty(2, 6, hd, dtype=q_dtype)
+                    with pytest.raises(ValueError, match="head_dim"):
+                        attn_ops._check(q, k, k, pos, *scales)
+        dispatch.reset_launch_counts()
+        with dispatch.fake_cpu_kernel_route():
+            for g, hd in ((5, 256), (48, 128), (3, 80)):
+                q = torch.empty(2, g, hd, dtype=torch.bfloat16)
+                k = torch.empty(2, 7, 1, hd, dtype=torch.bfloat16)
+                out = attn_ops.decode_attention(q, k, k, pos, scale=hd**-0.5, wrap=True)
+                assert tuple(out.shape) == (2, g, hd)
+        assert dispatch.launch_details() == {"decode_attention wrap": 3}
+    dispatch.reset_launch_counts()
 
 
 def test_launch_details_tally_variants():

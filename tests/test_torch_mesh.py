@@ -15,7 +15,9 @@ temporary directory (no port, so xdist workers never collide), and each
 writes its results to a file the parent reads; the parent builds its
 references (the port's unsharded engines and logits, the JAX package's
 engines on the port's weights) while the ranks run, and one more spawned
-process the JAX package's tensor-parallel reference logits.  The models are smoke configs, in
+process the JAX package's tensor-parallel reference logits.  Each engine
+run held to another admits by a deterministic clock of its own
+(``_StepClock``), not the host's.  The models are smoke configs, in
 their default bfloat16, where a row of a CPU product does not depend on
 how many rows it is multiplied with, so a rank's block of slots computes
 the bits the whole pool does; and in float32, where the port's engine is
@@ -325,26 +327,78 @@ class _CudaMesh(MeshShape):
     device_type = "cuda"
 
 
-def test_local_group_the_kernel_lacks_refuses_where_it_would_run():
+def test_local_group_of_five_places_on_a_cuda_mesh(monkeypatch):
     """recurrentgemma-2b's 10 query heads a KV head over a 2-wide 'model'
-    axis leave a rank 5 (one KV head, replicated): the decode-attention
-    kernel does not instantiate G = 5, so placing it on a CUDA mesh with the
-    fused kernel raises before any device work, naming the group (the CPU's
-    plain route serves it: the world's tensor-parallel logits); the local
-    groups of the other ids are instantiated."""
-    mesh = _CudaMesh(("data", "model"), (2, 2))
-    cfg = get_config("recurrentgemma-2b", decode_kernel="fused")
-    assert sharding.local_group(cfg, mesh, serve_rules(cfg, mesh)) == 5
-    assert sharding.local_group(cfg, mesh, serve_rules(cfg, mesh, replicate_params=True)) == 10
-    model = lm.LM(cfg, device=torch.device("meta"))
-    with pytest.raises(ValueError, match="local group of 5"):
-        sharding.place_model(model, cfg, mesh, serve_rules(cfg, mesh))
-    from repro_torch.kernels.attention.ops import supports_group
+    axis leave a rank 5 (one KV head, replicated), a group that
+    ``decode_attention.cu`` runs as 6 with one head masked: ``place_model``
+    takes it on a CUDA mesh with the fused kernel, each rank's window layer
+    holds its 5 query heads over the whole KV head, and the kernel's wrapper
+    accepts the rank's decode shapes.  The placement runs on each rank's
+    mesh coordinates with no device: a block stays a meta tensor."""
+    import itertools
+    import types
 
-    for arch in LM_IDS:
-        full = get_config(arch)
-        if arch != "recurrentgemma-2b" and any(b in ("global", "window") for b in full.blocks):
-            assert supports_group(sharding.local_group(full, mesh, serve_rules(full, mesh))), arch
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.kernels.attention import ops as attn_ops
+
+    cfg = get_config("recurrentgemma-2b", decode_kernel="fused")
+    shape = _CudaMesh(("data", "model"), (2, 2))
+    rules = serve_rules(cfg, shape)
+    assert sharding.local_group(cfg, shape, rules) == 5
+    assert sharding.local_group(cfg, shape, serve_rules(cfg, shape, replicate_params=True)) == 10
+    monkeypatch.setattr(sharding, "_mesh_device", lambda mesh: torch.device("meta"))
+    monkeypatch.setattr(sharding, "_dtensor",
+                        lambda local, whole, sh: types.SimpleNamespace(to_local=lambda: local))
+    model = lm.LM(cfg, device=torch.device("meta"))
+    window = cfg.blocks.index("window")
+    for coord in itertools.product(range(2), range(2)):
+        class _Rank(_CudaMesh):
+            def get_coordinate(self, coord=coord):
+                return list(coord)
+
+        local = sharding.place_model(model, cfg, _Rank(*shape), rules)
+        attn = local.layers[window].attn
+        assert tuple(attn.wq.shape) == (cfg.d_model, 5, cfg.d_head), coord
+        assert tuple(attn.wk.shape) == (cfg.d_model, 1, cfg.d_head), coord
+    with FakeTensorMode():
+        q = torch.empty(8, 5, cfg.d_head, dtype=torch.bfloat16)
+        k = torch.empty(8, cfg.window, 1, cfg.d_head, dtype=torch.bfloat16)
+        attn_ops._check(q, k, k, torch.empty(8, dtype=torch.int32), None, None)
+
+
+_DRY_CELL = """
+import json
+from repro_torch.configs.shapes import ShapeCase
+from repro_torch.launch import dryrun
+rec = dryrun.lower_cell("recurrentgemma-2b", "decode_32k", "single", mesh_shape=(2, 2),
+                        case=ShapeCase("decode_32k", 64, 4, "decode"),
+                        extra_overrides={"decode_kernel": "fused"})
+print(json.dumps(rec))
+"""
+
+
+def test_dry_run_serves_the_local_group_of_five_on_the_kernel_route():
+    """The dry run's decode cell of recurrentgemma-2b at full width on a
+    (2, 2) mesh of fake ranks, the fused kernel on the fake-kernel route
+    (a local group of 5): one ``decode_attention`` launch a window layer,
+    one ``e2afs_sqrt`` an RG-LRU layer.  In a subprocess: ``lower_cell``
+    joins a fake process group for the life of its process."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = Path(__file__).resolve().parents[1] / "src"
+    res = subprocess.run([sys.executable, "-c", _DRY_CELL], capture_output=True, text=True,
+                         env=dict(os.environ, PYTHONPATH=str(src), OMP_NUM_THREADS="1"),
+                         timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    rec = json.loads(res.stdout.strip().splitlines()[-1])
+    cfg = get_config("recurrentgemma-2b")
+    assert rec["status"] == "ok" and rec["n_chips"] == 4
+    assert rec["launches"]["decode_attention"] == cfg.blocks.count("window") > 0
+    assert rec["launches"]["e2afs_sqrt"] == cfg.blocks.count("rglru")
 
 
 def test_fault_mask_of_a_block_is_the_slice_of_the_whole():
@@ -392,6 +446,25 @@ def _requests(vocab, n, *, seed=0, prompts=(3, 5), gens=(2, 4, 7), stagger=True)
                     max_new_tokens=int(rng.choice(gens)),
                     arrival_s=float(i) * 1e-3 if stagger else 0.0)
             for i in range(n)]
+
+
+class _StepClock:
+    """A deterministic clock for ``Engine.run(clock=)``: reading k returns k
+    steps.  A mesh run and the unsharded run it is held to, each on a clock
+    of its own, admit their staggered requests in one order to the same
+    slots, whatever the host's load (ROADMAP C.49)."""
+
+    def __init__(self, step: float = 1e-3):
+        self.step, self.reads = step, 0
+
+    def __call__(self) -> float:
+        self.reads += 1
+        return (self.reads - 1) * self.step
+
+
+def _run_trace(eng, vocab, n):
+    """``eng.run`` over :func:`_requests` on a :class:`_StepClock`."""
+    return eng.run(_requests(vocab, n), clock=_StepClock())
 
 
 def _model(arch, **kw):
@@ -582,7 +655,7 @@ def _rank_scenarios(rank: int, tmp: str) -> dict:
         eng = Engine(model, cfg, num_slots=slots, quantized_kv=quantized, mesh=mesh,
                      rules=serve_rules(cfg, mesh, replicate_params=True), **kw)
         eng.warmup(prompt_lens={3, 5})
-        out[f"exact/{arch}/{slots}"] = _tokens(eng.run(_requests(cfg.vocab, n)))
+        out[f"exact/{arch}/{slots}"] = _tokens(_run_trace(eng, cfg.vocab, n))
         if slots == 4:  # the pool keeps its placements and its blocks through a serve
             want = sharding.serve_pool_tree(eng._pool_sh)
             same = [dt.placements == sh.placements and dt.to_local().data_ptr() == t.data_ptr()
@@ -594,13 +667,13 @@ def _rank_scenarios(rank: int, tmp: str) -> dict:
         cfg, model = _model(arch, act_dtype="float32")
         eng = Engine(model, cfg, num_slots=slots, mesh=mesh,
                      rules=serve_rules(cfg, mesh, replicate_params=True), **kw)
-        out[f"f32/{arch}"] = _tokens(eng.run(_requests(cfg.vocab, 7)))
+        out[f"f32/{arch}"] = _tokens(_run_trace(eng, cfg.vocab, 7))
 
     # tensor parallel: the engine's integrity, and float32 first-step logits
     cfg, model = _model("qwen3-4b")
     eng = Engine(model, cfg, num_slots=4, mesh=mesh, rules=serve_rules(cfg, mesh), **kw)
     eng.warmup(prompt_lens={3, 5})
-    out["tp/tokens"] = _tokens(eng.run(_requests(cfg.vocab, 6)))
+    out["tp/tokens"] = _tokens(_run_trace(eng, cfg.vocab, 6))
     out["tp/local_kv"] = tuple(eng.pool["cache"]["k"].shape)
     cfg32, model32 = _model("qwen3-4b", act_dtype="float32")
     rules = serve_rules(cfg32, mesh)
@@ -638,7 +711,7 @@ def _rank_scenarios(rank: int, tmp: str) -> dict:
     mrules = serve_rules(mcfg, mesh)
     mrules["expert"] = "data"
     eng = Engine(mmodel, mcfg, num_slots=4, mesh=mesh, rules=mrules, **kw)
-    out["tp/expert-data/tokens"] = _tokens(eng.run(_requests(mcfg.vocab, 5)))
+    out["tp/expert-data/tokens"] = _tokens(_run_trace(eng, mcfg.vocab, 5))
 
     # faults= and slo= on the mesh
     from repro_torch.core.faults import FaultConfig
@@ -648,17 +721,17 @@ def _rank_scenarios(rank: int, tmp: str) -> dict:
     for name, fc in FAULTS.items():
         eng = Engine(model, cfg, num_slots=4, mesh=mesh, rules=exact,
                      faults=FaultConfig(**fc), **FAULT_KW.get(name, {}), **kw)
-        out[f"faults/{name}"] = _served(eng, eng.run(_requests(cfg.vocab, 6)))
+        out[f"faults/{name}"] = _served(eng, _run_trace(eng, cfg.vocab, 6))
     eng = Engine(model, cfg, num_slots=4, mesh=mesh, rules=serve_rules(cfg, mesh),
                  faults=FaultConfig(**FAULTS["sqrt"]), **kw)
-    out["faults/tp"] = _tokens(eng.run(_requests(cfg.vocab, 6)))
+    out["faults/tp"] = _tokens(_run_trace(eng, cfg.vocab, 6))
     eng = Engine(model32, cfg32, num_slots=4, mesh=mesh, faults=FaultConfig(**PINNED),
                  rules=serve_rules(cfg32, mesh, replicate_params=True), **kw)
-    out["faults/pinned_f32"] = _tokens(eng.run(_requests(cfg32.vocab, 7)))
+    out["faults/pinned_f32"] = _tokens(_run_trace(eng, cfg32.vocab, 7))
     tele = os.path.join(tmp, "telemetry-mesh.jsonl")
     eng = Engine(model, cfg, num_slots=4, mesh=mesh, rules=exact, faults=FaultConfig(**PRESSURE),
                  slo=AccuracySLO(**SLO), telemetry=tele, **kw)
-    out["slo"] = _served(eng, eng.run(_requests(cfg.vocab, 6)))
+    out["slo"] = _served(eng, _run_trace(eng, cfg.vocab, 6))
     if rank == 0:
         out["slo/telemetry"] = _telemetry(tele)
 
@@ -786,9 +859,8 @@ def _port_references(tmp) -> dict:
     kw = dict(cache_len=CACHE, chunk=3)
     for arch, slots, n, quantized in EXACT:
         cfg, model = _model(arch)
-        reqs = _requests(cfg.vocab, n)
-        ref[f"exact/{arch}/{slots}"] = _tokens(
-            Engine(model, cfg, num_slots=slots, quantized_kv=quantized, **kw).run(reqs))
+        ref[f"exact/{arch}/{slots}"] = _tokens(_run_trace(
+            Engine(model, cfg, num_slots=slots, quantized_kv=quantized, **kw), cfg.vocab, n))
     cfg, model = _model("qwen3-4b")
     ref["uninterrupted"] = _tokens(Engine(model, cfg, num_slots=4, **kw).run(
         _requests(cfg.vocab, 4, stagger=False)))
@@ -808,11 +880,11 @@ def _port_references(tmp) -> dict:
     for name, fc in FAULTS.items():
         eng = Engine(model, cfg, num_slots=4, faults=FaultConfig(**fc),
                      **FAULT_KW.get(name, {}), **kw)
-        ref[f"faults/{name}"] = _served(eng, eng.run(_requests(cfg.vocab, 6)))
+        ref[f"faults/{name}"] = _served(eng, _run_trace(eng, cfg.vocab, 6))
     tele = os.path.join(tmp, "telemetry-one.jsonl")
     eng = Engine(model, cfg, num_slots=4, faults=FaultConfig(**PRESSURE), slo=AccuracySLO(**SLO),
                  telemetry=tele, **kw)
-    ref["slo"] = _served(eng, eng.run(_requests(cfg.vocab, 6)))
+    ref["slo"] = _served(eng, _run_trace(eng, cfg.vocab, 6))
     ref["slo/telemetry"] = _telemetry(tele)
     return ref
 
@@ -978,6 +1050,48 @@ def test_faults_in_exact_mode_match_the_unsharded_engine(world, name):
         got = r[f"faults/{name}"]
         assert _equal(got["tokens"], want["tokens"]), (name, r["coordinate"])
         assert got["audit"] == want["audit"] and got["counters"] == want["counters"]
+
+
+def test_admissions_follow_the_run_clock_not_the_host(monkeypatch, tmp_path):
+    """ROADMAP C.49: under ``Engine.run(clock=_StepClock())`` the staggered
+    trace of the fault tests is admitted to the same slots at the same
+    times, with the same tokens under sqrt faults (whose strikes follow the
+    slot rows), whether the host's wall clock runs, jumps 10 s a reading (a
+    loaded host) or stalls.  On the wall clock the jumping host admits
+    otherwise: the engine reads the clock it is given and no other."""
+    import types
+
+    from repro_torch.core.faults import FaultConfig
+    from repro_torch.launch import engine as engine_mod
+    from repro_torch.launch.journal import read_journal
+
+    cfg, model = _model("qwen3-4b")
+    reqs = _requests(cfg.vocab, 6)
+
+    def host(step):
+        reads = iter(range(10**9))
+        return lambda: next(reads) * step
+
+    def admissions(name, wall=None, clock=None):
+        journal = tmp_path / f"{name}.jsonl"
+        eng = Engine(model, cfg, num_slots=4, faults=FaultConfig(**FAULTS["sqrt"]),
+                     journal=str(journal), cache_len=CACHE, chunk=3)
+        with monkeypatch.context() as patch:
+            if wall is not None:
+                patch.setattr(engine_mod, "time",
+                              types.SimpleNamespace(perf_counter=wall, sleep=lambda s: None))
+            done = eng.run(reqs, clock=clock, deadline_s=1e9)
+        slots = {r["uid"]: r["slot"] for r in read_journal(journal) if r["kind"] == "admitted"}
+        return slots, {u: c.admitted_s for u, c in done.items()}, _tokens(done)
+
+    want = admissions("wall", clock=_StepClock())
+    assert sorted(want[0]) == [r.uid for r in reqs] and len(set(want[0].values())) == 4
+    for name, step in (("jump", 10.0), ("stall", 0.0)):
+        got = admissions(name, wall=host(step), clock=_StepClock())
+        assert got[0] == want[0] and got[1] == want[1], name
+        assert _equal(got[2], want[2]), name
+    on_wall = admissions("jump-on-wall", wall=host(10.0))
+    assert on_wall[1] != want[1]
 
 
 def test_pinned_faults_token_exact_against_the_jax_engine(world):
